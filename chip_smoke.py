@@ -1,0 +1,496 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's coded LLM serving path on one CUDA card.
+
+    python3 chip_smoke.py        # from the root of a checkout, one card
+
+Phases, each of which raises (and the script exits non-zero) on failure:
+
+1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
+   all at once);
+2. hold each kernel against its plain PyTorch version at the shapes the
+   main path gives it (qwen3-0.6b, G=4 groups of K=4 queries, S=1, E=1:
+   44 coded streams, 256-token prompts, 16 decode steps), in fp32 and
+   bf16, and time kernel, plain version and one PyTorch library call
+   computing the same function;
+3. the same comparison on the features the main path does not use
+   (window, softcap, prefix-LM, q_offset, int8 KV, ragged widths, node
+   hits, the vote gather, rows that see no key);
+4. two serving runs through ``repro_torch.launch.serve`` at full width and
+   depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent attacker at
+   sigma 10, 16 requests each, counting every kernel's launches;
+5. the whole path at full width and 2 layers on the card and on the CPU
+   with the same weights and noise: decoded logits within tolerance,
+   greedy tokens and locator verdicts equal.
+
+The line before the last is one JSON object with every kernel's numbers;
+the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+away from the repository's ``src/``, it exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
+# fp32: 2e-5 of max(1, max |plain|).  bf16, per element: two bf16 ulps of
+# the element plus one ulp at the output's typical size (mean |plain|)
+TOL_F32 = 2e-5
+TOL_BF16_ULPS, BF16_ULP = 2.0, 2.0 ** -7
+
+# qwen3-0.6b main path: 4 groups of K=4, S=1, E=1 -> 11 coded streams each
+K, S, E, GROUPS = 4, 1, 1, 4
+PROMPT, STEPS = 256, 16
+REPLACES = {
+    "berrut_apply": "src/repro/kernels/berrut_matmul.py:58",
+    "fused_group_decode": "src/repro/kernels/berrut_decode.py:111",
+    "flash_attention": "src/repro/kernels/flash_attention.py:101",
+    "flash_decode": "src/repro/kernels/flash_decode.py:80",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        print("chip_smoke.py: no src/repro_torch beside this script; run it "
+              "from the root of a checkout", file=sys.stderr)
+        return 1
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    Smoke(torch).run()
+    return 0
+
+
+class Smoke:
+    def __init__(self, torch):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.gen = torch.Generator(self.dev).manual_seed(0)
+        self.kernels = {}                  # name -> JSON entry
+
+    # ------------------------------------------------------------ helpers
+
+    def randn(self, *shape, dtype=None):
+        t = self.torch.randn(shape, generator=self.gen, device=self.dev)
+        return t if dtype is None else t.to(dtype)
+
+    def time_ms(self, fn, iters=20) -> float:
+        torch = self.torch
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def check(self, what: str, got, want, dtype: str) -> dict:
+        """max |got - want| against the tolerance of ``dtype``; raises if
+        any element is over it or the output is not finite."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)} or non-finite output")
+        diff = (got - want).abs()
+        if dtype == "bfloat16":
+            mag = want.abs()
+            tol = BF16_ULP * (TOL_BF16_ULPS * mag + mag.mean())
+        else:
+            tol = torch.full_like(want, TOL_F32 * max(
+                1.0, want.abs().max().item()))
+        ratio = (diff / tol.clamp_min(1e-30)).max().item()
+        err = diff.max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"{what} ({dtype}): max abs err {err}, "
+                                 f"{ratio} x its tolerance")
+        return {"max_abs_err": err, "err_over_tol": ratio,
+                "max_tol": tol.max().item()}
+
+    def bound(self, nbytes: float, ops: float, dtype: str):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
+
+    def record(self, name, dtype, shape, got, want, kernel, plain,
+               library, nbytes, ops):
+        res = {"kernel": name, "dtype": dtype, "shape": shape}
+        res.update(self.check(name, got, want, dtype))
+        res["ms"] = self.time_ms(kernel)
+        res["plain_ms"] = self.time_ms(plain)
+        res["library_ms"] = None if library is None else self.time_ms(library)
+        res["bound_ms"], res["bound_by"] = self.bound(nbytes, ops, dtype)
+        emit(res)
+        if dtype == "float32":         # the model's dtype: the main path's
+            self.kernels[name] = res
+
+    # ------------------------------------------------------------ phases
+
+    def run(self):
+        print(gpu_line(), flush=True)
+        torch = self.torch
+        print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+              f"{torch.cuda.get_device_name(0)}", flush=True)
+        self.build()
+        for dtype in ("float32", "bfloat16"):
+            self.main_path_kernels(dtype)
+        self.variants()
+        launches = {}
+        for e in (0, E):
+            launches[e] = self.serve(e)
+        self.whole_path()
+        entries = []
+        for name, res in self.kernels.items():
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{name}.cu",
+                "replaces": REPLACES[name], "launches": launches[E][name],
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+                "launches_e0": launches[0][name],
+            })
+        emit({"kernels": entries})
+        print(gpu_line(), flush=True)
+        emit({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+
+    def build(self):
+        from repro_torch.kernels import build
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        seconds = time.perf_counter() - t0
+        report = {}
+        for src, lib in libs.items():
+            log = lib.with_suffix(".log")
+            text = log.read_text() if log.exists() else ""
+            regs = [int(w.split()[0]) for line in text.splitlines()
+                    for w in line.split("Used ")[1:] if "registers" in w]
+            spills = [line.strip() for line in text.splitlines()
+                      if "spill" in line and not line.strip().startswith(
+                          "0 bytes stack frame, 0 bytes spill")]
+            report[src] = {"max_registers": max(regs, default=None),
+                           "spill_lines": len(spills)}
+        emit({"build_seconds": seconds, "libraries": report})
+
+    def main_path_kernels(self, dtype_name: str):
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig, encode_matrix
+        from repro_torch.kernels import ops, ref
+        from repro_torch.configs import qwen3_0_6b
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        cfg = qwen3_0_6b.CONFIG
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1, b = coding.num_workers, GROUPS * coding.num_workers
+        d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        v = cfg.vocab_size
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        # B1: the prefill encode (G, K, S*d) -> (G, N+1, S*d)
+        w = encode_matrix(coding, device=self.dev).to(dtype).float()
+        x = self.randn(GROUPS, K, PROMPT * d, dtype=dtype)
+        f = x.shape[-1]
+        self.record(
+            "berrut_apply", dtype_name, [list(w.shape), list(x.shape)],
+            ops.berrut_apply(w, x), ref.berrut_apply_ref(w, x),
+            lambda: ops.berrut_apply(w, x),
+            lambda: ref.berrut_apply_ref(w, x),
+            lambda: torch.matmul(w.to(dtype), x),
+            w.numel() * 4 + (K + n1) * GROUPS * f * size,
+            2 * n1 * K * f * GROUPS)
+
+        # B2: the round tail over (G, N+1, V) with per-group masks
+        grouped = self.randn(GROUPS, n1, v, dtype=dtype)
+        masks = torch.ones(GROUPS, n1, device=self.dev)
+        masks[:, 3] = 0.0                         # a straggler
+        masks[:, 7] = 0.0                         # a located worker
+        alphas = torch.tensor(coding.alphas, dtype=torch.float32,
+                              device=self.dev)
+        betas = torch.tensor(coding.betas, dtype=torch.float32,
+                             device=self.dev)
+        self.record(
+            "fused_group_decode", dtype_name,
+            [list(grouped.shape), list(masks.shape)],
+            ops.fused_group_decode(grouped, masks, alphas, betas),
+            ref.fused_group_decode_ref(grouped, masks, alphas, betas),
+            lambda: ops.fused_group_decode(grouped, masks, alphas, betas),
+            lambda: ref.fused_group_decode_ref(grouped, masks, alphas, betas),
+            None,
+            (n1 + K) * GROUPS * v * size + masks.numel() * 4 + (K + n1) * 4,
+            2 * K * n1 * v * GROUPS)
+
+        # B3: causal prefill attention, GQA 16/8, head_dim 128
+        q = self.randn(b, PROMPT, h, hd, dtype=dtype)
+        k = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
+        vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
+        pairs = PROMPT * (PROMPT + 1) // 2        # visible (q, k) per head
+        self.record(
+            "flash_attention", dtype_name,
+            [list(q.shape), list(k.shape)],
+            ops.attention(q, k, vv), ref.attention_ref(q, k, vv),
+            lambda: ops.attention(q, k, vv),
+            lambda: ref.attention_ref(q, k, vv),
+            lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                         vv.transpose(1, 2), is_causal=True,
+                         enable_gqa=True),
+            (2 * q.numel() + 2 * k.numel()) * size,
+            4 * hd * pairs * b * h)
+
+        # B4: decode at the last step over the (B, W, KV, D) ring cache
+        width = PROMPT + STEPS + 2
+        pos = PROMPT + STEPS - 1
+        qd = self.randn(b, h, hd, dtype=dtype)
+        kc = self.randn(b, width, kvh, hd, dtype=dtype)
+        vc = self.randn(b, width, kvh, hd, dtype=dtype)
+        valid = (torch.arange(width, device=self.dev) <= pos).to(torch.uint8)
+        mask = valid[None, :].expand(b, width)
+        n_valid = pos + 1
+        self.record(
+            "flash_decode", dtype_name, [list(qd.shape), list(kc.shape)],
+            ops.decode_attention(qd, kc, vc, mask),
+            ref.decode_attention_ref(qd, kc, vc, mask),
+            lambda: ops.decode_attention(qd, kc, vc, mask),
+            lambda: ref.decode_attention_ref(qd, kc, vc, mask),
+            lambda: sdpa(qd[:, :, None], kc.transpose(1, 2),
+                         vc.transpose(1, 2),
+                         attn_mask=mask.bool()[:, None, None, :],
+                         enable_gqa=True),
+            2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
+            + width,
+            4 * hd * n_valid * b * h)
+
+    def variants(self):
+        """Features off the main path, at small shapes, both dtypes."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig, encode_matrix
+        from repro_torch.kernels import ops, ref
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            w = encode_matrix(CodingConfig(k=3, s=2, e=1),
+                              device=self.dev).float()
+            x = self.randn(2, 3, 3, 1000, dtype=dtype)
+            res.append(("berrut_apply ragged F=1000, lead dims",
+                        ops.berrut_apply(w, x), ref.berrut_apply_ref(w, x)))
+            for systematic, masked, v in ((False, (1, 4), 1000),
+                                          (True, (0,), 640)):
+                cfg = CodingConfig(k=4, s=2, e=0, systematic=systematic)
+                m = torch.ones(cfg.num_workers, device=self.dev)
+                m[list(masked)] = 0.0
+                g = self.randn(3, cfg.num_workers, v, dtype=dtype)
+                a = torch.tensor(cfg.alphas, device=self.dev).float()
+                bt = torch.tensor(cfg.betas, device=self.dev).float()
+                res.append((f"fused_group_decode V={v} shared mask "
+                            f"systematic={systematic} masked={masked}",
+                            ops.fused_group_decode(g, m, a, bt),
+                            ref.fused_group_decode_ref(g, m, a, bt)))
+            cfg = CodingConfig(k=4, s=1, e=1)
+            g = self.randn(2, cfg.num_workers, 151936, dtype=dtype)
+            m = torch.ones(2, cfg.num_workers, device=self.dev)
+            m[0, 2] = m[1, 9] = 0.0
+            a = torch.tensor(cfg.alphas, device=self.dev).float()
+            bt = torch.tensor(cfg.betas, device=self.dev).float()
+            (got, gv), (want, wv) = (
+                ops.fused_group_decode(g, m, a, bt, c_vote=64),
+                ref.fused_group_decode_ref(g, m, a, bt, c_vote=64))
+            if not torch.equal(gv, wv):
+                raise AssertionError("fused_group_decode vote gather differs")
+            res.append(("fused_group_decode V=151936 c_vote=64 gather",
+                        got, want))
+            for hd in (64, 128):
+                for kw in (dict(window=37), dict(softcap=20.0),
+                           dict(prefix=40), dict(causal=False),
+                           dict(q_offset=50)):
+                    s = 100
+                    l_len = s + kw.get("q_offset", 0)
+                    q = self.randn(2, s, 8, hd, dtype=dtype)
+                    k = self.randn(2, l_len, 2, hd, dtype=dtype)
+                    vv = self.randn(2, l_len, 2, hd, dtype=dtype)
+                    res.append((f"flash_attention D={hd} {kw}",
+                                ops.attention(q, k, vv, **kw),
+                                ref.attention_ref(q, k, vv, **kw)))
+                # rows before the first key see nothing: guarded zeros
+                q = self.randn(1, 20, 4, hd, dtype=dtype)
+                k = self.randn(1, 20, 4, hd, dtype=dtype)
+                out = ops.attention(q, k, k, q_offset=-5)
+                if not torch.equal(out[:, :5].float(),
+                                   torch.zeros_like(out[:, :5].float())):
+                    raise AssertionError("flash_attention: a row with no "
+                                         "visible key is not exactly 0")
+                res.append((f"flash_attention D={hd} q_offset=-5 seen rows",
+                            out[:, 5:],
+                            ref.attention_ref(q, k, k, q_offset=-5)[:, 5:]))
+            for hd in (64, 128, 256):
+                b, w_len, h, kvh = 3, 300, 8, 2
+                q = self.randn(b, h, hd, dtype=dtype)
+                kf = self.randn(b, w_len, kvh, hd)
+                vf = self.randn(b, w_len, kvh, hd)
+                k8 = torch.clamp(torch.round(kf * 32), -127, 127).to(
+                    torch.int8)
+                v8 = torch.clamp(torch.round(vf * 32), -127, 127).to(
+                    torch.int8)
+                mask = torch.rand(b, w_len, generator=self.gen,
+                                  device=self.dev) < 0.6
+                mask[2] = False               # a row that sees nothing
+                got = ops.decode_attention(q, k8, v8, mask, softcap=15.0,
+                                           kv_scale=32.0)
+                if not torch.equal(got[2].float(),
+                                   torch.zeros_like(got[2].float())):
+                    raise AssertionError("flash_decode: an all-masked row "
+                                         "is not exactly 0")
+                # the plain path rounds dequantised caches to q's dtype
+                # first; the kernel keeps them in fp32 registers
+                want = ref.decode_attention_ref(
+                    q, (k8.float() / 32.0).to(dtype),
+                    (v8.float() / 32.0).to(dtype), mask, softcap=15.0)
+                res.append((f"flash_decode D={hd} rep=4 int8+softcap",
+                            got[:2], want[:2]))
+                kc, vc = kf.to(dtype), vf.to(dtype)
+                row = (torch.arange(w_len, device=self.dev) < 211).to(
+                    torch.uint8)[None].expand(b, w_len)
+                res.append((f"flash_decode D={hd} broadcast mask row",
+                            ops.decode_attention(q, kc, vc, row),
+                            ref.decode_attention_ref(q, kc, vc, row)))
+            for what, got, want in res:
+                out = {"variant": what}
+                out.update(self.check(what, got, want, dtype_name))
+                out["dtype"] = dtype_name
+                emit(out)
+
+    def serve(self, e: int) -> dict:
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        requests = GROUPS * K
+        ops.reset_launch_counts()
+        res = serve.run("qwen3-0.6b", reduced=False, requests=requests, k=K,
+                        s=S, e=e, prompt_len=PROMPT, steps=STEPS,
+                        byz_sigma=10.0, seed=0, device="cuda")
+        self.torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        layers = 28
+        expected = {"berrut_apply": 1 + STEPS,
+                    "fused_group_decode": 1 + STEPS,
+                    "flash_attention": layers,
+                    "flash_decode": layers * STEPS}
+        emit({"path": f"K={K} S={S} E={e}", "launches": launches,
+              "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"launch counts {launches} != {expected}")
+        toks = res["tokens"]
+        if toks.shape != (requests, 1 + STEPS) or toks.min() < 0 or \
+                toks.max() >= 151936:
+            raise AssertionError(f"bad token matrix {toks.shape}")
+        if e and not (res["precision"] == 1.0 and res["recall"] == 1.0):
+            raise AssertionError(f"locator precision {res['precision']} "
+                                 f"recall {res['recall']}")
+        emit({"serve": f"K={K} S={S} E={e}",
+              "streams": GROUPS * (K + S if e == 0 else 2 * (K + e) + S),
+              "prefill_ms": res["round_ms"][0],
+              "decode_round_ms_mean": sum(res["round_ms"][1:]) / STEPS,
+              "total_ms": res["total_ms"],
+              "tokens_per_s": res["tokens_per_s"],
+              "locator_precision_recall": (
+                  [res["precision"], res["recall"]] if e else None)})
+        return launches
+
+    def whole_path(self):
+        """Full width, 2 layers: the card against the CPU's plain path on
+        the same weights, prompts, masks and noise."""
+        torch = self.torch
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_params
+        from repro_torch.serving import coded_serving as cs
+        cfg = qwen3_0_6b.CONFIG.with_updates(num_layers=2)
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        prompt, steps = 64, 4
+        cpu = torch.device("cpu")
+        gen = torch.Generator(cpu).manual_seed(1)
+        params = {"cpu": init_params(cfg, gen, cpu)}
+        params["cuda"] = _tree_to(params["cpu"], self.dev)
+        tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, prompt),
+                               generator=gen)
+        byz = torch.zeros(n1)
+        byz[5] = 1.0
+        stragglers = (1, 4, 7, 10, 2)           # never the attacker
+        states, nxt = {}, None
+        worst = 0.0
+        for r in range(1 + steps):
+            m = torch.ones(n1)
+            m[stragglers[r]] = 0.0
+            noise = torch.randn(GROUPS, n1, cfg.vocab_size, generator=gen)
+            outs = {}
+            for name, dev in (("cpu", cpu), ("cuda", self.dev)):
+                kw = dict(straggler_mask=m.to(dev), byz_mask=byz.to(dev),
+                          byz_noise=noise.to(dev), byz_sigma=10.0,
+                          with_report=True)
+                if r == 0:
+                    logits, states[name], rep = cs.coded_prefill(
+                        cfg, coding, params[name],
+                        {"tokens": tokens.to(dev)}, prompt + steps + 2, **kw)
+                else:
+                    logits, states[name], rep = cs.coded_decode_step(
+                        cfg, coding, params[name], states[name],
+                        nxt.to(dev), **kw)
+                outs[name] = (logits.float().cpu(), rep[0].cpu())
+            (lc, loc_c), (lg, loc_g) = outs["cpu"], outs["cuda"]
+            err = (lg - lc).abs().max().item()
+            tol = 1e-4 * max(1.0, lc.abs().max().item())
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                raise AssertionError(f"whole path round {r}: logits differ "
+                                     f"by {err} > {tol}")
+            if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+                raise AssertionError(f"whole path round {r}: greedy tokens "
+                                     "differ between cuda and cpu")
+            if not torch.equal(loc_g, loc_c) or not loc_c[:, 5].all():
+                raise AssertionError(f"whole path round {r}: located "
+                                     "workers differ or miss the attacker")
+            nxt = lc.argmax(-1)[:, None]
+            emit({"whole_path_round": r, "logits_max_abs_diff": err,
+                  "tol": tol})
+        emit({"whole_path": "full width, 2 layers, cuda vs cpu",
+              "rounds": 1 + steps, "worst_err_over_tol": worst})
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

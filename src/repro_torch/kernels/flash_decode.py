@@ -1,0 +1,71 @@
+"""CUDA single-token decode attention (``csrc/flash_decode.cu``).
+
+Replaces the Pallas TPU kernel ``repro.kernels.flash_decode.flash_decode``:
+one query row per stream over a (B, W, KV, D) ring cache with an explicit
+(B, W) validity mask; the rep q-heads of a kv-head share one pass; int8
+caches are dequantised in the kernel by ``kv_scale``.
+``kernels.ops.decode_attention`` calls this for CUDA tensors and
+``ref.decode_attention_ref`` for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import Kernel, dtype_code, require_cuda
+
+KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,  # mask, stride, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, W, H
+    ctypes.c_int, ctypes.c_int,                          # KV, D
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,      # softcap, scale, kv_scale
+    ctypes.c_int, ctypes.c_int,                          # dtype, cache dtype
+])
+HEAD_DIMS = (64, 128, 256)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
+                 softcap: float = 0.0, kv_scale: float = 0.0) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, W, KV, D); kv_mask: (B, W) -> (B, H, D).
+
+    ``kv_scale > 0`` marks int8 caches quantised as round(x * kv_scale).
+    A mask whose rows are one broadcast row (stride 0) is read as is.
+    """
+    device = require_cuda("flash_decode", q, k_cache, v_cache, kv_mask)
+    code = dtype_code("flash_decode", q.dtype, (torch.float32, torch.bfloat16))
+    b, h, d = q.shape
+    w, kv = k_cache.shape[1], k_cache.shape[2]
+    if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
+        raise ValueError("flash_decode needs k and v caches of one shape "
+                         "and dtype")
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_cache.shape)} (GQA needs H % KV == 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode takes head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    if (k_cache.dtype == torch.int8) != (kv_scale > 0.0):
+        raise ValueError("int8 caches need kv_scale > 0 and only they take "
+                         "one")
+    if k_cache.dtype not in (q.dtype, torch.int8):
+        raise TypeError(f"cache dtype {k_cache.dtype} with q {q.dtype}")
+    cache_code = dtype_code("flash_decode", k_cache.dtype,
+                            (torch.float32, torch.bfloat16, torch.int8))
+    if kv_mask.shape != (b, w):
+        raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != {(b, w)}")
+    mask = kv_mask.to(torch.uint8)
+    if mask.stride(1) != 1 or (mask.stride(0) != 0 and mask.stride(0) != w):
+        mask = mask.contiguous()
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() and w:
+        KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
+                      v_cache.data_ptr(), mask.data_ptr(), mask.stride(0),
+                      out.data_ptr(), b, w, h, kv, d, softcap,
+                      1.0 / d ** 0.5, kv_scale, code, cache_code)
+    return out

@@ -1,0 +1,96 @@
+"""Kernel dispatch of the port, by the device of the tensor.
+
+A CUDA tensor goes to the hand-written CUDA kernel, which launches or
+raises; a CPU tensor goes to the plain PyTorch version in ``ref.py``.
+Nothing else selects the path: no environment variable, no global
+switch, no fallback from a failed kernel to the plain version.  This
+takes the place of the reference's ``KernelType`` dispatch
+(``repro.kernels.ops``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import (berrut_decode, berrut_matmul,
+                                 flash_attention, flash_decode, ref)
+
+# The kernels of the coded serving round, by name.
+KERNELS = {
+    "berrut_apply": berrut_matmul.KERNEL,
+    "fused_group_decode": berrut_decode.KERNEL,
+    "flash_attention": flash_attention.KERNEL,
+    "flash_decode": flash_decode.KERNEL,
+}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches so far} for the kernels above."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain path for device {x.device}")
+
+
+def berrut_apply(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(O, I) @ (..., I, F) -> (..., O, F), fp32 accumulation."""
+    if _on_card(x):
+        return berrut_matmul.berrut_apply(weights, x)
+    return ref.berrut_apply_ref(weights, x)
+
+
+def fused_group_decode(grouped: torch.Tensor, masks: torch.Tensor,
+                       alphas: torch.Tensor, betas: torch.Tensor, *,
+                       c_vote: int = 0):
+    """Coded-round tail: per-group decode matrices from the masks fused
+    with the (G, N+1, V) -> (G, K, V) contraction (plus the strided vote
+    columns when ``c_vote > 0``).  masks: (N+1,) or (G, N+1)."""
+    if _on_card(grouped):
+        return berrut_decode.fused_group_decode(grouped, masks, alphas, betas,
+                                                c_vote=c_vote)
+    return ref.fused_group_decode_ref(grouped, masks, alphas, betas,
+                                      c_vote=c_vote)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              prefix: int = 0, softcap: float = 0.0,
+              q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention: q (B, S, H, D), k and v (B, L, KV, D)."""
+    if _on_card(q):
+        return flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, prefix=prefix,
+            softcap=softcap, q_offset=q_offset)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             prefix=prefix, softcap=softcap,
+                             q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
+                     softcap: float = 0.0,
+                     kv_scale: float = 0.0) -> torch.Tensor:
+    """Decode attention over a (B, W, KV, D) ring cache with a (B, W)
+    mask.  kv_scale > 0 marks int8 caches quantised as round(x*scale):
+    the kernel dequantises in registers, the plain path up front."""
+    if _on_card(q):
+        return flash_decode.flash_decode(q, k_cache, v_cache, kv_mask,
+                                         softcap=softcap, kv_scale=kv_scale)
+    if kv_scale > 0.0:
+        k_cache = k_cache.to(torch.float32) / kv_scale
+        v_cache = v_cache.to(torch.float32) / kv_scale
+    return ref.decode_attention_ref(q, k_cache.to(q.dtype),
+                                    v_cache.to(q.dtype), kv_mask,
+                                    softcap=softcap)

@@ -1,0 +1,108 @@
+"""Plain PyTorch versions of the port's kernels (counterpart of
+``repro.kernels.ref``).
+
+These are the CPU path of ``kernels.ops`` and what ``chip_smoke.py``
+holds each CUDA kernel against on the card.  Each repeats its kernel's
+arithmetic in fp32 with plain tensor ops; none is a yardstick of speed.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import berrut
+from repro_torch.core.error_locator import gather_vote_values
+
+NEG_INF = -1e30
+
+
+def berrut_apply_ref(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Coded encode/decode contraction: (O, I) @ (..., I, F) -> (..., O, F)
+    with fp32 accumulation, output in x's dtype."""
+    return torch.einsum("oi,...if->...of", weights.to(torch.float32),
+                        x.to(torch.float32)).to(x.dtype)
+
+
+def fused_group_decode_ref(grouped: torch.Tensor, masks: torch.Tensor,
+                           alphas: torch.Tensor, betas: torch.Tensor, *,
+                           c_vote: int = 0):
+    """(G, N+1, V) coded block + masks -> (G, K, V) decoded logits via the
+    survivor-weight Berrut decode matrix of each group's mask; with
+    ``c_vote > 0`` also the (G, N+1, C) float32 vote-coordinate gather,
+    read from the raw block before the upcast.
+
+    masks: (N+1,) shared availability or (G, N+1) per-group masks.
+    """
+    if masks.dim() == 1:
+        masks = masks.expand(grouped.shape[0], masks.shape[0])
+    mats = torch.stack([
+        berrut.basis_matrix(alphas, betas, berrut.survivor_weights(m),
+                            mask=m) for m in masks])       # (G, K, N+1)
+    decoded = (mats @ grouped.to(torch.float32)).to(grouped.dtype)
+    if c_vote <= 0:
+        return decoded
+    return decoded, gather_vote_values(grouped, c_vote)
+
+
+def _mask_bias(q_len: int, kv_len: int, *, causal: bool,
+               window: Optional[int], prefix: int, q_offset: int,
+               device) -> torch.Tensor:
+    """(q_len, kv_len) boolean visibility of causal/SWA/prefix-LM rules."""
+    qpos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kpos = torch.arange(kv_len, device=device)[None, :]
+    allowed = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        allowed = kpos <= qpos
+        if prefix > 0:  # prefix-LM: bidirectional over the first ``prefix``
+            allowed = allowed | (kpos < prefix)
+    if window is not None:
+        allowed = allowed & (kpos > qpos - window)
+    return allowed
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  prefix: int = 0, softcap: float = 0.0,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Full (prefill) attention with GQA.
+
+    q: (B, S, H, D); k, v: (B, L, KV, D) with H % KV == 0; q-head h reads
+    kv-head h // (H // KV).
+    """
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    qf = q.to(torch.float32) / torch.sqrt(torch.tensor(float(d)))
+    qg = qf.reshape(b, s, kv, rep, d)
+    scores = torch.einsum("bsgrd,blgd->bgrsl", qg, k.to(torch.float32))
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    allowed = _mask_bias(s, k.shape[1], causal=causal, window=window,
+                         prefix=prefix, q_offset=q_offset, device=q.device)
+    scores = scores + torch.where(allowed, 0.0, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrsl,blgd->bsgrd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Single-token decode attention against a (ring-buffer) KV cache.
+
+    q: (B, H, D); caches: (B, W, KV, D); kv_mask: (B, W) validity.
+    """
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    rep = h // kv
+    qf = q.to(torch.float32) / torch.sqrt(torch.tensor(float(d)))
+    qg = qf.reshape(b, kv, rep, d)
+    scores = torch.einsum("bgrd,bwgd->bgrw", qg, k_cache.to(torch.float32))
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    scores = torch.where(kv_mask.bool()[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrw,bwgd->bgrd", probs, v_cache.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

@@ -1,0 +1,137 @@
+"""Attention blocks with RoPE, qk-norm, GQA, sliding window, prefix-LM and
+softcap, plus the ring KV cache (port of ``repro.models.attention``).
+
+Ported: ``_qkv``, ``attention_prefill`` with its ring-cache population,
+and the shared-position (scalar ``pos``) branch of ``attention_decode``.
+The per-stream-position branch (slot-pool decode) is not ported yet.
+JAX returns fresh caches; the port writes the caller's cache buffers in
+place, where the reference's serving executors donate them.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+INT8_KV_SCALE = 32.0   # static symmetric scale of int8 KV caches
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype,
+                   device) -> dict:
+    h, kv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    p = {
+        "wq": layers.trunc_normal(gen, (d, h, hd), d ** -0.5, dtype, device),
+        "wk": layers.trunc_normal(gen, (d, kv, hd), d ** -0.5, dtype, device),
+        "wv": layers.trunc_normal(gen, (d, kv, hd), d ** -0.5, dtype, device),
+        "wo": layers.trunc_normal(
+            gen, (h, hd, d), (h * hd) ** -0.5 / (2 * cfg.num_layers) ** 0.5,
+            dtype, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (B*S, d) @ (d, h*k) product."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(
+        *x.shape[:-1], w.shape[1], w.shape[2])
+
+
+def _out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("...hk,hkd->...d") as one product over the flattened heads."""
+    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+         positions: torch.Tensor):
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qk_norm:
+        q = layers.rms_norm_head(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm_head(k, p["k_norm"], cfg.norm_eps)
+    q = layers.apply_rope(cfg, q, positions)
+    k = layers.apply_rope(cfg, k, positions)
+    return q, k, v
+
+
+# --------------------------------------------------------------- KV caching
+
+def cache_width(cfg: ModelConfig, max_len: int) -> int:
+    """Ring-buffer width: the SWA window bounds the live KV footprint."""
+    if cfg.sliding_window is not None:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def quantize_kv(x: torch.Tensor, store_dtype) -> torch.Tensor:
+    if store_dtype == torch.int8:
+        return torch.clamp(torch.round(x.to(torch.float32) * INT8_KV_SCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(store_dtype)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device, layers_in_run: int) -> dict:
+    """Zeroed (layers, B, W, KV, D) caches of one run of layers."""
+    w = cache_width(cfg, max_len)
+    shape = (layers_in_run, batch, w, cfg.num_kv_heads, cfg.head_dim)
+    store = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
+    return {"k": torch.zeros(shape, dtype=store, device=device),
+            "v": torch.zeros(shape, dtype=store, device=device)}
+
+
+def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      positions: torch.Tensor, cache: dict
+                      ) -> Tuple[torch.Tensor, dict]:
+    """Prefill: full attention AND populate the layer's (ring) KV cache,
+    written in place.  With s >= W only the last W keys are kept, at ring
+    slot pos % W."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = ops.attention(
+        q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+        prefix=cfg.num_patches if cfg.prefix_lm else 0,
+        softcap=cfg.attn_logit_softcap)
+    w = cache["k"].shape[1]
+    s = k.shape[1]
+    kq = quantize_kv(k, cache["k"].dtype)
+    vq = quantize_kv(v, cache["v"].dtype)
+    if s >= w:
+        slots = torch.arange(s - w, s, device=k.device) % w
+        cache["k"][:, slots] = kq[:, s - w:]
+        cache["v"][:, slots] = vq[:, s - w:]
+    else:
+        cache["k"][:, :s] = kq
+        cache["v"][:, :s] = vq
+    return _out_project(out, p["wo"]), cache
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: int,
+                     cache: dict) -> Tuple[torch.Tensor, dict]:
+    """One-token decode at a position shared by every stream: x (B, 1, d),
+    ``pos`` a Python int.  Writes the new KV at slot pos % W in place and
+    attends over the slots at depth <= pos."""
+    if not isinstance(pos, int):
+        raise TypeError("the port decodes at one shared int position; "
+                        "per-stream positions are the slot-pool path")
+    w = cache["k"].shape[1]
+    kv_scale = INT8_KV_SCALE if cache["k"].dtype == torch.int8 else 0.0
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions)
+    slot = pos % w
+    cache["k"][:, slot] = quantize_kv(k[:, 0], cache["k"].dtype)
+    cache["v"][:, slot] = quantize_kv(v[:, 0], cache["v"].dtype)
+    # one (1, W) row broadcast over the batch (stride 0, never copied)
+    valid = (torch.arange(w, device=x.device) <= pos).to(torch.uint8)
+    valid = valid[None, :].expand(x.shape[0], w)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                               softcap=cfg.attn_logit_softcap,
+                               kv_scale=kv_scale)
+    return _out_project(out, p["wo"])[:, None], cache

@@ -1,0 +1,109 @@
+"""Shared layers: norms, rotary embeddings, initialisers, embedding tables
+(port of ``repro.models.layers``).
+
+Parameters are plain nested dicts of tensors with the reference's
+structure and shapes, so converted JAX parameters and the port's own
+initialisation are interchangeable.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------- init utils
+
+def trunc_normal(gen: torch.Generator, shape, std: float, dtype,
+                 device) -> torch.Tensor:
+    """std * N(0, 1) truncated to [-2, 2], drawn in fp32 from ``gen``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+               scale: float = 1.0) -> torch.Tensor:
+    return trunc_normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype,
+                        device)
+
+
+# ---------------------------------------------------------------- norms
+
+def init_norm(cfg: ModelConfig, dtype, device) -> dict:
+    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm (the only norm of the ported configurations)."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    return out.to(x.dtype)
+
+
+def rms_norm_head(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Per-head RMSNorm over the head_dim axis (qwen3 qk_norm)."""
+    xf = x.to(torch.float32)
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- rotary
+
+def rope_frequencies(cfg: ModelConfig, device) -> torch.Tensor:
+    """Inverse frequencies for the rotated fraction of head_dim."""
+    rot = int(cfg.head_dim * cfg.rotary_pct) // 2 * 2
+    exponent = (torch.arange(0, rot, 2, dtype=torch.float32, device=device)
+                / max(rot, 1))
+    return 1.0 / (cfg.rope_theta ** exponent)          # (rot/2,)
+
+
+def apply_rope(cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, head_dim); positions: (B, S) or (S,)."""
+    rot = int(cfg.head_dim * cfg.rotary_pct) // 2 * 2
+    if rot == 0:
+        return x
+    inv = rope_frequencies(cfg, x.device)               # (rot/2,)
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    angles = pos[..., None] * inv[None, None, :]        # (B, S, rot/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    x1, x2 = x_rot.chunk(2, dim=-1)
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------- embeddings
+
+def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype,
+                    device) -> dict:
+    # unit-RMS after the sqrt(d) input scaling; keeps tied-unembed logits
+    # O(1) at init
+    p = {"embed": trunc_normal(gen, (cfg.vocab_size, cfg.d_model),
+                               cfg.d_model ** -0.5, dtype, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
+                                  device)
+    return p
+
+
+def embed_tokens(cfg: ModelConfig, p: dict,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    e = p["embed"][tokens]
+    return (e * math.sqrt(cfg.d_model)).to(e.dtype)
+
+
+def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["embed"].T
+    return x @ p["lm_head"]

@@ -1,0 +1,113 @@
+"""Block composition over runs of layers (port of
+``repro.models.transformer``, dense "A" runs only).
+
+As in the reference, the layer pattern splits into runs of one block
+kind and each run's parameters and caches are stacked on a leading
+layer axis; the JAX ``scan`` over that axis becomes a Python loop over
+per-layer views.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from repro_torch.models import attention, layers, mlp
+from repro_torch.models.config import ModelConfig
+
+
+def pattern_runs(pattern: str) -> List[Tuple[str, int]]:
+    runs: List[Tuple[str, int]] = []
+    for kind in pattern:
+        if runs and runs[-1][0] == kind and kind != "G":
+            runs[-1] = (kind, runs[-1][1] + 1)
+        else:
+            runs.append((kind, 1))
+    return runs
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not cover yet: blocks other than
+    dense "A", norms other than RMSNorm, MLPs other than SwiGLU, and
+    non-text frontends."""
+    other = set(cfg.layer_pattern) - {"A"}
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {sorted(other)} are not ported yet "
+            "(dense 'A' blocks only)")
+    if (cfg.norm_type, cfg.mlp_activation, cfg.modality) != (
+            "rmsnorm", "silu", "text"):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.norm_type} / {cfg.mlp_activation} / "
+            f"{cfg.modality} is not ported yet (rmsnorm, SwiGLU, text)")
+
+
+def _layer_view(tree, i: int):
+    """The i-th layer of a stacked parameter or cache tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer_view(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_blocks(cfg: ModelConfig, gen: torch.Generator, dtype,
+                device) -> dict:
+    check_ported(cfg)
+    runs = []
+    for _, count in pattern_runs(cfg.layer_pattern):
+        runs.append(_stack([
+            {"norm1": layers.init_norm(cfg, dtype, device),
+             "attn": attention.init_attention(cfg, gen, dtype, device),
+             "norm2": layers.init_norm(cfg, dtype, device),
+             "mlp": mlp.init_mlp(cfg, gen, dtype, device)}
+            for _ in range(count)]))
+    return {"runs": runs}
+
+
+def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device) -> list:
+    """One cache dict per run, stacked on the run's layer axis."""
+    check_ported(cfg)
+    return [attention.init_kv_cache(cfg, batch, max_len, dtype, device, count)
+            for _, count in pattern_runs(cfg.layer_pattern)]
+
+
+def block_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
+    att, cache = attention.attention_prefill(
+        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions,
+        cache)
+    x = x + att
+    return x + mlp.mlp_block(cfg, p["mlp"],
+                             layers.apply_norm(cfg, p["norm2"], x)), cache
+
+
+def block_decode(cfg: ModelConfig, p: dict, x, pos: int, cache):
+    att, cache = attention.attention_decode(
+        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), pos, cache)
+    x = x + att
+    return x + mlp.mlp_block(cfg, p["mlp"],
+                             layers.apply_norm(cfg, p["norm2"], x)), cache
+
+
+def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
+    for (_, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
+                                        blocks["runs"], caches):
+        for i in range(count):
+            x, _ = block_prefill(cfg, _layer_view(run_p, i), x, positions,
+                                 _layer_view(cache, i))
+    return x, caches
+
+
+def decode_runs(cfg: ModelConfig, blocks: dict, x, pos: int, caches):
+    for (_, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
+                                        blocks["runs"], caches):
+        for i in range(count):
+            x, _ = block_decode(cfg, _layer_view(run_p, i), x, pos,
+                                _layer_view(cache, i))
+    return x, caches

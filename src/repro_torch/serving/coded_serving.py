@@ -1,0 +1,226 @@
+"""Coded serving steps, batch path (port of the batch half of
+``repro.serving.coded_serving``).
+
+Every coded stream owns its own KV cache, so stragglers and Byzantine
+workers can be masked at any decode step without recomputation.  Shapes:
+G query groups x K real queries; N+1 coded streams per group, laid out
+group-major (stream ``g*(N+1) + n``).  Off a device mesh the reference
+pads no streams and its sharding annotations do nothing, so neither has
+a counterpart here; the worker-major layout waits for the worker-mesh
+slice.
+
+Re-planning stays data, not Python branches: the straggler mask, the
+operating point's ``live_mask`` and ``locate_quorum`` are tensors or
+numbers fed to one program, as in the reference.  The reference draws
+Byzantine noise with ``jax.random`` inside the step; here the caller
+passes the noise tensor in, so tests can hand both the same draw.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import berrut
+from repro_torch.core.berrut import CodingConfig
+from repro_torch.core.error_locator import gather_vote_values, locate_groups
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (decode_step, embed_inputs, init_caches,
+                                      prefill)
+from repro_torch.serving.sampling import SampleConfig, sample_tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class CodedServingState:
+    """Carried between serving steps.  The caches are written in place by
+    the next step (where the reference's executors donate them), so a
+    state is consumed by the step it is passed to."""
+
+    caches: list                   # per-run coded-stream caches
+    pos: int                       # next cache position to write
+
+
+def _code_streams(coding: CodingConfig, x: torch.Tensor) -> torch.Tensor:
+    """(G, K, ...) -> (G*(N+1), ...) group-major coded streams through the
+    Berrut encode contraction (kernel-dispatched)."""
+    g = x.shape[0]
+    # rounded to x's dtype first, as the reference rounds its weights
+    w = berrut.encode_matrix(coding, device=x.device).to(x.dtype)
+    coded = ops.berrut_apply(w, x.reshape(g, coding.k, -1))  # (G, N+1, F)
+    return coded.reshape(g * coding.num_workers, *x.shape[2:])
+
+
+def _real_streams(coding: CodingConfig, coded_logits: torch.Tensor,
+                  groups: int) -> torch.Tensor:
+    """The G*(N+1) real coded streams of a round's logits (a view)."""
+    return coded_logits[: groups * coding.num_workers]
+
+
+def locate(coding: CodingConfig, coded_logits: torch.Tensor,
+           avail: torch.Tensor, locate_quorum=None):
+    """Vote-gated Algorithm 2 per group over the round's coded logits.
+
+    The vote columns are gathered from the raw block before the float32
+    upcast.  ``locate_quorum`` (an int or a 0-dim tensor) suppresses the
+    verdicts of a round with fewer available streams; ``None`` keeps them
+    unconditional.  coded_logits: (G*(N+1), V).  Returns (per-group
+    decode masks (G, N+1), located (G, N+1) bool, votes (G, N+1) int32).
+    """
+    n1 = coding.num_workers
+    g = coded_logits.shape[0] // n1
+    if coding.e == 0:
+        zeros = torch.zeros((g, n1), dtype=torch.int32,
+                            device=coded_logits.device)
+        return avail.expand(g, n1), zeros.bool(), zeros
+    vals = gather_vote_values(coded_logits.reshape(g, n1, -1), coding.c_vote)
+    betas = torch.tensor(coding.betas, dtype=torch.float32,
+                         device=coded_logits.device)
+    located, votes = locate_groups(betas, vals, avail, k=coding.k,
+                                   e=coding.e)
+    if locate_quorum is not None:
+        located = located & (avail.sum() >= locate_quorum)
+    masks = avail[None, :] * (1.0 - located.to(avail.dtype))
+    return masks, located, votes
+
+
+def _corrupt_logits(coding: CodingConfig, coded_logits: torch.Tensor,
+                    byz_mask: torch.Tensor, noise: torch.Tensor,
+                    sigma: float) -> torch.Tensor:
+    """Byzantine workers add ``sigma * noise`` to their coded logits
+    (paper §4.2).  noise: (G, N+1, V), or (G, 1, V) when every compromised
+    worker of a group tells the same lie (collusion)."""
+    n1 = coding.num_workers
+    g = coded_logits.shape[0] // n1
+    v = coded_logits.shape[-1]
+    per_stream = byz_mask.repeat(g)
+    return (coded_logits + sigma * per_stream[:, None]
+            * noise.expand(g, n1, v).reshape(g * n1, v))
+
+
+def _compose_live(straggler_mask: Optional[torch.Tensor],
+                  live_mask: Optional[torch.Tensor]
+                  ) -> Optional[torch.Tensor]:
+    """Compose the operating point's per-stream ``live_mask`` into the
+    round's straggler mask: a narrower (N, E) masks off the trailing
+    coded streams exactly like stragglers, so one max-width program
+    serves every operating point."""
+    if live_mask is None:
+        return straggler_mask
+    if straggler_mask is None:
+        return live_mask
+    return straggler_mask * live_mask
+
+
+def _finish_round(coding: CodingConfig, coded_logits: torch.Tensor,
+                  straggler_mask: Optional[torch.Tensor], with_report: bool,
+                  locate_quorum=None):
+    """Shared tail of every coded round: locate -> exclude -> one fused
+    decode pass (per-group survivor-weight matrices built in the kernel
+    from the locator's masks)."""
+    dev = coded_logits.device
+    avail = (straggler_mask if straggler_mask is not None
+             else torch.ones((coding.num_workers,), dtype=torch.float32,
+                             device=dev))
+    v = coded_logits.shape[-1]
+    g = coded_logits.shape[0] // coding.num_workers
+    masks, located, votes = locate(coding, coded_logits, avail,
+                                   locate_quorum=locate_quorum)
+    grouped = coded_logits.reshape(g, coding.num_workers, v)
+    logits = ops.fused_group_decode(
+        grouped, masks.to(torch.float32),
+        torch.tensor(coding.alphas, dtype=torch.float32, device=dev),
+        torch.tensor(coding.betas, dtype=torch.float32, device=dev))
+    logits = logits.reshape(g * coding.k, v)
+    return logits, ((located, votes) if with_report else None)
+
+
+def _maybe_sample(logits: torch.Tensor, sample: Optional[SampleConfig],
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    if sample is None:
+        return logits
+    return sample_tokens(logits, sample, generator)
+
+
+def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
+                  inputs: dict, max_len: int,
+                  straggler_mask: Optional[torch.Tensor] = None,
+                  byz_mask: Optional[torch.Tensor] = None,
+                  byz_noise: Optional[torch.Tensor] = None,
+                  byz_sigma: float = 10.0,
+                  with_report: bool = False,
+                  sample: Optional[SampleConfig] = None,
+                  generator: Optional[torch.Generator] = None,
+                  live_mask: Optional[torch.Tensor] = None,
+                  locate_quorum=None):
+    """Prefill G*K real prompts as G*(N+1) coded streams.
+
+    inputs: {"tokens": (G*K, S)} or {"embeddings": (G*K, S, d)}.
+    Byzantine workers (``byz_mask``, (N+1,)) add ``byz_sigma * byz_noise``
+    to their logits.  Returns (decoded last-token logits (G*K, V), or
+    with ``sample`` the (G*K,) int32 token ids, and the serving state);
+    with ``with_report`` also the locator's (located, votes).
+    """
+    straggler_mask = _compose_live(straggler_mask, live_mask)
+    x = embed_inputs(cfg, params, inputs)                 # (G*K, S, d)
+    gk, s, d = x.shape
+    g = gk // coding.k
+    coded = _code_streams(coding, x.reshape(g, coding.k, s, d))
+    caches = init_caches(cfg, coded.shape[0], max_len, coded.dtype,
+                         coded.device)
+    coded_logits, caches = prefill(cfg, params, {"embeddings": coded},
+                                   caches)
+    coded_logits = _real_streams(coding, coded_logits, g)
+    if byz_mask is not None and byz_noise is not None:
+        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
+                                       byz_noise, byz_sigma)
+    logits, report = _finish_round(coding, coded_logits, straggler_mask,
+                                   with_report, locate_quorum=locate_quorum)
+    out = _maybe_sample(logits, sample, generator)
+    state = CodedServingState(caches=caches, pos=s)
+    if with_report:
+        return out, state, report
+    return out, state
+
+
+def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
+                      state: CodedServingState, tokens: torch.Tensor,
+                      straggler_mask: Optional[torch.Tensor] = None,
+                      byz_mask: Optional[torch.Tensor] = None,
+                      byz_noise: Optional[torch.Tensor] = None,
+                      byz_sigma: float = 10.0,
+                      with_report: bool = False,
+                      sample: Optional[SampleConfig] = None,
+                      generator: Optional[torch.Generator] = None,
+                      live_mask: Optional[torch.Tensor] = None,
+                      locate_quorum=None):
+    """One coded decode step.
+
+    tokens: (G*K, 1) — the sampled next token of each real stream.  The K
+    token embeddings of each group are Berrut-encoded into N+1 coded
+    embeddings appended to the coded caches (in place; ``state`` is
+    consumed).  Returns (decoded logits (G*K, V), or sampled (G*K,) ids
+    with ``sample``, and the new state); with ``with_report`` also the
+    locator's (located, votes).
+    """
+    straggler_mask = _compose_live(straggler_mask, live_mask)
+    x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (G*K,1,d)
+    gk, _, d = x.shape
+    g = gk // coding.k
+    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d))
+    coded_logits, caches = decode_step(cfg, params, state.caches,
+                                       {"embeddings": coded}, state.pos)
+    coded_logits = _real_streams(coding, coded_logits, g)
+    if byz_mask is not None and byz_noise is not None:
+        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
+                                       byz_noise, byz_sigma)
+    logits, report = _finish_round(coding, coded_logits, straggler_mask,
+                                   with_report, locate_quorum=locate_quorum)
+    out = _maybe_sample(logits, sample, generator)
+    new_state = CodedServingState(caches=caches, pos=state.pos + 1)
+    if with_report:
+        return out, new_state, report
+    return out, new_state

@@ -1,0 +1,171 @@
+"""Batch executor of the coded LLM serving rounds (counterpart of
+``repro.serving.scheduler.CodedLLMExecutor``).
+
+A dispatched batch runs ``1 + steps`` coded rounds: round 0 is
+``coded_prefill``, each later round one ``coded_decode_step``.  Every
+round takes its own straggler mask, an optional ``RoundAttack`` that
+corrupts the compromised workers' coded logits before the locator runs,
+and an optional ``locate_quorum``.  Tokens are selected greedily on the
+device; the batch returns the (B, steps + 1) token matrix.
+
+The executor is built at its widest operating point; a batch may be
+dispatched at a narrower ``CodingConfig`` of the same K, whose streams
+are a prefix of the wide grid: the rest are held out by a per-stream
+live mask and the decode interpolates through the survivors (the
+reference's masked max-width re-planning).  Pre-traced operating points,
+worker-axis sharding, the event-driven scheduler and its latency model,
+quarantine and controller are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.berrut import CodingConfig
+from repro_torch.serving.coded_serving import (coded_decode_step,
+                                               coded_prefill)
+from repro_torch.serving.sampling import SampleConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundAttack:
+    """One coded dispatch's corruption: ``mask`` (N+1,) marks the workers
+    corrupting this round; each adds ``sigma`` times its own standard
+    normal noise to its coded logits."""
+
+    mask: np.ndarray
+    sigma: float
+
+    @property
+    def active(self) -> bool:
+        return bool(self.mask.sum() > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocateReport:
+    """One round's locator verdicts, host copies, per group."""
+
+    located: np.ndarray               # (G, N+1) bool, vote-gated
+    votes: np.ndarray                 # (G, N+1) int32
+    masks: np.ndarray                 # (G, N+1) decode masks used
+
+    @property
+    def detected(self) -> np.ndarray:
+        """(N+1,) bool — located in at least one group this round."""
+        return self.located.any(axis=0)
+
+
+class CodedLLMExecutor:
+    """Runs batches of coded LLM serving rounds on the device of
+    ``params``.  The serving state's caches are updated in place each
+    round, so a handle's rounds must run once each, in order."""
+
+    def __init__(self, model_cfg, coding: CodingConfig, params: dict,
+                 steps: int, max_len: int, seed: int = 0):
+        self.model_cfg = model_cfg
+        self.coding = coding
+        self.params = params
+        self.rounds = 1 + steps
+        self.max_len = max_len
+        self.device = params["embeddings"]["embed"].device
+        self._noise_gen = torch.Generator(self.device).manual_seed(seed)
+
+    def _validate_point(self, point: CodingConfig) -> None:
+        if point.k != self.coding.k:
+            raise ValueError(f"operating point K={point.k} does not match "
+                             f"the executor's K={self.coding.k}")
+        if point.num_workers > self.coding.num_workers:
+            raise ValueError(
+                f"operating point needs {point.num_workers} coded streams "
+                f"but the executor serves at most {self.coding.num_workers}")
+
+    def dispatch(self, queries, point: Optional[CodingConfig] = None) -> dict:
+        """Start a batch of (B, S) token prompts, B a multiple of K, at
+        operating point ``point`` (default: the executor's coding)."""
+        point = self.coding if point is None else point
+        self._validate_point(point)
+        tokens = torch.as_tensor(np.asarray(queries), dtype=torch.int64,
+                                 device=self.device)
+        if tokens.dim() != 2 or tokens.shape[0] % self.coding.k:
+            raise ValueError(f"need (B, S) prompts with B a multiple of "
+                             f"K={self.coding.k}, got {tuple(tokens.shape)}")
+        return {"tokens": tokens, "state": None, "next": None, "outs": [],
+                "round": 0, "point": point}
+
+    def _byz_args(self, attack: Optional[RoundAttack], width: int,
+                  groups: int):
+        """(byz_mask, noise) padded to the executor's width, or Nones on a
+        clean round."""
+        if attack is None or not attack.active:
+            return None, None
+        full = self.coding.num_workers
+        bm = np.zeros((full,), np.float32)
+        bm[:width] = np.asarray(attack.mask, np.float32)[:width]
+        shape = (groups, full, self.model_cfg.vocab_size)
+        noise = torch.randn(shape, generator=self._noise_gen,
+                            device=self.device, dtype=torch.float32)
+        return torch.as_tensor(bm, device=self.device), noise
+
+    def step(self, handle: dict, round_idx: int, mask: np.ndarray,
+             attack: Optional[RoundAttack] = None, locate_quorum=None):
+        """Run round ``round_idx`` of the batch with this round's (width,)
+        straggler mask; returns the handle and the locator's report (None
+        at E = 0).  Every round runs exactly once, in order: the caches
+        are updated in place."""
+        if round_idx != handle["round"]:
+            raise RuntimeError(
+                f"round accounting violated: expected round "
+                f"{handle['round']}, got {round_idx} (of {self.rounds})")
+        handle["round"] = round_idx + 1
+        point = handle["point"]
+        width, full = point.num_workers, self.coding.num_workers
+        mask = np.asarray(mask, np.float32)
+        if mask.shape != (width,):
+            raise ValueError(f"round mask covers {mask.shape} workers but "
+                             f"the batch's operating point dispatches {width}")
+        m = np.zeros((full,), np.float32)
+        m[:width] = mask
+        live = (np.arange(full) < width).astype(np.float32)
+        groups = handle["tokens"].shape[0] // self.coding.k
+        byz_mask, noise = self._byz_args(attack, width, groups)
+        kw = dict(straggler_mask=torch.as_tensor(m, device=self.device),
+                  byz_mask=byz_mask, byz_noise=noise,
+                  byz_sigma=0.0 if attack is None else attack.sigma,
+                  with_report=True, sample=SampleConfig(),
+                  live_mask=torch.as_tensor(live, device=self.device),
+                  locate_quorum=0 if locate_quorum is None else locate_quorum)
+        if round_idx == 0:
+            toks, state, (located, votes) = coded_prefill(
+                self.model_cfg, self.coding, self.params,
+                {"tokens": handle["tokens"]}, self.max_len, **kw)
+        else:
+            toks, state, (located, votes) = coded_decode_step(
+                self.model_cfg, self.coding, self.params, handle["state"],
+                handle["next"], **kw)
+        handle["next"], handle["state"] = toks[:, None], state
+        handle["outs"].append(toks.cpu().numpy())
+        if self.coding.e == 0:
+            return handle, None
+        # verdicts are sliced to the operating point's width
+        located = located.cpu().numpy()[:, :width]
+        report = LocateReport(
+            located=located, votes=votes.cpu().numpy()[:, :width],
+            masks=np.broadcast_to(mask, located.shape)
+            * (1.0 - located.astype(np.float32)))
+        return handle, report
+
+    def decode(self, handle: dict, mask: np.ndarray,
+               attack: Optional[RoundAttack] = None, locate_quorum=None):
+        """Run the batch's last round; returns the (B, steps + 1) token
+        matrix and the last round's report."""
+        handle, report = self.step(handle, self.rounds - 1, mask, attack,
+                                   locate_quorum)
+        outs = np.stack(handle["outs"], axis=1)
+        if outs.shape[1] != self.rounds:
+            raise RuntimeError(f"emitted {outs.shape[1]} token columns over "
+                               f"{self.rounds} rounds")
+        return outs, report
