@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's coded LLM serving path on one CUDA card.
+"""Run the PyTorch port's coded LLM serving paths on one CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -8,19 +8,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. build every CUDA kernel of ``src/repro_torch/csrc`` (one nvcc each,
    all at once);
 2. hold each kernel against its plain PyTorch version at the shapes the
-   main path gives it (qwen3-0.6b, G=4 groups of K=4 queries, S=1, E=1:
-   44 coded streams, 256-token prompts, 16 decode steps), in fp32 and
+   main paths give it (qwen3-0.6b, G=4 groups of K=4 queries, S=1, E=1:
+   44 coded streams, 256-token prompts, 16 decode steps; the slot-pool
+   decode at a mix of per-stream depths with dead streams), in fp32 and
    bf16, and time kernel, plain version and one PyTorch library call
    computing the same function;
-3. the same comparison on the features the main path does not use
+3. the same comparison on the features the main paths do not use
    (window, softcap, prefix-LM, q_offset, int8 KV, ragged widths, node
-   hits, the vote gather, rows that see no key);
-4. two serving runs through ``repro_torch.launch.serve`` at full width and
-   depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent attacker at
-   sigma 10, 16 requests each, counting every kernel's launches;
-5. the whole path at full width and 2 layers on the card and on the CPU
-   with the same weights and noise: decoded logits within tolerance,
-   greedy tokens and locator verdicts equal.
+   hits, the vote gather, rows that see no key, other head dims and GQA
+   ratios);
+4. two batch serving runs through ``repro_torch.launch.serve`` at full
+   width and depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent
+   attacker at sigma 10, 16 requests each, counting every kernel's
+   launches;
+5. two continuous-batching runs (``serve --continuous``) at full width
+   and depth: K=4 S=1 over 4 group slots, 32 requests of 256 tokens with
+   budgets 1..16 on a Poisson clock, at E=0 and at E=1 with a persistent
+   attacker at sigma 10 and quarantine; launches held against the
+   executor's own prefill and decode calls, every request served its
+   budget, the locator's precision and recall 1 at E=1;
+6. the batch path and 7. the slot pool, at full width and 2 layers, on
+   the card and on the CPU with the same weights, prompts, masks and
+   noise: decoded logits within tolerance, greedy tokens and locator
+   verdicts equal.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -48,12 +58,17 @@ TOL_BF16_ULPS, BF16_ULP = 2.0, 2.0 ** -7
 # qwen3-0.6b main path: 4 groups of K=4, S=1, E=1 -> 11 coded streams each
 K, S, E, GROUPS = 4, 1, 1, 4
 PROMPT, STEPS = 256, 16
+POOL_GROUPS, POOL_REQUESTS = 4, 32
+LAYERS = 28
 REPLACES = {
     "berrut_apply": "src/repro/kernels/berrut_matmul.py:58",
     "fused_group_decode": "src/repro/kernels/berrut_decode.py:111",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "flash_decode": "src/repro/kernels/flash_decode.py:80",
+    "pool_flash_decode": "src/repro/kernels/flash_decode.py:177",
 }
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
 
 
 def emit(obj) -> None:
@@ -109,6 +124,30 @@ class Smoke:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def graph_ms(self, fn, iters=20) -> float:
+        """Device time of one call: ``iters`` calls captured in a CUDA
+        graph and replayed, so no host launch overhead is in it."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
     def check(self, what: str, got, want, dtype: str) -> dict:
         """max |got - want| against the tolerance of ``dtype``; raises if
         any element is over it or the output is not finite."""
@@ -144,6 +183,7 @@ class Smoke:
         res = {"kernel": name, "dtype": dtype, "shape": shape}
         res.update(self.check(name, got, want, dtype))
         res["ms"] = self.time_ms(kernel)
+        res["graph_ms"] = self.graph_ms(kernel)
         res["plain_ms"] = self.time_ms(plain)
         res["library_ms"] = None if library is None else self.time_ms(library)
         res["bound_ms"], res["bound_by"] = self.bound(nbytes, ops, dtype)
@@ -162,20 +202,28 @@ class Smoke:
         for dtype in ("float32", "bfloat16"):
             self.main_path_kernels(dtype)
         self.variants()
-        launches = {}
+        batch, pool = {}, {}
         for e in (0, E):
-            launches[e] = self.serve(e)
+            batch[e] = self.serve(e)
+        for e in (0, E):
+            pool[e] = self.serve_continuous(e)
         self.whole_path()
+        self.whole_pool_path()
         entries = []
         for name, res in self.kernels.items():
+            # each kernel's launches on the path it carries: the slot
+            # pool's decode for pool_flash_decode, the batch path for the
+            # others (their pool launches are in the continuous lines)
+            runs = pool if name == "pool_flash_decode" else batch
             entries.append({
-                "name": name, "route": "cuda",
-                "source": f"src/repro_torch/csrc/{name}.cu",
-                "replaces": REPLACES[name], "launches": launches[E][name],
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": runs[E][name],
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-                "launches_e0": launches[0][name],
+                "launches_e0": runs[0][name],
+                "launches_pool_e1": pool[E][name],
+                "graph_ms": res["graph_ms"],
             })
         emit({"kernels": entries})
         print(gpu_line(), flush=True)
@@ -194,11 +242,15 @@ class Smoke:
             text = log.read_text() if log.exists() else ""
             regs = [int(w.split()[0]) for line in text.splitlines()
                     for w in line.split("Used ")[1:] if "registers" in w]
-            spills = [line.strip() for line in text.splitlines()
-                      if "spill" in line and not line.strip().startswith(
-                          "0 bytes stack frame, 0 bytes spill")]
+            spills, function = [], None
+            for line in text.splitlines():
+                if "Function properties for" in line:
+                    function = line.split("Function properties for")[-1]
+                elif "spill" in line and not line.strip().startswith(
+                        "0 bytes stack frame, 0 bytes spill"):
+                    spills.append(f"{(function or '').strip()}: {line.strip()}")
             report[src] = {"max_registers": max(regs, default=None),
-                           "spill_lines": len(spills)}
+                           "spill_lines": len(spills), "spills": spills}
         emit({"build_seconds": seconds, "libraries": report})
 
     def main_path_kernels(self, dtype_name: str):
@@ -288,6 +340,55 @@ class Smoke:
             2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
             + width,
             4 * hd * n_valid * b * h)
+
+        # B5: the slot-pool decode over the same (B, W, KV, D) caches, at
+        # per-stream depths and with dead streams (E=0's live mask)
+        pos, live = self.pool_positions(b, width)
+        nkeys = (torch.clamp(pos, max=width - 1) + 1) * live
+        n_read = int(nkeys.sum().item())             # keys the rows see
+        got = ops.pool_decode_attention(qd, kc, vc, pos, live)
+        self.dead_rows_zero("pool_flash_decode", got, live)
+        for what, lv in (("live=None", None), ("dead streams", live)):
+            out = {"variant": f"pool_flash_decode main shape {what}"}
+            out.update(self.check(
+                out["variant"], ops.pool_decode_attention(qd, kc, vc, pos, lv),
+                ref.pool_decode_attention_ref(qd, kc, vc, pos, lv),
+                dtype_name))
+            emit(out)
+        allowed = ((torch.arange(width, device=self.dev)[None, :]
+                    <= pos[:, None]) & live.bool()[:, None])
+        self.record(
+            "pool_flash_decode", dtype_name,
+            [list(qd.shape), list(kc.shape), pos.tolist()],
+            got, ref.pool_decode_attention_ref(qd, kc, vc, pos, live),
+            lambda: ops.pool_decode_attention(qd, kc, vc, pos, live),
+            lambda: ref.pool_decode_attention_ref(qd, kc, vc, pos, live),
+            lambda: sdpa(qd[:, :, None], kc.transpose(1, 2),
+                         vc.transpose(1, 2),
+                         attn_mask=allowed[:, None, None, :],
+                         enable_gqa=True),
+            2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
+            4 * hd * n_read * h)
+
+    def pool_positions(self, b: int, width: int):
+        """(B,) int32 ring positions and (B,) uint8 live flags: most
+        streams at the depths a 256-token prompt reaches in 16 steps,
+        plus depth 0, both sides of a 16-key step, mid-ring, the last
+        slot, and ring wraps past W; every fifth stream dead."""
+        torch = self.torch
+        pos = PROMPT + torch.randint(0, STEPS + 1, (b,), generator=self.gen,
+                                     device=self.dev)
+        special = [0, 15, 16, 137, width - 1, width, 2 * width + 7]
+        pos[:len(special)] = torch.tensor(special, device=self.dev)
+        live = torch.ones(b, dtype=torch.uint8, device=self.dev)
+        live[2::5] = 0
+        return pos.to(torch.int32), live
+
+    def dead_rows_zero(self, what: str, out, live) -> None:
+        dead = out[live == 0].float()
+        if not self.torch.equal(dead, self.torch.zeros_like(dead)):
+            raise AssertionError(f"{what}: a dead stream's output is not "
+                                 "exactly 0")
 
     def variants(self):
         """Features off the main path, at small shapes, both dtypes."""
@@ -381,6 +482,32 @@ class Smoke:
                 res.append((f"flash_decode D={hd} broadcast mask row",
                             ops.decode_attention(q, kc, vc, row),
                             ref.decode_attention_ref(q, kc, vc, row)))
+                # B5 at other head dims and GQA ratios (MHA, rep 4, MQA),
+                # with int8 KV and softcap, dead streams and ring wraps
+                for h, kvh in ((8, 8), (8, 2), (8, 1)):
+                    q = self.randn(b, h, hd, dtype=dtype)
+                    kc = self.randn(b, w_len, kvh, hd, dtype=dtype)
+                    vc = self.randn(b, w_len, kvh, hd, dtype=dtype)
+                    pos = torch.tensor([0, 150, 2 * w_len + 3],
+                                       dtype=torch.int32, device=self.dev)
+                    live = torch.tensor([1, 1, 0], dtype=torch.uint8,
+                                        device=self.dev)
+                    got = ops.pool_decode_attention(q, kc, vc, pos, live)
+                    self.dead_rows_zero("pool_flash_decode", got, live)
+                    res.append((f"pool_flash_decode D={hd} H={h} KV={kvh}",
+                                got, ref.pool_decode_attention_ref(
+                                    q, kc, vc, pos, live)))
+                    k8 = torch.clamp(torch.round(kc.float() * 32), -127,
+                                     127).to(torch.int8)
+                    v8 = torch.clamp(torch.round(vc.float() * 32), -127,
+                                     127).to(torch.int8)
+                    kw = dict(softcap=15.0, kv_scale=32.0)
+                    res.append((f"pool_flash_decode D={hd} H={h} KV={kvh} "
+                                "int8+softcap, live=None",
+                                ops.pool_decode_attention(q, k8, v8, pos,
+                                                          **kw),
+                                ref.pool_decode_attention_ref(
+                                    q, k8, v8, pos, **kw)))
             for what, got, want in res:
                 out = {"variant": what}
                 out.update(self.check(what, got, want, dtype_name))
@@ -401,7 +528,8 @@ class Smoke:
         expected = {"berrut_apply": 1 + STEPS,
                     "fused_group_decode": 1 + STEPS,
                     "flash_attention": layers,
-                    "flash_decode": layers * STEPS}
+                    "flash_decode": layers * STEPS,
+                    "pool_flash_decode": 0}
         emit({"path": f"K={K} S={S} E={e}", "launches": launches,
               "expected": expected})
         if launches != expected:
@@ -421,6 +549,70 @@ class Smoke:
               "tokens_per_s": res["tokens_per_s"],
               "locator_precision_recall": (
                   [res["precision"], res["recall"]] if e else None)})
+        return launches
+
+    def serve_continuous(self, e: int) -> dict:
+        """``serve --continuous`` at full width and depth; launches held
+        against the executor's own prefill and decode calls."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        ops.reset_launch_counts()
+        res = serve.run("qwen3-0.6b", reduced=False, requests=POOL_REQUESTS,
+                        k=K, s=S, e=e, prompt_len=PROMPT, steps=STEPS,
+                        byz_sigma=10.0, seed=0, device="cuda",
+                        continuous=True, pool_groups=POOL_GROUPS,
+                        quarantine=e > 0)
+        self.torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        pf, dc = res["prefill_calls"], res["decode_calls"]
+        expected = {"berrut_apply": pf + dc, "fused_group_decode": pf + dc,
+                    "flash_attention": LAYERS * pf,
+                    "flash_decode": 0,
+                    "pool_flash_decode": LAYERS * dc}
+        where = f"continuous K={K} S={S} E={e}"
+        emit({"path": where, "launches": launches, "expected": expected})
+        if launches != expected or not (pf and dc):
+            raise AssertionError(f"{where}: launch counts {launches} != "
+                                 f"{expected}")
+        budgets = res["budgets"]
+        if sorted(res["results"]) != list(range(POOL_REQUESTS)):
+            raise AssertionError(f"{where}: requests served "
+                                 f"{sorted(res['results'])}")
+        for uid, toks in res["results"].items():
+            if len(toks) != budgets[uid] or toks.min() < 0 or \
+                    toks.max() >= 151936:
+                raise AssertionError(f"{where}: request {uid} got "
+                                     f"{toks.tolist()}, budget "
+                                     f"{budgets[uid]}")
+        summary = res["metrics"].summary()
+        if e and not (summary["detection_precision"] == 1.0
+                      and summary["detection_recall"] == 1.0):
+            raise AssertionError(
+                f"{where}: locator precision "
+                f"{summary['detection_precision']} recall "
+                f"{summary['detection_recall']}")
+        mid = sum(1 for ev in res["trace"] if ev[0] == "round" and ev[3]
+                  and ev[4])
+        emit({"serve": where, "pool_groups": POOL_GROUPS,
+              "streams": POOL_GROUPS * (K + S if e == 0
+                                        else 2 * (K + e) + S),
+              "requests": POOL_REQUESTS, "pool_rounds": res["rounds"],
+              "rounds_admitting_mid_flight": mid,
+              "prefill_calls": pf, "decode_calls": dc,
+              "prefill_ms_mean": sum(res["prefill_ms"]) / pf,
+              "decode_ms_mean": sum(res["decode_ms"]) / dc,
+              "prefill_ms": res["prefill_ms"], "decode_ms": res["decode_ms"],
+              "wall_ms": res["wall_ms"], "tokens_per_s": res["tokens_per_s"],
+              "event_clock": {k: summary[k] for k in (
+                  "p50_ms", "p99_ms", "p50_ttft_ms", "mean_itl_ms",
+                  "tokens_per_s", "rounds")},
+              "locator_precision_recall": (
+                  [summary["detection_precision"],
+                   summary["detection_recall"]] if e else None),
+              "quarantine_events": summary.get("quarantine_events")})
+        if not mid:
+            raise AssertionError(f"{where}: no round admitted a group while "
+                                 "another decoded")
         return launches
 
     def whole_path(self):
@@ -482,6 +674,100 @@ class Smoke:
                   "tol": tol})
         emit({"whole_path": "full width, 2 layers, cuda vs cpu",
               "rounds": 1 + steps, "worst_err_over_tol": worst})
+
+
+    def whole_pool_path(self):
+        """The slot pool at full width and 2 layers: the card against the
+        CPU's plain path on the same weights, prompts, masks and noise,
+        over five pool rounds in which groups are admitted while others
+        decode, at E=0 (the live mask reaches the kernel) and E=1."""
+        torch = self.torch
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_caches, init_params
+        from repro_torch.serving import coded_serving as cs
+        cfg = qwen3_0_6b.CONFIG.with_updates(num_layers=2)
+        pool, prompt, max_len = 2, 64, 72
+        # (admitted slots, active slots) per round
+        rounds = [((0,), ()), ((1,), (0,)), ((), (0, 1)), ((0,), (1,)),
+                  ((), (0, 1))]
+        cpu = torch.device("cpu")
+        gen = torch.Generator(cpu).manual_seed(2)
+        params = {"cpu": init_params(cfg, gen, cpu)}
+        params["cuda"] = _tree_to(params["cpu"], self.dev)
+        worst = 0.0
+        for e in (0, E):
+            coding = CodingConfig(k=K, s=S, e=e)
+            n1 = coding.num_workers
+            byz = torch.zeros(n1)
+            if e:
+                byz[5] = 1.0
+            states = {name: cs.init_pool_state(cfg, coding, pool, max_len,
+                                               dev)
+                      for name, dev in (("cpu", cpu), ("cuda", self.dev))}
+            fresh = {name: init_caches(cfg, pool * n1, max_len,
+                                       torch.float32, dev)
+                     for name, dev in (("cpu", cpu), ("cuda", self.dev))}
+            prompts = torch.zeros(pool * K, prompt, dtype=torch.int64)
+            nxt = torch.zeros(pool * K, 1, dtype=torch.int64)
+            for r, (admitted, active) in enumerate(rounds):
+                m = torch.ones(n1)
+                m[(1, 4, 7, 2, 3)[r] % n1] = 0.0       # never the attacker
+                noise = torch.randn(pool, n1, cfg.vocab_size, generator=gen)
+                calls = []
+                if admitted:
+                    for slot in admitted:
+                        prompts[slot * K:(slot + 1) * K] = torch.randint(
+                            0, cfg.vocab_size, (K, prompt), generator=gen)
+                    calls.append(("prefill", admitted))
+                if active:
+                    calls.append(("decode", active))
+                for kind, slots in calls:
+                    gm = torch.zeros(pool)
+                    gm[list(slots)] = 1.0
+                    outs = {}
+                    for name, dev in (("cpu", cpu), ("cuda", self.dev)):
+                        kw = dict(straggler_mask=m.to(dev),
+                                  byz_mask=byz.to(dev),
+                                  byz_noise=noise.to(dev), byz_sigma=10.0,
+                                  with_report=True)
+                        if kind == "prefill":
+                            logits, states[name], rep = \
+                                cs.coded_pool_prefill(
+                                    cfg, coding, params[name], states[name],
+                                    {"tokens": prompts.to(dev)}, gm.numpy(),
+                                    fresh=fresh[name], **kw)
+                        else:
+                            logits, states[name], rep = \
+                                cs.coded_pool_decode_step(
+                                    cfg, coding, params[name], states[name],
+                                    nxt.to(dev), gm.to(dev), **kw)
+                        outs[name] = (logits.float().cpu(), rep[0].cpu(),
+                                      states[name].pos.cpu())
+                    (lc, loc_c, pos_c), (lg, loc_g, pos_g) = (outs["cpu"],
+                                                              outs["cuda"])
+                    rows = gm.repeat_interleave(K) > 0
+                    err = (lg[rows] - lc[rows]).abs().max().item()
+                    tol = 1e-4 * max(1.0, lc[rows].abs().max().item())
+                    worst = max(worst, err / tol)
+                    where = f"pool whole path E={e} round {r} {kind}"
+                    if not err <= tol:
+                        raise AssertionError(f"{where}: live logits differ "
+                                             f"by {err} > {tol}")
+                    if not torch.equal(lg[rows].argmax(-1),
+                                       lc[rows].argmax(-1)):
+                        raise AssertionError(f"{where}: greedy tokens differ")
+                    if not torch.equal(loc_g, loc_c) or not torch.equal(
+                            pos_g, pos_c):
+                        raise AssertionError(f"{where}: located workers or "
+                                             "slot positions differ")
+                    if e and not loc_c[gm > 0, 5].all():
+                        raise AssertionError(f"{where}: attacker not located")
+                    nxt[rows, 0] = lc[rows].argmax(-1)
+                    emit({"whole_pool_path": where,
+                          "logits_max_abs_diff": err, "tol": tol})
+        emit({"whole_pool_path": "full width, 2 layers, cuda vs cpu",
+              "rounds": len(rounds), "worst_err_over_tol": worst})
 
 
 def _tree_to(tree, device):

@@ -208,3 +208,25 @@ def decode_matrix(cfg: CodingConfig, mask: torch.Tensor) -> torch.Tensor:
     return basis_matrix(torch.tensor(cfg.alphas, device=dev),
                         torch.tensor(cfg.betas, device=dev),
                         survivor_weights(mask), mask=mask)
+
+
+def encode(cfg: CodingConfig, queries: torch.Tensor,
+           axis: int = 0) -> torch.Tensor:
+    """Encode K queries into N+1 coded queries along ``axis`` (Eq. 7):
+    (..., K, ...) -> (..., N+1, ...)."""
+    w = encode_matrix(cfg, device=queries.device).to(queries.dtype)
+    coded = torch.tensordot(w, torch.movedim(queries, axis, 0),
+                            dims=([1], [0]))
+    return torch.movedim(coded, 0, axis)
+
+
+def decode(cfg: CodingConfig, coded_preds: torch.Tensor, mask,
+           axis: int = 0) -> torch.Tensor:
+    """Recover K approximate predictions from masked coded predictions
+    (Eq. 10-11): (..., N+1, ...) -> (..., K, ...)."""
+    mask = torch.as_tensor(mask, dtype=torch.float32,
+                           device=coded_preds.device)
+    w = decode_matrix(cfg, mask).to(coded_preds.dtype)
+    decoded = torch.tensordot(w, torch.movedim(coded_preds, axis, 0),
+                              dims=([1], [0]))
+    return torch.movedim(decoded, 0, axis)

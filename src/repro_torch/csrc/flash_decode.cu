@@ -1,16 +1,30 @@
 // Single-token decode attention over a ring KV cache for Hopper (sm_90a).
+// Two entry points share one kernel template, which differs only in where
+// a key's validity comes from:
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py
-// (flash_decode): q (B, H, D) against caches (B, W, KV, D) with an
-// explicit (B, W) validity mask -> out (B, H, D).  The rep = H / KV
-// q-heads of a kv-head share one pass over its cache; int8 caches are
-// dequantised in registers by kv_scale (device-memory traffic stays at
-// the int8 byte count); logit softcap is supported.  A row whose mask is
-// all false gives the guarded 0, never NaN (m_safe, denominator at least
-// 1e-30), as the TPU kernel does.
+// flash_decode_launch replaces the Pallas TPU kernel
+// src/repro/kernels/flash_decode.py (flash_decode): q (B, H, D) against
+// caches (B, W, KV, D) with an explicit (B, W) validity mask -> out
+// (B, H, D).
+//
+// pool_flash_decode_launch replaces src/repro/kernels/flash_decode.py
+// (pool_flash_decode), the slot-pool decode: validity comes from a
+// per-stream ring position pos[b] (int32) and an optional per-stream
+// live byte, as kvpos <= pos[b] && kvpos < W && live[b].  Those keys are
+// the prefix [0, min(pos[b], W-1)] of the ring, so the key loop stops
+// there: slots past a stream's depth are never read, where the Pallas
+// kernel reads and masks every tile.  A dead stream (live[b] == 0) has
+// no keys, reads no cache and writes exact zeros.
+//
+// In both, the rep = H / KV q-heads of a kv-head share one pass over its
+// cache; int8 caches are dequantised in registers by kv_scale
+// (device-memory traffic stays at the int8 byte count); logit softcap is
+// supported.  A row that sees no key gives the guarded 0, never NaN
+// (m_safe, denominator at least 1e-30), as the TPU kernels do.
 //
 // Bound: bytes.  Each cache element read feeds 2 * rep flops, far below
-// the card's ridge point; the least time is reading both caches once.
+// the card's ridge point; the least time is reading both caches' valid
+// slots once.
 //
 // Design: one block per (batch, kv-head), four warps splitting the cache
 // positions in chunks of 4 keys.  Lanes split the head dimension (dim d
@@ -53,13 +67,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Where a key's validity comes from: a (B, W) uint8 mask with row stride
+// mask_stride (0 broadcasts one row), or, with kPool, the stream's ring
+// position pos[b] and live byte (live == nullptr: every stream is live).
+struct Validity {
+  const uint8_t* mask;
+  long long mask_stride;
+  const int* pos;
+  const uint8_t* live;
+};
+
 // T: type of q and out; C: type of the caches (T, or int8 with kv_scale);
-// R: q-head rows handled per pass over the cache.
-template <typename T, typename C, int D, int R>
+// R: q-head rows handled per pass over the cache; kPool: validity from
+// (pos, live) instead of the mask.
+template <typename T, typename C, int D, int R, bool kPool>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
-                    const C* __restrict__ vc,
-                    const uint8_t* __restrict__ mask, long long mask_stride,
+                    const C* __restrict__ vc, Validity valid,
                     T* __restrict__ out, int width, int heads, int kv_heads,
                     float softcap, float scale, float kv_scale) {
   constexpr int kPer = D / 32;
@@ -71,7 +95,14 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   const int kvh = blockIdx.x;
   const long long b = blockIdx.y;
   const int rep = heads / kv_heads;
-  const uint8_t* mrow = mask + b * mask_stride;
+  const uint8_t* mrow = kPool ? nullptr : valid.mask + b * valid.mask_stride;
+  // keys [0, nkeys) are the only ones read; with kPool all of them are
+  // valid, so a dead stream (nkeys = 0) writes 0 / max(0, 1e-30) = 0
+  int nkeys = width;
+  if (kPool) {
+    const bool alive = valid.live == nullptr || valid.live[b] != 0;
+    nkeys = alive ? max(0, min(valid.pos[b], width - 1) + 1) : 0;
+  }
 
   for (int h0 = 0; h0 < rep; h0 += R) {
     const int rows = min(R, rep - h0);
@@ -88,15 +119,15 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
       l[r] = 0.f;
     }
 
-    for (int base = warp * kChunk; base < width; base += kWarps * kChunk) {
+    for (int base = warp * kChunk; base < nkeys; base += kWarps * kChunk) {
       float sc[kChunk][R];
       bool ok[kChunk];
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         const int key = base + c;
-        ok[c] = key < width && mrow[key] != 0;
+        ok[c] = key < nkeys && (kPool || mrow[key] != 0);
         float kval[kPer];
-        const C* kp = kc + ((b * width + min(key, width - 1)) * kv_heads + kvh) * D;
+        const C* kp = kc + ((b * width + min(key, nkeys - 1)) * kv_heads + kvh) * D;
 #pragma unroll
         for (int j = 0; j < kPer; ++j) kval[j] = load_kv(kp + lane + 32 * j, kv_scale);
 #pragma unroll
@@ -132,7 +163,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         const int key = base + c;
-        const C* vp = vc + ((b * width + min(key, width - 1)) * kv_heads + kvh) * D;
+        const C* vp = vc + ((b * width + min(key, nkeys - 1)) * kv_heads + kvh) * D;
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           const float vval = load_kv(vp + lane + 32 * j, kv_scale);
@@ -171,58 +202,87 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   }
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool kPool>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        const uint8_t* mask, long long mask_stride, void* out,
-                        int batch, int width, int heads, int kv_heads,
-                        float softcap, float scale, float kv_scale,
-                        cudaStream_t s) {
+                        Validity valid, void* out, int batch, int width,
+                        int heads, int kv_heads, float softcap, float scale,
+                        float kv_scale, cudaStream_t s) {
   const dim3 grid(kv_heads, batch);
   const int rep = heads / kv_heads;
   if (rep <= 2) {
-    flash_decode_kernel<T, C, D, 2><<<grid, kWarps * 32, 0, s>>>(
+    flash_decode_kernel<T, C, D, 2, kPool><<<grid, kWarps * 32, 0, s>>>(
         static_cast<const T*>(q), static_cast<const C*>(k),
-        static_cast<const C*>(v), mask, mask_stride, static_cast<T*>(out),
-        width, heads, kv_heads, softcap, scale, kv_scale);
+        static_cast<const C*>(v), valid, static_cast<T*>(out), width, heads,
+        kv_heads, softcap, scale, kv_scale);
   } else {
-    flash_decode_kernel<T, C, D, 8><<<grid, kWarps * 32, 0, s>>>(
+    flash_decode_kernel<T, C, D, 8, kPool><<<grid, kWarps * 32, 0, s>>>(
         static_cast<const T*>(q), static_cast<const C*>(k),
-        static_cast<const C*>(v), mask, mask_stride, static_cast<T*>(out),
-        width, heads, kv_heads, softcap, scale, kv_scale);
+        static_cast<const C*>(v), valid, static_cast<T*>(out), width, heads,
+        kv_heads, softcap, scale, kv_scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T, typename C>
+template <typename T, typename C, bool kPool>
 cudaError_t launch_dims(const void* q, const void* k, const void* v,
-                        const uint8_t* mask, long long mask_stride, void* out,
-                        int batch, int width, int heads, int kv_heads,
-                        int head_dim, float softcap, float scale,
-                        float kv_scale, cudaStream_t s) {
+                        Validity valid, void* out, int batch, int width,
+                        int heads, int kv_heads, int head_dim, float softcap,
+                        float scale, float kv_scale, cudaStream_t s) {
   switch (head_dim) {
     case 64:
-      return launch_rows<T, C, 64>(q, k, v, mask, mask_stride, out, batch,
-                                   width, heads, kv_heads, softcap, scale,
-                                   kv_scale, s);
+      return launch_rows<T, C, 64, kPool>(q, k, v, valid, out, batch, width,
+                                          heads, kv_heads, softcap, scale,
+                                          kv_scale, s);
     case 128:
-      return launch_rows<T, C, 128>(q, k, v, mask, mask_stride, out, batch,
-                                    width, heads, kv_heads, softcap, scale,
-                                    kv_scale, s);
+      return launch_rows<T, C, 128, kPool>(q, k, v, valid, out, batch, width,
+                                           heads, kv_heads, softcap, scale,
+                                           kv_scale, s);
     case 256:
-      return launch_rows<T, C, 256>(q, k, v, mask, mask_stride, out, batch,
-                                    width, heads, kv_heads, softcap, scale,
-                                    kv_scale, s);
+      return launch_rows<T, C, 256, kPool>(q, k, v, valid, out, batch, width,
+                                           heads, kv_heads, softcap, scale,
+                                           kv_scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <bool kPool>
+cudaError_t launch_types(const void* q, const void* k, const void* v,
+                         Validity valid, void* out, int batch, int width,
+                         int heads, int kv_heads, int head_dim, float softcap,
+                         float scale, float kv_scale, int dtype,
+                         int cache_dtype, cudaStream_t s) {
+  if (dtype == 0 && cache_dtype == 0) {
+    return launch_dims<float, float, kPool>(q, k, v, valid, out, batch,
+                                            width, heads, kv_heads, head_dim,
+                                            softcap, scale, kv_scale, s);
+  }
+  if (dtype == 1 && cache_dtype == 1) {
+    return launch_dims<__nv_bfloat16, __nv_bfloat16, kPool>(
+        q, k, v, valid, out, batch, width, heads, kv_heads, head_dim,
+        softcap, scale, kv_scale, s);
+  }
+  if (dtype == 0 && cache_dtype == 2) {
+    return launch_dims<float, int8_t, kPool>(q, k, v, valid, out, batch,
+                                             width, heads, kv_heads,
+                                             head_dim, softcap, scale,
+                                             kv_scale, s);
+  }
+  if (dtype == 1 && cache_dtype == 2) {
+    return launch_dims<__nv_bfloat16, int8_t, kPool>(
+        q, k, v, valid, out, batch, width, heads, kv_heads, head_dim,
+        softcap, scale, kv_scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  cache_dtype: the same
-// code as dtype, or 2 = int8 dequantised by kv_scale.  mask is uint8
-// (B, W) with row stride mask_stride (0 broadcasts one row).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// code as dtype, or 2 = int8 dequantised by kv_scale.  Both entry points
+// return cudaGetLastError() after the launch (0 on success).
+
+// mask is uint8 (B, W) with row stride mask_stride (0 broadcasts one row).
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* mask,
                                    long long mask_stride, void* out,
@@ -230,25 +290,26 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int kv_heads, int head_dim, float softcap,
                                    float scale, float kv_scale, int dtype,
                                    int cache_dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && cache_dtype == 0) {
-    err = launch_dims<float, float>(q, k, v, m, mask_stride, out, batch,
-                                    width, heads, kv_heads, head_dim,
-                                    softcap, scale, kv_scale, s);
-  } else if (dtype == 1 && cache_dtype == 1) {
-    err = launch_dims<__nv_bfloat16, __nv_bfloat16>(
-        q, k, v, m, mask_stride, out, batch, width, heads, kv_heads,
-        head_dim, softcap, scale, kv_scale, s);
-  } else if (dtype == 0 && cache_dtype == 2) {
-    err = launch_dims<float, int8_t>(q, k, v, m, mask_stride, out, batch,
-                                     width, heads, kv_heads, head_dim,
-                                     softcap, scale, kv_scale, s);
-  } else if (dtype == 1 && cache_dtype == 2) {
-    err = launch_dims<__nv_bfloat16, int8_t>(
-        q, k, v, m, mask_stride, out, batch, width, heads, kv_heads,
-        head_dim, softcap, scale, kv_scale, s);
-  }
-  return static_cast<int>(err);
+  const Validity valid{static_cast<const uint8_t*>(mask), mask_stride,
+                       nullptr, nullptr};
+  return static_cast<int>(launch_types<false>(
+      q, k, v, valid, out, batch, width, heads, kv_heads, head_dim, softcap,
+      scale, kv_scale, dtype, cache_dtype, static_cast<cudaStream_t>(stream)));
+}
+
+// pos is int32 (B,), the ring position of each stream's newest key; live
+// is uint8 (B,) or null (every stream live).
+extern "C" int pool_flash_decode_launch(const void* q, const void* k,
+                                        const void* v, const void* pos,
+                                        const void* live, void* out,
+                                        int batch, int width, int heads,
+                                        int kv_heads, int head_dim,
+                                        float softcap, float scale,
+                                        float kv_scale, int dtype,
+                                        int cache_dtype, void* stream) {
+  const Validity valid{nullptr, 0, static_cast<const int*>(pos),
+                       static_cast<const uint8_t*>(live)};
+  return static_cast<int>(launch_types<true>(
+      q, k, v, valid, out, batch, width, heads, kv_heads, head_dim, softcap,
+      scale, kv_scale, dtype, cache_dtype, static_cast<cudaStream_t>(stream)));
 }

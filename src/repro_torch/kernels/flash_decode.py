@@ -1,30 +1,68 @@
 """CUDA single-token decode attention (``csrc/flash_decode.cu``).
 
-Replaces the Pallas TPU kernel ``repro.kernels.flash_decode.flash_decode``:
-one query row per stream over a (B, W, KV, D) ring cache with an explicit
-(B, W) validity mask; the rep q-heads of a kv-head share one pass; int8
-caches are dequantised in the kernel by ``kv_scale``.
-``kernels.ops.decode_attention`` calls this for CUDA tensors and
-``ref.decode_attention_ref`` for CPU tensors.
+``flash_decode`` replaces the Pallas TPU kernel
+``repro.kernels.flash_decode.flash_decode``: one query row per stream
+over a (B, W, KV, D) ring cache with an explicit (B, W) validity mask.
+``pool_flash_decode`` replaces ``repro.kernels.flash_decode.
+pool_flash_decode``, the slot-pool decode: validity comes from each
+stream's (B,) ring position and optional (B,) live flag, and the kernel
+reads only the slots at depth <= pos.  In both, the rep q-heads of a
+kv-head share one pass and int8 caches are dequantised in the kernel by
+``kv_scale``.  ``kernels.ops.decode_attention`` and
+``kernels.ops.pool_decode_attention`` call these for CUDA tensors and
+the plain versions in ``ref`` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels.build import Kernel, dtype_code, require_cuda
 
-KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,  # mask, stride, out
+_SHAPE_ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, W, H
     ctypes.c_int, ctypes.c_int,                          # KV, D
     ctypes.c_float, ctypes.c_float, ctypes.c_float,      # softcap, scale, kv_scale
     ctypes.c_int, ctypes.c_int,                          # dtype, cache dtype
+]
+KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,  # mask, stride, out
+    *_SHAPE_ARGS,
+])
+POOL_KERNEL = Kernel("flash_decode.cu", "pool_flash_decode_launch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # pos, live, out
+    *_SHAPE_ARGS,
 ])
 HEAD_DIMS = (64, 128, 256)
+
+
+def _check(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor, kv_scale: float):
+    """(dtype code, cache dtype code) of a decode call; raises on what the
+    kernel does not take."""
+    code = dtype_code(name, q.dtype, (torch.float32, torch.bfloat16))
+    b, h, d = q.shape
+    kv = k_cache.shape[2]
+    if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"{name} needs k and v caches of one shape and "
+                         "dtype")
+    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv:
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_cache.shape)} (GQA needs H % KV == 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {HEAD_DIMS}, got {d}")
+    if (k_cache.dtype == torch.int8) != (kv_scale > 0.0):
+        raise ValueError("int8 caches need kv_scale > 0 and only they take "
+                         "one")
+    if k_cache.dtype not in (q.dtype, torch.int8):
+        raise TypeError(f"cache dtype {k_cache.dtype} with q {q.dtype}")
+    return code, dtype_code(name, k_cache.dtype,
+                            (torch.float32, torch.bfloat16, torch.int8))
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -36,25 +74,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     A mask whose rows are one broadcast row (stride 0) is read as is.
     """
     device = require_cuda("flash_decode", q, k_cache, v_cache, kv_mask)
-    code = dtype_code("flash_decode", q.dtype, (torch.float32, torch.bfloat16))
+    code, cache_code = _check("flash_decode", q, k_cache, v_cache, kv_scale)
     b, h, d = q.shape
     w, kv = k_cache.shape[1], k_cache.shape[2]
-    if v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype:
-        raise ValueError("flash_decode needs k and v caches of one shape "
-                         "and dtype")
-    if k_cache.shape[0] != b or k_cache.shape[3] != d or h % kv:
-        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
-                         f"{tuple(k_cache.shape)} (GQA needs H % KV == 0)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_decode takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if (k_cache.dtype == torch.int8) != (kv_scale > 0.0):
-        raise ValueError("int8 caches need kv_scale > 0 and only they take "
-                         "one")
-    if k_cache.dtype not in (q.dtype, torch.int8):
-        raise TypeError(f"cache dtype {k_cache.dtype} with q {q.dtype}")
-    cache_code = dtype_code("flash_decode", k_cache.dtype,
-                            (torch.float32, torch.bfloat16, torch.int8))
     if kv_mask.shape != (b, w):
         raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != {(b, w)}")
     mask = kv_mask.to(torch.uint8)
@@ -68,4 +90,47 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache.data_ptr(), mask.data_ptr(), mask.stride(0),
                       out.data_ptr(), b, w, h, kv, d, softcap,
                       1.0 / d ** 0.5, kv_scale, code, cache_code)
+    return out
+
+
+def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: torch.Tensor,
+                      live: Optional[torch.Tensor] = None, *,
+                      softcap: float = 0.0,
+                      kv_scale: float = 0.0) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, W, KV, D); pos: (B,) integer ring
+    positions on the card; live: optional (B,) mask (None: all live)
+    -> (B, H, D).
+
+    Stream b attends over ring slots kvpos <= pos[b] (and < W); a stream
+    with live[b] == 0 gives exact zeros.  ``pos`` and ``live`` stay on the
+    card: the kernel reads them, so no host sync is needed.
+    """
+    tensors = (q, k_cache, v_cache, pos) + (() if live is None else (live,))
+    device = require_cuda("pool_flash_decode", *tensors)
+    code, cache_code = _check("pool_flash_decode", q, k_cache, v_cache,
+                              kv_scale)
+    b, h, d = q.shape
+    w, kv = k_cache.shape[1], k_cache.shape[2]
+    if pos.shape != (b,) or (live is not None and live.shape != (b,)):
+        raise ValueError(f"pos {tuple(pos.shape)} and live "
+                         f"{None if live is None else tuple(live.shape)} "
+                         f"must be ({b},)")
+    pos = pos.to(torch.int32).contiguous()
+    live_ptr = 0
+    if live is not None:
+        # the kernel reads one byte per stream (0 = dead): a bool or uint8
+        # mask is passed as it is, anything else is converted
+        if live.dtype not in (torch.bool, torch.uint8):
+            live = live > 0
+        live = live.contiguous()
+        live_ptr = live.data_ptr()
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    out = torch.empty_like(q)
+    if out.numel() and w:
+        POOL_KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
+                           v_cache.data_ptr(), pos.data_ptr(), live_ptr,
+                           out.data_ptr(), b, w, h, kv, d, softcap,
+                           1.0 / d ** 0.5, kv_scale, code, cache_code)
     return out

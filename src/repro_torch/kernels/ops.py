@@ -17,12 +17,13 @@ import torch
 from repro_torch.kernels import (berrut_decode, berrut_matmul,
                                  flash_attention, flash_decode, ref)
 
-# The kernels of the coded serving round, by name.
+# The kernels of the coded serving rounds, batch and slot pool, by name.
 KERNELS = {
     "berrut_apply": berrut_matmul.KERNEL,
     "fused_group_decode": berrut_decode.KERNEL,
     "flash_attention": flash_attention.KERNEL,
     "flash_decode": flash_decode.KERNEL,
+    "pool_flash_decode": flash_decode.POOL_KERNEL,
 }
 
 
@@ -94,3 +95,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return ref.decode_attention_ref(q, k_cache.to(q.dtype),
                                     v_cache.to(q.dtype), kv_mask,
                                     softcap=softcap)
+
+
+def pool_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, pos: torch.Tensor,
+                          live: Optional[torch.Tensor] = None, *,
+                          softcap: float = 0.0,
+                          kv_scale: float = 0.0) -> torch.Tensor:
+    """Slot-pool decode attention: per-stream (B,) ring positions and an
+    optional (B,) live mask instead of a (B, W) mask.  A stream that sees
+    no key (live 0) gives exact zeros on both paths."""
+    if _on_card(q):
+        return flash_decode.pool_flash_decode(
+            q, k_cache, v_cache, pos, live, softcap=softcap,
+            kv_scale=kv_scale)
+    return ref.pool_decode_attention_ref(q, k_cache, v_cache, pos, live,
+                                         softcap=softcap, kv_scale=kv_scale)

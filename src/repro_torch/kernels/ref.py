@@ -106,3 +106,41 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrw,bwgd->bgrd", probs, v_cache.to(torch.float32))
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def pool_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos: torch.Tensor,
+                              live: Optional[torch.Tensor] = None, *,
+                              softcap: float = 0.0,
+                              kv_scale: float = 0.0) -> torch.Tensor:
+    """Slot-pool decode attention: per-stream ring positions instead of a
+    (B, W) mask.
+
+    Stream b sees the ring slots kvpos <= pos[b] (and < W), and none when
+    ``live[b] == 0``; a stream that sees no key returns exact zeros, as
+    the kernel does (the softmax normaliser stays 0 and the output is
+    0 / max(0, 1e-30)).  ``kv_scale > 0`` dequantises int8 caches in fp32.
+
+    q: (B, H, D); caches: (B, W, KV, D); pos: (B,) int; live: (B,).
+    """
+    b, h, d = q.shape
+    w, kv = k_cache.shape[1], k_cache.shape[2]
+    rep = h // kv
+    kf, vf = k_cache.to(torch.float32), v_cache.to(torch.float32)
+    if kv_scale > 0.0:
+        kf, vf = kf / kv_scale, vf / kv_scale
+    qg = q.to(torch.float32).reshape(b, kv, rep, d) * (1.0 / d ** 0.5)
+    scores = torch.einsum("bgrd,bwgd->bgrw", qg, kf)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    ok = torch.arange(w, device=q.device)[None, :] <= pos[:, None]
+    if live is not None:
+        ok = ok & (live > 0)[:, None]
+    ok = ok[:, None, None, :]                                # (B,1,1,W)
+    scores = torch.where(ok, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    m_safe = torch.where(m <= NEG_INF, 0.0, m)
+    p = torch.where(ok, torch.exp(scores - m_safe), 0.0)
+    out = torch.einsum("bgrw,bwgd->bgrd", p, vf)
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(b, h, d).to(q.dtype)

@@ -2,15 +2,16 @@
 softcap, plus the ring KV cache (port of ``repro.models.attention``).
 
 Ported: ``_qkv``, ``attention_prefill`` with its ring-cache population,
-and the shared-position (scalar ``pos``) branch of ``attention_decode``.
-The per-stream-position branch (slot-pool decode) is not ported yet.
-JAX returns fresh caches; the port writes the caller's cache buffers in
-place, where the reference's serving executors donate them.
+and both branches of ``attention_decode``: one position shared by every
+stream (a Python int), or per-stream positions (a (B,) int tensor on the
+device, the slot-pool decode).  JAX returns fresh caches; the port writes
+the caller's cache buffers in place, where the reference's serving
+executors donate them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -113,16 +114,32 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return _out_project(out, p["wo"]), cache
 
 
-def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: int,
-                     cache: dict) -> Tuple[torch.Tensor, dict]:
-    """One-token decode at a position shared by every stream: x (B, 1, d),
-    ``pos`` a Python int.  Writes the new KV at slot pos % W in place and
-    attends over the slots at depth <= pos."""
-    if not isinstance(pos, int):
-        raise TypeError("the port decodes at one shared int position; "
-                        "per-stream positions are the slot-pool path")
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
+                     cache: dict, live: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode: x (B, 1, d).  ``pos`` is a Python int shared by
+    every stream, or a (B,) int tensor of per-stream positions on x's
+    device (slot-pool continuous batching, DESIGN.md §10).  Writes the
+    new KV at slot pos % W in place and attends over the slots at depth
+    <= pos.  The per-stream branch hands the positions, and the optional
+    (B,) ``live`` mask, to ``ops.pool_decode_attention`` without reading
+    them on the host; ``live`` is ignored with a shared position."""
     w = cache["k"].shape[1]
     kv_scale = INT8_KV_SCALE if cache["k"].dtype == torch.int8 else 0.0
+    if isinstance(pos, torch.Tensor):
+        q, k, v = _qkv(cfg, p, x, pos[:, None])
+        rows = torch.arange(x.shape[0], device=x.device)
+        slot = torch.remainder(pos, w).long()
+        cache["k"][rows, slot] = quantize_kv(k[:, 0], cache["k"].dtype)
+        cache["v"][rows, slot] = quantize_kv(v[:, 0], cache["v"].dtype)
+        out = ops.pool_decode_attention(q[:, 0], cache["k"], cache["v"], pos,
+                                        live,
+                                        softcap=cfg.attn_logit_softcap,
+                                        kv_scale=kv_scale)
+        return _out_project(out, p["wo"])[:, None], cache
+    if not isinstance(pos, int):
+        raise TypeError(f"pos must be an int or a (B,) tensor, got "
+                        f"{type(pos).__name__}")
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(cfg, p, x, positions)
     slot = pos % w

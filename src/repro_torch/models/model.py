@@ -8,7 +8,7 @@ is how the coded serving steps feed coded queries.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,15 +65,21 @@ def prefill(cfg: ModelConfig, params: dict, inputs: dict, caches: list
 
 
 def decode_step(cfg: ModelConfig, params: dict, caches: list, inputs: dict,
-                pos: int) -> Tuple[torch.Tensor, list]:
-    """One decode step at the shared position ``pos``.  inputs:
-    {"tokens": (B, 1)} or {"embeddings": (B, 1, d)}.  Returns (logits
+                pos, live: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, list]:
+    """One decode step.  inputs: {"tokens": (B, 1)} or {"embeddings":
+    (B, 1, d)}; pos: the Python int position shared by every stream, or a
+    (B,) int tensor of per-stream positions on the device (slot-pool
+    continuous batching, DESIGN.md §10); live: optional (B,) slot-live
+    mask handed to the pool attention kernel (a dead stream's attention
+    is exact zeros; its row is masked downstream).  Returns (logits
     (B, V) fp32, caches), the caches written in place."""
     if "embeddings" in inputs:
         x = inputs["embeddings"].to(param_dtype(cfg))
     else:
         x = layers.embed_tokens(cfg, params["embeddings"], inputs["tokens"])
-    x, caches = transformer.decode_runs(cfg, params["blocks"], x, pos, caches)
+    x, caches = transformer.decode_runs(cfg, params["blocks"], x, pos, caches,
+                                        live=live)
     x = layers.apply_norm(cfg, params["final_norm"], x)
     logits = layers.unembed(cfg, params["embeddings"], x)[:, 0]
     return logits.to(torch.float32), caches

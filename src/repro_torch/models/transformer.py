@@ -87,9 +87,10 @@ def block_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
                              layers.apply_norm(cfg, p["norm2"], x)), cache
 
 
-def block_decode(cfg: ModelConfig, p: dict, x, pos: int, cache):
+def block_decode(cfg: ModelConfig, p: dict, x, pos, cache, live=None):
     att, cache = attention.attention_decode(
-        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), pos, cache)
+        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), pos, cache,
+        live=live)
     x = x + att
     return x + mlp.mlp_block(cfg, p["mlp"],
                              layers.apply_norm(cfg, p["norm2"], x)), cache
@@ -104,10 +105,10 @@ def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
     return x, caches
 
 
-def decode_runs(cfg: ModelConfig, blocks: dict, x, pos: int, caches):
+def decode_runs(cfg: ModelConfig, blocks: dict, x, pos, caches, live=None):
     for (_, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
                                         blocks["runs"], caches):
         for i in range(count):
             x, _ = block_decode(cfg, _layer_view(run_p, i), x, pos,
-                                _layer_view(cache, i))
+                                _layer_view(cache, i), live=live)
     return x, caches

@@ -1,4 +1,4 @@
-"""Coded serving steps, batch path (port of the batch half of
+"""Coded serving steps, batch and slot-pool paths (port of
 ``repro.serving.coded_serving``).
 
 Every coded stream owns its own KV cache, so stragglers and Byzantine
@@ -14,6 +14,11 @@ operating point's ``live_mask`` and ``locate_quorum`` are tensors or
 numbers fed to one program, as in the reference.  The reference draws
 Byzantine noise with ``jax.random`` inside the step; here the caller
 passes the noise tensor in, so tests can hand both the same draw.
+
+The slot pool (DESIGN.md §10) keeps ``pool_groups * (N+1)`` coded-stream
+caches for the whole serving run: a group slot is live or free, never a
+different shape.  The reference donates the pool state to its jitted
+steps; here the steps write the pool caches in place.
 """
 
 from __future__ import annotations
@@ -221,6 +226,180 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
                                    with_report, locate_quorum=locate_quorum)
     out = _maybe_sample(logits, sample, generator)
     new_state = CodedServingState(caches=caches, pos=state.pos + 1)
+    if with_report:
+        return out, new_state, report
+    return out, new_state
+
+
+# --------------------------------------------------------- slot pool (§10)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodedPoolState:
+    """Persistent slot-pool serving state.  ``caches`` hold the coded
+    streams of every slot and are written in place by the next step;
+    ``pos`` is the (pool_groups,) int32 next cache position of each group
+    slot, on the caches' device (a group's N+1 streams advance in
+    lockstep)."""
+
+    caches: list                   # pool-wide coded-stream caches
+    pos: torch.Tensor              # (pool_groups,) int32
+
+
+def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
+                    pool_groups: int, max_len: int, device,
+                    cache_dtype=None) -> CodedPoolState:
+    """Allocate the fixed slot pool: ``pool_groups * (N+1)`` zeroed
+    coded-stream caches on ``device`` and zeroed slot positions."""
+    if pool_groups < 1:
+        raise ValueError(f"need pool_groups >= 1, got {pool_groups}")
+    dtype = cache_dtype or getattr(torch, cfg.param_dtype)
+    caches = init_caches(cfg, pool_groups * coding.num_workers, max_len,
+                         dtype, device)
+    return CodedPoolState(caches=caches, pos=torch.zeros(
+        (pool_groups,), dtype=torch.int32, device=device))
+
+
+def _stream_mask(coding: CodingConfig,
+                 group_mask: torch.Tensor) -> torch.Tensor:
+    """(P,) group-slot mask -> (P*(N+1),) group-major coded-stream mask."""
+    return group_mask.repeat_interleave(coding.num_workers)
+
+
+def _merge_caches(pool: list, fresh: list, streams: torch.Tensor) -> None:
+    """Copy the ``streams`` (indices on the stream axis, axis 1 of every
+    (layers, streams, ...) cache leaf) of ``fresh`` into ``pool``, in
+    place; every other stream of the pool is untouched."""
+    for p, f in zip(pool, fresh):
+        for name in p:
+            p[name][:, streams] = f[name][:, streams]
+
+
+def _finish_pool_round(coding: CodingConfig, coded_logits: torch.Tensor,
+                       group_mask: torch.Tensor,
+                       straggler_mask: Optional[torch.Tensor],
+                       with_report: bool, locate_quorum=None):
+    """``_finish_round`` with the active-slot mask composed in: free
+    slots' verdicts and votes are zeroed (their garbage logits must not
+    feed reputation) and so are their decoded rows."""
+    logits, (located, votes) = _finish_round(
+        coding, coded_logits, straggler_mask, with_report=True,
+        locate_quorum=locate_quorum)
+    live = group_mask > 0                                  # (P,)
+    located = located & live[:, None]
+    votes = votes * live[:, None].to(votes.dtype)
+    per_query = group_mask.repeat_interleave(coding.k)     # (P*K,)
+    logits = logits * per_query[:, None].to(logits.dtype)
+    return logits, ((located, votes) if with_report else None)
+
+
+def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
+                       state: CodedPoolState, inputs: dict, admit_mask,
+                       fresh: list,
+                       straggler_mask: Optional[torch.Tensor] = None,
+                       byz_mask: Optional[torch.Tensor] = None,
+                       byz_noise: Optional[torch.Tensor] = None,
+                       byz_sigma: float = 10.0,
+                       with_report: bool = False,
+                       sample: Optional[SampleConfig] = None,
+                       generator: Optional[torch.Generator] = None,
+                       live_mask: Optional[torch.Tensor] = None,
+                       locate_quorum=None):
+    """Prefill admitted group slots into the persistent pool.
+
+    inputs: {"tokens": (P*K, S)} or {"embeddings": ...}, the pool-wide
+    prompt buffer (rows of slots not admitted carry stale prompts).
+    ``admit_mask``: (P,) 0/1 host array (numpy or a CPU tensor) of the
+    slots admitted this round.  The whole pool prefills, as in the
+    reference: at E > 0 the locator pools votes across every row of the
+    round.  Only the admitted streams' caches are copied into the pool
+    (in place; ``state`` is consumed).  ``fresh`` is scratch caches of the
+    pool's shape (``init_caches``), zeroed here and reused across calls.
+    Returns (decoded last-token logits (P*K, V) with rows of slots
+    not admitted zeroed, or with ``sample`` their (P*K,) int32 token
+    ids, and the new state); with ``with_report`` also the admit-masked
+    (located, votes).
+    """
+    straggler_mask = _compose_live(straggler_mask, live_mask)
+    x = embed_inputs(cfg, params, inputs)                 # (P*K, S, d)
+    gk, s, d = x.shape
+    g = gk // coding.k
+    admit = torch.as_tensor(admit_mask, dtype=torch.float32)
+    if admit.device.type != "cpu":
+        raise ValueError("admit_mask is host data (numpy or a CPU tensor)")
+    streams = torch.nonzero(_stream_mask(coding, admit) > 0)[:, 0]
+    admit = admit.to(x.device)
+    coded = _code_streams(coding, x.reshape(g, coding.k, s, d))
+    for cache in fresh:
+        for leaf in cache.values():
+            leaf.zero_()
+    coded_logits, fresh = prefill(cfg, params, {"embeddings": coded}, fresh)
+    _merge_caches(state.caches, fresh, streams.to(x.device))
+    new_pos = torch.where(admit > 0, s, state.pos).to(torch.int32)
+    coded_logits = _real_streams(coding, coded_logits, g)
+    if byz_mask is not None and byz_noise is not None:
+        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
+                                       byz_noise, byz_sigma)
+    logits, report = _finish_pool_round(coding, coded_logits, admit,
+                                        straggler_mask, with_report,
+                                        locate_quorum=locate_quorum)
+    out = _maybe_sample(logits, sample, generator)
+    new_state = CodedPoolState(caches=state.caches, pos=new_pos)
+    if with_report:
+        return out, new_state, report
+    return out, new_state
+
+
+def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
+                           params: dict, state: CodedPoolState,
+                           tokens: torch.Tensor, active_mask,
+                           straggler_mask: Optional[torch.Tensor] = None,
+                           byz_mask: Optional[torch.Tensor] = None,
+                           byz_noise: Optional[torch.Tensor] = None,
+                           byz_sigma: float = 10.0,
+                           with_report: bool = False,
+                           sample: Optional[SampleConfig] = None,
+                           generator: Optional[torch.Generator] = None,
+                           live_mask: Optional[torch.Tensor] = None,
+                           locate_quorum=None):
+    """One decode round over the whole pool.
+
+    tokens: (P*K, 1), the next token of every query row (free slots carry
+    don't-care tokens).  Every stream steps at its own slot's cache
+    position, ``state.pos`` repeated over the slot's N+1 streams and kept
+    on the device; only active slots advance.  Returns (decoded logits
+    (P*K, V) with inactive rows zeroed, or sampled (P*K,) ids with
+    ``sample``, and the new state); with ``with_report`` also the
+    active-masked (located, votes).  ``state`` is consumed.
+    """
+    straggler_mask = _compose_live(straggler_mask, live_mask)
+    x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (P*K,1,d)
+    gk, _, d = x.shape
+    g = gk // coding.k
+    active = torch.as_tensor(active_mask, dtype=torch.float32,
+                             device=x.device)
+    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d))
+    stream_pos = state.pos.repeat_interleave(coding.num_workers)
+    # With E == 0 the locator never reads the coded block, so a free
+    # slot's attention feeds only rows that are zeroed below: the live
+    # mask may reach the kernel, which then reads none of its cache.  With
+    # E > 0 the vote pool reads every row, so free slots attend over their
+    # stale caches exactly as in the reference: live stays None there.
+    stream_live = (_stream_mask(coding, active) > 0 if coding.e == 0
+                   else None)
+    coded_logits, caches = decode_step(cfg, params, state.caches,
+                                       {"embeddings": coded}, stream_pos,
+                                       live=stream_live)
+    coded_logits = _real_streams(coding, coded_logits, g)
+    if byz_mask is not None and byz_noise is not None:
+        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
+                                       byz_noise, byz_sigma)
+    logits, report = _finish_pool_round(coding, coded_logits, active,
+                                        straggler_mask, with_report,
+                                        locate_quorum=locate_quorum)
+    out = _maybe_sample(logits, sample, generator)
+    new_pos = state.pos + (active > 0).to(torch.int32)
+    new_state = CodedPoolState(caches=caches, pos=new_pos)
     if with_report:
         return out, new_state, report
     return out, new_state

@@ -4,22 +4,22 @@
 A dispatched batch runs ``1 + steps`` coded rounds: round 0 is
 ``coded_prefill``, each later round one ``coded_decode_step``.  Every
 round takes its own straggler mask, an optional ``RoundAttack`` that
-corrupts the compromised workers' coded logits before the locator runs,
-and an optional ``locate_quorum``.  Tokens are selected greedily on the
-device; the batch returns the (B, steps + 1) token matrix.
+corrupts the compromised workers' coded logits before the locator runs
+(colluding workers share one noise draw per group), and an optional
+``locate_quorum``.  Tokens are selected greedily on the device; the
+batch returns the (B, steps + 1) token matrix.
 
 The executor is built at its widest operating point; a batch may be
 dispatched at a narrower ``CodingConfig`` of the same K, whose streams
 are a prefix of the wide grid: the rest are held out by a per-stream
 live mask and the decode interpolates through the survivors (the
 reference's masked max-width re-planning).  Pre-traced operating points,
-worker-axis sharding, the event-driven scheduler and its latency model,
-quarantine and controller are not ported yet.
+worker-axis sharding, the batch event-driven scheduler and the
+controller are not ported yet.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -28,35 +28,9 @@ import torch
 from repro_torch.core.berrut import CodingConfig
 from repro_torch.serving.coded_serving import (coded_decode_step,
                                                coded_prefill)
+from repro_torch.serving.failures import RoundAttack
 from repro_torch.serving.sampling import SampleConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class RoundAttack:
-    """One coded dispatch's corruption: ``mask`` (N+1,) marks the workers
-    corrupting this round; each adds ``sigma`` times its own standard
-    normal noise to its coded logits."""
-
-    mask: np.ndarray
-    sigma: float
-
-    @property
-    def active(self) -> bool:
-        return bool(self.mask.sum() > 0)
-
-
-@dataclasses.dataclass(frozen=True)
-class LocateReport:
-    """One round's locator verdicts, host copies, per group."""
-
-    located: np.ndarray               # (G, N+1) bool, vote-gated
-    votes: np.ndarray                 # (G, N+1) int32
-    masks: np.ndarray                 # (G, N+1) decode masks used
-
-    @property
-    def detected(self) -> np.ndarray:
-        """(N+1,) bool — located in at least one group this round."""
-        return self.located.any(axis=0)
+from repro_torch.serving.scheduler import LocateReport
 
 
 class CodedLLMExecutor:
@@ -65,14 +39,13 @@ class CodedLLMExecutor:
     round, so a handle's rounds must run once each, in order."""
 
     def __init__(self, model_cfg, coding: CodingConfig, params: dict,
-                 steps: int, max_len: int, seed: int = 0):
+                 steps: int, max_len: int):
         self.model_cfg = model_cfg
         self.coding = coding
         self.params = params
         self.rounds = 1 + steps
         self.max_len = max_len
         self.device = params["embeddings"]["embed"].device
-        self._noise_gen = torch.Generator(self.device).manual_seed(seed)
 
     def _validate_point(self, point: CodingConfig) -> None:
         if point.k != self.coding.k:
@@ -105,10 +78,9 @@ class CodedLLMExecutor:
         full = self.coding.num_workers
         bm = np.zeros((full,), np.float32)
         bm[:width] = np.asarray(attack.mask, np.float32)[:width]
-        shape = (groups, full, self.model_cfg.vocab_size)
-        noise = torch.randn(shape, generator=self._noise_gen,
-                            device=self.device, dtype=torch.float32)
-        return torch.as_tensor(bm, device=self.device), noise
+        return (torch.as_tensor(bm, device=self.device),
+                attack.noise(groups, full, self.model_cfg.vocab_size,
+                             self.device))
 
     def step(self, handle: dict, round_idx: int, mask: np.ndarray,
              attack: Optional[RoundAttack] = None, locate_quorum=None):

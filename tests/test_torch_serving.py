@@ -189,7 +189,7 @@ def test_executor_tokens_match_reference(model, narrow):
 def test_executor_locates_a_persistent_attacker_and_keeps_order(model):
     _, tc, _, tp = model
     coding = TCoding(k=2, s=1, e=1)
-    ex = CodedLLMExecutor(tc, coding, tp, steps=2, max_len=MAX_LEN, seed=3)
+    ex = CodedLLMExecutor(tc, coding, tp, steps=2, max_len=MAX_LEN)
     h = ex.dispatch(np.zeros((4, PROMPT), np.int32))
     byz = np.zeros(coding.num_workers, np.float32)
     byz[2] = 1.0
@@ -217,10 +217,8 @@ def test_serve_refuses_what_is_not_ported():
         pytest.skip("a CUDA device is present: device=None means it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run(reduced=True)
-    for flag in ("--continuous", "--adaptive"):
-        with pytest.raises(SystemExit):
-            serve.main(["--reduced", "--device", "cpu", flag])
-    for argv in (["--scheme", "parm"], ["--attack", "colluding"]):
+    for argv in (["--adaptive"], ["--scheme", "parm"],
+                 ["--attack", "byzantine"], ["--quarantine"]):
         with pytest.raises(SystemExit):
             serve.main(["--reduced", "--device", "cpu", *argv])
 
