@@ -30,7 +30,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 6. the batch path and 7. the slot pool, at full width and 2 layers, on
    the card and on the CPU with the same weights, prompts, masks and
    noise: decoded logits within tolerance, greedy tokens and locator
-   verdicts equal.
+   verdicts equal;
+8. the same for mamba2-780m, the attention-free family: the chunked SSD
+   scan (``ssd_chunked``) against its plain version at the prefill's
+   shapes (44 coded streams x 256 steps x 48 heads of 64, state 128) and
+   on its variants (an h0 continuation, S = 200, 12 and 1, strong decay,
+   small H and B), the round tail at its ragged vocabulary (50280) with
+   the vote gather, batch serving at E=0 and E=1 and continuous serving
+   at E=1 with quarantine at full width and depth (48 layers, every
+   logit finite, launches held against the table ``PATH_KERNELS``), and
+   both whole-path checks at 2 layers;
+9. one E=1 prefill round and one decode round of each model at full
+   width and depth under ``torch.profiler``: the device time of the
+   kernels, their share of the round's wall time, the largest of them.
+
+Each phase prints its wall time.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -39,7 +53,9 @@ away from the repository's ``src/``, it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -55,20 +71,46 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
 TOL_F32 = 2e-5
 TOL_BF16_ULPS, BF16_ULP = 2.0, 2.0 ** -7
 
-# qwen3-0.6b main path: 4 groups of K=4, S=1, E=1 -> 11 coded streams each
+# main paths: 4 groups of K=4, S=1, E=1 -> 11 coded streams each
 K, S, E, GROUPS = 4, 1, 1, 4
 PROMPT, STEPS = 256, 16
 POOL_GROUPS, POOL_REQUESTS = 4, 32
-LAYERS = 28
 REPLACES = {
     "berrut_apply": "src/repro/kernels/berrut_matmul.py:58",
     "fused_group_decode": "src/repro/kernels/berrut_decode.py:111",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "flash_decode": "src/repro/kernels/flash_decode.py:80",
     "pool_flash_decode": "src/repro/kernels/flash_decode.py:177",
+    "ssd_chunked": "src/repro/kernels/ssd_scan.py:75",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
+SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd_scan.cu"
+# Per architecture: its layers, and the kernels one call of each model
+# pass launches per layer (besides the round's one encode and one tail).
+PATH_KERNELS = {
+    "qwen3-0.6b": {"layers": 28, "prefill": ("flash_attention",),
+                   "decode": ("flash_decode",),
+                   "pool_decode": ("pool_flash_decode",)},
+    "mamba2-780m": {"layers": 48, "prefill": ("ssd_chunked",),
+                    "decode": (), "pool_decode": ()},
+}
+# Which serving run carries each kernel in the ``kernels`` line: its
+# launches come from that run at E=1 (``launches_e0`` at E=0), and
+# ``launches_pool_e1`` from the same architecture's continuous E=1 run.
+CARRIER = {
+    "berrut_apply": ("qwen3-0.6b", "batch"),
+    "fused_group_decode": ("qwen3-0.6b", "batch"),
+    "flash_attention": ("qwen3-0.6b", "batch"),
+    "flash_decode": ("qwen3-0.6b", "batch"),
+    "pool_flash_decode": ("qwen3-0.6b", "continuous"),
+    "ssd_chunked": ("mamba2-780m", "batch"),
+}
+# serving runs: (architecture, path, E); mamba2's pool runs at E=1 only
+RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
+        ("qwen3-0.6b", "continuous", 0), ("qwen3-0.6b", "continuous", E),
+        ("mamba2-780m", "batch", 0), ("mamba2-780m", "batch", E),
+        ("mamba2-780m", "continuous", E)]
 
 
 def emit(obj) -> None:
@@ -193,38 +235,52 @@ class Smoke:
 
     # ------------------------------------------------------------ phases
 
+    def phase(self, name: str, fn, *args):
+        """Run one phase and print its wall time; its failure raises."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": name, "seconds": time.perf_counter() - t0})
+        return out
+
     def run(self):
         print(gpu_line(), flush=True)
         torch = self.torch
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"{torch.cuda.get_device_name(0)}", flush=True)
-        self.build()
+        self.phase("build", self.build)
         for dtype in ("float32", "bfloat16"):
-            self.main_path_kernels(dtype)
-        self.variants()
-        batch, pool = {}, {}
-        for e in (0, E):
-            batch[e] = self.serve(e)
-        for e in (0, E):
-            pool[e] = self.serve_continuous(e)
-        self.whole_path()
-        self.whole_pool_path()
+            self.phase(f"qwen3 kernels {dtype}", self.main_path_kernels,
+                       dtype)
+        self.phase("qwen3 variants", self.variants)
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"mamba2 kernels {dtype}", self.mamba2_kernels, dtype)
+        self.phase("mamba2 variants", self.mamba2_variants)
+        launches = {}
+        for arch, path, e in RUNS:
+            serve = self.serve if path == "batch" else self.serve_continuous
+            launches[arch, path, e] = self.phase(
+                f"{arch} {path} E={e}", serve, arch, e)
+        for arch in PATH_KERNELS:
+            self.phase(f"{arch} round profile", self.profile_rounds, arch)
+        for arch in PATH_KERNELS:
+            self.phase(f"{arch} whole path", self.whole_path, arch)
+            self.phase(f"{arch} whole pool path", self.whole_pool_path, arch)
         entries = []
         for name, res in self.kernels.items():
-            # each kernel's launches on the path it carries: the slot
-            # pool's decode for pool_flash_decode, the batch path for the
-            # others (their pool launches are in the continuous lines)
-            runs = pool if name == "pool_flash_decode" else batch
+            arch, path = CARRIER[name]
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": runs[E][name],
+                "replaces": REPLACES[name],
+                "launches": launches[arch, path, E][name],
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-                "launches_e0": runs[0][name],
-                "launches_pool_e1": pool[E][name],
+                "launches_e0": launches[arch, path, 0][name],
+                "launches_pool_e1": launches[arch, "continuous", E][name],
                 "graph_ms": res["graph_ms"],
             })
+        if sorted(e["name"] for e in entries) != sorted(REPLACES):
+            raise AssertionError(f"kernels measured: {sorted(self.kernels)}")
         emit({"kernels": entries})
         print(gpu_line(), flush=True)
         emit({"ok": True, "device": {
@@ -514,34 +570,187 @@ class Smoke:
                 out["dtype"] = dtype_name
                 emit(out)
 
-    def serve(self, e: int) -> dict:
+    def ssd_inputs(self, b: int, s: int, h: int, p: int, n: int, dtype,
+                   strong: bool = False):
+        """The scan's inputs as the Mamba2 block hands them over: x, b and
+        c strided views of one conv output, dt softplus'd fp32, the
+        model's a_log and d_skip.  ``strong``: a = -16 and dt ~ 5, so the
+        log decay over a chunk reaches ~ -10^4 and exp(L) underflows."""
+        torch = self.torch
+        fn = torch.nn.functional
+        din = h * p
+        xbc = fn.silu(self.randn(b, s, din + 2 * n)).to(dtype)
+        dt = fn.softplus(self.randn(b, s, h) + (5.0 if strong else 0.0))
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=self.dev))
+        if strong:
+            a_log = torch.full_like(a_log, math.log(16.0))
+        return (xbc[..., :din].unflatten(-1, (h, p)), dt, a_log,
+                xbc[..., din:din + n], xbc[..., din + n:],
+                torch.ones(h, device=self.dev))
+
+    def mamba2_kernels(self, dtype_name: str):
+        """B7 at the mamba2 prefill's shapes: 44 coded streams (G=4, K=4,
+        S=1, E=1) x 256 steps x 48 heads of 64, state 128."""
+        torch = self.torch
+        from repro_torch.configs import mamba2_780m
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        cfg = mamba2_780m.CONFIG
+        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        args = self.ssd_inputs(b, PROMPT, h, p, n, dtype)
+        x, dt, a_log, bb, cc, d = args
+        chunk = ssd_chunk(cfg.ssm_chunk, PROMPT)
+        (y, hf), (yr, hr) = (ops.ssd(*args),
+                             ref.ssd_chunked_ref(*args, chunk=chunk))
+        out = {"variant": f"ssd_chunked main shape h_final ({dtype_name})"}
+        out.update(self.check(out["variant"], hf, hr, "float32"))
+        emit(out)
+        self.record(
+            "ssd_chunked", dtype_name, [list(x.shape), list(bb.shape)],
+            y, yr, lambda: ops.ssd(*args),
+            lambda: ref.ssd_chunked_ref(*args, chunk=chunk), None,
+            2 * x.numel() * size + hf.numel() * 4 + 2 * bb.numel() * size
+            + dt.numel() * 4 + 2 * h * 4,
+            ssd_ops(b, PROMPT, h, p, n, chunk))
+
+    def mamba2_variants(self):
+        """B7 off the main shape, and B2 at mamba2's ragged vocabulary with
+        the vote gather, both dtypes."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        h, p, n = 48, 64, 128
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            # (what, (B, S, H, P, N), strong decay)
+            for what, shape, strong in (
+                    ("S=200 (plain chunk 8)", (3, 200, h, p, n), False),
+                    ("S=12", (3, 12, h, p, n), False),
+                    ("S=1", (3, 1, h, p, n), False),
+                    ("strong decay", (3, 256, h, p, n), True),
+                    ("B=1 H=1", (1, 64, 1, p, n), False),
+                    ("B=3 H=5", (3, 96, 5, p, n), False),
+                    ("P=32 N=16", (2, 40, 4, 32, 16), False)):
+                args = self.ssd_inputs(*shape, dtype, strong=strong)
+                chunk = ssd_chunk(128, shape[1])
+                (y, hf), (yr, hr) = (ops.ssd(*args, chunk=chunk),
+                                     ref.ssd_chunked_ref(*args, chunk=chunk))
+                res.append((f"ssd_chunked {what} y", y, yr, dtype_name))
+                res.append((f"ssd_chunked {what} h_final", hf, hr,
+                            "float32"))
+            # h0: the second half started from the first half's state
+            args = self.ssd_inputs(4, PROMPT, h, p, n, dtype)
+            y, hf = ops.ssd(*args)
+            half = PROMPT // 2
+            first = [a[:, :half] if a.dim() > 1 else a for a in args]
+            second = [a[:, half:] if a.dim() > 1 else a for a in args]
+            y1, h1 = ops.ssd(*first)
+            y2, h2 = ops.ssd(*second, h0=h1)
+            y2r, h2r = ref.ssd_chunked_ref(*second, h0=h1, chunk=half)
+            res += [("ssd_chunked h0 second half y", y2, y2r, dtype_name),
+                    ("ssd_chunked h0 second half h_final", h2, h2r,
+                     "float32"),
+                    ("ssd_chunked h0 halves = one pass y",
+                     torch.cat([y1, y2], 1), y, dtype_name),
+                    ("ssd_chunked h0 halves = one pass h_final", h2, hf,
+                     "float32")]
+            # B2 over mamba2's vocabulary: 50280 = 392 x 128 + 104
+            cfg = CodingConfig(k=K, s=S, e=E)
+            g = self.randn(GROUPS, cfg.num_workers, 50280, dtype=dtype)
+            m = torch.ones(GROUPS, cfg.num_workers, device=self.dev)
+            for gi, out in zip(range(GROUPS), (2, 9, 0, 10)):
+                m[gi, out] = 0.0                  # one straggler a group
+            a = torch.tensor(cfg.alphas, device=self.dev).float()
+            bt = torch.tensor(cfg.betas, device=self.dev).float()
+            (got, gv), (want, wv) = (
+                ops.fused_group_decode(g, m, a, bt, c_vote=64),
+                ref.fused_group_decode_ref(g, m, a, bt, c_vote=64))
+            if not torch.equal(gv, wv):
+                raise AssertionError("fused_group_decode V=50280 vote "
+                                     "gather differs")
+            res.append(("fused_group_decode V=50280 c_vote=64 per-group "
+                        "masks", got, want, dtype_name))
+            for what, got, want, tol_dtype in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, tol_dtype))
+                emit(out)
+        # B2's time over mamba2's vocabulary, fp32 (the model's dtype)
+        g = g.float()
+        emit({"kernel": "fused_group_decode", "shape": list(g.shape),
+              "vocab": 50280, "c_vote": 64,
+              "ms": self.time_ms(lambda: ops.fused_group_decode(
+                  g, m, a, bt, c_vote=64)),
+              "graph_ms": self.graph_ms(lambda: ops.fused_group_decode(
+                  g, m, a, bt, c_vote=64))})
+
+    def expected_launches(self, arch: str, prefills: int, decodes: int,
+                          pool: bool) -> dict:
+        """Launches of every kernel over ``prefills`` prefill and
+        ``decodes`` decode calls of ``arch``: one encode and one tail per
+        call, and each call's per-layer kernels of ``PATH_KERNELS``."""
+        from repro_torch.kernels import ops
+        table = PATH_KERNELS[arch]
+        out = {name: 0 for name in ops.KERNELS}
+        out["berrut_apply"] = out["fused_group_decode"] = prefills + decodes
+        for name in table["prefill"]:
+            out[name] += table["layers"] * prefills
+        for name in table["pool_decode" if pool else "decode"]:
+            out[name] += table["layers"] * decodes
+        return out
+
+    @contextlib.contextmanager
+    def finite_logits(self, where: str):
+        """Hold every round's coded logits (free slots' streams included)
+        and decoded logits finite, read once after the run: a device-side
+        flag per round, so the run gains no host sync."""
+        torch = self.torch
+        from repro_torch.serving import coded_serving as cs
+        real, flags = cs._finish_round, []
+
+        def checked(coding, coded_logits, *args, **kw):
+            out = real(coding, coded_logits, *args, **kw)
+            flags.append(torch.isfinite(coded_logits).all()
+                         & torch.isfinite(out[0]).all())
+            return out
+
+        cs._finish_round = checked
+        try:
+            yield
+        finally:
+            cs._finish_round = real
+        if not (flags and torch.stack(flags).all().item()):
+            raise AssertionError(f"{where}: a round's logits are not finite")
+
+    def serve(self, arch: str, e: int) -> dict:
+        from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import serve
         requests = GROUPS * K
+        vocab = configs.get_config(arch).vocab_size
+        where = f"{arch} K={K} S={S} E={e}"
         ops.reset_launch_counts()
-        res = serve.run("qwen3-0.6b", reduced=False, requests=requests, k=K,
-                        s=S, e=e, prompt_len=PROMPT, steps=STEPS,
-                        byz_sigma=10.0, seed=0, device="cuda")
-        self.torch.cuda.synchronize()
+        with self.finite_logits(where):
+            res = serve.run(arch, reduced=False, requests=requests, k=K,
+                            s=S, e=e, prompt_len=PROMPT, steps=STEPS,
+                            byz_sigma=10.0, seed=0, device="cuda")
+            self.torch.cuda.synchronize()
         launches = ops.launch_counts()
-        layers = 28
-        expected = {"berrut_apply": 1 + STEPS,
-                    "fused_group_decode": 1 + STEPS,
-                    "flash_attention": layers,
-                    "flash_decode": layers * STEPS,
-                    "pool_flash_decode": 0}
-        emit({"path": f"K={K} S={S} E={e}", "launches": launches,
-              "expected": expected})
+        expected = self.expected_launches(arch, 1, STEPS, pool=False)
+        emit({"path": where, "launches": launches, "expected": expected})
         if launches != expected:
             raise AssertionError(f"launch counts {launches} != {expected}")
         toks = res["tokens"]
         if toks.shape != (requests, 1 + STEPS) or toks.min() < 0 or \
-                toks.max() >= 151936:
+                toks.max() >= vocab:
             raise AssertionError(f"bad token matrix {toks.shape}")
         if e and not (res["precision"] == 1.0 and res["recall"] == 1.0):
             raise AssertionError(f"locator precision {res['precision']} "
                                  f"recall {res['recall']}")
-        emit({"serve": f"K={K} S={S} E={e}",
+        emit({"serve": where,
               "streams": GROUPS * (K + S if e == 0 else 2 * (K + e) + S),
               "prefill_ms": res["round_ms"][0],
               "decode_round_ms_mean": sum(res["round_ms"][1:]) / STEPS,
@@ -551,25 +760,25 @@ class Smoke:
                   [res["precision"], res["recall"]] if e else None)})
         return launches
 
-    def serve_continuous(self, e: int) -> dict:
+    def serve_continuous(self, arch: str, e: int) -> dict:
         """``serve --continuous`` at full width and depth; launches held
         against the executor's own prefill and decode calls."""
+        from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import serve
+        vocab = configs.get_config(arch).vocab_size
+        where = f"{arch} continuous K={K} S={S} E={e}"
         ops.reset_launch_counts()
-        res = serve.run("qwen3-0.6b", reduced=False, requests=POOL_REQUESTS,
-                        k=K, s=S, e=e, prompt_len=PROMPT, steps=STEPS,
-                        byz_sigma=10.0, seed=0, device="cuda",
-                        continuous=True, pool_groups=POOL_GROUPS,
-                        quarantine=e > 0)
-        self.torch.cuda.synchronize()
+        with self.finite_logits(where):
+            res = serve.run(arch, reduced=False, requests=POOL_REQUESTS,
+                            k=K, s=S, e=e, prompt_len=PROMPT, steps=STEPS,
+                            byz_sigma=10.0, seed=0, device="cuda",
+                            continuous=True, pool_groups=POOL_GROUPS,
+                            quarantine=e > 0)
+            self.torch.cuda.synchronize()
         launches = ops.launch_counts()
         pf, dc = res["prefill_calls"], res["decode_calls"]
-        expected = {"berrut_apply": pf + dc, "fused_group_decode": pf + dc,
-                    "flash_attention": LAYERS * pf,
-                    "flash_decode": 0,
-                    "pool_flash_decode": LAYERS * dc}
-        where = f"continuous K={K} S={S} E={e}"
+        expected = self.expected_launches(arch, pf, dc, pool=True)
         emit({"path": where, "launches": launches, "expected": expected})
         if launches != expected or not (pf and dc):
             raise AssertionError(f"{where}: launch counts {launches} != "
@@ -580,7 +789,7 @@ class Smoke:
                                  f"{sorted(res['results'])}")
         for uid, toks in res["results"].items():
             if len(toks) != budgets[uid] or toks.min() < 0 or \
-                    toks.max() >= 151936:
+                    toks.max() >= vocab:
                 raise AssertionError(f"{where}: request {uid} got "
                                      f"{toks.tolist()}, budget "
                                      f"{budgets[uid]}")
@@ -615,15 +824,69 @@ class Smoke:
                                  "another decoded")
         return launches
 
-    def whole_path(self):
-        """Full width, 2 layers: the card against the CPU's plain path on
-        the same weights, prompts, masks and noise."""
+    def profile_rounds(self, arch: str):
+        """One E=1 prefill round and one decode round at full width and
+        depth (G=4, K=4: 44 streams, 256-token prompts) under
+        torch.profiler: the round's wall time (the profiler's host cost
+        included), the device time of its kernels, their share of the
+        wall time, and the kernels that take most of it."""
         torch = self.torch
-        from repro_torch.configs import qwen3_0_6b
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.models.model import init_params
         from repro_torch.serving import coded_serving as cs
-        cfg = qwen3_0_6b.CONFIG.with_updates(num_layers=2)
+        cfg = configs.get_config(arch)
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, PROMPT),
+                               generator=self.gen, device=self.dev)
+        byz = torch.zeros(n1, device=self.dev)
+        byz[5] = 1.0
+        kw = dict(byz_mask=byz, byz_sigma=10.0, with_report=True,
+                  byz_noise=self.randn(GROUPS, n1, cfg.vocab_size))
+        logits, state, _ = cs.coded_prefill(
+            cfg, coding, params, {"tokens": tokens}, PROMPT + 4, **kw)
+        nxt = logits.argmax(-1)[:, None]
+        rounds = {
+            "prefill": lambda: cs.coded_prefill(
+                cfg, coding, params, {"tokens": tokens}, PROMPT + 4, **kw),
+            # the same decode step again each call: caches of fixed shape
+            "decode": lambda: cs.coded_decode_step(
+                cfg, coding, params, state, nxt, **kw)}
+        rounds["decode"]()                                  # warm-up
+        for kind, fn in rounds.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = sorted(
+                ((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
+                  ev.key[:90]) for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA), reverse=True)
+            device_ms = sum(k[0] for k in kernels)
+            emit({"profile": f"{arch} K={K} S={S} E={E} {kind}",
+                  "wall_ms": wall,
+                  "device_ms": device_ms if kernels else None,
+                  "busy_share": device_ms / wall if kernels else None,
+                  "top": [[name, count, ms] for ms, count, name
+                          in kernels[:10]]})
+
+    def whole_path(self, arch: str):
+        """Full width, 2 layers: the card against the CPU's plain path on
+        the same weights, prompts, masks and noise."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_params
+        from repro_torch.serving import coded_serving as cs
+        cfg = configs.get_config(arch).with_updates(num_layers=2)
         coding = CodingConfig(k=K, s=S, e=E)
         n1 = coding.num_workers
         prompt, steps = 64, 4
@@ -660,33 +923,33 @@ class Smoke:
             err = (lg - lc).abs().max().item()
             tol = 1e-4 * max(1.0, lc.abs().max().item())
             worst = max(worst, err / tol)
+            where = f"{arch} whole path round {r}"
             if not err <= tol:
-                raise AssertionError(f"whole path round {r}: logits differ "
-                                     f"by {err} > {tol}")
+                raise AssertionError(f"{where}: logits differ by {err} > "
+                                     f"{tol}")
             if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
-                raise AssertionError(f"whole path round {r}: greedy tokens "
-                                     "differ between cuda and cpu")
+                raise AssertionError(f"{where}: greedy tokens differ "
+                                     "between cuda and cpu")
             if not torch.equal(loc_g, loc_c) or not loc_c[:, 5].all():
-                raise AssertionError(f"whole path round {r}: located "
-                                     "workers differ or miss the attacker")
+                raise AssertionError(f"{where}: located workers differ or "
+                                     "miss the attacker")
             nxt = lc.argmax(-1)[:, None]
-            emit({"whole_path_round": r, "logits_max_abs_diff": err,
+            emit({"whole_path_round": where, "logits_max_abs_diff": err,
                   "tol": tol})
-        emit({"whole_path": "full width, 2 layers, cuda vs cpu",
+        emit({"whole_path": f"{arch} full width, 2 layers, cuda vs cpu",
               "rounds": 1 + steps, "worst_err_over_tol": worst})
 
-
-    def whole_pool_path(self):
+    def whole_pool_path(self, arch: str):
         """The slot pool at full width and 2 layers: the card against the
         CPU's plain path on the same weights, prompts, masks and noise,
         over five pool rounds in which groups are admitted while others
         decode, at E=0 (the live mask reaches the kernel) and E=1."""
         torch = self.torch
-        from repro_torch.configs import qwen3_0_6b
+        from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.models.model import init_caches, init_params
         from repro_torch.serving import coded_serving as cs
-        cfg = qwen3_0_6b.CONFIG.with_updates(num_layers=2)
+        cfg = configs.get_config(arch).with_updates(num_layers=2)
         pool, prompt, max_len = 2, 64, 72
         # (admitted slots, active slots) per round
         rounds = [((0,), ()), ((1,), (0,)), ((), (0, 1)), ((0,), (1,)),
@@ -750,7 +1013,7 @@ class Smoke:
                     err = (lg[rows] - lc[rows]).abs().max().item()
                     tol = 1e-4 * max(1.0, lc[rows].abs().max().item())
                     worst = max(worst, err / tol)
-                    where = f"pool whole path E={e} round {r} {kind}"
+                    where = f"{arch} pool whole path E={e} round {r} {kind}"
                     if not err <= tol:
                         raise AssertionError(f"{where}: live logits differ "
                                              f"by {err} > {tol}")
@@ -766,8 +1029,28 @@ class Smoke:
                     nxt[rows, 0] = lc[rows].argmax(-1)
                     emit({"whole_pool_path": where,
                           "logits_max_abs_diff": err, "tol": tol})
-        emit({"whole_pool_path": "full width, 2 layers, cuda vs cpu",
+        emit({"whole_pool_path": f"{arch} full width, 2 layers, cuda vs cpu",
               "rounds": len(rounds), "worst_err_over_tol": worst})
+
+
+def ssd_chunk(chunk: int, s: int) -> int:
+    """The Mamba2 block's chunk for S steps: min(chunk, S), halved until
+    it divides S (the plain version's tiling)."""
+    q = min(chunk, s)
+    while s % q:
+        q //= 2
+    return q
+
+
+def ssd_ops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
+    """Least operations of the chunked scan at ``chunk``: per (stream,
+    head, chunk) the causal half of the decay-weighted scores applied to
+    x (Q(Q+1)/2 x P multiply-adds), C h_in and the state update (Q N P
+    each) and the decay of the state (P N); per (stream, chunk) the
+    causal half of C B^T, shared by every head (Q(Q+1)/2 x N)."""
+    q, nc = chunk, s // chunk
+    per_head = q * (q + 1) * p + 4 * q * n * p + p * n
+    return b * nc * (h * per_head + q * (q + 1) * n)
 
 
 def _tree_to(tree, device):

@@ -2,10 +2,10 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_0_6b
+from repro_torch.configs import mamba2_780m, qwen3_0_6b
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {"qwen3-0.6b": qwen3_0_6b}
+_MODULES = {"qwen3-0.6b": qwen3_0_6b, "mamba2-780m": mamba2_780m}
 
 
 def list_archs() -> list:

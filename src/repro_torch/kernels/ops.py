@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import (berrut_decode, berrut_matmul,
-                                 flash_attention, flash_decode, ref)
+                                 flash_attention, flash_decode, ref,
+                                 ssd_scan)
 
 # The kernels of the coded serving rounds, batch and slot pool, by name.
 KERNELS = {
@@ -24,6 +25,7 @@ KERNELS = {
     "flash_attention": flash_attention.KERNEL,
     "flash_decode": flash_decode.KERNEL,
     "pool_flash_decode": flash_decode.POOL_KERNEL,
+    "ssd_chunked": ssd_scan.KERNEL,
 }
 
 
@@ -111,3 +113,24 @@ def pool_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             kv_scale=kv_scale)
     return ref.pool_decode_attention_ref(q, k_cache, v_cache, pos, live,
                                          softcap=softcap, kv_scale=kv_scale)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+        h0: Optional[torch.Tensor] = None, chunk: int = 128):
+    """Mamba2 chunked SSD scan: x (B, S, H, P), dt (B, S, H), b and c
+    (B, S, N), a_log and d_skip (H,), optional h0 (B, H, P, N).  Returns
+    (y in x's dtype, h_final fp32).  ``chunk`` is the plain version's
+    chunk; the kernel tiles S its own way, which the chunked algebra
+    allows."""
+    if _on_card(x):
+        return ssd_scan.ssd_chunked(x, dt, a_log, b, c, d_skip, h0=h0)
+    return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, h0=h0, chunk=chunk)
+
+
+def ssd_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+             a_log: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+             d_skip: torch.Tensor):
+    """Single-token SSD state update, plain PyTorch on every device as in
+    the reference (elementwise work and one small contraction)."""
+    return ref.ssd_step_ref(h, x_t, dt_t, a_log, b_t, c_t, d_skip)

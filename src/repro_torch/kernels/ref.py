@@ -144,3 +144,111 @@ def pool_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bgrw,bwgd->bgrd", p, vf)
     out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------- Mamba2 SSD
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None):
+    """Sequential (exact) SSD recurrence, the oracle of the chunked form.
+
+    x: (B, S, H, P) inputs per head; dt: (B, S, H) softplus'd step
+    sizes; a_log: (H,) log of -A (A = -exp(a_log)); b, c: (B, S, N)
+    input / output projections (one group, broadcast over heads);
+    d_skip: (H,); h0: (B, H, P, N) initial state.  Returns
+    (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) fp32).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    dtf = dt.to(torch.float32)
+    decay = torch.exp(-torch.exp(a_log.to(torch.float32))[None, None, :]
+                      * dtf)                               # (B, S, H)
+    xbar = x.to(torch.float32) * dtf[..., None]
+    bf, cf = b.to(torch.float32), c.to(torch.float32)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if h0 is None
+             else h0.to(torch.float32))
+    ys = []
+    for t in range(s):
+        state = state * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bn->bhpn", xbar[:, t], bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, 1) + x.to(torch.float32) \
+        * d_skip.to(torch.float32)[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                    h0: Optional[torch.Tensor] = None, chunk: int = 128):
+    """Chunked (matmul-form) SSD, the algorithm of ``ssd_chunked``; the
+    plain version of the CUDA kernel.  Shapes as ``ssd_scan_ref``;
+    ``min(chunk, S)`` must divide S.
+
+    Per chunk of Q steps with L the in-chunk cumulative log decay:
+    y_t = sum_{tau <= t} (c_t . b_tau) exp(L_t - L_tau) dt_tau x_tau
+    + exp(L_t) c_t . h_in + D x_t, and h_out = exp(L_Q) h_in
+    + sum_tau exp(L_Q - L_tau) dt_tau x_tau b_tau^T.  The upper triangle
+    is masked to -1e30 before exp (its gaps are positive and overflow).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    nc = s // q
+    dtf = dt.to(torch.float32)
+    la = -torch.exp(a_log.to(torch.float32))[None, None, :] * dtf
+    xbar = x.to(torch.float32) * dtf[..., None]
+
+    la_c = la.reshape(bsz, nc, q, h)
+    xb_c = xbar.reshape(bsz, nc, q, h, p)
+    b_c = b.to(torch.float32).reshape(bsz, nc, q, n)
+    c_c = c.to(torch.float32).reshape(bsz, nc, q, n)
+
+    lcum = torch.cumsum(la_c, dim=2)                        # (B,NC,Q,H)
+    ltot = lcum[:, :, -1]                                   # (B,NC,H)
+
+    gap = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]   # (B,NC,Q,Q,H)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    att = torch.einsum("bcqn,bctn->bcqt", c_c, b_c)[..., None] * torch.exp(
+        torch.where(tri[None, None, :, :, None], gap, NEG_INF))
+    y_intra = torch.einsum("bcqth,bcthp->bcqhp", att, xb_c)
+
+    decay_to_end = torch.exp(ltot[:, :, None, :] - lcum)    # (B,NC,Q,H)
+    s_chunk = torch.einsum("bcqn,bcqh,bcqhp->bchpn", b_c, decay_to_end,
+                           xb_c)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if h0 is None
+             else h0.to(torch.float32))
+    h_ins = []
+    for ci in range(nc):
+        h_ins.append(state)
+        state = state * torch.exp(ltot[:, ci])[:, :, None, None] \
+            + s_chunk[:, ci]
+    h_in = torch.stack(h_ins, 1)                            # (B,NC,H,P,N)
+
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", c_c, h_in) \
+        * torch.exp(lcum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, s, h, p) + x.to(torch.float32) \
+        * d_skip.to(torch.float32)[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_step_ref(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+                 a_log: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
+                 d_skip: torch.Tensor):
+    """Single-token SSD decode step.
+
+    h: (B, H, P, N) fp32, x_t: (B, H, P), dt_t: (B, H), b_t / c_t: (B, N).
+    Returns (y_t (B, H, P) in x_t's dtype, h_new fp32).
+    """
+    dtf = dt_t.to(torch.float32)
+    decay = torch.exp(-torch.exp(a_log.to(torch.float32))[None, :] * dtf)
+    xb = x_t.to(torch.float32) * dtf[..., None]
+    h_new = h * decay[:, :, None, None] + torch.einsum(
+        "bhp,bn->bhpn", xb, b_t.to(torch.float32))
+    y = torch.einsum("bhpn,bn->bhp", h_new, c_t.to(torch.float32)) \
+        + x_t.to(torch.float32) * d_skip.to(torch.float32)[None, :, None]
+    return y.to(x_t.dtype), h_new

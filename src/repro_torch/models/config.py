@@ -2,7 +2,7 @@
 
 Kept as a copy because importing ``repro.models`` pulls in JAX.  The
 fields are the reference's; derived counts the port does not use yet
-(parameter counts, SSM widths) are left to the slices that need them.
+(parameter counts) are left to the slices that need them.
 """
 
 from __future__ import annotations
@@ -86,6 +86,15 @@ class ModelConfig:
                 f"{len(self.layer_pattern)} != num_layers {self.num_layers}")
         if self.num_heads and self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"{self.name}: heads not a multiple of kv heads")
+
+    # ---- derived ----
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
 
     def with_updates(self, **kw) -> "ModelConfig":
         if "num_layers" in kw and "layer_pattern" not in kw:

@@ -1,5 +1,5 @@
 """Public model API: init / prefill / decode (port of ``repro.models.model``,
-text inputs and dense blocks).
+text inputs, dense attention and Mamba2 blocks).
 
 Inputs are dicts as in the reference: ``{"tokens": (B, S) int}`` or
 ``{"embeddings": (B, S, d)}``; "embeddings" bypasses the token table and

@@ -1,10 +1,10 @@
 """Block composition over runs of layers (port of
-``repro.models.transformer``, dense "A" runs only).
+``repro.models.transformer``: dense "A" and Mamba2 "S" runs).
 
 As in the reference, the layer pattern splits into runs of one block
 kind and each run's parameters and caches are stacked on a leading
 layer axis; the JAX ``scan`` over that axis becomes a Python loop over
-per-layer views.
+per-layer views, which the blocks write in place.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mamba2, mlp
 from repro_torch.models.config import ModelConfig
 
 
@@ -29,13 +29,13 @@ def pattern_runs(pattern: str) -> List[Tuple[str, int]]:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for what the port does not cover yet: blocks other than
-    dense "A", norms other than RMSNorm, MLPs other than SwiGLU, and
-    non-text frontends."""
-    other = set(cfg.layer_pattern) - {"A"}
+    dense "A" and Mamba2 "S", norms other than RMSNorm, MLPs other than
+    SwiGLU, and non-text frontends."""
+    other = set(cfg.layer_pattern) - {"A", "S"}
     if other:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(other)} are not ported yet "
-            "(dense 'A' blocks only)")
+            "(dense 'A' and Mamba2 'S' blocks only)")
     if (cfg.norm_type, cfg.mlp_activation, cfg.modality) != (
             "rmsnorm", "silu", "text"):
         raise NotImplementedError(
@@ -56,29 +56,43 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
+                device) -> dict:
+    if kind == "S":
+        return {"norm": layers.init_norm(cfg, dtype, device),
+                "ssm": mamba2.init_mamba2(cfg, gen, dtype, device)}
+    return {"norm1": layers.init_norm(cfg, dtype, device),
+            "attn": attention.init_attention(cfg, gen, dtype, device),
+            "norm2": layers.init_norm(cfg, dtype, device),
+            "mlp": mlp.init_mlp(cfg, gen, dtype, device)}
+
+
 def init_blocks(cfg: ModelConfig, gen: torch.Generator, dtype,
                 device) -> dict:
     check_ported(cfg)
-    runs = []
-    for _, count in pattern_runs(cfg.layer_pattern):
-        runs.append(_stack([
-            {"norm1": layers.init_norm(cfg, dtype, device),
-             "attn": attention.init_attention(cfg, gen, dtype, device),
-             "norm2": layers.init_norm(cfg, dtype, device),
-             "mlp": mlp.init_mlp(cfg, gen, dtype, device)}
-            for _ in range(count)]))
-    return {"runs": runs}
+    return {"runs": [
+        _stack([_init_block(cfg, kind, gen, dtype, device)
+                for _ in range(count)])
+        for kind, count in pattern_runs(cfg.layer_pattern)]}
 
 
 def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device) -> list:
-    """One cache dict per run, stacked on the run's layer axis."""
+    """One cache dict per run, stacked on the run's layer axis: a ring
+    KV cache for "A", the conv window and fp32 state for "S"."""
     check_ported(cfg)
-    return [attention.init_kv_cache(cfg, batch, max_len, dtype, device, count)
-            for _, count in pattern_runs(cfg.layer_pattern)]
+    return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count)
+            if kind == "S" else
+            attention.init_kv_cache(cfg, batch, max_len, dtype, device, count)
+            for kind, count in pattern_runs(cfg.layer_pattern)]
 
 
-def block_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
+def block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
+                  cache):
+    if kind == "S":
+        y, cache = mamba2.mamba2_prefill(
+            cfg, p["ssm"], layers.apply_norm(cfg, p["norm"], x), cache)
+        return x + y, cache
     att, cache = attention.attention_prefill(
         cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions,
         cache)
@@ -87,7 +101,15 @@ def block_prefill(cfg: ModelConfig, p: dict, x, positions, cache):
                              layers.apply_norm(cfg, p["norm2"], x)), cache
 
 
-def block_decode(cfg: ModelConfig, p: dict, x, pos, cache, live=None):
+def block_decode(cfg: ModelConfig, kind: str, p: dict, x, pos, cache,
+                 live=None):
+    if kind == "S":
+        # the SSM state has no positions: ``pos`` and ``live`` gate
+        # attention only; a free slot's state steps on don't-care tokens
+        # and its rows are masked downstream, as in the reference
+        y, cache = mamba2.mamba2_decode(
+            cfg, p["ssm"], layers.apply_norm(cfg, p["norm"], x), cache)
+        return x + y, cache
     att, cache = attention.attention_decode(
         cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), pos, cache,
         live=live)
@@ -97,18 +119,18 @@ def block_decode(cfg: ModelConfig, p: dict, x, pos, cache, live=None):
 
 
 def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
-    for (_, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
-                                        blocks["runs"], caches):
+    for (kind, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
+                                           blocks["runs"], caches):
         for i in range(count):
-            x, _ = block_prefill(cfg, _layer_view(run_p, i), x, positions,
-                                 _layer_view(cache, i))
+            x, _ = block_prefill(cfg, kind, _layer_view(run_p, i), x,
+                                 positions, _layer_view(cache, i))
     return x, caches
 
 
 def decode_runs(cfg: ModelConfig, blocks: dict, x, pos, caches, live=None):
-    for (_, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
-                                        blocks["runs"], caches):
+    for (kind, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
+                                           blocks["runs"], caches):
         for i in range(count):
-            x, _ = block_decode(cfg, _layer_view(run_p, i), x, pos,
+            x, _ = block_decode(cfg, kind, _layer_view(run_p, i), x, pos,
                                 _layer_view(cache, i), live=live)
     return x, caches

@@ -1,13 +1,13 @@
 """Coded serving steps, batch and slot-pool paths (port of
 ``repro.serving.coded_serving``).
 
-Every coded stream owns its own KV cache, so stragglers and Byzantine
-workers can be masked at any decode step without recomputation.  Shapes:
-G query groups x K real queries; N+1 coded streams per group, laid out
-group-major (stream ``g*(N+1) + n``).  Off a device mesh the reference
-pads no streams and its sharding annotations do nothing, so neither has
-a counterpart here; the worker-major layout waits for the worker-mesh
-slice.
+Every coded stream owns its own cache (KV, or the SSM conv window and
+state), so stragglers and Byzantine workers can be masked at any decode
+step without recomputation.  Shapes: G query groups x K real queries;
+N+1 coded streams per group, laid out group-major (stream
+``g*(N+1) + n``).  Off a device mesh the reference pads no streams and
+its sharding annotations do nothing, so neither has a counterpart here;
+the worker-major layout waits for the worker-mesh slice.
 
 Re-planning stays data, not Python branches: the straggler mask, the
 operating point's ``live_mask`` and ``locate_quorum`` are tensors or

@@ -47,7 +47,7 @@ import torch
 from repro_torch.core.berrut import CodingConfig
 from repro_torch.core.engine import mask_from_completion_times
 from repro_torch.core.scheme import BerrutScheme, as_scheme
-from repro_torch.models.model import init_caches
+from repro_torch.models.model import init_caches, param_dtype
 from repro_torch.serving.batcher import GroupBatcher
 from repro_torch.serving.coded_serving import (coded_pool_decode_step,
                                                coded_pool_prefill,
@@ -157,11 +157,15 @@ class ContinuousLLMExecutor:
         self.call_ms: Dict[str, List[float]] = {"prefill": [], "decode": []}
 
     def init_state(self):
+        # one cache dtype for the pool and its prefill scratch, whatever
+        # leaves the runs' caches have (an SSM run has no "k")
+        dtype = param_dtype(self.model_cfg)
         state = init_pool_state(self.model_cfg, self.coding,
-                                self.pool_groups, self.max_len, self.device)
+                                self.pool_groups, self.max_len, self.device,
+                                cache_dtype=dtype)
         self._fresh = init_caches(
             self.model_cfg, self.pool_groups * self.coding.num_workers,
-            self.max_len, state.caches[0]["k"].dtype, self.device)
+            self.max_len, dtype, self.device)
         return state
 
     def _byz_args(self, attack: Optional[RoundAttack]):
