@@ -595,6 +595,7 @@ class Smoke:
         from repro_torch.configs import mamba2_780m
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
+        from repro_torch.models.mamba2 import ssd_chunk
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
         cfg = mamba2_780m.CONFIG
@@ -614,7 +615,7 @@ class Smoke:
             lambda: ref.ssd_chunked_ref(*args, chunk=chunk), None,
             2 * x.numel() * size + hf.numel() * 4 + 2 * bb.numel() * size
             + dt.numel() * 4 + 2 * h * 4,
-            ssd_ops(b, PROMPT, h, p, n, chunk))
+            ssd_ops(b, PROMPT, h, p, n))
 
     def mamba2_variants(self):
         """B7 off the main shape, and B2 at mamba2's ragged vocabulary with
@@ -622,6 +623,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
+        from repro_torch.models.mamba2 import ssd_chunk
         h, p, n = 48, 64, 128
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
@@ -1033,24 +1035,19 @@ class Smoke:
               "rounds": len(rounds), "worst_err_over_tol": worst})
 
 
-def ssd_chunk(chunk: int, s: int) -> int:
-    """The Mamba2 block's chunk for S steps: min(chunk, S), halved until
-    it divides S (the plain version's tiling)."""
-    q = min(chunk, s)
-    while s % q:
-        q //= 2
-    return q
-
-
-def ssd_ops(b: int, s: int, h: int, p: int, n: int, chunk: int) -> float:
-    """Least operations of the chunked scan at ``chunk``: per (stream,
-    head, chunk) the causal half of the decay-weighted scores applied to
-    x (Q(Q+1)/2 x P multiply-adds), C h_in and the state update (Q N P
-    each) and the decay of the state (P N); per (stream, chunk) the
-    causal half of C B^T, shared by every head (Q(Q+1)/2 x N)."""
-    q, nc = chunk, s // chunk
-    per_head = q * (q + 1) * p + 4 * q * n * p + p * n
-    return b * nc * (h * per_head + q * (q + 1) * n)
+def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
+    """Least operations of the chunked scan, at the power-of-two chunk Q
+    dividing S that needs fewest: per (stream, head, chunk) the causal
+    half of the decay-weighted scores applied to x (Q(Q+1)/2 x P
+    multiply-adds), C h_in and the state update (Q N P each) and the
+    decay of the state (P N); per (stream, chunk) the causal half of
+    C B^T, shared by every head (Q(Q+1)/2 x N).  Per step that is
+    (Q+1) P + 4 N P + N P / Q a head, least near Q = sqrt(N)."""
+    def at(q: int) -> float:
+        per_head = q * (q + 1) * p + 4 * q * n * p + p * n
+        return b * (s // q) * (h * per_head + q * (q + 1) * n)
+    return min(at(1 << i) for i in range(s.bit_length())
+               if s % (1 << i) == 0)
 
 
 def _tree_to(tree, device):

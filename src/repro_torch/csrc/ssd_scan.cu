@@ -294,10 +294,11 @@ ssd_chunked_kernel(const SsdArgs args) {
 template <typename T, int kNJ>
 int launch_nj(const SsdArgs& args, cudaStream_t s) {
   const size_t smem = sizeof(float) * smem_floats(args.p_dim, kNJ * 16);
-  // above 48 KB only once raised, per kernel, to the largest P's need
-  static const cudaError_t raised = cudaFuncSetAttribute(
+  // above 48 KB only once raised; set before every launch, since the
+  // attribute is per device and the current device may change
+  const cudaError_t raised = cudaFuncSetAttribute(
       ssd_chunked_kernel<T, kNJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(float) * smem_floats(128, kNJ * 16)));
+      static_cast<int>(smem));
   if (raised != cudaSuccess) return static_cast<int>(raised);
   const dim3 grid(static_cast<unsigned>(args.heads),
                   static_cast<unsigned>(args.batch));

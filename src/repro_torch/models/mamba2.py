@@ -67,6 +67,15 @@ def _ssd_inputs(cfg: ModelConfig, p: dict, xbc: torch.Tensor,
     return xs, xbc[..., din:din + n], xbc[..., din + n:], dt
 
 
+def ssd_chunk(chunk: int, s: int) -> int:
+    """The plain scan's chunk for S steps: min(chunk, S), halved until it
+    divides S.  The CUDA kernel tiles S its own way and ignores it."""
+    q = min(chunk, s)
+    while s % q:
+        q //= 2
+    return q
+
+
 def mamba2_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """Full-sequence path from a zero state; returns (y (B, S, d), the
     last K-1 raw conv inputs, h_final fp32)."""
@@ -77,10 +86,8 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     xbc_pad = torch.cat([xbc.new_zeros((bsz, k - 1, xbc.shape[-1])), xbc], 1)
     conv = sum(xbc_pad[:, i:i + s] * p["conv_w"][i] for i in range(k))
     xs, b, c, dt = _ssd_inputs(cfg, p, F.silu(conv + p["conv_b"]), dt)
-    chunk = min(cfg.ssm_chunk, s)
-    while s % chunk:
-        chunk //= 2
-    y, h_final = ops.ssd(xs, dt, p["a_log"], b, c, p["d_skip"], chunk=chunk)
+    y, h_final = ops.ssd(xs, dt, p["a_log"], b, c, p["d_skip"],
+                         chunk=ssd_chunk(cfg.ssm_chunk, s))
     out = _gated_out(cfg, p, y.reshape(bsz, s, cfg.ssm_d_inner), z)
     return out, xbc_pad[:, -(k - 1):], h_final
 
