@@ -42,7 +42,22 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    both whole-path checks at 2 layers;
 9. one E=1 prefill round and one decode round of each model at full
    width and depth under ``torch.profiler``: the device time of the
-   kernels, their share of the round's wall time, the largest of them.
+   kernels, their share of the round's wall time, the largest of them;
+10. worker-sharded serving (DESIGN.md §13) on the one card, W = 1: the
+   worker-major encode ``berrut_encode_dispatch`` against its plain
+   version and bitwise against ``berrut_apply`` + the permutation (at
+   the prefill and decode shapes, row slices of the encode matrix,
+   ragged F, I up to 64, 1 and 64 groups, the multihost shape in bf16);
+   worker-major batch E=1 (gather width N+1) and continuous E=1 with
+   quarantine at full width and depth, launches held against the table
+   (B6 once a call, B1 never); ``launch.multihost --mode serve`` at its
+   defaults (qwen3-0.6b in bf16, K=7 S=2 E=0, 8 slots, 128-token
+   prompts, 16 decode steps) through a one-rank NCCL group; the
+   worker-major batch and pool paths at 2 layers against the CPU, E=0
+   and E=1, with exactly the decode quorum surviving, and against the
+   group-major path's tokens; and the round tail's collective branch
+   (survivor and replicated) through a one-rank NCCL group on an E=1
+   round's coded logits, equal to the one-rank path.
 
 Each phase prints its wall time.
 
@@ -77,6 +92,7 @@ PROMPT, STEPS = 256, 16
 POOL_GROUPS, POOL_REQUESTS = 4, 32
 REPLACES = {
     "berrut_apply": "src/repro/kernels/berrut_matmul.py:58",
+    "berrut_encode_dispatch": "src/repro/kernels/berrut_matmul.py:104",
     "fused_group_decode": "src/repro/kernels/berrut_decode.py:111",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "flash_decode": "src/repro/kernels/flash_decode.py:80",
@@ -84,6 +100,7 @@ REPLACES = {
     "ssd_chunked": "src/repro/kernels/ssd_scan.py:75",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["berrut_encode_dispatch"] = "src/repro_torch/csrc/berrut_apply.cu"
 SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd_scan.cu"
 # Per architecture: its layers, and the kernels one call of each model
@@ -95,22 +112,28 @@ PATH_KERNELS = {
     "mamba2-780m": {"layers": 48, "prefill": ("ssd_chunked",),
                     "decode": (), "pool_decode": ()},
 }
-# Which serving run carries each kernel in the ``kernels`` line: its
-# launches come from that run at E=1 (``launches_e0`` at E=0), and
-# ``launches_pool_e1`` from the same architecture's continuous E=1 run.
+# Which serving runs carry each kernel in the ``kernels`` line: (arch,
+# path, E=0 path).  ``launches`` come from the path's run at E=1,
+# ``launches_e0`` from the E=0 path's run and ``launches_pool_e1`` from
+# the path's continuous E=1 run.  The worker-major encode (B6) runs only
+# on the worker-major paths: batch and continuous at E=1, and at E=0 the
+# multihost serve run (K=7 S=2 E=0, bf16).
 CARRIER = {
-    "berrut_apply": ("qwen3-0.6b", "batch"),
-    "fused_group_decode": ("qwen3-0.6b", "batch"),
-    "flash_attention": ("qwen3-0.6b", "batch"),
-    "flash_decode": ("qwen3-0.6b", "batch"),
-    "pool_flash_decode": ("qwen3-0.6b", "continuous"),
-    "ssd_chunked": ("mamba2-780m", "batch"),
+    "berrut_apply": ("qwen3-0.6b", "batch", "batch"),
+    "berrut_encode_dispatch": ("qwen3-0.6b", "batch_wm", "multihost"),
+    "fused_group_decode": ("qwen3-0.6b", "batch", "batch"),
+    "flash_attention": ("qwen3-0.6b", "batch", "batch"),
+    "flash_decode": ("qwen3-0.6b", "batch", "batch"),
+    "pool_flash_decode": ("qwen3-0.6b", "continuous", "continuous"),
+    "ssd_chunked": ("mamba2-780m", "batch", "batch"),
 }
-# serving runs: (architecture, path, E); mamba2's pool runs at E=1 only
+# serving runs: (architecture, path, E); mamba2's pool runs at E=1 only;
+# "_wm": the worker-major layout on one rank
 RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
         ("qwen3-0.6b", "continuous", 0), ("qwen3-0.6b", "continuous", E),
         ("mamba2-780m", "batch", 0), ("mamba2-780m", "batch", E),
-        ("mamba2-780m", "continuous", E)]
+        ("mamba2-780m", "continuous", E),
+        ("qwen3-0.6b", "batch_wm", E), ("qwen3-0.6b", "continuous_wm", E)]
 
 
 def emit(obj) -> None:
@@ -252,22 +275,33 @@ class Smoke:
             self.phase(f"qwen3 kernels {dtype}", self.main_path_kernels,
                        dtype)
         self.phase("qwen3 variants", self.variants)
+        self.phase("berrut_encode_dispatch variants", self.b6_variants)
         for dtype in ("float32", "bfloat16"):
             self.phase(f"mamba2 kernels {dtype}", self.mamba2_kernels, dtype)
         self.phase("mamba2 variants", self.mamba2_variants)
         launches = {}
         for arch, path, e in RUNS:
-            serve = self.serve if path == "batch" else self.serve_continuous
+            serve = (self.serve if path.startswith("batch")
+                     else self.serve_continuous)
             launches[arch, path, e] = self.phase(
-                f"{arch} {path} E={e}", serve, arch, e)
+                f"{arch} {path} E={e}", serve, arch, e,
+                path.endswith("_wm"))
+        launches["qwen3-0.6b", "multihost", 0] = self.phase(
+            "qwen3-0.6b multihost serve", self.multihost)
         for arch in PATH_KERNELS:
             self.phase(f"{arch} round profile", self.profile_rounds, arch)
         for arch in PATH_KERNELS:
             self.phase(f"{arch} whole path", self.whole_path, arch)
             self.phase(f"{arch} whole pool path", self.whole_pool_path, arch)
+        self.phase("qwen3-0.6b whole worker-major path", self.whole_path,
+                   "qwen3-0.6b", True)
+        self.phase("qwen3-0.6b whole worker-major pool path",
+                   self.whole_pool_path, "qwen3-0.6b", True)
+        self.phase("worker tail over one-rank NCCL", self.nccl_tail)
         entries = []
         for name, res in self.kernels.items():
-            arch, path = CARRIER[name]
+            arch, path, path_e0 = CARRIER[name]
+            pool = path.replace("batch", "continuous")
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -275,8 +309,9 @@ class Smoke:
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-                "launches_e0": launches[arch, path, 0][name],
-                "launches_pool_e1": launches[arch, "continuous", E][name],
+                "launches_e0": launches[arch, path_e0, 0][name],
+                "launches_e0_run": f"{arch} {path_e0} E=0",
+                "launches_pool_e1": launches[arch, pool, E][name],
                 "graph_ms": res["graph_ms"],
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES):
@@ -336,6 +371,24 @@ class Smoke:
             lambda: torch.matmul(w.to(dtype), x),
             w.numel() * 4 + (K + n1) * GROUPS * f * size,
             2 * n1 * K * f * GROUPS)
+
+        # B6: the same encode written into the worker-major (N+1)*G rows
+        # (two library calls: the product, then the layout copy)
+        self.b6_check("berrut_encode_dispatch main shape", w, x, dtype_name)
+        self.record(
+            "berrut_encode_dispatch", dtype_name,
+            [list(w.shape), list(x.shape)],
+            ops.berrut_encode_dispatch(w, x),
+            ref.berrut_encode_dispatch_ref(w, x),
+            lambda: ops.berrut_encode_dispatch(w, x),
+            lambda: ref.berrut_encode_dispatch_ref(w, x),
+            lambda: torch.matmul(w.to(dtype), x).transpose(0, 1).reshape(
+                -1, f),
+            w.numel() * 4 + (K + n1) * GROUPS * f * size,
+            2 * n1 * K * f * GROUPS)
+        self.b6_check("berrut_encode_dispatch decode shape", w,
+                      self.randn(GROUPS, K, d, dtype=dtype), dtype_name,
+                      timed=True)
 
         # B2: the round tail over (G, N+1, V) with per-group masks
         grouped = self.randn(GROUPS, n1, v, dtype=dtype)
@@ -425,6 +478,92 @@ class Smoke:
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
             4 * hd * n_read * h)
+
+    def b6_check(self, what: str, w, x, dtype_name: str,
+                 timed: bool = False) -> None:
+        """B6 on (w, x) against its plain version at the tolerance, and
+        bitwise against B1 followed by the worker-major permutation (one
+        kernel, the same fmaf chain); with ``timed`` also its times."""
+        torch = self.torch
+        from repro_torch.kernels import ops, ref
+        got = ops.berrut_encode_dispatch(w, x)
+        permuted = ops.berrut_apply(w, x).transpose(0, 1).reshape(
+            -1, x.shape[-1])
+        torch.cuda.synchronize()
+        if not torch.equal(got, permuted):
+            raise AssertionError(f"{what}: B6 differs from B1 + the "
+                                 "permutation")
+        out = {"variant": what, "dtype": dtype_name,
+               "shape": [list(w.shape), list(x.shape)],
+               "equals_b1_permuted": True}
+        out.update(self.check(what, got, ref.berrut_encode_dispatch_ref(
+            w, x), dtype_name))
+        if timed:
+            o, (g, i, f) = w.shape[0], x.shape
+            size = x.element_size()
+            out["ms"] = self.time_ms(lambda: ops.berrut_encode_dispatch(w, x))
+            out["graph_ms"] = self.graph_ms(
+                lambda: ops.berrut_encode_dispatch(w, x))
+            out["bound_ms"], out["bound_by"] = self.bound(
+                w.numel() * 4 + (i + o) * g * f * size, 2 * o * i * f * g,
+                dtype_name)
+        emit(out)
+
+    def b6_variants(self):
+        """B6 off the main shapes, both dtypes: ragged F, row slices of a
+        16-row encode matrix (a rank's rows), I up to 64, 1 and 64
+        groups; the multihost shape in bf16, timed; a grid too tall."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig, encode_matrix
+        from repro_torch.kernels import berrut_matmul, ops
+        w11 = encode_matrix(CodingConfig(k=K, s=S, e=E),
+                            device=self.dev).float()
+        w16 = encode_matrix(CodingConfig(k=6, s=2, e=1),
+                            device=self.dev).float()       # 16 x 6
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            for f in (1000, 50280):
+                self.b6_check(f"berrut_encode_dispatch ragged F={f}", w11,
+                              self.randn(GROUPS, K, f, dtype=dtype),
+                              dtype_name)
+            x = self.randn(3, 6, 1000, dtype=dtype)
+            full = ops.berrut_encode_dispatch(w16, x)
+            for rows in (1, 2, 4, 8):
+                for r in range(16 // rows):
+                    part = w16[r * rows:(r + 1) * rows]
+                    got = ops.berrut_encode_dispatch(part, x)
+                    if not torch.equal(got, full[r * rows * 3:
+                                                 (r + 1) * rows * 3]):
+                        raise AssertionError(
+                            f"berrut_encode_dispatch rows {r * rows}.."
+                            f"{(r + 1) * rows - 1}: not its slice of the "
+                            "full output")
+                self.b6_check(f"berrut_encode_dispatch O_local={rows} of "
+                              "16 (last rank)", part, x, dtype_name)
+            for i in (1, 7, 33, 64):
+                self.b6_check(f"berrut_encode_dispatch I={i}",
+                              self.randn(16, i), self.randn(
+                                  3, i, 1000, dtype=dtype), dtype_name)
+            for g in (1, 64):
+                self.b6_check(f"berrut_encode_dispatch G={g}", w11,
+                              self.randn(g, K, 1024, dtype=dtype),
+                              dtype_name)
+        # the multihost serve prefill: (9, 7) @ (8 slots, 7, 128 x 1024)
+        w9 = encode_matrix(CodingConfig(k=7, s=2, e=0),
+                           device=self.dev).float()
+        self.b6_check("berrut_encode_dispatch multihost prefill", w9,
+                      self.randn(8, 7, 128 * 1024, dtype=torch.bfloat16),
+                      "bfloat16", timed=True)
+        tall = torch.zeros(berrut_matmul.MAX_GROUPS + 1, 1, 1,
+                           device=self.dev)
+        try:
+            ops.berrut_encode_dispatch(torch.ones(1, 1, device=self.dev),
+                                       tall)
+        except ValueError:
+            emit({"variant": "berrut_encode_dispatch G > grid raises"})
+        else:
+            raise AssertionError("berrut_encode_dispatch took more groups "
+                                 "than its grid holds")
 
     def pool_positions(self, b: int, width: int):
         """(B,) int32 ring positions and (B,) uint8 live flags: most
@@ -690,14 +829,16 @@ class Smoke:
                   g, m, a, bt, c_vote=64))})
 
     def expected_launches(self, arch: str, prefills: int, decodes: int,
-                          pool: bool) -> dict:
+                          pool: bool, worker_major: bool = False) -> dict:
         """Launches of every kernel over ``prefills`` prefill and
-        ``decodes`` decode calls of ``arch``: one encode and one tail per
-        call, and each call's per-layer kernels of ``PATH_KERNELS``."""
+        ``decodes`` decode calls of ``arch``: one encode (B6 when worker-
+        major, else B1) and one tail per call, and each call's per-layer
+        kernels of ``PATH_KERNELS``."""
         from repro_torch.kernels import ops
         table = PATH_KERNELS[arch]
         out = {name: 0 for name in ops.KERNELS}
-        out["berrut_apply"] = out["fused_group_decode"] = prefills + decodes
+        encode = "berrut_encode_dispatch" if worker_major else "berrut_apply"
+        out[encode] = out["fused_group_decode"] = prefills + decodes
         for name in table["prefill"]:
             out[name] += table["layers"] * prefills
         for name in table["pool_decode" if pool else "decode"]:
@@ -708,40 +849,68 @@ class Smoke:
     def finite_logits(self, where: str):
         """Hold every round's coded logits (free slots' streams included)
         and decoded logits finite, read once after the run: a device-side
-        flag per round, so the run gains no host sync."""
+        flag per round, so the run gains no host sync.  The group-major
+        tail is watched at ``_finish_round``, the worker-major one at
+        ``_finish_round_wm`` (coded) and ``_decode_rows`` (decoded, before
+        the sampling on the shard); the first worker-major round's coded
+        logits and mask are kept for ``nccl_tail``."""
         torch = self.torch
+        from repro_torch.launch import worker_mesh as wm
         from repro_torch.serving import coded_serving as cs
-        real, flags = cs._finish_round, []
+        flags, patched = [], []
 
-        def checked(coding, coded_logits, *args, **kw):
-            out = real(coding, coded_logits, *args, **kw)
-            flags.append(torch.isfinite(coded_logits).all()
-                         & torch.isfinite(out[0]).all())
-            return out
+        def watch(module, name, tensors):
+            real = getattr(module, name)
 
-        cs._finish_round = checked
+            def checked(*args, **kw):
+                out = real(*args, **kw)
+                for t in tensors(args, out):
+                    flags.append(torch.isfinite(t).all())
+                return out
+
+            patched.append((module, name, real))
+            setattr(module, name, checked)
+
+        def coded_wm(args, out):
+            if not hasattr(self, "wm_round"):
+                self.wm_round = (args[1].clone(), args[2].clone())
+            return (args[1],)
+
+        watch(cs, "_finish_round", lambda args, out: (args[1], out[0]))
+        watch(cs, "_finish_round_wm", coded_wm)
+        watch(wm, "_decode_rows", lambda args, out: (out,))
         try:
             yield
         finally:
-            cs._finish_round = real
+            for module, name, real in patched:
+                setattr(module, name, real)
         if not (flags and torch.stack(flags).all().item()):
             raise AssertionError(f"{where}: a round's logits are not finite")
 
-    def serve(self, arch: str, e: int) -> dict:
+    def serve(self, arch: str, e: int, worker_major: bool = False) -> dict:
+        """Batch serving through ``serve.run``; worker-major with a gather
+        width of N+1 (every round's S=1 straggler leaves N survivors)."""
         from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops
         from repro_torch.launch import serve
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
         requests = GROUPS * K
         vocab = configs.get_config(arch).vocab_size
-        where = f"{arch} K={K} S={S} E={e}"
+        where = (f"{arch} K={K} S={S} E={e}"
+                 + (" worker-major" if worker_major else ""))
+        wshard = (WorkerShardConfig(gather_width=CodingConfig(
+            k=K, s=S, e=e).num_workers) if worker_major else None)
         ops.reset_launch_counts()
         with self.finite_logits(where):
             res = serve.run(arch, reduced=False, requests=requests, k=K,
                             s=S, e=e, prompt_len=PROMPT, steps=STEPS,
-                            byz_sigma=10.0, seed=0, device="cuda")
+                            byz_sigma=10.0, seed=0, device="cuda",
+                            wshard=wshard)
             self.torch.cuda.synchronize()
         launches = ops.launch_counts()
-        expected = self.expected_launches(arch, 1, STEPS, pool=False)
+        expected = self.expected_launches(arch, 1, STEPS, pool=False,
+                                          worker_major=worker_major)
         emit({"path": where, "launches": launches, "expected": expected})
         if launches != expected:
             raise AssertionError(f"launch counts {launches} != {expected}")
@@ -762,25 +931,32 @@ class Smoke:
                   [res["precision"], res["recall"]] if e else None)})
         return launches
 
-    def serve_continuous(self, arch: str, e: int) -> dict:
-        """``serve --continuous`` at full width and depth; launches held
-        against the executor's own prefill and decode calls."""
+    def serve_continuous(self, arch: str, e: int,
+                         worker_major: bool = False) -> dict:
+        """``serve --continuous`` at full width and depth (worker-major at
+        the default gather width, the scheduler's K+2E wait-for); launches
+        held against the executor's own prefill and decode calls."""
         from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import serve
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
         vocab = configs.get_config(arch).vocab_size
-        where = f"{arch} continuous K={K} S={S} E={e}"
+        where = (f"{arch} continuous K={K} S={S} E={e}"
+                 + (" worker-major" if worker_major else ""))
         ops.reset_launch_counts()
         with self.finite_logits(where):
             res = serve.run(arch, reduced=False, requests=POOL_REQUESTS,
                             k=K, s=S, e=e, prompt_len=PROMPT, steps=STEPS,
                             byz_sigma=10.0, seed=0, device="cuda",
                             continuous=True, pool_groups=POOL_GROUPS,
-                            quarantine=e > 0)
+                            quarantine=e > 0,
+                            wshard=(WorkerShardConfig() if worker_major
+                                    else None))
             self.torch.cuda.synchronize()
         launches = ops.launch_counts()
         pf, dc = res["prefill_calls"], res["decode_calls"]
-        expected = self.expected_launches(arch, pf, dc, pool=True)
+        expected = self.expected_launches(arch, pf, dc, pool=True,
+                                          worker_major=worker_major)
         emit({"path": where, "launches": launches, "expected": expected})
         if launches != expected or not (pf and dc):
             raise AssertionError(f"{where}: launch counts {launches} != "
@@ -880,17 +1056,31 @@ class Smoke:
                   "top": [[name, count, ms] for ms, count, name
                           in kernels[:10]]})
 
-    def whole_path(self, arch: str):
+    def survivors(self, n1: int, quorum: int, gen, keep=()):
+        """(N+1,) mask with exactly ``quorum`` workers up, ``keep`` among
+        them, the rest drawn from ``gen``."""
+        torch = self.torch
+        rest = [i for i in torch.randperm(n1, generator=gen).tolist()
+                if i not in keep]
+        m = torch.zeros(n1)
+        m[list(keep) + rest[:quorum - len(keep)]] = 1.0
+        return m
+
+    def whole_path(self, arch: str, worker_major: bool = False):
         """Full width, 2 layers: the card against the CPU's plain path on
-        the same weights, prompts, masks and noise."""
+        the same weights, prompts, masks and noise.  Worker-major: E=0 and
+        E=1, exactly the decode quorum surviving each round, the card's
+        tokens also held against its group-major path's.  At that bare
+        K+2E quorum some survivor sets leave the locator no majority
+        (ROADMAP C), so there the attacker must be located alike on both
+        devices, not located at all."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
         from repro_torch.models.model import init_params
         from repro_torch.serving import coded_serving as cs
         cfg = configs.get_config(arch).with_updates(num_layers=2)
-        coding = CodingConfig(k=K, s=S, e=E)
-        n1 = coding.num_workers
         prompt, steps = 64, 4
         cpu = torch.device("cpu")
         gen = torch.Generator(cpu).manual_seed(1)
@@ -898,57 +1088,82 @@ class Smoke:
         params["cuda"] = _tree_to(params["cpu"], self.dev)
         tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, prompt),
                                generator=gen)
-        byz = torch.zeros(n1)
-        byz[5] = 1.0
-        stragglers = (1, 4, 7, 10, 2)           # never the attacker
-        states, nxt = {}, None
+        ws = WorkerShardConfig() if worker_major else None
+        runs = [("cpu", cpu, ws), ("cuda", self.dev, ws)]
+        if worker_major:
+            runs.append(("group-major", self.dev, None))
+        kind = " worker-major" if worker_major else ""
         worst = 0.0
-        for r in range(1 + steps):
-            m = torch.ones(n1)
-            m[stragglers[r]] = 0.0
-            noise = torch.randn(GROUPS, n1, cfg.vocab_size, generator=gen)
-            outs = {}
-            for name, dev in (("cpu", cpu), ("cuda", self.dev)):
-                kw = dict(straggler_mask=m.to(dev), byz_mask=byz.to(dev),
-                          byz_noise=noise.to(dev), byz_sigma=10.0,
-                          with_report=True)
-                if r == 0:
-                    logits, states[name], rep = cs.coded_prefill(
-                        cfg, coding, params[name],
-                        {"tokens": tokens.to(dev)}, prompt + steps + 2, **kw)
+        for e in ((0, E) if worker_major else (E,)):
+            coding = CodingConfig(k=K, s=S, e=e)
+            n1 = coding.num_workers
+            byz = torch.zeros(n1)
+            if e:
+                byz[5] = 1.0
+            stragglers = (1, 4, 7, 10, 2)           # never the attacker
+            states, nxt = {}, None
+            for r in range(1 + steps):
+                if worker_major:
+                    m = self.survivors(n1, coding.decode_quorum, gen,
+                                       keep=(5,) if e else ())
                 else:
-                    logits, states[name], rep = cs.coded_decode_step(
-                        cfg, coding, params[name], states[name],
-                        nxt.to(dev), **kw)
-                outs[name] = (logits.float().cpu(), rep[0].cpu())
-            (lc, loc_c), (lg, loc_g) = outs["cpu"], outs["cuda"]
-            err = (lg - lc).abs().max().item()
-            tol = 1e-4 * max(1.0, lc.abs().max().item())
-            worst = max(worst, err / tol)
-            where = f"{arch} whole path round {r}"
-            if not err <= tol:
-                raise AssertionError(f"{where}: logits differ by {err} > "
-                                     f"{tol}")
-            if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
-                raise AssertionError(f"{where}: greedy tokens differ "
-                                     "between cuda and cpu")
-            if not torch.equal(loc_g, loc_c) or not loc_c[:, 5].all():
-                raise AssertionError(f"{where}: located workers differ or "
-                                     "miss the attacker")
-            nxt = lc.argmax(-1)[:, None]
-            emit({"whole_path_round": where, "logits_max_abs_diff": err,
-                  "tol": tol})
-        emit({"whole_path": f"{arch} full width, 2 layers, cuda vs cpu",
-              "rounds": 1 + steps, "worst_err_over_tol": worst})
+                    m = torch.ones(n1)
+                    m[stragglers[r]] = 0.0
+                noise = torch.randn(GROUPS, n1, cfg.vocab_size,
+                                    generator=gen)
+                outs = {}
+                for name, dev, wshard in runs:
+                    kw = dict(straggler_mask=m.to(dev), byz_mask=byz.to(dev),
+                              byz_noise=noise.to(dev), byz_sigma=10.0,
+                              with_report=True, wshard=wshard)
+                    p = params[dev.type]
+                    if r == 0:
+                        logits, states[name], rep = cs.coded_prefill(
+                            cfg, coding, p, {"tokens": tokens.to(dev)},
+                            prompt + steps + 2, **kw)
+                    else:
+                        logits, states[name], rep = cs.coded_decode_step(
+                            cfg, coding, p, states[name], nxt.to(dev), **kw)
+                    outs[name] = (logits.float().cpu(), rep[0].cpu())
+                (lc, loc_c), (lg, loc_g) = outs["cpu"], outs["cuda"]
+                err = (lg - lc).abs().max().item()
+                tol = 1e-4 * max(1.0, lc.abs().max().item())
+                worst = max(worst, err / tol)
+                where = f"{arch}{kind} whole path E={e} round {r}"
+                if not err <= tol:
+                    raise AssertionError(f"{where}: logits differ by {err} "
+                                         f"> {tol}")
+                if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+                    raise AssertionError(f"{where}: greedy tokens differ "
+                                         "between cuda and cpu")
+                if not torch.equal(loc_g, loc_c) or (
+                        e and not worker_major and not loc_c[:, 5].all()):
+                    raise AssertionError(f"{where}: located workers differ "
+                                         "or miss the attacker")
+                if worker_major and not torch.equal(
+                        outs["group-major"][0].argmax(-1), lg.argmax(-1)):
+                    raise AssertionError(f"{where}: worker-major tokens "
+                                         "differ from group-major ones")
+                nxt = lc.argmax(-1)[:, None]
+                emit({"whole_path_round": where, "logits_max_abs_diff": err,
+                      "tol": tol, "survivors": m.nonzero()[:, 0].tolist(),
+                      "attacker_located": (loc_c[:, 5].tolist() if e
+                                           else None)})
+        emit({"whole_path": f"{arch}{kind} full width, 2 layers, cuda vs "
+              "cpu", "rounds": 1 + steps, "worst_err_over_tol": worst})
 
-    def whole_pool_path(self, arch: str):
+    def whole_pool_path(self, arch: str, worker_major: bool = False):
         """The slot pool at full width and 2 layers: the card against the
         CPU's plain path on the same weights, prompts, masks and noise,
         over five pool rounds in which groups are admitted while others
-        decode, at E=0 (the live mask reaches the kernel) and E=1."""
+        decode, at E=0 (the live mask reaches the kernel) and E=1.
+        Worker-major: exactly the decode quorum surviving each round, the
+        card's tokens also held against its group-major path's, and the
+        attacker located alike on both devices (see ``whole_path``)."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
         from repro_torch.models.model import init_caches, init_params
         from repro_torch.serving import coded_serving as cs
         cfg = configs.get_config(arch).with_updates(num_layers=2)
@@ -960,6 +1175,11 @@ class Smoke:
         gen = torch.Generator(cpu).manual_seed(2)
         params = {"cpu": init_params(cfg, gen, cpu)}
         params["cuda"] = _tree_to(params["cpu"], self.dev)
+        ws = WorkerShardConfig() if worker_major else None
+        runs = [("cpu", cpu, ws), ("cuda", self.dev, ws)]
+        if worker_major:
+            runs.append(("group-major", self.dev, None))
+        kind = " worker-major" if worker_major else ""
         worst = 0.0
         for e in (0, E):
             coding = CodingConfig(k=K, s=S, e=e)
@@ -968,16 +1188,20 @@ class Smoke:
             if e:
                 byz[5] = 1.0
             states = {name: cs.init_pool_state(cfg, coding, pool, max_len,
-                                               dev)
-                      for name, dev in (("cpu", cpu), ("cuda", self.dev))}
-            fresh = {name: init_caches(cfg, pool * n1, max_len,
-                                       torch.float32, dev)
-                     for name, dev in (("cpu", cpu), ("cuda", self.dev))}
+                                               dev, wshard=wshard)
+                      for name, dev, wshard in runs}
+            fresh = {name: init_caches(
+                cfg, cs.pool_streams(coding, pool, wshard), max_len,
+                torch.float32, dev) for name, dev, wshard in runs}
             prompts = torch.zeros(pool * K, prompt, dtype=torch.int64)
             nxt = torch.zeros(pool * K, 1, dtype=torch.int64)
             for r, (admitted, active) in enumerate(rounds):
-                m = torch.ones(n1)
-                m[(1, 4, 7, 2, 3)[r] % n1] = 0.0       # never the attacker
+                if worker_major:
+                    m = self.survivors(n1, coding.decode_quorum, gen,
+                                       keep=(5,) if e else ())
+                else:
+                    m = torch.ones(n1)
+                    m[(1, 4, 7, 2, 3)[r] % n1] = 0.0   # never the attacker
                 noise = torch.randn(pool, n1, cfg.vocab_size, generator=gen)
                 calls = []
                 if admitted:
@@ -987,25 +1211,26 @@ class Smoke:
                     calls.append(("prefill", admitted))
                 if active:
                     calls.append(("decode", active))
-                for kind, slots in calls:
+                for call, slots in calls:
                     gm = torch.zeros(pool)
                     gm[list(slots)] = 1.0
                     outs = {}
-                    for name, dev in (("cpu", cpu), ("cuda", self.dev)):
+                    for name, dev, wshard in runs:
                         kw = dict(straggler_mask=m.to(dev),
                                   byz_mask=byz.to(dev),
                                   byz_noise=noise.to(dev), byz_sigma=10.0,
-                                  with_report=True)
-                        if kind == "prefill":
+                                  with_report=True, wshard=wshard)
+                        p = params[dev.type]
+                        if call == "prefill":
                             logits, states[name], rep = \
                                 cs.coded_pool_prefill(
-                                    cfg, coding, params[name], states[name],
+                                    cfg, coding, p, states[name],
                                     {"tokens": prompts.to(dev)}, gm.numpy(),
                                     fresh=fresh[name], **kw)
                         else:
                             logits, states[name], rep = \
                                 cs.coded_pool_decode_step(
-                                    cfg, coding, params[name], states[name],
+                                    cfg, coding, p, states[name],
                                     nxt.to(dev), gm.to(dev), **kw)
                         outs[name] = (logits.float().cpu(), rep[0].cpu(),
                                       states[name].pos.cpu())
@@ -1015,7 +1240,8 @@ class Smoke:
                     err = (lg[rows] - lc[rows]).abs().max().item()
                     tol = 1e-4 * max(1.0, lc[rows].abs().max().item())
                     worst = max(worst, err / tol)
-                    where = f"{arch} pool whole path E={e} round {r} {kind}"
+                    where = (f"{arch}{kind} pool whole path E={e} round {r} "
+                             f"{call}")
                     if not err <= tol:
                         raise AssertionError(f"{where}: live logits differ "
                                              f"by {err} > {tol}")
@@ -1026,13 +1252,112 @@ class Smoke:
                             pos_g, pos_c):
                         raise AssertionError(f"{where}: located workers or "
                                              "slot positions differ")
-                    if e and not loc_c[gm > 0, 5].all():
+                    if e and not worker_major and not loc_c[gm > 0, 5].all():
                         raise AssertionError(f"{where}: attacker not located")
+                    if worker_major and not torch.equal(
+                            outs["group-major"][0][rows].argmax(-1),
+                            lg[rows].argmax(-1)):
+                        raise AssertionError(f"{where}: worker-major tokens "
+                                             "differ from group-major ones")
                     nxt[rows, 0] = lc[rows].argmax(-1)
                     emit({"whole_pool_path": where,
-                          "logits_max_abs_diff": err, "tol": tol})
-        emit({"whole_pool_path": f"{arch} full width, 2 layers, cuda vs cpu",
-              "rounds": len(rounds), "worst_err_over_tol": worst})
+                          "logits_max_abs_diff": err, "tol": tol,
+                          "attacker_located": (loc_c[gm > 0, 5].tolist()
+                                               if e else None)})
+        emit({"whole_pool_path": f"{arch}{kind} full width, 2 layers, cuda "
+              "vs cpu", "rounds": len(rounds), "worst_err_over_tol": worst})
+
+    def multihost(self) -> dict:
+        """``launch.multihost --mode serve`` at its defaults (qwen3-0.6b in
+        bf16, K=7 S=2 E=0: 9 coded streams, 8 slots, 128-token prompts)
+        for STEPS decode steps through its ``main``, on a one-rank NCCL
+        group over a file store: W = 1, the one-rank path.  Launches held
+        against its calls (B6 once a call, B1 never)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import multihost
+        store = ROOT / "build" / "multihost-store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        ops.reset_launch_counts()
+        with self.finite_logits("multihost serve"):
+            res = multihost.main([
+                "--mode", "serve", "--coordinator", f"file://{store}",
+                "--num-processes", "1", "--process-id", "0",
+                "--steps", str(STEPS)])
+            torch.cuda.synchronize()
+        store.unlink(missing_ok=True)
+        launches = ops.launch_counts()
+        expected = self.expected_launches("qwen3-0.6b", 1, STEPS, pool=True,
+                                          worker_major=True)
+        emit({"path": "multihost serve", "launches": launches,
+              "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"multihost serve: launch counts {launches} "
+                                 f"!= {expected}")
+        toks = res["tokens"]
+        if toks.shape != (1 + STEPS, 8 * 7) or toks.min() < 0 or \
+                toks.max() >= 151936:
+            raise AssertionError(f"multihost serve: bad tokens {toks.shape}")
+        ms = res["call_ms"]
+        emit({"serve": "multihost serve qwen3-0.6b bf16 K=7 S=2 E=0 W=1",
+              "streams": 8 * 9, "prefill_ms": ms["prefill"][0],
+              "decode_ms_mean": sum(ms["decode"]) / STEPS,
+              "decode_ms": ms["decode"],
+              "tokens_per_s": toks.size / (sum(ms["prefill"])
+                                           + sum(ms["decode"])) * 1e3})
+        return launches
+
+    def nccl_tail(self):
+        """The round tail's collective branch (survivor at the default
+        width and at N+1, replicated; logits, greedy and top-k tokens)
+        through a one-rank NCCL group, on the first worker-major E=1
+        round's coded logits: equal to the one-rank path's."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch import worker_mesh as wm
+        from repro_torch.models.partitioning import WorkerGroup
+        from repro_torch.serving import coded_serving as cs
+        from repro_torch.serving.sampling import SampleConfig
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        coded, avail = self.wm_round
+        masks, _, _ = cs.locate(coding, coded, avail,
+                                wshard=wm.WorkerShardConfig())
+        block = coded.reshape(n1, GROUPS, -1)
+        store = ROOT / "build" / "nccl-tail-store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                world_size=1, rank=0)
+        try:
+            group = WorkerGroup()
+            total = group.all_reduce(block)
+            if not torch.equal(total, block):
+                raise AssertionError("one-rank NCCL all-reduce changed the "
+                                     "block")
+            for ws in (wm.WorkerShardConfig(),
+                       wm.WorkerShardConfig(gather_width=n1),
+                       wm.WorkerShardConfig(mode="replicated")):
+                for sample in (None, SampleConfig(),
+                               SampleConfig(top_k=3, temperature=0.7)):
+                    outs = []
+                    for g in (None, group):
+                        gen = torch.Generator(self.dev).manual_seed(5)
+                        outs.append(wm._decode_tail(
+                            coding, block, masks, avail, ws, g, None,
+                            sample, gen))
+                    torch.cuda.synchronize()
+                    what = (f"{ws.mode} width {ws.resolved_width(coding)} "
+                            f"{'logits' if sample is None else sample}")
+                    if not torch.equal(*outs):
+                        raise AssertionError(f"NCCL tail {what}: differs "
+                                             "from the one-rank path")
+                    emit({"nccl_tail": what, "equal": True})
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
 
 
 def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:

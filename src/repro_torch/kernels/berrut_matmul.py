@@ -1,8 +1,12 @@
 """CUDA Berrut coded encode/decode contraction (``csrc/berrut_apply.cu``).
 
-Replaces the Pallas TPU kernel ``repro.kernels.berrut_matmul.berrut_apply``.
-``kernels.ops.berrut_apply`` calls this for CUDA tensors and
-``ref.berrut_apply_ref`` for CPU tensors.
+``berrut_apply`` replaces the Pallas TPU kernel
+``repro.kernels.berrut_matmul.berrut_apply``; ``berrut_encode_dispatch``
+replaces ``repro.kernels.berrut_matmul.berrut_encode_dispatch``, the
+same contraction written straight into the worker-major ``o*G + g`` row
+order (a second entry point of the same kernel source).
+``kernels.ops`` calls these for CUDA tensors and the plain versions in
+``ref`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,11 +17,14 @@ import torch
 
 from repro_torch.kernels.build import Kernel, dtype_code, require_cuda
 
-KERNEL = Kernel("berrut_apply.cu", "berrut_apply_launch", [
+_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # w, x, out
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong,       # O, I, F
     ctypes.c_int, ctypes.c_int,                          # groups, dtype
-])
+]
+KERNEL = Kernel("berrut_apply.cu", "berrut_apply_launch", _ARGS)
+DISPATCH_KERNEL = Kernel("berrut_apply.cu", "berrut_encode_dispatch_launch",
+                         _ARGS)
 MAX_DIM = 64            # I: the kernel's register column; O: shared W
 MAX_GROUPS = 65535      # the grid's second dimension
 
@@ -45,3 +52,31 @@ def berrut_apply(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         KERNEL.launch(device, w.data_ptr(), xg.data_ptr(), out.data_ptr(),
                       o_dim, i_dim, f, groups, code)
     return out.reshape(*lead, o_dim, f)
+
+
+def berrut_encode_dispatch(weights: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """(O, I) @ (G, I, F) -> (O*G, F) on the card, row ``o*G + g``, fp32
+    accumulation, output in x's dtype.  ``weights`` may be any row slice
+    of the encode matrix (a worker rank encodes its own streams only)."""
+    device = require_cuda("berrut_encode_dispatch", weights, x)
+    code = dtype_code("berrut_encode_dispatch", x.dtype,
+                      (torch.float32, torch.bfloat16))
+    o_dim, i_dim = weights.shape
+    if x.dim() != 3 or x.shape[1] != i_dim:
+        raise ValueError(f"weights {tuple(weights.shape)} do not contract "
+                         f"with x {tuple(x.shape)} (need (G, I, F))")
+    if o_dim > MAX_DIM or i_dim > MAX_DIM:
+        raise ValueError(f"berrut_encode_dispatch takes O, I <= {MAX_DIM}, "
+                         f"got {o_dim}, {i_dim}")
+    groups, _, f = x.shape
+    if groups > MAX_GROUPS:
+        raise ValueError(f"berrut_encode_dispatch takes at most "
+                         f"{MAX_GROUPS} groups")
+    xg = x.contiguous()
+    w = weights.to(torch.float32).contiguous()
+    out = torch.empty((o_dim * groups, f), dtype=x.dtype, device=device)
+    if out.numel():
+        DISPATCH_KERNEL.launch(device, w.data_ptr(), xg.data_ptr(),
+                               out.data_ptr(), o_dim, i_dim, f, groups, code)
+    return out

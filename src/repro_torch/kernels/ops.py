@@ -21,6 +21,7 @@ from repro_torch.kernels import (berrut_decode, berrut_matmul,
 # The kernels of the coded serving rounds, batch and slot pool, by name.
 KERNELS = {
     "berrut_apply": berrut_matmul.KERNEL,
+    "berrut_encode_dispatch": berrut_matmul.DISPATCH_KERNEL,
     "fused_group_decode": berrut_decode.KERNEL,
     "flash_attention": flash_attention.KERNEL,
     "flash_decode": flash_decode.KERNEL,
@@ -52,6 +53,16 @@ def berrut_apply(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if _on_card(x):
         return berrut_matmul.berrut_apply(weights, x)
     return ref.berrut_apply_ref(weights, x)
+
+
+def berrut_encode_dispatch(weights: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """(O, I) @ (G, I, F) -> (O*G, F) coded streams in the worker-major
+    ``o*G + g`` row order, fp32 accumulation; ``weights`` may be a row
+    slice of the encode matrix."""
+    if _on_card(x):
+        return berrut_matmul.berrut_encode_dispatch(weights, x)
+    return ref.berrut_encode_dispatch_ref(weights, x)
 
 
 def fused_group_decode(grouped: torch.Tensor, masks: torch.Tensor,

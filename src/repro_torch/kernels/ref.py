@@ -25,6 +25,15 @@ def berrut_apply_ref(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                         x.to(torch.float32)).to(x.dtype)
 
 
+def berrut_encode_dispatch_ref(weights: torch.Tensor,
+                               x: torch.Tensor) -> torch.Tensor:
+    """Encode into the worker-major stream layout: (O, I) @ (G, I, F) ->
+    (O*G, F), row ``o*G + g``; ``berrut_apply_ref`` followed by the
+    swap and reshape."""
+    coded = berrut_apply_ref(weights, x)                  # (G, O, F)
+    return coded.transpose(0, 1).reshape(-1, x.shape[-1])
+
+
 def fused_group_decode_ref(grouped: torch.Tensor, masks: torch.Tensor,
                            alphas: torch.Tensor, betas: torch.Tensor, *,
                            c_vote: int = 0):

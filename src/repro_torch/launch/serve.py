@@ -33,8 +33,11 @@ drawn from a torch generator with the same seed.
       --requests 32 --k 4 --s 1 --e 1 --pool-groups 4 --prompt-len 256 \
       --steps 16 --byz-sigma 10 --quarantine
 
-``--adaptive`` and the other redundancy schemes are not ported yet and
-are refused.
+``run(..., wshard=WorkerShardConfig(...))`` serves either path with the
+worker-major stream layout of ``launch.worker_mesh`` (over the active
+worker group, or on one rank); the CLI of several ranks is
+``launch.multihost --mode serve``.  ``--adaptive`` and the other
+redundancy schemes are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -70,10 +73,12 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
         device=None, attack: str = "persistent", attack_rate: float = 1.0,
         continuous: bool = False, pool_groups: int = 4,
         rate_rps: float = 2000.0, flush_deadline_ms: float = 5.0,
-        quarantine: bool = False, churn: bool = False) -> dict:
+        quarantine: bool = False, churn: bool = False,
+        wshard=None) -> dict:
     """Serve ``requests`` random prompts, as one coded batch or (with
-    ``continuous``) through the slot pool.  Returns a dict of what the run
-    measured; see ``_run_batch`` and ``_run_continuous``."""
+    ``continuous``) through the slot pool, worker-major with ``wshard``.
+    Returns a dict of what the run measured; see ``_run_batch`` and
+    ``_run_continuous``."""
     device = resolve_device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
     coding = CodingConfig(k=k, s=s, e=e)
@@ -91,16 +96,17 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
                                adversary, device, seed=seed,
                                pool_groups=pool_groups, rate_rps=rate_rps,
                                flush_deadline_ms=flush_deadline_ms,
-                               quarantine=quarantine, churn=churn)
+                               quarantine=quarantine, churn=churn,
+                               wshard=wshard)
     if quarantine or churn:
         raise ValueError("--quarantine and --churn run on the event clock "
                          "of --continuous")
     return _run_batch(cfg, coding, params, prompts, rng, steps, adversary,
-                      device)
+                      device, wshard)
 
 
 def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
-               device) -> dict:
+               device, wshard) -> dict:
     """The (requests, steps + 1) token matrix, per-round wall times (ms,
     each ending in a device sync), tokens/s, the stragglers and located
     workers of each round, and the locator's precision and recall
@@ -113,11 +119,13 @@ def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
     if s > n1:
         raise ValueError(f"cannot straggle {s} of {n1} workers")
     executor = CodedLLMExecutor(cfg, coding, params, steps=steps,
-                                max_len=prompts.shape[1] + steps + 2)
+                                max_len=prompts.shape[1] + steps + 2,
+                                wshard=wshard)
     adversary = make_adversary(coding, adversary_cfg)
     print(f"serving {requests} requests of {prompts.shape[1]} tokens on "
           f"{device} ({cfg.name}): {requests // k} groups of K={k} x "
           f"{n1} coded streams, S={s} E={e}"
+          + (", worker-major" if wshard is not None else "")
           + (f", {adversary_cfg.kind} attacker on workers "
              f"{adversary.workers.tolist()} at sigma {adversary_cfg.sigma}"
              if adversary is not None else ""))
@@ -171,7 +179,7 @@ def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
 
 def _run_continuous(cfg, coding, params, prompts, rng, steps, adversary_cfg,
                     device, *, seed, pool_groups, rate_rps,
-                    flush_deadline_ms, quarantine, churn) -> dict:
+                    flush_deadline_ms, quarantine, churn, wshard) -> dict:
     """Per-uid generated tokens (``results``) and budgets, the scheduler's
     event ``trace`` and ``metrics`` (event clock), the number of pool
     rounds and of prefill / decode calls, each call's wall time (ms,
@@ -182,7 +190,7 @@ def _run_continuous(cfg, coding, params, prompts, rng, steps, adversary_cfg,
         cfg, coding, params, pool_groups=pool_groups,
         max_len=prompts.shape[1] + steps + 2,
         byz_collude=(adversary_cfg is not None
-                     and adversary_cfg.kind == "colluding"))
+                     and adversary_cfg.kind == "colluding"), wshard=wshard)
     e = coding.e
     sched = ContinuousScheduler(
         ContinuousConfig(
@@ -199,6 +207,7 @@ def _run_continuous(cfg, coding, params, prompts, rng, steps, adversary_cfg,
           f"{coding.k} x {coding.num_workers} coded streams "
           f"({pool_groups * coding.num_workers} pooled), S={coding.s} "
           f"E={e}, per-request budgets 1..{steps}"
+          + (", worker-major" if wshard is not None else "")
           + (f", {adversary_cfg.kind} attacker at sigma "
              f"{adversary_cfg.sigma}" if adversary_cfg is not None else ""))
     metrics = sched.run([p.astype(np.int32) for p in prompts],

@@ -5,9 +5,13 @@ Every coded stream owns its own cache (KV, or the SSM conv window and
 state), so stragglers and Byzantine workers can be masked at any decode
 step without recomputation.  Shapes: G query groups x K real queries;
 N+1 coded streams per group, laid out group-major (stream
-``g*(N+1) + n``).  Off a device mesh the reference pads no streams and
-its sharding annotations do nothing, so neither has a counterpart here;
-the worker-major layout waits for the worker-mesh slice.
+``g*(N+1) + n``) by default.  With ``wshard`` (a
+``launch.worker_mesh.WorkerShardConfig``) they are laid out worker-major
+(stream ``n*G + g``) and each rank of the active worker group holds,
+encodes, runs and caches only its own contiguous block of them; the
+round's tail is the survivor-only decode of ``launch.worker_mesh``.
+Without a worker group every rank runs the whole round.  The port pads
+no streams: the reference pads only on a mesh, to its batch axes.
 
 Re-planning stays data, not Python branches: the straggler mask, the
 operating point's ``live_mask`` and ``locate_quorum`` are tensors or
@@ -32,6 +36,8 @@ from repro_torch.core import berrut
 from repro_torch.core.berrut import CodingConfig
 from repro_torch.core.error_locator import gather_vote_values, locate_groups
 from repro_torch.kernels import ops
+from repro_torch.launch import worker_mesh
+from repro_torch.launch.worker_mesh import WorkerShardConfig
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, embed_inputs, init_caches,
@@ -49,39 +55,59 @@ class CodedServingState:
     pos: int                       # next cache position to write
 
 
-def _code_streams(coding: CodingConfig, x: torch.Tensor) -> torch.Tensor:
+def _code_streams(coding: CodingConfig, x: torch.Tensor,
+                  wshard: Optional[WorkerShardConfig] = None
+                  ) -> torch.Tensor:
     """(G, K, ...) -> (G*(N+1), ...) group-major coded streams through the
-    Berrut encode contraction (kernel-dispatched)."""
+    Berrut encode contraction (kernel-dispatched).
+
+    With ``wshard`` the rows are worker-major, ``n*G + g``, and a rank of
+    the worker group encodes only its workers' streams: its rows of the
+    encode matrix through ``ops.berrut_encode_dispatch`` give exactly its
+    contiguous block of the full output, by the same arithmetic."""
     g = x.shape[0]
     # rounded to x's dtype first, as the reference rounds its weights
     w = berrut.encode_matrix(coding, device=x.device).to(x.dtype)
-    coded = ops.berrut_apply(w, x.reshape(g, coding.k, -1))  # (G, N+1, F)
+    flat = x.reshape(g, coding.k, -1)
+    if wshard is not None:
+        lo, nl = worker_mesh.rank_workers(coding, wshard)
+        coded = ops.berrut_encode_dispatch(w[lo:lo + nl], flat)  # (nl*G, F)
+        return coded.reshape(nl * g, *x.shape[2:])
+    coded = ops.berrut_apply(w, flat)                     # (G, N+1, F)
     return coded.reshape(g * coding.num_workers, *x.shape[2:])
 
 
-def _real_streams(coding: CodingConfig, coded_logits: torch.Tensor,
-                  groups: int) -> torch.Tensor:
-    """The G*(N+1) real coded streams of a round's logits (a view)."""
-    return coded_logits[: groups * coding.num_workers]
-
-
 def locate(coding: CodingConfig, coded_logits: torch.Tensor,
-           avail: torch.Tensor, locate_quorum=None):
+           avail: torch.Tensor, locate_quorum=None,
+           wshard: Optional[WorkerShardConfig] = None):
     """Vote-gated Algorithm 2 per group over the round's coded logits.
 
     The vote columns are gathered from the raw block before the float32
     upcast.  ``locate_quorum`` (an int or a 0-dim tensor) suppresses the
     verdicts of a round with fewer available streams; ``None`` keeps them
-    unconditional.  coded_logits: (G*(N+1), V).  Returns (per-group
-    decode masks (G, N+1), located (G, N+1) bool, votes (G, N+1) int32).
+    unconditional.  coded_logits: (G*(N+1), V), or with ``wshard`` this
+    rank's (nl*G, V) worker-major streams, whose (nl, G, C_vote) vote
+    slice is all-gathered so that every rank locates on all N+1 workers.
+    Returns (per-group decode masks (G, N+1), located (G, N+1) bool,
+    votes (G, N+1) int32), the same on every rank.
     """
     n1 = coding.num_workers
-    g = coded_logits.shape[0] // n1
+    nl = (n1 if wshard is None
+          else worker_mesh.rank_workers(coding, wshard)[1])
+    g = coded_logits.shape[0] // nl
     if coding.e == 0:
         zeros = torch.zeros((g, n1), dtype=torch.int32,
                             device=coded_logits.device)
         return avail.expand(g, n1), zeros.bool(), zeros
-    vals = gather_vote_values(coded_logits.reshape(g, n1, -1), coding.c_vote)
+    if wshard is not None:
+        # gather the tiny vote slice, then transpose: only (N+1, G,
+        # C_vote) values ever move
+        vals = worker_mesh.gather_workers(gather_vote_values(
+            coded_logits.reshape(nl, g, -1), coding.c_vote),
+            wshard).transpose(0, 1)
+    else:
+        vals = gather_vote_values(coded_logits.reshape(g, n1, -1),
+                                  coding.c_vote)
     betas = torch.tensor(coding.betas, dtype=torch.float32,
                          device=coded_logits.device)
     located, votes = locate_groups(betas, vals, avail, k=coding.k,
@@ -94,16 +120,27 @@ def locate(coding: CodingConfig, coded_logits: torch.Tensor,
 
 def _corrupt_logits(coding: CodingConfig, coded_logits: torch.Tensor,
                     byz_mask: torch.Tensor, noise: torch.Tensor,
-                    sigma: float) -> torch.Tensor:
+                    sigma: float,
+                    wshard: Optional[WorkerShardConfig] = None
+                    ) -> torch.Tensor:
     """Byzantine workers add ``sigma * noise`` to their coded logits
     (paper §4.2).  noise: (G, N+1, V), or (G, 1, V) when every compromised
-    worker of a group tells the same lie (collusion)."""
+    worker of a group tells the same lie (collusion).  With ``wshard`` the
+    same noise is swapped to worker-major and sliced to this rank's
+    streams, so stream (n, g) gets the same value in either layout."""
     n1 = coding.num_workers
-    g = coded_logits.shape[0] // n1
     v = coded_logits.shape[-1]
-    per_stream = byz_mask.repeat(g)
-    return (coded_logits + sigma * per_stream[:, None]
-            * noise.expand(g, n1, v).reshape(g * n1, v))
+    if wshard is None:
+        g = coded_logits.shape[0] // n1
+        per_stream = byz_mask.repeat(g)
+        noise = noise.expand(g, n1, v).reshape(g * n1, v)
+    else:
+        lo, nl = worker_mesh.rank_workers(coding, wshard)
+        g = coded_logits.shape[0] // nl
+        per_stream = byz_mask[lo:lo + nl].repeat_interleave(g)
+        noise = noise.expand(g, n1, v).transpose(0, 1)[lo:lo + nl]
+        noise = noise.reshape(nl * g, v)
+    return coded_logits + sigma * per_stream[:, None] * noise
 
 
 def _compose_live(straggler_mask: Optional[torch.Tensor],
@@ -143,11 +180,65 @@ def _finish_round(coding: CodingConfig, coded_logits: torch.Tensor,
     return logits, ((located, votes) if with_report else None)
 
 
+def _finish_round_wm(coding: CodingConfig, coded_logits: torch.Tensor,
+                     straggler_mask: Optional[torch.Tensor],
+                     with_report: bool, wshard: WorkerShardConfig,
+                     sample: Optional[SampleConfig],
+                     generator: Optional[torch.Generator],
+                     row_mask: Optional[torch.Tensor] = None,
+                     locate_quorum=None):
+    """Worker-sharded round tail (DESIGN.md §13): locate on the gathered
+    vote slice as ``_finish_round`` does, then the survivor-only decode
+    of ``launch.worker_mesh.survivor_decode_tail``, which samples on the
+    vocabulary shard.  coded_logits: this rank's (nl*G, V) worker-major
+    streams.  Returns (out, report) where ``out`` is (G*K,) token ids
+    with ``sample``, else (G*K, V) logits."""
+    dev = coded_logits.device
+    avail = (straggler_mask if straggler_mask is not None
+             else torch.ones((coding.num_workers,), dtype=torch.float32,
+                             device=dev))
+    masks, located, votes = locate(coding, coded_logits, avail,
+                                   locate_quorum=locate_quorum,
+                                   wshard=wshard)
+    nl = worker_mesh.rank_workers(coding, wshard)[1]
+    block = coded_logits.reshape(nl, -1, coded_logits.shape[-1])
+    out = worker_mesh.survivor_decode_tail(
+        coding, block, masks, avail, wshard, row_mask=row_mask,
+        sample=sample, generator=generator)
+    return out, ((located, votes) if with_report else None)
+
+
 def _maybe_sample(logits: torch.Tensor, sample: Optional[SampleConfig],
                   generator: Optional[torch.Generator]) -> torch.Tensor:
     if sample is None:
         return logits
     return sample_tokens(logits, sample, generator)
+
+
+def _round_tail(coding: CodingConfig, coded_logits: torch.Tensor,
+                group_mask: Optional[torch.Tensor], straggler_mask,
+                byz_mask, byz_noise, byz_sigma: float, with_report: bool,
+                sample: Optional[SampleConfig],
+                generator: Optional[torch.Generator], locate_quorum,
+                wshard: Optional[WorkerShardConfig]):
+    """A round after the model: the attack, then the group-major tail and
+    sampling or the worker-sharded tail (with a pool's ``group_mask``,
+    ``_finish_pool_round``).  Returns (logits or token ids, report)."""
+    if byz_mask is not None and byz_noise is not None:
+        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
+                                       byz_noise, byz_sigma, wshard)
+    if group_mask is not None:
+        return _finish_pool_round(coding, coded_logits, group_mask,
+                                  straggler_mask, with_report,
+                                  locate_quorum=locate_quorum, wshard=wshard,
+                                  sample=sample, generator=generator)
+    if wshard is not None:
+        return _finish_round_wm(coding, coded_logits, straggler_mask,
+                                with_report, wshard, sample, generator,
+                                locate_quorum=locate_quorum)
+    logits, report = _finish_round(coding, coded_logits, straggler_mask,
+                                   with_report, locate_quorum=locate_quorum)
+    return _maybe_sample(logits, sample, generator), report
 
 
 def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
@@ -160,31 +251,29 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                   sample: Optional[SampleConfig] = None,
                   generator: Optional[torch.Generator] = None,
                   live_mask: Optional[torch.Tensor] = None,
-                  locate_quorum=None):
+                  locate_quorum=None,
+                  wshard: Optional[WorkerShardConfig] = None):
     """Prefill G*K real prompts as G*(N+1) coded streams.
 
     inputs: {"tokens": (G*K, S)} or {"embeddings": (G*K, S, d)}.
     Byzantine workers (``byz_mask``, (N+1,)) add ``byz_sigma * byz_noise``
     to their logits.  Returns (decoded last-token logits (G*K, V), or
     with ``sample`` the (G*K,) int32 token ids, and the serving state);
-    with ``with_report`` also the locator's (located, votes).
+    with ``with_report`` also the locator's (located, votes).  With
+    ``wshard`` the state holds this rank's worker-major streams only.
     """
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (G*K, S, d)
     gk, s, d = x.shape
     g = gk // coding.k
-    coded = _code_streams(coding, x.reshape(g, coding.k, s, d))
+    coded = _code_streams(coding, x.reshape(g, coding.k, s, d), wshard)
     caches = init_caches(cfg, coded.shape[0], max_len, coded.dtype,
                          coded.device)
     coded_logits, caches = prefill(cfg, params, {"embeddings": coded},
                                    caches)
-    coded_logits = _real_streams(coding, coded_logits, g)
-    if byz_mask is not None and byz_noise is not None:
-        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
-                                       byz_noise, byz_sigma)
-    logits, report = _finish_round(coding, coded_logits, straggler_mask,
-                                   with_report, locate_quorum=locate_quorum)
-    out = _maybe_sample(logits, sample, generator)
+    out, report = _round_tail(coding, coded_logits, None, straggler_mask,
+                              byz_mask, byz_noise, byz_sigma, with_report,
+                              sample, generator, locate_quorum, wshard)
     state = CodedServingState(caches=caches, pos=s)
     if with_report:
         return out, state, report
@@ -201,7 +290,8 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
                       sample: Optional[SampleConfig] = None,
                       generator: Optional[torch.Generator] = None,
                       live_mask: Optional[torch.Tensor] = None,
-                      locate_quorum=None):
+                      locate_quorum=None,
+                      wshard: Optional[WorkerShardConfig] = None):
     """One coded decode step.
 
     tokens: (G*K, 1) — the sampled next token of each real stream.  The K
@@ -215,16 +305,12 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (G*K,1,d)
     gk, _, d = x.shape
     g = gk // coding.k
-    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d))
+    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d), wshard)
     coded_logits, caches = decode_step(cfg, params, state.caches,
                                        {"embeddings": coded}, state.pos)
-    coded_logits = _real_streams(coding, coded_logits, g)
-    if byz_mask is not None and byz_noise is not None:
-        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
-                                       byz_noise, byz_sigma)
-    logits, report = _finish_round(coding, coded_logits, straggler_mask,
-                                   with_report, locate_quorum=locate_quorum)
-    out = _maybe_sample(logits, sample, generator)
+    out, report = _round_tail(coding, coded_logits, None, straggler_mask,
+                              byz_mask, byz_noise, byz_sigma, with_report,
+                              sample, generator, locate_quorum, wshard)
     new_state = CodedServingState(caches=caches, pos=state.pos + 1)
     if with_report:
         return out, new_state, report
@@ -246,24 +332,40 @@ class CodedPoolState:
     pos: torch.Tensor              # (pool_groups,) int32
 
 
+def pool_streams(coding: CodingConfig, pool_groups: int,
+                 wshard: Optional[WorkerShardConfig] = None) -> int:
+    """Coded streams of the pool this rank holds: all P*(N+1), or with
+    ``wshard`` its workers' P*nl."""
+    nl = (coding.num_workers if wshard is None
+          else worker_mesh.rank_workers(coding, wshard)[1])
+    return pool_groups * nl
+
+
 def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
                     pool_groups: int, max_len: int, device,
-                    cache_dtype=None) -> CodedPoolState:
-    """Allocate the fixed slot pool: ``pool_groups * (N+1)`` zeroed
-    coded-stream caches on ``device`` and zeroed slot positions."""
+                    cache_dtype=None,
+                    wshard: Optional[WorkerShardConfig] = None
+                    ) -> CodedPoolState:
+    """Allocate the fixed slot pool: ``pool_streams`` zeroed coded-stream
+    caches on ``device`` and zeroed slot positions."""
     if pool_groups < 1:
         raise ValueError(f"need pool_groups >= 1, got {pool_groups}")
     dtype = cache_dtype or getattr(torch, cfg.param_dtype)
-    caches = init_caches(cfg, pool_groups * coding.num_workers, max_len,
-                         dtype, device)
+    caches = init_caches(cfg, pool_streams(coding, pool_groups, wshard),
+                         max_len, dtype, device)
     return CodedPoolState(caches=caches, pos=torch.zeros(
         (pool_groups,), dtype=torch.int32, device=device))
 
 
-def _stream_mask(coding: CodingConfig,
-                 group_mask: torch.Tensor) -> torch.Tensor:
-    """(P,) group-slot mask -> (P*(N+1),) group-major coded-stream mask."""
-    return group_mask.repeat_interleave(coding.num_workers)
+def _stream_mask(coding: CodingConfig, group_mask: torch.Tensor,
+                 wshard: Optional[WorkerShardConfig] = None
+                 ) -> torch.Tensor:
+    """(P,) group-slot mask -> this rank's coded-stream mask: group-major
+    (P*(N+1),), or with ``wshard`` worker-major, the mask tiled over the
+    rank's nl workers (P*nl,)."""
+    if wshard is None:
+        return group_mask.repeat_interleave(coding.num_workers)
+    return group_mask.repeat(worker_mesh.rank_workers(coding, wshard)[1])
 
 
 def _merge_caches(pool: list, fresh: list, streams: torch.Tensor) -> None:
@@ -278,19 +380,31 @@ def _merge_caches(pool: list, fresh: list, streams: torch.Tensor) -> None:
 def _finish_pool_round(coding: CodingConfig, coded_logits: torch.Tensor,
                        group_mask: torch.Tensor,
                        straggler_mask: Optional[torch.Tensor],
-                       with_report: bool, locate_quorum=None):
+                       with_report: bool, locate_quorum=None,
+                       wshard: Optional[WorkerShardConfig] = None,
+                       sample: Optional[SampleConfig] = None,
+                       generator: Optional[torch.Generator] = None):
     """``_finish_round`` with the active-slot mask composed in: free
     slots' verdicts and votes are zeroed (their garbage logits must not
-    feed reputation) and so are their decoded rows."""
-    logits, (located, votes) = _finish_round(
-        coding, coded_logits, straggler_mask, with_report=True,
-        locate_quorum=locate_quorum)
+    feed reputation) and so are their decoded rows.  Returns (logits, or
+    token ids sampled from them with ``sample``, report); with ``wshard``
+    the rows are zeroed inside the worker-sharded tail, before its
+    on-shard sampling."""
     live = group_mask > 0                                  # (P,)
+    per_query = group_mask.repeat_interleave(coding.k)     # (P*K,)
+    if wshard is not None:
+        out, (located, votes) = _finish_round_wm(
+            coding, coded_logits, straggler_mask, True, wshard, sample,
+            generator, row_mask=per_query, locate_quorum=locate_quorum)
+    else:
+        logits, (located, votes) = _finish_round(
+            coding, coded_logits, straggler_mask, with_report=True,
+            locate_quorum=locate_quorum)
+        logits = logits * per_query[:, None].to(logits.dtype)
+        out = _maybe_sample(logits, sample, generator)
     located = located & live[:, None]
     votes = votes * live[:, None].to(votes.dtype)
-    per_query = group_mask.repeat_interleave(coding.k)     # (P*K,)
-    logits = logits * per_query[:, None].to(logits.dtype)
-    return logits, ((located, votes) if with_report else None)
+    return out, ((located, votes) if with_report else None)
 
 
 def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
@@ -304,7 +418,8 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                        sample: Optional[SampleConfig] = None,
                        generator: Optional[torch.Generator] = None,
                        live_mask: Optional[torch.Tensor] = None,
-                       locate_quorum=None):
+                       locate_quorum=None,
+                       wshard: Optional[WorkerShardConfig] = None):
     """Prefill admitted group slots into the persistent pool.
 
     inputs: {"tokens": (P*K, S)} or {"embeddings": ...}, the pool-wide
@@ -318,7 +433,8 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     Returns (decoded last-token logits (P*K, V) with rows of slots
     not admitted zeroed, or with ``sample`` their (P*K,) int32 token
     ids, and the new state); with ``with_report`` also the admit-masked
-    (located, votes).
+    (located, votes).  With ``wshard`` the pool and ``fresh`` hold this
+    rank's worker-major streams only (``pool_streams``).
     """
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (P*K, S, d)
@@ -327,23 +443,18 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     admit = torch.as_tensor(admit_mask, dtype=torch.float32)
     if admit.device.type != "cpu":
         raise ValueError("admit_mask is host data (numpy or a CPU tensor)")
-    streams = torch.nonzero(_stream_mask(coding, admit) > 0)[:, 0]
+    streams = torch.nonzero(_stream_mask(coding, admit, wshard) > 0)[:, 0]
     admit = admit.to(x.device)
-    coded = _code_streams(coding, x.reshape(g, coding.k, s, d))
+    coded = _code_streams(coding, x.reshape(g, coding.k, s, d), wshard)
     for cache in fresh:
         for leaf in cache.values():
             leaf.zero_()
     coded_logits, fresh = prefill(cfg, params, {"embeddings": coded}, fresh)
     _merge_caches(state.caches, fresh, streams.to(x.device))
     new_pos = torch.where(admit > 0, s, state.pos).to(torch.int32)
-    coded_logits = _real_streams(coding, coded_logits, g)
-    if byz_mask is not None and byz_noise is not None:
-        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
-                                       byz_noise, byz_sigma)
-    logits, report = _finish_pool_round(coding, coded_logits, admit,
-                                        straggler_mask, with_report,
-                                        locate_quorum=locate_quorum)
-    out = _maybe_sample(logits, sample, generator)
+    out, report = _round_tail(
+        coding, coded_logits, admit, straggler_mask, byz_mask, byz_noise,
+        byz_sigma, with_report, sample, generator, locate_quorum, wshard)
     new_state = CodedPoolState(caches=state.caches, pos=new_pos)
     if with_report:
         return out, new_state, report
@@ -361,7 +472,8 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
                            sample: Optional[SampleConfig] = None,
                            generator: Optional[torch.Generator] = None,
                            live_mask: Optional[torch.Tensor] = None,
-                           locate_quorum=None):
+                           locate_quorum=None,
+                           wshard: Optional[WorkerShardConfig] = None):
     """One decode round over the whole pool.
 
     tokens: (P*K, 1), the next token of every query row (free slots carry
@@ -378,26 +490,22 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
     g = gk // coding.k
     active = torch.as_tensor(active_mask, dtype=torch.float32,
                              device=x.device)
-    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d))
-    stream_pos = state.pos.repeat_interleave(coding.num_workers)
+    coded = _code_streams(coding, x.reshape(g, coding.k, 1, d), wshard)
+    # each slot's position over its streams (tiled when worker-major)
+    stream_pos = _stream_mask(coding, state.pos, wshard)
     # With E == 0 the locator never reads the coded block, so a free
     # slot's attention feeds only rows that are zeroed below: the live
     # mask may reach the kernel, which then reads none of its cache.  With
     # E > 0 the vote pool reads every row, so free slots attend over their
     # stale caches exactly as in the reference: live stays None there.
-    stream_live = (_stream_mask(coding, active) > 0 if coding.e == 0
-                   else None)
+    stream_live = (_stream_mask(coding, active, wshard) > 0
+                   if coding.e == 0 else None)
     coded_logits, caches = decode_step(cfg, params, state.caches,
                                        {"embeddings": coded}, stream_pos,
                                        live=stream_live)
-    coded_logits = _real_streams(coding, coded_logits, g)
-    if byz_mask is not None and byz_noise is not None:
-        coded_logits = _corrupt_logits(coding, coded_logits, byz_mask,
-                                       byz_noise, byz_sigma)
-    logits, report = _finish_pool_round(coding, coded_logits, active,
-                                        straggler_mask, with_report,
-                                        locate_quorum=locate_quorum)
-    out = _maybe_sample(logits, sample, generator)
+    out, report = _round_tail(
+        coding, coded_logits, active, straggler_mask, byz_mask, byz_noise,
+        byz_sigma, with_report, sample, generator, locate_quorum, wshard)
     new_pos = state.pos + (active > 0).to(torch.int32)
     new_state = CodedPoolState(caches=caches, pos=new_pos)
     if with_report:

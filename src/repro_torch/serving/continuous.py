@@ -28,9 +28,12 @@ batch-scoped baseline at an equal worker pool.
 The reference donates the pool state to its jitted steps; here the steps
 write the pool caches in place, and the prefill's fresh caches are
 allocated once per executor.  The numpy event loop is the reference's,
-draw for draw, so a seed gives the same event trace in both.  Adaptive
-re-planning (``controller=``) and the worker mesh (``wshard=``) are not
-ported yet.
+draw for draw, so a seed gives the same event trace in both.  With
+``wshard=`` the pool is worker-major over the active worker group
+(``launch.worker_mesh``): each rank keeps only its own streams' caches,
+and the token ids come back the same on every rank, so every rank runs
+the same host loop on the same data.  Adaptive re-planning
+(``controller=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,11 +50,12 @@ import torch
 from repro_torch.core.berrut import CodingConfig
 from repro_torch.core.engine import mask_from_completion_times
 from repro_torch.core.scheme import BerrutScheme, as_scheme
+from repro_torch.launch.worker_mesh import WorkerShardConfig
 from repro_torch.models.model import init_caches, param_dtype
 from repro_torch.serving.batcher import GroupBatcher
 from repro_torch.serving.coded_serving import (coded_pool_decode_step,
                                                coded_pool_prefill,
-                                               init_pool_state)
+                                               init_pool_state, pool_streams)
 from repro_torch.serving.failures import (AdversaryConfig, RoundAttack,
                                           make_adversary)
 from repro_torch.serving.latency import (ChurnModel, LatencyModel,
@@ -124,7 +128,9 @@ class ContinuousLLMExecutor:
 
     Admissions, retirements, partial groups and straggler / Byzantine
     masks are all data, so every call runs the same shapes.  Tokens are
-    selected greedily on the device.  Each call
+    selected on the device by ``sample`` (greedy by default); top-k draws
+    come from a ``torch.Generator`` on the device seeded by
+    ``sample_seed``, the same on every rank of a worker group.  Each call
     consumes the state it is given (the pool caches are written in
     place) and returns the new one, with the (P*K,) int32 token ids and
     the locator's report copied to the host in one transfer: that is the
@@ -135,10 +141,10 @@ class ContinuousLLMExecutor:
     """
 
     def __init__(self, model_cfg, coding, params, pool_groups: int,
-                 max_len: int, byz_collude: bool = False, wshard=None):
-        if wshard is not None:
-            raise NotImplementedError("the worker mesh (wshard=) is not "
-                                      "ported yet (ROADMAP A9)")
+                 max_len: int, byz_collude: bool = False,
+                 sample: Optional[SampleConfig] = None,
+                 sample_seed: int = 0,
+                 wshard: Optional[WorkerShardConfig] = None):
         self.scheme = as_scheme(coding)
         if not isinstance(self.scheme, BerrutScheme):
             raise TypeError("ContinuousLLMExecutor drives the Berrut "
@@ -150,7 +156,11 @@ class ContinuousLLMExecutor:
         self.pool_groups = pool_groups
         self.max_len = max_len
         self.byz_collude = byz_collude
+        self.sample = sample if sample is not None else SampleConfig()
+        self.wshard = wshard
         self.device = params["embeddings"]["embed"].device
+        self._generator = torch.Generator(self.device).manual_seed(
+            sample_seed)
         self._fresh = None               # prefill scratch, pool-shaped
         self.prefill_calls = 0
         self.decode_calls = 0
@@ -162,9 +172,10 @@ class ContinuousLLMExecutor:
         dtype = param_dtype(self.model_cfg)
         state = init_pool_state(self.model_cfg, self.coding,
                                 self.pool_groups, self.max_len, self.device,
-                                cache_dtype=dtype)
+                                cache_dtype=dtype, wshard=self.wshard)
         self._fresh = init_caches(
-            self.model_cfg, self.pool_groups * self.coding.num_workers,
+            self.model_cfg,
+            pool_streams(self.coding, self.pool_groups, self.wshard),
             self.max_len, dtype, self.device)
         return state
 
@@ -189,8 +200,9 @@ class ContinuousLLMExecutor:
             straggler_mask=torch.as_tensor(np.asarray(mask, np.float32),
                                            device=self.device),
             byz_mask=bm, byz_noise=noise, byz_sigma=sigma, with_report=True,
-            sample=SampleConfig(),
-            locate_quorum=0 if locate_quorum is None else locate_quorum)
+            sample=self.sample, generator=self._generator,
+            locate_quorum=0 if locate_quorum is None else locate_quorum,
+            wshard=self.wshard)
 
     def _to_host(self, kind: str, t0: float, toks: torch.Tensor, state,
                  report, mask: np.ndarray):
@@ -279,6 +291,21 @@ class ContinuousScheduler:
         if config.controller is not None:
             raise NotImplementedError("adaptive redundancy (controller=) "
                                       "is not ported yet (ROADMAP A5)")
+        wshard = getattr(executor, "wshard", None)
+        wait_for = (scheme.decode_quorum if config.wait_for is None
+                    else config.wait_for)
+        if wshard is not None:
+            # survivor-only decode keeps a fixed gather width; a round
+            # waiting for more responses than that would silently drop
+            # survivors it paid latency for (DESIGN.md §13)
+            bound = max(wait_for, scheme.decode_quorum)
+            width = wshard.resolved_width(executor.coding)
+            if width < bound:
+                raise ValueError(
+                    f"worker-shard gather width {width} < the pool's "
+                    f"maximum wait-for {bound}: survivor-only decode would "
+                    f"drop responses the round waited for; construct the "
+                    f"executor with WorkerShardConfig(gather_width={bound})")
         self.scheme = scheme
         self.pool_groups = executor.pool_groups
         self.batcher = GroupBatcher(
@@ -288,8 +315,7 @@ class ContinuousScheduler:
         self.results: Dict[int, np.ndarray] = {}
         self.groups: List[SlotGroup] = []       # every admitted group
         self.trace: List[tuple] = []            # golden event log
-        self._wait_for = (scheme.decode_quorum if config.wait_for is None
-                          else config.wait_for)
+        self._wait_for = wait_for
         if not 1 <= self._wait_for <= scheme.num_workers:
             raise ValueError(f"wait_for={self._wait_for} out of range for "
                              f"{scheme.num_workers} workers")

@@ -13,8 +13,10 @@ The executor is built at its widest operating point; a batch may be
 dispatched at a narrower ``CodingConfig`` of the same K, whose streams
 are a prefix of the wide grid: the rest are held out by a per-stream
 live mask and the decode interpolates through the survivors (the
-reference's masked max-width re-planning).  Pre-traced operating points,
-worker-axis sharding, the batch event-driven scheduler and the
+reference's masked max-width re-planning).  With ``wshard`` the rounds
+run worker-major over the active worker group (``launch.worker_mesh``):
+each rank holds its own streams and every rank gets the same tokens.
+Pre-traced operating points, the batch event-driven scheduler and the
 controller are not ported yet.
 """
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.berrut import CodingConfig
+from repro_torch.launch.worker_mesh import WorkerShardConfig
 from repro_torch.serving.coded_serving import (coded_decode_step,
                                                coded_prefill)
 from repro_torch.serving.failures import RoundAttack
@@ -39,12 +42,14 @@ class CodedLLMExecutor:
     round, so a handle's rounds must run once each, in order."""
 
     def __init__(self, model_cfg, coding: CodingConfig, params: dict,
-                 steps: int, max_len: int):
+                 steps: int, max_len: int,
+                 wshard: Optional[WorkerShardConfig] = None):
         self.model_cfg = model_cfg
         self.coding = coding
         self.params = params
         self.rounds = 1 + steps
         self.max_len = max_len
+        self.wshard = wshard
         self.device = params["embeddings"]["embed"].device
 
     def _validate_point(self, point: CodingConfig) -> None:
@@ -109,7 +114,8 @@ class CodedLLMExecutor:
                   byz_sigma=0.0 if attack is None else attack.sigma,
                   with_report=True, sample=SampleConfig(),
                   live_mask=torch.as_tensor(live, device=self.device),
-                  locate_quorum=0 if locate_quorum is None else locate_quorum)
+                  locate_quorum=0 if locate_quorum is None else locate_quorum,
+                  wshard=self.wshard)
         if round_idx == 0:
             toks, state, (located, votes) = coded_prefill(
                 self.model_cfg, self.coding, self.params,

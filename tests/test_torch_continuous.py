@@ -281,9 +281,6 @@ def test_continuous_scheduler_at_the_locator_quorum(model, monkeypatch,
 def test_continuous_refuses_what_is_not_ported(model):
     _, tc, _, tp = model
     coding = TCoding(k=K, s=S)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcont.ContinuousLLMExecutor(tc, coding, tp, pool_groups=POOL,
-                                    max_len=16, wshard=object())
     ex = tcont.ContinuousLLMExecutor(tc, coding, tp, pool_groups=POOL,
                                      max_len=16)
     with pytest.raises(NotImplementedError, match="A5"):

@@ -175,7 +175,9 @@ def test_ops_refuses_other_devices():
 
 
 def test_launch_counts_cover_the_four_kernels():
-    assert set(ops.launch_counts()) == {"berrut_apply", "fused_group_decode",
+    assert set(ops.launch_counts()) == {"berrut_apply",
+                                        "berrut_encode_dispatch",
+                                        "fused_group_decode",
                                         "flash_attention", "flash_decode",
                                         "pool_flash_decode", "ssd_chunked"}
     ops.reset_launch_counts()
