@@ -71,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -80,7 +81,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
+# Dense peaks, no sparsity.  fp32: the least time for fp32-accurate
+# products is set by 3xTF32 on the tensor cores (three TF32 products a
+# product, 495 / 3 TFLOP/s), which B3 and B7 use, not by the 67 TFLOP/s
+# of fp32 FMAs on the CUDA cores.
+PEAK_OPS_PER_S = {"float32": 495e12 / 3, "bfloat16": 989e12}
 # fp32: 2e-5 of max(1, max |plain|).  bf16, per element: two bf16 ulps of
 # the element plus one ulp at the output's typical size (mean |plain|)
 TOL_F32 = 2e-5
@@ -98,18 +103,34 @@ REPLACES = {
     "flash_decode": "src/repro/kernels/flash_decode.py:80",
     "pool_flash_decode": "src/repro/kernels/flash_decode.py:177",
     "ssd_chunked": "src/repro/kernels/ssd_scan.py:75",
+    "ssd_chunk_scores": "src/repro/kernels/ssd_scan.py:75",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["berrut_encode_dispatch"] = "src/repro_torch/csrc/berrut_apply.cu"
 SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd_scan.cu"
+SOURCES["ssd_chunk_scores"] = "src/repro_torch/csrc/ssd_scan.cu"
+# The device function of each kernel in the built libraries, and the
+# value of its last template argument where two kernels share one
+# (berrut_apply_kernel's kWorkerMajor, flash_decode_kernel's kPool).
+FUNCTIONS = {
+    "berrut_apply": ("berrut_apply_kernel", "false"),
+    "berrut_encode_dispatch": ("berrut_apply_kernel", "true"),
+    "fused_group_decode": ("fused_group_decode_kernel", None),
+    "flash_attention": ("flash_attention_kernel", None),
+    "flash_decode": ("flash_decode_kernel", "false"),
+    "pool_flash_decode": ("flash_decode_kernel", "true"),
+    "ssd_chunked": ("ssd_chunked_kernel", None),
+    "ssd_chunk_scores": ("ssd_scores_kernel", None),
+}
 # Per architecture: its layers, and the kernels one call of each model
 # pass launches per layer (besides the round's one encode and one tail).
 PATH_KERNELS = {
     "qwen3-0.6b": {"layers": 28, "prefill": ("flash_attention",),
                    "decode": ("flash_decode",),
                    "pool_decode": ("pool_flash_decode",)},
-    "mamba2-780m": {"layers": 48, "prefill": ("ssd_chunked",),
+    "mamba2-780m": {"layers": 48,
+                    "prefill": ("ssd_chunked", "ssd_chunk_scores"),
                     "decode": (), "pool_decode": ()},
 }
 # Which serving runs carry each kernel in the ``kernels`` line: (arch,
@@ -126,6 +147,7 @@ CARRIER = {
     "flash_decode": ("qwen3-0.6b", "batch", "batch"),
     "pool_flash_decode": ("qwen3-0.6b", "continuous", "continuous"),
     "ssd_chunked": ("mamba2-780m", "batch", "batch"),
+    "ssd_chunk_scores": ("mamba2-780m", "batch", "batch"),
 }
 # serving runs: (architecture, path, E); mamba2's pool runs at E=1 only;
 # "_wm": the worker-major layout on one rank
@@ -313,6 +335,7 @@ class Smoke:
                 "launches_e0_run": f"{arch} {path_e0} E=0",
                 "launches_pool_e1": launches[arch, pool, E][name],
                 "graph_ms": res["graph_ms"],
+                "tensor_cores": self.tensor_cores[name],
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES):
             raise AssertionError(f"kernels measured: {sorted(self.kernels)}")
@@ -343,6 +366,40 @@ class Smoke:
             report[src] = {"max_registers": max(regs, default=None),
                            "spill_lines": len(spills), "spills": spills}
         emit({"build_seconds": seconds, "libraries": report})
+        self.tensor_cores = self.tensor_core_use(libs, build.nvcc_path())
+        emit({"tensor_cores": self.tensor_cores})
+
+    def tensor_core_use(self, libs: dict, nvcc: str) -> dict:
+        """{kernel: {dtype: True when every instantiation of its device
+        function for that dtype issues tensor-core instructions (HMMA or
+        HGMMA in ``cuobjdump -sass`` of the built library)}}.  Read from
+        the mangled names: ``<n><function>I`` then ``f`` (float) or
+        ``13__nv_bfloat16``, and ``Lb0E`` / ``Lb1E`` for a bool template
+        argument."""
+        cuobjdump = Path(nvcc).parent / "cuobjdump"
+        found, seen = {}, []
+        for lib in libs.values():
+            sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+            parts = re.split(r"^\s*Function : (\S+)\s*$", sass,
+                             flags=re.M)
+            for name, body in zip(parts[1::2], parts[2::2]):
+                seen.append(name)
+                for kernel, (fn, last) in FUNCTIONS.items():
+                    m = re.search(rf"\d{fn}I(f|13__nv_bfloat16)", name)
+                    flag = {"true": "Lb1E", "false": "Lb0E"}.get(last, "")
+                    if m is None or flag not in name:
+                        continue
+                    dtype = "float32" if m.group(1) == "f" else "bfloat16"
+                    found.setdefault(kernel, {}).setdefault(
+                        dtype, []).append("HMMA" in body or "HGMMA" in body)
+        if sorted(found) != sorted(FUNCTIONS):
+            raise AssertionError(f"device functions found for "
+                                 f"{sorted(found)}, not {sorted(FUNCTIONS)}"
+                                 f" among {seen}")
+        return {k: {dt: all(v) for dt, v in d.items()}
+                for k, d in found.items()}
 
     def main_path_kernels(self, dtype_name: str):
         torch = self.torch
@@ -623,18 +680,19 @@ class Smoke:
                 raise AssertionError("fused_group_decode vote gather differs")
             res.append(("fused_group_decode V=151936 c_vote=64 gather",
                         got, want))
-            for hd in (64, 128):
+            # S and L off the kernel's 64-row and 32/64-key tiles
+            for hd in (64, 128, 256):
                 for kw in (dict(window=37), dict(softcap=20.0),
                            dict(prefix=40), dict(causal=False),
                            dict(q_offset=50)):
-                    s = 100
-                    l_len = s + kw.get("q_offset", 0)
-                    q = self.randn(2, s, 8, hd, dtype=dtype)
-                    k = self.randn(2, l_len, 2, hd, dtype=dtype)
-                    vv = self.randn(2, l_len, 2, hd, dtype=dtype)
-                    res.append((f"flash_attention D={hd} {kw}",
-                                ops.attention(q, k, vv, **kw),
-                                ref.attention_ref(q, k, vv, **kw)))
+                    for s in (100, 77):
+                        l_len = s + kw.get("q_offset", 0)
+                        q = self.randn(2, s, 8, hd, dtype=dtype)
+                        k = self.randn(2, l_len, 2, hd, dtype=dtype)
+                        vv = self.randn(2, l_len, 2, hd, dtype=dtype)
+                        res.append((f"flash_attention D={hd} S={s} {kw}",
+                                    ops.attention(q, k, vv, **kw),
+                                    ref.attention_ref(q, k, vv, **kw)))
                 # rows before the first key see nothing: guarded zeros
                 q = self.randn(1, 20, 4, hd, dtype=dtype)
                 k = self.randn(1, 20, 4, hd, dtype=dtype)
@@ -646,6 +704,13 @@ class Smoke:
                 res.append((f"flash_attention D={hd} q_offset=-5 seen rows",
                             out[:, 5:],
                             ref.attention_ref(q, k, k, q_offset=-5)[:, 5:]))
+            # the main path's head layout at S = L = 200
+            q = self.randn(3, 200, 16, 128, dtype=dtype)
+            k = self.randn(3, 200, 8, 128, dtype=dtype)
+            vv = self.randn(3, 200, 8, 128, dtype=dtype)
+            res.append(("flash_attention D=128 GQA 16/8 S=L=200",
+                        ops.attention(q, k, vv),
+                        ref.attention_ref(q, k, vv)))
             for hd in (64, 128, 256):
                 b, w_len, h, kvh = 3, 300, 8, 2
                 q = self.randn(b, h, hd, dtype=dtype)
@@ -733,7 +798,7 @@ class Smoke:
         torch = self.torch
         from repro_torch.configs import mamba2_780m
         from repro_torch.core.berrut import CodingConfig
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import ops, ref, ssd_scan
         from repro_torch.models.mamba2 import ssd_chunk
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
@@ -748,6 +813,21 @@ class Smoke:
         out = {"variant": f"ssd_chunked main shape h_final ({dtype_name})"}
         out.update(self.check(out["variant"], hf, hr, "float32"))
         emit(out)
+        # the scores pass alone: C B^T of each of the kernel's chunks (the
+        # library call on contiguous copies of the chunked b and c)
+        q = ssd_scan.CHUNK
+        nc = -(-PROMPT // q)
+        cb = cc.contiguous().view(b, nc, q, n)
+        bt = bb.contiguous().view(b, nc, q, n).transpose(-1, -2)
+        self.record(
+            "ssd_chunk_scores", dtype_name, [list(bb.shape), [q, q]],
+            ops.ssd_chunk_scores(bb, cc),
+            ref.ssd_chunk_scores_ref(bb, cc, q),
+            lambda: ops.ssd_chunk_scores(bb, cc),
+            lambda: ref.ssd_chunk_scores_ref(bb, cc, q),
+            lambda: torch.matmul(cb, bt),
+            2 * bb.numel() * size + b * nc * q * q * 4,
+            2 * b * nc * q * q * n)
         self.record(
             "ssd_chunked", dtype_name, [list(x.shape), list(bb.shape)],
             y, yr, lambda: ops.ssd(*args),

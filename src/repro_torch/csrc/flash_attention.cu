@@ -1,4 +1,4 @@
-// Online-softmax prefill attention for Hopper (sm_90a).
+// Online-softmax prefill attention for Hopper (sm_90a), on tensor cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention): q (B, S, H, D), k and v (B, L, KV, D) -> out
@@ -10,250 +10,389 @@
 //
 // Bound: operations at the main path's shapes (S = L = 256, D = 128: the
 // causal half of 4*S*L*D flops per head against q, k, v and out read or
-// written once).  This kernel computes in fp32 on the CUDA cores (the
-// model is fp32, and TF32 tensor cores would not match the reference);
-// bf16 inputs are converted to fp32 on load.  wgmma tiles for bf16 are
-// later work.
+// written once).  Both products therefore run on the tensor cores:
+//   * bf16: S = Q K^T and O += P V as mma.sync m16n8k16 bf16 products
+//     with fp32 accumulators.  P is split into two bf16 terms, hi =
+//     bf16(P) and lo = bf16(P - hi), each multiplied by V: P rounded to
+//     bf16 alone misses the kernel's tolerance (two bf16 ulps of the
+//     element) by up to 2x.
+//   * fp32: 3xTF32.  Each operand x is split into two tf32 terms hi and
+//     lo (`split` below), and each product accumulates lo*hi + hi*lo +
+//     hi*hi in fp32 (m16n8k8 tf32), which keeps about fp32's precision
+//     (what is dropped is about 2^-20 of the product).  Plain TF32 would
+//     not: the reference computes in full fp32.
+// mma.sync, not wgmma: its per-warp 16-row fragments take the online
+// softmax, the masks and the P operand straight from the accumulator
+// registers, and the fp32 path can permute keys so that P's accumulator
+// layout is already the tf32 A layout (below); wgmma's tf32 form would
+// also need V transposed in shared memory.  The warpgroup form is later
+// work.
 //
-// Design: a block of 256 threads owns 64 query rows of one (batch,
-// head) and walks 64-key tiles of K and V through shared memory, skipping
-// tiles wholly outside the causal wedge or the window.  Like a register-
-// tiled sgemm, each thread computes a 4 x 4 block of the score tile (rows
-// ty*4.., keys tx + 16j) and a 4 x D/16 block of the output (dims
-// tx*4 + 64j..), so every shared-memory word it reads feeds two or more
-// FMAs.  Q is kept transposed and P is written transposed so that both
-// are read as float4 along the rows; K rows are padded by one word so
-// that the 16 key columns of a warp fall in distinct banks.  The row max
-// is reduced across the 16 threads of a row with shuffles once per tile;
-// the row sum stays per thread and is reduced once at the end.  Tiles are
-// loaded with 16-byte (fp32) or 8-byte (bf16) vector loads, all of a
-// thread's loads issued before its first shared-memory store, and the
-// shared footprint (115 KB at D = 128) lets two blocks share an SM, so
-// one block's loads overlap the other's arithmetic.
+// Design: a block of 4 warps owns 64 query rows of one (batch, head), 16
+// a warp, and walks tiles of 32 keys, skipping tiles wholly outside the
+// causal wedge, the prefix and the window; blocks of the last query tiles,
+// which see the most keys, start first.  (Measured on the card: 64-key
+// tiles, or 32 rows a warp, were slower; a tile's time is its compute,
+// not its loads.)  Q and a two-stage ring of K and V tiles live in shared memory,
+// filled with 16-byte cp.async copies, so tile i+1 loads while tile i
+// computes; rows are padded by 16 bytes so that the fragment loads are
+// free of bank conflicts.  bf16 fragments come from ldmatrix (.trans for
+// V); fp32 ones are 32-bit loads split in registers.  Each thread holds
+// its rows' scores as accumulator fragments: the row max and sum reduce
+// over the 4 threads of a row with two shuffles, and exponentials are
+// exp2 of log2(e)-scaled scores.  Only tiles that cut the causal wedge,
+// the window or kv_len test visibility element by element.  In fp32 the
+// P V product reads keys in the order 2t, 2t+1 of each 8-key step, the
+// order of the scores' accumulator, so P needs no shuffle; V's rows are
+// read in that order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kRows = 64;           // query rows per block
-constexpr int kKeys = 64;           // keys per shared-memory tile
-constexpr int kThreads = 256;       // 16 x 16
-constexpr int kLdT = kRows;         // row stride of the transposed Q and P
-constexpr int kVec = 4;             // elements per vector load
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 
-// Four consecutive elements as fp32 (p 16-byte aligned for float, 8 for bf16).
-__device__ __forceinline__ void load4(const float* p, float (&out)[kVec]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                      float (&out)[kVec]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-}
-__device__ __forceinline__ void store_from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int kRows = 16 * kWarps;         // query rows a block
+  static constexpr int kKeys = 32;                  // keys a tile
+  static constexpr int kLd = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
+  // Q, then the ring: K and V for each of two stages
+  static constexpr size_t kSmem =
+      sizeof(T) * static_cast<size_t>(kLd) * (kRows + 4 * kKeys);
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
-constexpr size_t smem_floats() {
-  // Qt (D x kLdT) + K (kKeys x (D+1)) + V (kKeys x D) + Pt (kKeys x kLdT)
-  return D * kLdT + kKeys * (D + 1) + kKeys * D + kKeys * kLdT;
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [r0, r0 + n) of a (rows, stride) global matrix whose row r starts
+// at base + r * stride, into shared rows of kLd; rows >= limit are zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(T* dst, const T* base,
+                                          long long stride, int r0, int n,
+                                          int limit) {
+  using C = Cfg<T, D>;
+  for (int i = threadIdx.x; i < n * C::kChunks; i += kThreads) {
+    const int r = i / C::kChunks, c = i % C::kChunks;
+    const int row = r0 + r;
+    const bool ok = row < limit;
+    const T* src = base + (ok ? row * stride : 0) + c * (16 / sizeof(T));
+    cp_async16(dst + r * C::kLd + c * (16 / sizeof(T)), src, ok);
+  }
+}
+
+// ---- bf16 fragments
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// (x0, x1) -> packed bf16 pairs hi = bf16(x) and lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---- 3xTF32
+// hi = x with its low 13 mantissa bits cleared, an exact tf32 value, and
+// lo = x - hi, exact in fp32.  The tensor cores read a tf32 operand from
+// the register's upper 19 bits, so lo enters its product cut to tf32:
+// an error of at most 2^-10 of lo, 2^-20 of x.  Clearing bits costs one
+// integer op; cvt.rna.tf32.f32 is a slow conversion, and rounding both
+// parts with it made the fp32 kernels a third slower on the card.
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = __float_as_uint(x) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// c += a b in 3xTF32; a as 4 fp32 values in the A fragment's order
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Split (&a)[4],
+                                           Split b0, Split b1) {
+  const uint32_t ah[4] = {a[0].hi, a[1].hi, a[2].hi, a[3].hi};
+  const uint32_t al[4] = {a[0].lo, a[1].lo, a[2].lo, a[3].lo};
+  mma_tf32(c, al, b0.hi, b1.hi);
+  mma_tf32(c, ah, b0.lo, b1.lo);
+  mma_tf32(c, ah, b0.hi, b1.hi);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int s_len,
                        int kv_len, int heads, int kv_heads, bool causal,
                        int window, int prefix, float softcap, int q_offset,
                        float scale) {
-  constexpr int kDims = D / 16;           // output dims per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                       // [D][kLdT]   Q^T, pre-scaled
-  float* ks = qt + D * kLdT;              // [kKeys][D+1]
-  float* vs = ks + kKeys * (D + 1);       // [kKeys][D]
-  float* pt = vs + kKeys * D;             // [kKeys][kLdT] P^T
+  using C = Cfg<T, D>;
+  constexpr int kKeys = C::kKeys, kLd = C::kLd, kRows = C::kRows;
+  constexpr int kNt = kKeys / 8;     // 8-key accumulator tiles of a row
+  constexpr int kDt = D / 8;         // 8-dim output tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = qs + kRows * kLd;        // stage i: K at 2i, V at 2i + 1
 
-  const int t = threadIdx.x, tx = t % 16, ty = t / 16;
-  const int q_tile = blockIdx.x, h = blockIdx.y;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  // the last query tiles see the most keys: start them first
+  const int q_tile = gridDim.x - 1 - blockIdx.x, h = blockIdx.y;
   const long long b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
   const int row0 = q_tile * kRows;
   const int q_first = row0 + q_offset;
   const int q_last = min(row0 + kRows, s_len) - 1 + q_offset;
 
-  constexpr int kIters = kRows * D / (kVec * kThreads);    // = D / 16
-  {
-    // Q^T: thread t takes row t % 64 and dims 4 * (t / 64 + 4 it) ..., so
-    // that the transposed stores of a warp hit 32 distinct banks
-    const int r = t % kRows, row = row0 + r;
-    float qv[kIters][kVec];
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int d = (t / kRows + 4 * it) * kVec;
-#pragma unroll
-      for (int x = 0; x < kVec; ++x) qv[it][x] = 0.f;
-      if (row < s_len) {
-        load4(q + ((b * s_len + row) * heads + h) * D + d, qv[it]);
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < kIters; ++it) {
-      const int d = (t / kRows + 4 * it) * kVec;
-#pragma unroll
-      for (int x = 0; x < kVec; ++x) qt[(d + x) * kLdT + r] = qv[it][x] * scale;
-    }
-  }
-
-  float acc[4][kDims];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[i][j] = 0.f;
-  }
-
+  // the block's visible key tiles are [kt_begin, kt_end)
   const int n_tiles = (kv_len + kKeys - 1) / kKeys;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kKeys;
-    // Tile-level visibility (uniform over the block).
-    bool visible = true;
-    if (causal) visible = k0 <= q_last || k0 < prefix;
-    if (window >= 0) visible = visible && k0 + kKeys - 1 > q_first - window;
-    if (!visible) continue;
+  int kt_end = n_tiles;
+  if (causal) {
+    const int seen = max(max(q_last + 1, prefix), 0);
+    kt_end = min(n_tiles, (seen + kKeys - 1) / kKeys);
+  }
+  int kt_begin = 0;
+  if (window >= 0) {
+    const int first = q_first - window + 1;   // first key any row sees
+    if (first > 0) kt_begin = first / kKeys;
+  }
 
-    {
-      // issue every load of this thread's share of the tile, then store
-      float kv[kIters][kVec], vv[kIters][kVec];
+  const long long q_stride = static_cast<long long>(heads) * D;
+  const long long kv_stride = static_cast<long long>(kv_heads) * D;
+  const T* qb = q + (b * s_len * heads + h) * D;
+  const T* kb = k + (b * kv_len * kv_heads + kvh) * D;
+  const T* vb = v + (b * kv_len * kv_heads + kvh) * D;
+
+  load_rows<T, D>(qs, qb, q_stride, row0, kRows, s_len);
+  if (kt_begin < kt_end) {
+    load_rows<T, D>(ring, kb, kv_stride, kt_begin * kKeys, kKeys, kv_len);
+    load_rows<T, D>(ring + kKeys * kLd, vb, kv_stride, kt_begin * kKeys,
+                    kKeys, kv_len);
+  }
+  cp_async_commit();
+
+  float o[kDt][4];
 #pragma unroll
-      for (int it = 0; it < kIters; ++it) {
-        const int e = (t + it * kThreads) * kVec;
-        const int key = k0 + e / D;
+  for (int j = 0; j < kDt; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  const int wrow = warp * 16;        // the warp's first row in the tile
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {
+      T* nxt = ring + (stage ^ 1) * 2 * kKeys * kLd;
+      load_rows<T, D>(nxt, kb, kv_stride, (kt + 1) * kKeys, kKeys, kv_len);
+      load_rows<T, D>(nxt + kKeys * kLd, vb, kv_stride, (kt + 1) * kKeys,
+                      kKeys, kv_len);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();              // this tile (and Q) have landed
+    __syncthreads();
+    const T* ks = ring + stage * 2 * kKeys * kLd;
+    const T* vs = ks + kKeys * kLd;
+
+    // ---- S = Q K^T: s[j] holds keys 8j + 2t, 8j + 2t + 1 of rows g, g+8
+    float s[kNt][4];
 #pragma unroll
-        for (int x = 0; x < kVec; ++x) kv[it][x] = vv[it][x] = 0.f;
-        if (key < kv_len) {
-          const long long off =
-              ((b * kv_len + key) * kv_heads + kvh) * D + e % D;
-          load4(k + off, kv[it]);
-          load4(v + off, vv[it]);
+    for (int j = 0; j < kNt; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (C::kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qs + (wrow + lane % 8 + (lane / 8 % 2) * 8) * kLd +
+                           kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int j = 0; j < kNt; j += 2) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, ks + (j * 8 + lane % 8 + (lane / 16) * 8) * kLd +
+                              kk * 16 + (lane / 8 % 2) * 8);
+          mma_bf16(s[j], a, bf[0], bf[1]);
+          mma_bf16(s[j + 1], a, bf[2], bf[3]);
         }
       }
-      __syncthreads();                    // the previous tile is consumed
+    } else {
+#pragma unroll 4
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float* qr = qs + (wrow + g) * kLd + kk * 8 + t;
+        const Split a[4] = {split(qr[0]), split(qr[8 * kLd]), split(qr[4]),
+                            split(qr[8 * kLd + 4])};
 #pragma unroll
-      for (int it = 0; it < kIters; ++it) {
-        const int e = (t + it * kThreads) * kVec;
-        const int c = e / D, d = e % D;
-#pragma unroll
-        for (int x = 0; x < kVec; ++x) ks[c * (D + 1) + d + x] = kv[it][x];
-        *reinterpret_cast<float4*>(vs + c * D + d) =
-            make_float4(vv[it][0], vv[it][1], vv[it][2], vv[it][3]);
-      }
-    }
-    __syncthreads();
-
-    // scores: rows ty*4 + i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qt + d * kLdT + ty * 4);
-      const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kval = ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = fmaf(qr[i], kval, s[i][j]);
+        for (int j = 0; j < kNt; ++j) {
+          const float* kr = ks + (j * 8 + g) * kLd + kk * 8 + t;
+          mma_3xtf32(s[j], a, split(kr[0]), split(kr[4]));
+        }
       }
     }
 
-    float m_safe[4];
+    // ---- masks and the online softmax, in log2 units.  A tile that every
+    // row of the warp sees whole skips the per-element visibility tests.
+    const int k0 = kt * kKeys;
+    const int qmin = row0 + wrow + q_offset, qmax = qmin + 15;
+    const bool masked =
+        k0 + kKeys > kv_len ||
+        (causal && k0 + kKeys - 1 > qmin && k0 + kKeys > prefix) ||
+        (window >= 0 && k0 <= qmax - window);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = row0 + ty * 4 + i + q_offset;
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = qmin + g + 8 * rr;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float sc = s[i][j];
-        if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-        bool ok = key < kv_len;
-        if (causal) ok = ok && (key <= qpos || key < prefix);
-        if (window >= 0) ok = ok && key > qpos - window;
-        s[i][j] = ok ? sc : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
+      for (int j = 0; j < kNt; ++j) {
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        for (int e = 0; e < 2; ++e) {
+          float sc = s[j][2 * rr + e] * scale;
+          if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
+          sc *= kLog2e;
+          if (masked) {
+            const int key = k0 + 8 * j + 2 * t + e;
+            bool ok = key < kv_len;
+            if (causal) ok = ok && (key <= qpos || key < prefix);
+            if (window >= 0) ok = ok && key > qpos - window;
+            if (!ok) sc = kNegInf;
+          }
+          s[j][2 * rr + e] = sc;
+          mx = fmaxf(mx, sc);
+        }
       }
-      const float m_new = fmaxf(m[i], mx);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
       // guard rows that have seen no visible key (exp of NEG_INF - NEG_INF)
-      m_safe[i] = m_new <= kNegInf ? 0.f : m_new;
-      const float alpha = m[i] <= kNegInf ? 0.f : expf(m[i] - m_safe[i]);
-      m[i] = m_new;
-      l[i] *= alpha;
+      const float m_safe = m_new <= kNegInf ? 0.f : m_new;
+      const float alpha =
+          m[rr] <= kNegInf ? 0.f : exp2_approx(m[rr] - m_safe);
+      m[rr] = m_new;
+      l[rr] *= alpha;
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < kDt; ++j) {
+        o[j][2 * rr] *= alpha;
+        o[j][2 * rr + 1] *= alpha;
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] <= kNegInf ? 0.f : expf(s[i][j] - m_safe[i]);
-        s[i][j] = p;
-        l[i] += p;
+      for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * rr + e];
+          const float p = x <= kNegInf ? 0.f : exp2_approx(x - m_safe);
+          s[j][2 * rr + e] = p;
+          l[rr] += p;
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + (tx + 16 * j) * kLdT + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
 
-    // out rows ty*4 + i, dims tx*4 + 64 j + e
-#pragma unroll 4
-    for (int c = 0; c < kKeys; ++c) {
-      const float4 pv = *reinterpret_cast<const float4*>(pt + c * kLdT + ty * 4);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+    // ---- O += P V
+    if constexpr (C::kBf16) {
+      // P = hi + lo in two bf16 terms (16 bits of P), against V exact
 #pragma unroll
-      for (int jd = 0; jd < D / 64; ++jd) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(vs + c * D + tx * 4 + 64 * jd);
-        const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < kDt; j += 2) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, vs + (kk * 16 + lane % 8 + (lane / 8 % 2) * 8) *
+                                         kLd + j * 8 + (lane / 16) * 8);
+          mma_bf16(o[j], lo, bf[0], bf[1]);
+          mma_bf16(o[j + 1], lo, bf[2], bf[3]);
+          mma_bf16(o[j], hi, bf[0], bf[1]);
+          mma_bf16(o[j + 1], hi, bf[2], bf[3]);
+        }
+      }
+    } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][jd * 4 + e] = fmaf(pr[i], vr[e], acc[i][jd * 4 + e]);
+      for (int kk = 0; kk < kNt; ++kk) {
+        // A column t is key 2t, column t + 4 key 2t + 1 of this 8-key step
+        const Split a[4] = {split(s[kk][0]), split(s[kk][2]), split(s[kk][1]),
+                            split(s[kk][3])};
+        const float* vr = vs + (kk * 8 + 2 * t) * kLd + g;
+#pragma unroll
+        for (int j = 0; j < kDt; ++j) {
+          mma_3xtf32(o[j], a, split(vr[j * 8]), split(vr[kLd + j * 8]));
+        }
       }
     }
+    __syncthreads();                 // this stage is consumed
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float lsum = l[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
-    }
-    const int row = row0 + ty * 4 + i;
+  for (int rr = 0; rr < 2; ++rr) {
+    float lsum = l[rr];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const int row = row0 + wrow + g + 8 * rr;
     if (row >= s_len) continue;
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    T* op = out + ((b * s_len + row) * heads + h) * D;
+    T* op = out + ((b * s_len + row) * heads + h) * D + 2 * t;
 #pragma unroll
-    for (int jd = 0; jd < D / 64; ++jd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        store_from_f32(op + tx * 4 + 64 * jd + e, acc[i][jd * 4 + e] * inv);
+    for (int j = 0; j < kDt; ++j) {
+      store2(op + 8 * j, o[j][2 * rr] * inv, o[j][2 * rr + 1] * inv);
+    }
   }
 }
 
@@ -262,17 +401,18 @@ cudaError_t launch_dim(const T* q, const T* k, const T* v, T* out, int batch,
                        int s_len, int kv_len, int heads, int kv_heads,
                        bool causal, int window, int prefix, float softcap,
                        int q_offset, float scale, cudaStream_t s) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
+  const size_t smem = Cfg<T, D>::kSmem;
+  // above 48 KB only once raised; set before every launch, since the
+  // attribute is per device and the current device may change
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  // all of the SM's unified L1/shared storage as shared memory, so that two
-  // blocks fit at D <= 128
   err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
+  constexpr int kRows = Cfg<T, D>::kRows;
   const dim3 grid((s_len + kRows - 1) / kRows, heads, batch);
   flash_attention_kernel<T, D><<<grid, kThreads, smem, s>>>(
       q, k, v, out, s_len, kv_len, heads, kv_heads, causal, window, prefix,
@@ -311,7 +451,8 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window < 0 means no sliding window.
-// Returns the launch's error code (0 on success).
+// q, k, v and out must be 16-byte aligned.  Returns the launch's error
+// code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int s_len, int kv_len, int heads,

@@ -27,6 +27,14 @@ KERNEL = Kernel("flash_attention.cu", "flash_attention_launch", [
 HEAD_DIMS = (64, 128, 256)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when it starts on 16 bytes (the kernel copies 16-byte
+    chunks), else a fresh copy, which does."""
+    if t.data_ptr() % 16 == 0:
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     prefix: int = 0, softcap: float = 0.0,
@@ -48,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {d}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() and l:
         KERNEL.launch(device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

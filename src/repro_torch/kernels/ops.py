@@ -27,6 +27,7 @@ KERNELS = {
     "flash_decode": flash_decode.KERNEL,
     "pool_flash_decode": flash_decode.POOL_KERNEL,
     "ssd_chunked": ssd_scan.KERNEL,
+    "ssd_chunk_scores": ssd_scan.SCORES_KERNEL,
 }
 
 
@@ -137,6 +138,14 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if _on_card(x):
         return ssd_scan.ssd_chunked(x, dt, a_log, b, c, d_skip, h0=h0)
     return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, h0=h0, chunk=chunk)
+
+
+def ssd_chunk_scores(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The SSD scan's scores pass: C B^T within each of the kernel's
+    chunks, (B, S, N) -> (B, ceil(S / CHUNK), CHUNK, CHUNK) fp32."""
+    if _on_card(b):
+        return ssd_scan.ssd_chunk_scores(b, c)
+    return ref.ssd_chunk_scores_ref(b, c, ssd_scan.CHUNK)
 
 
 def ssd_step(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,

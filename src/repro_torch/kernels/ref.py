@@ -245,6 +245,20 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_chunk_scores_ref(b: torch.Tensor, c: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    """C B^T within each chunk of ``chunk`` steps, shared by every head:
+    b, c (B, S, N) -> (B, ceil(S / chunk), chunk, chunk) fp32, the steps
+    past S zeros.  The plain version of the SSD scan's scores pass."""
+    bsz, s, n = b.shape
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    bp = torch.nn.functional.pad(b.to(torch.float32), (0, 0, 0, pad))
+    cp = torch.nn.functional.pad(c.to(torch.float32), (0, 0, 0, pad))
+    return torch.einsum("bcqn,bctn->bcqt", cp.reshape(bsz, nc, chunk, n),
+                        bp.reshape(bsz, nc, chunk, n))
+
+
 def ssd_step_ref(h: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
                  a_log: torch.Tensor, b_t: torch.Tensor, c_t: torch.Tensor,
                  d_skip: torch.Tensor):

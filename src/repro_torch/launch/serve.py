@@ -5,7 +5,8 @@ Batch path (default): all requests are served as one batch of
 G = requests / K query groups, each Berrut-encoded into N+1 coded
 streams: round 0 prefills the prompts, then every decode step is one
 more coded round.  Each round's straggler mask takes S workers out at
-random.
+random.  Tokens are greedy, or with ``--top-k`` > 1 drawn from the
+``--temperature``-scaled top-k logits.
 
 ``--continuous``: continuous batching over a fixed coded-KV slot pool
 (DESIGN.md §10).  Requests arrive on a Poisson clock at ``--rate``, the
@@ -19,8 +20,12 @@ With E > 0 an adversary (``--attack persistent|intermittent|colluding``,
 ``--attack-rate``) controls E compromised workers that corrupt their
 coded logits with noise of scale ``--byz-sigma``, and the vote-gated
 locator has to find them; ``--quarantine`` (continuous) stops
-dispatching to repeat offenders for a probation period, and ``--churn``
-(continuous) lets workers leave and rejoin.  Prompts, masks and budgets
+dispatching to repeat offenders for ``--probation-ms``, ``--churn``
+(continuous) lets workers leave and rejoin (``--churn-up-ms``,
+``--churn-down-ms``), and ``--traffic diurnal`` (continuous) replaces the
+homogeneous Poisson arrivals with a diurnal and bursty trace around
+``--rate``.  ``--attack-placement worst_case`` puts the compromised
+workers where the locator finds them hardest.  Prompts, masks and budgets
 come from a numpy generator seeded by ``--seed``; weights are random,
 drawn from a torch generator with the same seed.
 
@@ -56,10 +61,14 @@ from repro_torch.serving.continuous import (ContinuousConfig,
                                             ContinuousScheduler)
 from repro_torch.serving.executor import CodedLLMExecutor
 from repro_torch.serving.failures import AdversaryConfig, make_adversary
-from repro_torch.serving.latency import ChurnModel, LatencyModel
+from repro_torch.serving.latency import (ChurnModel, LatencyModel,
+                                         TrafficModel, trace_arrivals)
 from repro_torch.serving.quarantine import QuarantineConfig
+from repro_torch.serving.sampling import SampleConfig
 
 ATTACKS = ("persistent", "intermittent", "colluding")
+PLACEMENTS = ("random", "worst_case")
+TRAFFIC = ("poisson", "diurnal")
 
 
 def _sync(device: torch.device) -> None:
@@ -74,7 +83,10 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
         continuous: bool = False, pool_groups: int = 4,
         rate_rps: float = 2000.0, flush_deadline_ms: float = 5.0,
         quarantine: bool = False, churn: bool = False,
-        wshard=None) -> dict:
+        wshard=None, top_k: int = 1, temperature: float = 1.0,
+        attack_placement: str = "random", probation_ms: float = 200.0,
+        churn_up_ms: float = 2000.0, churn_down_ms: float = 200.0,
+        traffic: str = "poisson") -> dict:
     """Serve ``requests`` random prompts, as one coded batch or (with
     ``continuous``) through the slot pool, worker-major with ``wshard``.
     Returns a dict of what the run measured; see ``_run_batch`` and
@@ -84,29 +96,40 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
     coding = CodingConfig(k=k, s=s, e=e)
     if attack not in ATTACKS:
         raise ValueError(f"attack must be one of {ATTACKS}, got {attack!r}")
+    if traffic not in TRAFFIC:
+        raise ValueError(f"traffic must be one of {TRAFFIC}, got "
+                         f"{traffic!r}")
+    sample = SampleConfig(top_k=top_k, temperature=temperature)
     rng = np.random.RandomState(seed)
     params = init_params(cfg, torch.Generator(device).manual_seed(seed),
                          device)
     prompts = rng.randint(0, cfg.vocab_size, (requests, prompt_len))
     adversary = (AdversaryConfig(kind=attack, attack_rate=attack_rate,
                                  sigma=byz_sigma, num_adversaries=e,
-                                 seed=seed) if e else None)
+                                 placement=attack_placement, seed=seed)
+                 if e else None)
     if continuous:
         return _run_continuous(cfg, coding, params, prompts, rng, steps,
                                adversary, device, seed=seed,
                                pool_groups=pool_groups, rate_rps=rate_rps,
                                flush_deadline_ms=flush_deadline_ms,
-                               quarantine=quarantine, churn=churn,
-                               wshard=wshard)
-    if quarantine or churn:
-        raise ValueError("--quarantine and --churn run on the event clock "
-                         "of --continuous")
+                               quarantine=(QuarantineConfig(
+                                   probation_ms=probation_ms)
+                                   if quarantine and e else None),
+                               churn=(ChurnModel(mean_up_ms=churn_up_ms,
+                                                 mean_down_ms=churn_down_ms,
+                                                 seed=seed + 7)
+                                      if churn else None),
+                               traffic=traffic, sample=sample, wshard=wshard)
+    if quarantine or churn or traffic != "poisson":
+        raise ValueError("--quarantine, --churn and --traffic run on the "
+                         "event clock of --continuous")
     return _run_batch(cfg, coding, params, prompts, rng, steps, adversary,
-                      device, wshard)
+                      device, wshard, sample, seed)
 
 
 def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
-               device, wshard) -> dict:
+               device, wshard, sample, seed) -> dict:
     """The (requests, steps + 1) token matrix, per-round wall times (ms,
     each ending in a device sync), tokens/s, the stragglers and located
     workers of each round, and the locator's precision and recall
@@ -120,7 +143,8 @@ def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
         raise ValueError(f"cannot straggle {s} of {n1} workers")
     executor = CodedLLMExecutor(cfg, coding, params, steps=steps,
                                 max_len=prompts.shape[1] + steps + 2,
-                                wshard=wshard)
+                                wshard=wshard, sample=sample,
+                                sample_seed=seed)
     adversary = make_adversary(coding, adversary_cfg)
     print(f"serving {requests} requests of {prompts.shape[1]} tokens on "
           f"{device} ({cfg.name}): {requests // k} groups of K={k} x "
@@ -179,7 +203,8 @@ def _run_batch(cfg, coding, params, prompts, rng, steps, adversary_cfg,
 
 def _run_continuous(cfg, coding, params, prompts, rng, steps, adversary_cfg,
                     device, *, seed, pool_groups, rate_rps,
-                    flush_deadline_ms, quarantine, churn, wshard) -> dict:
+                    flush_deadline_ms, quarantine, churn, traffic, sample,
+                    wshard) -> dict:
     """Per-uid generated tokens (``results``) and budgets, the scheduler's
     event ``trace`` and ``metrics`` (event clock), the number of pool
     rounds and of prefill / decode calls, each call's wall time (ms,
@@ -190,28 +215,34 @@ def _run_continuous(cfg, coding, params, prompts, rng, steps, adversary_cfg,
         cfg, coding, params, pool_groups=pool_groups,
         max_len=prompts.shape[1] + steps + 2,
         byz_collude=(adversary_cfg is not None
-                     and adversary_cfg.kind == "colluding"), wshard=wshard)
+                     and adversary_cfg.kind == "colluding"), sample=sample,
+        sample_seed=seed, wshard=wshard)
     e = coding.e
     sched = ContinuousScheduler(
         ContinuousConfig(
             coding=coding, pool_groups=pool_groups,
             flush_deadline_ms=flush_deadline_ms, seed=seed,
             adversary=adversary_cfg,
-            quarantine=QuarantineConfig() if quarantine and e else None,
-            churn=(ChurnModel(seed=seed + 7) if churn else None),
+            quarantine=quarantine, churn=churn,
             max_new_tokens=steps),
         LatencyModel(), executor)
     print(f"continuous batching of {requests} requests of "
           f"{prompts.shape[1]} tokens on {device} ({cfg.name}) at "
-          f"{rate_rps:.0f} req/s: {pool_groups} group slots of K="
+          f"{rate_rps:.0f} req/s ({traffic}): {pool_groups} group slots of K="
           f"{coding.k} x {coding.num_workers} coded streams "
           f"({pool_groups * coding.num_workers} pooled), S={coding.s} "
           f"E={e}, per-request budgets 1..{steps}"
           + (", worker-major" if wshard is not None else "")
           + (f", {adversary_cfg.kind} attacker at sigma "
              f"{adversary_cfg.sigma}" if adversary_cfg is not None else ""))
+    # diurnal: a non-homogeneous Poisson trace whose mean rate is --rate
+    arrival_ms = (trace_arrivals(requests, TrafficModel(
+        base_rate_rps=rate_rps), seed=seed + 11)
+        if traffic == "diurnal" else None)
     metrics = sched.run([p.astype(np.int32) for p in prompts],
-                        rate_rps=rate_rps, max_new_tokens=budgets)
+                        arrival_ms=arrival_ms,
+                        rate_rps=None if arrival_ms is not None else rate_rps,
+                        max_new_tokens=budgets)
     _sync(device)
     prefill_ms = executor.call_ms["prefill"]
     decode_ms = executor.call_ms["decode"]
@@ -250,12 +281,20 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8,
                     help="decode steps (batch), or the largest "
                          "per-request budget (--continuous)")
+    ap.add_argument("--top-k", type=int, default=1,
+                    help="on-device sampling: 1 = greedy, > 1 samples "
+                         "from the temperature-scaled top-k logits")
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="softmax temperature for --top-k > 1")
     ap.add_argument("--byz-sigma", type=float, default=50.0)
     ap.add_argument("--attack", default="persistent", choices=ATTACKS,
                     help="adversary model (active when --e > 0)")
     ap.add_argument("--attack-rate", type=float, default=1.0,
                     help="per-dispatch corruption probability "
                          "(intermittent/colluding)")
+    ap.add_argument("--attack-placement", default="random",
+                    choices=PLACEMENTS,
+                    help="compromised-worker placement")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over a fixed coded-KV slot "
                          "pool")
@@ -264,14 +303,24 @@ def main(argv=None):
     ap.add_argument("--rate", type=float, default=2000.0,
                     help="Poisson arrival rate, requests/second "
                          "(--continuous)")
-    ap.add_argument("--flush-deadline-ms", type=float, default=5.0,
+    ap.add_argument("--traffic", default="poisson", choices=TRAFFIC,
+                    help="arrival process: homogeneous Poisson at --rate, "
+                         "or a diurnal+bursty trace around --rate "
+                         "(--continuous)")
+    ap.add_argument("--deadline-ms", type=float, default=5.0,
                     help="batcher flush deadline (--continuous)")
     ap.add_argument("--quarantine", action="store_true",
                     help="stop dispatching to repeatedly-located workers "
                          "(--continuous)")
+    ap.add_argument("--probation-ms", type=float, default=200.0,
+                    help="quarantine duration before re-admission")
     ap.add_argument("--churn", action="store_true",
                     help="workers leave/rejoin on exponential clocks "
                          "(--continuous)")
+    ap.add_argument("--churn-up-ms", type=float, default=2000.0,
+                    help="mean worker uptime between leaves")
+    ap.add_argument("--churn-down-ms", type=float, default=200.0,
+                    help="mean downtime before rejoin")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (cpu runs the plain "
@@ -285,15 +334,22 @@ def main(argv=None):
                  "ported yet")
     if args.scheme != "berrut":
         ap.error(f"--scheme {args.scheme} is not ported yet (berrut only)")
-    if (args.quarantine or args.churn) and not args.continuous:
-        ap.error("--quarantine and --churn need --continuous")
+    if (args.quarantine or args.churn or args.traffic != "poisson") and \
+            not args.continuous:
+        ap.error("--quarantine, --churn and --traffic diurnal need "
+                 "--continuous")
     return run(args.arch, args.reduced, args.requests, args.k, args.s,
                args.e, args.prompt_len, args.steps, args.byz_sigma,
                seed=args.seed, device=args.device, attack=args.attack,
                attack_rate=args.attack_rate, continuous=args.continuous,
                pool_groups=args.pool_groups, rate_rps=args.rate,
-               flush_deadline_ms=args.flush_deadline_ms,
-               quarantine=args.quarantine, churn=args.churn)
+               flush_deadline_ms=args.deadline_ms,
+               quarantine=args.quarantine, churn=args.churn,
+               top_k=args.top_k, temperature=args.temperature,
+               attack_placement=args.attack_placement,
+               probation_ms=args.probation_ms,
+               churn_up_ms=args.churn_up_ms,
+               churn_down_ms=args.churn_down_ms, traffic=args.traffic)
 
 
 if __name__ == "__main__":

@@ -43,7 +43,8 @@ from repro_torch.core.berrut import CodingConfig
 from repro_torch.kernels import ops
 from repro_torch.models import partitioning
 from repro_torch.models.partitioning import WorkerGroup
-from repro_torch.serving.sampling import SampleConfig, sample_tokens
+from repro_torch.serving.sampling import (SampleConfig, sample_tokens,
+                                         top_k_stable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,9 +156,13 @@ def _sample_vocab_sharded(logits: torch.Tensor, config: SampleConfig,
     """``sampling.sample_tokens`` over a vocabulary-sharded (rows, V/W)
     block, bit-identical to it on the gathered rows: greedy breaks ties
     to the lowest global index (argmax over the rank-ordered candidate
-    table), and the merged per-rank top-k keeps the full top-k's values
-    in order (a global top-k element is in its rank's local top-k), so
-    the one draw from ``generator`` sees the same probabilities."""
+    table), and the merged per-rank top-k keeps the full top-k in its
+    order (a global top-k element is in its rank's local top-k), so the
+    one draw from ``generator`` sees the same candidates in the same
+    order.  Ties go to the lower global index, as ``lax.top_k``'s: each
+    rank selects in that order, and the stable merge over the rank-major
+    candidate table keeps equal values in table order, which is global
+    index order (rank r holds the r-th slice of the vocabulary)."""
     offset = group.rank * vloc
     if config.top_k <= 1:
         li = torch.argmax(logits, dim=-1)
@@ -169,13 +174,13 @@ def _sample_vocab_sharded(logits: torch.Tensor, config: SampleConfig,
     if generator is None:
         raise ValueError("top_k > 1 sampling needs a generator")
     kk = config.top_k
-    lv, li = torch.topk(logits.to(torch.float32), kk, dim=-1)
+    lv, li = top_k_stable(logits.to(torch.float32), kk)
     gv = group.all_gather(lv[None], 0)                      # (W, rows, kk)
     gi = group.all_gather((li + offset).to(torch.int32)[None], 0)
     rows = logits.shape[0]
     gv = gv.movedim(0, 1).reshape(rows, group.size * kk)
     gi = gi.movedim(0, 1).reshape(rows, group.size * kk)
-    vals, sel = torch.topk(gv, kk, dim=-1)
+    vals, sel = top_k_stable(gv, kk)
     idx = torch.gather(gi, -1, sel)
     probs = torch.softmax(vals / config.temperature, dim=-1)
     choice = torch.multinomial(probs, 1, generator=generator)

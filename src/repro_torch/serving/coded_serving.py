@@ -244,6 +244,7 @@ def _round_tail(coding: CodingConfig, coded_logits: torch.Tensor,
 def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                   inputs: dict, max_len: int,
                   straggler_mask: Optional[torch.Tensor] = None,
+                  cache_dtype: Optional[torch.dtype] = None,
                   byz_mask: Optional[torch.Tensor] = None,
                   byz_noise: Optional[torch.Tensor] = None,
                   byz_sigma: float = 10.0,
@@ -256,6 +257,8 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     """Prefill G*K real prompts as G*(N+1) coded streams.
 
     inputs: {"tokens": (G*K, S)} or {"embeddings": (G*K, S, d)}.
+    ``cache_dtype``: the coded caches' dtype (default the coded
+    streams').
     Byzantine workers (``byz_mask``, (N+1,)) add ``byz_sigma * byz_noise``
     to their logits.  Returns (decoded last-token logits (G*K, V), or
     with ``sample`` the (G*K,) int32 token ids, and the serving state);
@@ -267,8 +270,8 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     gk, s, d = x.shape
     g = gk // coding.k
     coded = _code_streams(coding, x.reshape(g, coding.k, s, d), wshard)
-    caches = init_caches(cfg, coded.shape[0], max_len, coded.dtype,
-                         coded.device)
+    caches = init_caches(cfg, coded.shape[0], max_len,
+                         cache_dtype or coded.dtype, coded.device)
     coded_logits, caches = prefill(cfg, params, {"embeddings": coded},
                                    caches)
     out, report = _round_tail(coding, coded_logits, None, straggler_mask,

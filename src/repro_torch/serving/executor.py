@@ -6,8 +6,10 @@ A dispatched batch runs ``1 + steps`` coded rounds: round 0 is
 round takes its own straggler mask, an optional ``RoundAttack`` that
 corrupts the compromised workers' coded logits before the locator runs
 (colluding workers share one noise draw per group), and an optional
-``locate_quorum``.  Tokens are selected greedily on the device; the
-batch returns the (B, steps + 1) token matrix.
+``locate_quorum``.  Tokens are selected on the device by ``sample``
+(greedy by default; top-k draws come from a ``torch.Generator`` on the
+device seeded by ``sample_seed``); the batch returns the (B, steps + 1)
+token matrix.
 
 The executor is built at its widest operating point; a batch may be
 dispatched at a narrower ``CodingConfig`` of the same K, whose streams
@@ -43,7 +45,9 @@ class CodedLLMExecutor:
 
     def __init__(self, model_cfg, coding: CodingConfig, params: dict,
                  steps: int, max_len: int,
-                 wshard: Optional[WorkerShardConfig] = None):
+                 wshard: Optional[WorkerShardConfig] = None,
+                 sample: Optional[SampleConfig] = None,
+                 sample_seed: int = 0):
         self.model_cfg = model_cfg
         self.coding = coding
         self.params = params
@@ -51,6 +55,9 @@ class CodedLLMExecutor:
         self.max_len = max_len
         self.wshard = wshard
         self.device = params["embeddings"]["embed"].device
+        self.sample = sample if sample is not None else SampleConfig()
+        self._generator = torch.Generator(self.device).manual_seed(
+            sample_seed)
 
     def _validate_point(self, point: CodingConfig) -> None:
         if point.k != self.coding.k:
@@ -112,7 +119,8 @@ class CodedLLMExecutor:
         kw = dict(straggler_mask=torch.as_tensor(m, device=self.device),
                   byz_mask=byz_mask, byz_noise=noise,
                   byz_sigma=0.0 if attack is None else attack.sigma,
-                  with_report=True, sample=SampleConfig(),
+                  with_report=True, sample=self.sample,
+                  generator=self._generator,
                   live_mask=torch.as_tensor(live, device=self.device),
                   locate_quorum=0 if locate_quorum is None else locate_quorum,
                   wshard=self.wshard)

@@ -1,8 +1,10 @@
 """On-device token sampling (port of ``repro.serving.sampling``).
 
 Greedy selection is argmax with ties to the lowest index, as the
-reference's; top-k draws from an explicit ``torch.Generator``, so its
-draws differ from the reference's ``jax.random`` ones by construction.
+reference's; the top k are selected in ``lax.top_k``'s order (value
+descending, then index ascending: ``top_k_stable``), and the draw comes
+from an explicit ``torch.Generator``, so it differs from the reference's
+``jax.random`` one by construction.
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ class SampleConfig:
                 f"temperature must be > 0, got {self.temperature}")
 
 
+def top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last
+    dimension in ``jax.lax.top_k``'s order: value descending, and among
+    equal values the lower index first.  ``torch.topk`` does not promise
+    that order, and bf16 logits tie often."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def sample_tokens(logits: torch.Tensor, config: SampleConfig,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
@@ -37,7 +48,7 @@ def sample_tokens(logits: torch.Tensor, config: SampleConfig,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
         raise ValueError("top_k > 1 sampling needs a generator")
-    vals, idx = torch.topk(logits.to(torch.float32), config.top_k, dim=-1)
+    vals, idx = top_k_stable(logits.to(torch.float32), config.top_k)
     probs = torch.softmax(vals / config.temperature, dim=-1)
     choice = torch.multinomial(probs.reshape(-1, config.top_k), 1,
                                generator=generator)

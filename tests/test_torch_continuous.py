@@ -28,7 +28,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import qwen3_0_6b as jcfg  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402

@@ -12,7 +12,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.core import error_locator as jl  # noqa: E402
 from repro.core.berrut import CodingConfig  # noqa: E402

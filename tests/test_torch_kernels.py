@@ -15,12 +15,12 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.core.berrut import CodingConfig  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import (berrut_decode, berrut_matmul,  # noqa: E402
                                  flash_attention, flash_decode)
 
@@ -179,7 +179,8 @@ def test_launch_counts_cover_the_four_kernels():
                                         "berrut_encode_dispatch",
                                         "fused_group_decode",
                                         "flash_attention", "flash_decode",
-                                        "pool_flash_decode", "ssd_chunked"}
+                                        "pool_flash_decode", "ssd_chunked",
+                                        "ssd_chunk_scores"}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
 
@@ -214,3 +215,125 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     fake.chmod(0o755)
     with pytest.raises(RuntimeError, match="no card here"):
         build.build(["berrut_apply.cu"])
+
+
+# ------------------------------------------------ 3xTF32, emulated on CPU
+#
+# The CUDA kernels of flash attention and the SSD scan compute fp32
+# products on tensor cores as 3xTF32: x = hi + lo with hi and lo in tf32,
+# and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b with fp32 sums.  These tests
+# emulate that arithmetic in torch, tf32 being the fp32 mantissa cut to
+# 10 bits: rounded to nearest, or truncated as the kernels do (they clear
+# hi's low 13 bits, and the tensor cores read lo's upper 19), and hold it
+# to ``chip_smoke.py``'s fp32 tolerance of the plain versions: 2e-5 of
+# max(1, max |plain|).  The card's run of the kernels is the real check.
+
+TOL_F32 = 2e-5
+
+
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """fp32 cut to tf32's 10 mantissa bits: to nearest (ties away) or
+    truncated."""
+    bits = x.contiguous().view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int,
+        rounding: str) -> torch.Tensor:
+    """a @ b in fp32 from tf32 products: 3 terms (3xTF32) or 1 (TF32)."""
+    ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah, rounding), _tf32(b - bh, rounding)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _within_tol(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the fp32 tolerance (<= 1 passes)."""
+    tol = TOL_F32 * max(1.0, want.abs().max().item())
+    return (got - want).abs().max().item() / tol
+
+
+def _attention_tf32(q, k, v, terms, rounding):
+    """Causal GQA attention with both products as emulated TF32 terms."""
+    b, s, h, d = q.shape
+    rep = h // k.shape[2]
+    kk = k.repeat_interleave(rep, 2).transpose(1, 2)         # (B, H, L, D)
+    vv = v.repeat_interleave(rep, 2).transpose(1, 2)
+    scores = _mm(q.transpose(1, 2), kk.transpose(-1, -2), terms,
+                 rounding) / d ** 0.5
+    keep = torch.ones(s, k.shape[1], dtype=torch.bool).tril()
+    scores = scores.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(scores, -1)
+    return _mm(p, vv, terms, rounding).transpose(1, 2)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+def test_3xtf32_attention_holds_the_fp32_tolerance(rounding):
+    rng = np.random.RandomState(16)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               for shape in ((2, 100, 8, 128), (2, 100, 2, 128),
+                             (2, 100, 2, 128)))
+    want = ref.attention_ref(q, k, v)
+    assert _within_tol(_attention_tf32(q, k, v, 3, rounding), want) <= 1.0
+    # one TF32 term alone would not: the split is what keeps fp32
+    assert _within_tol(_attention_tf32(q, k, v, 1, rounding), want) > 1.0
+
+
+def _ssd_tf32(x, dt, a_log, b, c, d_skip, q, terms, rounding):
+    """``ref.ssd_chunked_ref`` at chunk q with every product (C B^T, the
+    decay-weighted scores on x, C H^T and the state update) as emulated
+    TF32 terms."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = s // q
+    la = -torch.exp(a_log)[None, None, :] * dt
+    lcum = torch.cumsum(la.reshape(bsz, nc, q, h), 2)        # (B,NC,Q,H)
+    ltot = lcum[:, :, -1]
+    bc, cc = b.reshape(bsz, nc, q, n), c.reshape(bsz, nc, q, n)
+    xc = x.reshape(bsz, nc, q, h, p)
+    dtc = dt.reshape(bsz, nc, q, h)
+    def mm(a, b):
+        return _mm(a, b, terms, rounding)
+
+    g = mm(cc, bc.transpose(-1, -2))                         # (B,NC,Q,Q)
+    gap = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]    # (B,NC,Q,Q,H)
+    tri = torch.ones(q, q, dtype=torch.bool).tril()[None, None, :, :, None]
+    att = g[..., None] * torch.exp(torch.where(tri, gap, -1e30))
+    att = att.permute(0, 1, 4, 2, 3)                         # (B,NC,H,Q,Q)
+    xb = (xc * dtc[..., None]).permute(0, 1, 3, 2, 4)        # (B,NC,H,Q,P)
+    w = torch.exp(ltot[:, :, None, :] - lcum) * dtc          # (B,NC,Q,H)
+    xw = (xc * w[..., None]).permute(0, 1, 3, 4, 2)          # (B,NC,H,P,Q)
+    state = torch.zeros(bsz, h, p, n)
+    ys = []
+    for ci in range(nc):
+        y_inter = mm(state, cc[:, ci, None].transpose(-1, -2))
+        y_inter = y_inter * torch.exp(lcum[:, ci]).permute(0, 2, 1)[:, :,
+                                                                   None]
+        y = y_inter.transpose(-1, -2) + mm(att[:, ci], xb[:, ci])
+        ys.append(y.permute(0, 2, 1, 3))                     # (B,Q,H,P)
+        state = state * torch.exp(ltot[:, ci])[:, :, None, None] \
+            + mm(xw[:, ci], bc[:, ci, None])
+    y = torch.cat(ys, 1) + x * d_skip[None, None, :, None]
+    return y, state
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+def test_3xtf32_ssd_chunk_products_hold_the_fp32_tolerance(rounding):
+    rng = np.random.RandomState(17)
+    bsz, s, h, p, n = 2, 64, 4, 64, 128
+    x = torch.from_numpy(rng.randn(bsz, s, h, p).astype(np.float32))
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(rng.randn(bsz, s, h).astype(np.float32)))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h))
+    b, c = (torch.nn.functional.silu(torch.from_numpy(
+        rng.randn(bsz, s, n).astype(np.float32))) for _ in range(2))
+    d_skip = torch.ones(h)
+    y_ref, h_ref = ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, chunk=8)
+    y, hf = _ssd_tf32(x, dt, a_log, b, c, d_skip, 32, 3, rounding)
+    assert _within_tol(y, y_ref) <= 1.0
+    assert _within_tol(hf, h_ref) <= 1.0
+    y1, h1 = _ssd_tf32(x, dt, a_log, b, c, d_skip, 32, 1, rounding)
+    assert max(_within_tol(y1, y_ref), _within_tol(h1, h_ref)) > 1.0

@@ -22,7 +22,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import mamba2_780m as jcfg  # noqa: E402
 from repro.core.berrut import CodingConfig as JCoding  # noqa: E402

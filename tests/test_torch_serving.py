@@ -8,13 +8,15 @@ rtol 1e-5, atol 1e-4; greedy tokens, ``located`` and ``votes`` exactly
 (every attacked case uses sigma >= 10).
 """
 
+import argparse
+
 import pytest
 
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import qwen3_0_6b as jcfg  # noqa: E402
 from repro.core.berrut import CodingConfig as JCoding  # noqa: E402
@@ -30,7 +32,7 @@ from repro_torch.serving import coded_serving as tcs  # noqa: E402
 from repro_torch.serving.executor import (CodedLLMExecutor,  # noqa: E402
                                           RoundAttack)
 from repro_torch.serving.sampling import (SampleConfig,  # noqa: E402
-                                          sample_tokens)
+                                          sample_tokens, top_k_stable)
 
 LOGITS_TOL = dict(rtol=1e-5, atol=1e-4)
 PROMPT, STEPS = 8, 3
@@ -235,3 +237,99 @@ def test_sampling_greedy_and_top_k():
     assert set(draws[:, 1].tolist()) <= {0, 2}
     with pytest.raises(ValueError, match="generator"):
         sample_tokens(logits, SampleConfig(top_k=2))
+
+
+def _tied_logits(kind: str) -> np.ndarray:
+    """(16, 4096) logits with many ties near the top: randn rounded to
+    bf16, or fp32 rounded to 3 decimals."""
+    x = np.random.RandomState(11).randn(16, 4096).astype(np.float32) * 2
+    if kind == "bf16":
+        return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return np.round(x, 3)
+
+
+@pytest.mark.parametrize("kind,k", [("bf16", 50), ("fp32_3_decimals", 50),
+                                    ("fp32_3_decimals", 1000)])
+def test_top_k_stable_matches_lax_top_k(kind, k):
+    """``top_k_stable`` selects in ``lax.top_k``'s order: value
+    descending, the lower index first among equal values."""
+    x = _tied_logits(kind)
+    vals, idx = top_k_stable(torch.from_numpy(x), k)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    # the case has ties inside the top k
+    assert (np.diff(vals.numpy(), axis=-1) == 0).any()
+
+
+def test_top_k_sampling_on_ties_draws_the_reference_candidates():
+    """On tied bf16 logits, the top-k sampler's candidates (and so each
+    draw's token) follow ``lax.top_k``'s order: a draw's choice index
+    maps to the same token as in the reference."""
+    x = torch.from_numpy(_tied_logits("bf16"))
+    cfg = SampleConfig(top_k=50, temperature=0.7)
+    got = sample_tokens(x, cfg, torch.Generator().manual_seed(2))
+    _, ji = jax.lax.top_k(jnp.asarray(x.numpy()), 50)
+    probs = torch.softmax(top_k_stable(x, 50)[0] / 0.7, dim=-1)
+    choice = torch.multinomial(probs, 1,
+                               generator=torch.Generator().manual_seed(2))
+    want = np.take_along_axis(np.asarray(ji), choice.numpy(), -1)[:, 0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("continuous", [False, True])
+def test_serve_takes_the_reference_flags(continuous, capsys):
+    """The launcher parses and runs the reference's flags: --top-k,
+    --temperature, --attack-placement, --deadline-ms, and on the event
+    clock --probation-ms, --churn-up-ms, --churn-down-ms and --traffic
+    diurnal."""
+    argv = ["--reduced", "--device", "cpu", "--k", "4", "--e", "1",
+            "--byz-sigma", "10", "--top-k", "5", "--temperature", "0.7",
+            "--attack-placement", "worst_case", "--seed", "3"]
+    if continuous:
+        argv += ["--continuous", "--requests", "16", "--pool-groups", "2",
+                 "--steps", "4", "--quarantine", "--probation-ms", "20",
+                 "--churn", "--churn-up-ms", "500", "--churn-down-ms", "50",
+                 "--traffic", "diurnal", "--rate", "400", "--deadline-ms",
+                 "3"]
+        res = serve.main(argv)
+        assert sorted(res["results"]) == list(range(16))
+        for uid, toks in res["results"].items():
+            assert len(toks) == res["budgets"][uid]
+        assert "(diurnal)" in capsys.readouterr().out
+    else:
+        res = serve.main(argv + ["--requests", "8", "--steps", "3"])
+        assert res["tokens"].shape == (8, 4)
+        assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
+    for bad in (["--traffic", "diurnal"], ["--flush-deadline-ms", "3"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--reduced", "--device", "cpu", *bad])
+
+
+def _parser_defaults(main, monkeypatch):
+    """The defaults of the parser that ``main`` builds, read without
+    running it."""
+    got = {}
+
+    def defaults_only(self, args=None, namespace=None):
+        got.update(vars(self.parse_known_args([])[0]))
+        raise SystemExit(0)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", defaults_only)
+        with pytest.raises(SystemExit):
+            main()
+    return got
+
+
+def test_serve_defaults_match_the_reference(monkeypatch):
+    """Each flag shared with the reference's launcher has its name and
+    default."""
+    from repro.launch import serve as jserve
+    port = _parser_defaults(serve.main, monkeypatch)
+    ref_ = _parser_defaults(jserve.main, monkeypatch)
+    for flag in ("top_k", "temperature", "attack_placement", "deadline_ms",
+                 "probation_ms", "churn_up_ms", "churn_down_ms", "traffic",
+                 "rate", "byz_sigma", "attack", "attack_rate", "continuous",
+                 "pool_groups", "quarantine", "churn"):
+        assert port[flag] == ref_[flag], flag

@@ -21,6 +21,7 @@ branch and gives the one-rank result bitwise.  Each multi-process run
 has a time limit, so a hang fails instead of stalling the suite.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -31,7 +32,7 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro.configs import mamba2_780m as jmcfg  # noqa: E402
 from repro.configs import qwen3_0_6b as jcfg  # noqa: E402
@@ -52,7 +53,8 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving import coded_serving as tcs  # noqa: E402
 from repro_torch.serving import continuous as tcont  # noqa: E402
 from repro_torch.serving import latency as tlat  # noqa: E402
-from repro_torch.serving.sampling import SampleConfig  # noqa: E402
+from repro_torch.serving.sampling import (SampleConfig,  # noqa: E402
+                                          sample_tokens)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGITS_TOL = dict(rtol=1e-5, atol=1e-4)
@@ -433,6 +435,25 @@ def test_scheduler_rejects_narrow_gather_width(model):
 
 # ------------------------------------------------------------ W > 1 on gloo
 
+# Tied logits for the top-k tie order (made by the tests and by each
+# rank): a (N+1, POOL, 1024) coded block whose workers all hold the same
+# values on a 1/4 grid, so the decoded rows keep the ties exactly (every
+# decode weight multiplies the same value).
+TIED_SAMPLE = SampleConfig(top_k=50, temperature=1.0)
+TIED_DRAWS = 8
+
+
+def tied_block(n1):
+    gen = torch.Generator().manual_seed(4)
+    row = torch.round(torch.randn((POOL, 1024), generator=gen) * 4) / 4
+    return row[None].expand(n1, POOL, 1024).contiguous()
+
+
+_TIED = (f"TIED_SAMPLE = SampleConfig(top_k={TIED_SAMPLE.top_k}, "
+         f"temperature={TIED_SAMPLE.temperature})\n"
+         f"TIED_DRAWS = {TIED_DRAWS}\n\n" + inspect.getsource(tied_block))
+
+
 # One rank of a gloo worker group.  argv: rank, world, store, params,
 # output directory.  Serves the pool as the one-rank fixtures do, counts
 # one decode call's collective bytes in each mode, and decodes a
@@ -459,6 +480,7 @@ from repro_torch.serving.continuous import ContinuousLLMExecutor
 from repro_torch.serving.sampling import SampleConfig
 
 K, S, E, POOL, PLEN, STEPS = %(consts)s
+%(tied)s
 cfg = qwen3_0_6b.reduced()
 params = torch.load(params_path)
 coding = CodingConfig(k=K, s=S, e=E)
@@ -510,9 +532,17 @@ with partitioning.worker_group_context(group):
         coding, local, masks, torch.from_numpy(mask),
         wm.WorkerShardConfig(), sample=SampleConfig()).numpy()
     out["odd_vocab_ops"] = np.asarray(sorted(group.collective_bytes()))
+    # tied logits: top-k draws from the vocabulary-sharded candidates
+    tied = tied_block(n1)
+    gen = torch.Generator().manual_seed(5)
+    out["tied_tokens"] = np.stack([wm.survivor_decode_tail(
+        coding, tied[rank * nl:(rank + 1) * nl], masks,
+        torch.from_numpy(mask), wm.WorkerShardConfig(),
+        sample=TIED_SAMPLE, generator=gen).numpy() for _ in range(TIED_DRAWS)])
 np.savez("%%s/rank%%d.npz" %% (out_dir, rank), **out)
 dist.destroy_process_group()
-""" % {"consts": (K, S, E, POOL, PLEN, STEPS), "quorum": QUORUM}
+""" % {"consts": (K, S, E, POOL, PLEN, STEPS), "quorum": QUORUM,
+       "tied": _TIED}
 
 
 def _run_ranks(world, tmp_path, params_path):
@@ -568,6 +598,37 @@ def test_gloo_tokens_bitwise_equal_one_rank_and_group_major(
                 out["tokens_" + name], one_rank_tokens["group_major", name])
         np.testing.assert_array_equal(out["tokens_survivor"],
                                       out["tokens_replicated"])
+
+
+def test_gloo_top_k_ties_bitwise_equal_across_w(gloo_ranks):
+    """Top-k draws on tied logits at W = 2, 4 and 8 equal the one-rank
+    path's (W = 1) and the group-major path's bitwise: every rank selects
+    in ``lax.top_k``'s order and the merge keeps it."""
+    _, ranks = gloo_ranks
+    coding = TCoding(k=K, s=S, e=E)
+    n1 = coding.num_workers
+    block = tied_block(n1)
+    mask = torch.from_numpy(_mask(n1))
+    masks = mask[None].expand(POOL, n1)
+    dec = twm.survivor_decode_tail(coding, block, masks, mask,
+                                   twm.WorkerShardConfig())
+    top = torch.sort(dec, -1, descending=True).values[:, :50]
+    assert (top[:, 1:] == top[:, :-1]).any(), "no tie in the top k"
+    gen = torch.Generator().manual_seed(5)
+    one_rank = np.stack([twm.survivor_decode_tail(
+        coding, block, masks, mask, twm.WorkerShardConfig(),
+        sample=TIED_SAMPLE, generator=gen).numpy()
+        for _ in range(TIED_DRAWS)])
+    alphas = torch.tensor(coding.alphas, dtype=torch.float32)
+    betas = torch.tensor(coding.betas, dtype=torch.float32)
+    rows = ops.fused_group_decode(block.transpose(0, 1), masks, alphas,
+                                  betas).reshape(-1, 1024)
+    gen = torch.Generator().manual_seed(5)
+    group_major = np.stack([sample_tokens(rows, TIED_SAMPLE, gen).numpy()
+                            for _ in range(TIED_DRAWS)])
+    np.testing.assert_array_equal(one_rank, group_major)
+    for out in ranks:
+        np.testing.assert_array_equal(out["tied_tokens"], one_rank)
 
 
 def test_gloo_greedy_tokens_equal_reference(gloo_ranks, reference_tokens):
