@@ -16,7 +16,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 3. the same comparison on the features the main paths do not use
    (window, softcap, prefix-LM, q_offset, int8 KV, ragged widths, node
    hits, the vote gather, rows that see no key, other head dims and GQA
-   ratios);
+   ratios), and the decode kernels around their key splits (the E=0
+   serving shapes' two splits, a 4096-slot ring at 2 streams, keys in
+   one split, short streams, the multihost shape's one split); the
+   decode kernels are timed with their caches
+   in rotation over more than twice the L2;
 4. two batch serving runs through ``repro_torch.launch.serve`` at full
    width and depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent
    attacker at sigma 10, 16 requests each, counting every kernel's
@@ -69,6 +73,7 @@ away from the repository's ``src/``, it exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -266,8 +271,8 @@ class Smoke:
                 else (t_ops, "operations"))
 
     def record(self, name, dtype, shape, got, want, kernel, plain,
-               library, nbytes, ops):
-        res = {"kernel": name, "dtype": dtype, "shape": shape}
+               library, nbytes, ops, extra=None):
+        res = {"kernel": name, "dtype": dtype, "shape": shape, **(extra or {})}
         res.update(self.check(name, got, want, dtype))
         res["ms"] = self.time_ms(kernel)
         res["graph_ms"] = self.graph_ms(kernel)
@@ -297,6 +302,7 @@ class Smoke:
             self.phase(f"qwen3 kernels {dtype}", self.main_path_kernels,
                        dtype)
         self.phase("qwen3 variants", self.variants)
+        self.phase("flash_decode split variants", self.decode_split_variants)
         self.phase("berrut_encode_dispatch variants", self.b6_variants)
         for dtype in ("float32", "bfloat16"):
             self.phase(f"mamba2 kernels {dtype}", self.mamba2_kernels, dtype)
@@ -404,7 +410,7 @@ class Smoke:
     def main_path_kernels(self, dtype_name: str):
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig, encode_matrix
-        from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import flash_decode, ops, ref
         from repro_torch.configs import qwen3_0_6b
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
@@ -484,28 +490,62 @@ class Smoke:
             (2 * q.numel() + 2 * k.numel()) * size,
             4 * hd * pairs * b * h)
 
+        self.decode_kernels(dtype_name)
+        # key splits of the serving paths' decode calls: E=1 and E=0
+        # (44 and 20 streams) and the multihost serve (72 streams, its
+        # 256-slot ring)
+        sms = torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        for streams, width in ((b, PROMPT + STEPS + 2),
+                               (GROUPS * (K + S), PROMPT + STEPS + 2),
+                               (72, 256)):
+            emit({"variant": "flash_decode / pool_flash_decode plan",
+                  "streams": streams, "width": width,
+                  "blocks": streams * kvh, "splits": flash_decode.plan_splits(
+                      streams, kvh, width, sms)})
+
+    def decode_kernels(self, dtype_name: str):
+        """B4 and B5 at the E=1 batch path's shapes (44 streams, GQA 16/8,
+        head_dim 128, a 274-slot ring at depth 271), timed over enough
+        copies of the caches in rotation that the card's L2 holds none of
+        them from one call to the next (a bf16 copy is about the L2's
+        size): the kernel, its plain version and the library call each
+        read the next copy at every call."""
+        torch = self.torch
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        cfg = qwen3_0_6b.CONFIG
+        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
         # B4: decode at the last step over the (B, W, KV, D) ring cache
         width = PROMPT + STEPS + 2
         pos = PROMPT + STEPS - 1
         qd = self.randn(b, h, hd, dtype=dtype)
-        kc = self.randn(b, width, kvh, hd, dtype=dtype)
-        vc = self.randn(b, width, kvh, hd, dtype=dtype)
+        copies = self.cache_copies(b, width, kvh, hd, dtype)
+        kc, vc = copies[0]
+        turn = itertools.cycle(copies).__next__
         valid = (torch.arange(width, device=self.dev) <= pos).to(torch.uint8)
         mask = valid[None, :].expand(b, width)
         n_valid = pos + 1
+        l2 = {"l2_copies": len(copies)}
         self.record(
             "flash_decode", dtype_name, [list(qd.shape), list(kc.shape)],
             ops.decode_attention(qd, kc, vc, mask),
             ref.decode_attention_ref(qd, kc, vc, mask),
-            lambda: ops.decode_attention(qd, kc, vc, mask),
-            lambda: ref.decode_attention_ref(qd, kc, vc, mask),
-            lambda: sdpa(qd[:, :, None], kc.transpose(1, 2),
-                         vc.transpose(1, 2),
+            lambda: ops.decode_attention(qd, *turn(), mask),
+            lambda: ref.decode_attention_ref(qd, *turn(), mask),
+            lambda: sdpa(qd[:, :, None], *(c.transpose(1, 2)
+                                           for c in turn()),
                          attn_mask=mask.bool()[:, None, None, :],
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
             + width,
-            4 * hd * n_valid * b * h)
+            4 * hd * n_valid * b * h, extra=l2)
 
         # B5: the slot-pool decode over the same (B, W, KV, D) caches, at
         # per-stream depths and with dead streams (E=0's live mask)
@@ -527,14 +567,24 @@ class Smoke:
             "pool_flash_decode", dtype_name,
             [list(qd.shape), list(kc.shape), pos.tolist()],
             got, ref.pool_decode_attention_ref(qd, kc, vc, pos, live),
-            lambda: ops.pool_decode_attention(qd, kc, vc, pos, live),
-            lambda: ref.pool_decode_attention_ref(qd, kc, vc, pos, live),
-            lambda: sdpa(qd[:, :, None], kc.transpose(1, 2),
-                         vc.transpose(1, 2),
+            lambda: ops.pool_decode_attention(qd, *turn(), pos, live),
+            lambda: ref.pool_decode_attention_ref(qd, *turn(), pos, live),
+            lambda: sdpa(qd[:, :, None], *(c.transpose(1, 2)
+                                           for c in turn()),
                          attn_mask=allowed[:, None, None, :],
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
-            4 * hd * n_read * h)
+            4 * hd * n_read * h, extra=l2)
+
+    def cache_copies(self, b: int, width: int, kvh: int, hd: int, dtype):
+        """[(k, v)] caches of (b, width, kvh, hd): as many copies as it
+        takes for their bytes to exceed twice the card's L2."""
+        torch = self.torch
+        l2 = torch.cuda.get_device_properties(self.dev).L2_cache_size
+        one = 2 * b * width * kvh * hd * dtype.itemsize
+        return [(self.randn(b, width, kvh, hd, dtype=dtype),
+                 self.randn(b, width, kvh, hd, dtype=dtype))
+                for _ in range(2 * l2 // one + 1)]
 
     def b6_check(self, what: str, w, x, dtype_name: str,
                  timed: bool = False) -> None:
@@ -773,6 +823,171 @@ class Smoke:
                 out.update(self.check(what, got, want, dtype_name))
                 out["dtype"] = dtype_name
                 emit(out)
+
+    def decode_split_variants(self):
+        """B4 and B5 around their key splits, both dtypes: the E=0 serving
+        shapes (20 streams over the 274-slot ring, two splits and the
+        combine), a long ring (W = 4096 at B = 2: many splits, most of
+        them empty for a short stream), B5 with every stream's keys inside
+        the first of the ring's shares, a B4 mask whose valid keys lie in
+        one split, an all-masked B4 row and dead B5 streams (exact zeros),
+        int8 + softcap and plain caches at D = 64, 128 and 256, and the
+        multihost serve's 72 x 8 blocks at 145 keys, which take one
+        split."""
+        torch = self.torch
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import flash_decode, ops, ref
+        sms = torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        cfg = qwen3_0_6b.CONFIG
+        workers = CodingConfig(k=K, s=S, e=0).num_workers
+        e0 = (GROUPS * workers, PROMPT + STEPS + 2, cfg.num_heads,
+              cfg.num_kv_heads, cfg.head_dim)
+        if flash_decode.plan_splits(e0[0], e0[3], e0[1], sms) < 2:
+            raise AssertionError("flash_decode split plan: the E=0 serving "
+                                 "shape must take more than one split")
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+
+            def add(what, b, w, kvh, got, want, tol_rows=None):
+                splits = flash_decode.plan_splits(b, kvh, w, sms)
+                rows = slice(None) if tol_rows is None else tol_rows
+                res.append((f"{what} (splits {splits})", got[rows],
+                            want[rows]))
+
+            # the E=0 batch and continuous paths' decode calls: B4 with the
+            # batch path's broadcast mask at the last step and with a
+            # per-stream mask whose last row sees nothing (exact zeros);
+            # B5 with per-group-slot depths and the E=0 live mask (a free
+            # slot's streams dead), tiled over each group's K + S workers
+            # as the pool step tiles them
+            b, w, h, kvh, hd = e0
+            q = self.randn(b, h, hd, dtype=dtype)
+            kc = self.randn(b, w, kvh, hd, dtype=dtype)
+            vc = self.randn(b, w, kvh, hd, dtype=dtype)
+            where = f"E=0 B={b} W={w} H={h} KV={kvh} D={hd}"
+            last = (torch.arange(w, device=self.dev)
+                    <= PROMPT + STEPS - 1).to(torch.uint8)
+            mask = last[None, :].expand(b, w)
+            add(f"flash_decode {where} broadcast mask", b, w, kvh,
+                ops.decode_attention(q, kc, vc, mask),
+                ref.decode_attention_ref(q, kc, vc, mask))
+            rows = torch.rand(b, w, generator=self.gen,
+                              device=self.dev) < 0.5
+            rows[-1] = False
+            got = ops.decode_attention(q, kc, vc, rows)
+            if not torch.equal(got[-1].float(),
+                               torch.zeros_like(got[-1].float())):
+                raise AssertionError(f"flash_decode {where}: an "
+                                     "all-masked row is not exactly 0")
+            add(f"flash_decode {where} ragged mask", b, w, kvh, got,
+                ref.decode_attention_ref(q, kc, vc, rows), slice(0, b - 1))
+            gpos = PROMPT + torch.randint(0, STEPS + 1, (GROUPS,),
+                                          generator=self.gen,
+                                          device=self.dev)
+            gpos[0], gpos[1] = 0, 137        # one key; a shorter prompt
+            glive = torch.ones(GROUPS, dtype=torch.uint8, device=self.dev)
+            glive[2] = 0
+            pos = gpos.to(torch.int32).repeat_interleave(workers)
+            live = glive.repeat_interleave(workers)
+            for what, lv in (("live=None", None), ("E=0 live mask", live)):
+                got = ops.pool_decode_attention(q, kc, vc, pos, lv)
+                if lv is not None:
+                    self.dead_rows_zero(f"pool_flash_decode {where}", got,
+                                        lv)
+                add(f"pool_flash_decode {where} {what}", b, w, kvh, got,
+                    ref.pool_decode_attention_ref(q, kc, vc, pos, lv))
+
+            # (B, W, H, KV, D): the long ring, and the multihost shape
+            for b, w, h, kvh, hd in ((2, 4096, 16, 8, 128),
+                                     (72, 145, 16, 8, 128)):
+                q = self.randn(b, h, hd, dtype=dtype)
+                kc = self.randn(b, w, kvh, hd, dtype=dtype)
+                vc = self.randn(b, w, kvh, hd, dtype=dtype)
+                where = f"B={b} W={w} H={h} KV={kvh} D={hd}"
+                mask = torch.rand(b, w, generator=self.gen,
+                                  device=self.dev) < 0.5
+                mask[0] = torch.arange(w, device=self.dev) <= w - 7
+                add(f"flash_decode {where} ring mask", b, w, kvh,
+                    ops.decode_attention(q, kc, vc, mask),
+                    ref.decode_attention_ref(q, kc, vc, mask))
+                # valid keys inside one split's share of the ring; the
+                # last stream sees nothing and must give exact zeros
+                splits = flash_decode.plan_splits(b, kvh, w, sms)
+                lo, hi = (splits // 2 * w // splits,
+                          (splits // 2 + 1) * w // splits)
+                one = torch.zeros(b, w, dtype=torch.bool, device=self.dev)
+                one[:-1, lo + (hi - lo) // 4:lo + (hi - lo) // 2] = True
+                got = ops.decode_attention(q, kc, vc, one)
+                if not torch.equal(got[-1].float(),
+                                   torch.zeros_like(got[-1].float())):
+                    raise AssertionError(f"flash_decode {where}: an "
+                                         "all-masked row is not exactly 0")
+                add(f"flash_decode {where} keys in one split", b, w, kvh,
+                    got, ref.decode_attention_ref(q, kc, vc, one),
+                    slice(0, b - 1))
+                pos = torch.randint(0, 3 * w, (b,), generator=self.gen,
+                                    device=self.dev).to(torch.int32)
+                pos[:2] = torch.tensor([w - 1, 2 * w + 7], device=self.dev)
+                live = torch.ones(b, dtype=torch.uint8, device=self.dev)
+                live[1::3] = 0
+                got = ops.pool_decode_attention(q, kc, vc, pos, live)
+                self.dead_rows_zero(f"pool_flash_decode {where}", got, live)
+                add(f"pool_flash_decode {where} wraps and dead streams", b,
+                    w, kvh, got,
+                    ref.pool_decode_attention_ref(q, kc, vc, pos, live))
+                # every stream's keys inside the first split's share of
+                # the ring, so that most of its own splits are empty
+                short = torch.randint(0, max(1, w // splits), (b,),
+                                      generator=self.gen,
+                                      device=self.dev).to(torch.int32)
+                short[0] = 0
+                add(f"pool_flash_decode {where} short streams", b, w, kvh,
+                    ops.pool_decode_attention(q, kc, vc, short),
+                    ref.pool_decode_attention_ref(q, kc, vc, short))
+            # int8 + softcap and plain caches at each head dim, rep 4
+            b, w, h, kvh = 2, 4096, 8, 2
+            for hd in (64, 128, 256):
+                q = self.randn(b, h, hd, dtype=dtype)
+                kf = self.randn(b, w, kvh, hd)
+                vf = self.randn(b, w, kvh, hd)
+                k8 = torch.clamp(torch.round(kf * 32), -127, 127).to(
+                    torch.int8)
+                v8 = torch.clamp(torch.round(vf * 32), -127, 127).to(
+                    torch.int8)
+                mask = torch.rand(b, w, generator=self.gen,
+                                  device=self.dev) < 0.3
+                pos = torch.tensor([3000, 2 * w + 1], dtype=torch.int32,
+                                   device=self.dev)
+                kw = dict(softcap=15.0, kv_scale=32.0)
+                where = f"B={b} W={w} H={h} KV={kvh} D={hd}"
+                # the plain path rounds dequantised caches to q's dtype
+                add(f"flash_decode {where} int8+softcap", b, w, kvh,
+                    ops.decode_attention(q, k8, v8, mask, **kw),
+                    ref.decode_attention_ref(
+                        q, (k8.float() / 32.0).to(dtype),
+                        (v8.float() / 32.0).to(dtype), mask, softcap=15.0))
+                add(f"pool_flash_decode {where} int8+softcap", b, w, kvh,
+                    ops.pool_decode_attention(q, k8, v8, pos, **kw),
+                    ref.pool_decode_attention_ref(q, k8, v8, pos, **kw))
+                kc, vc = kf.to(dtype), vf.to(dtype)
+                add(f"flash_decode {where}", b, w, kvh,
+                    ops.decode_attention(q, kc, vc, mask),
+                    ref.decode_attention_ref(q, kc, vc, mask))
+                add(f"pool_flash_decode {where}", b, w, kvh,
+                    ops.pool_decode_attention(q, kc, vc, pos),
+                    ref.pool_decode_attention_ref(q, kc, vc, pos))
+            for what, got, want in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, dtype_name))
+                emit(out)
+        if flash_decode.plan_splits(72, 8, 145, sms) != 1 or \
+                flash_decode.plan_splits(2, 8, 4096, sms) < 2:
+            raise AssertionError("flash_decode split plan: the multihost "
+                                 "shape must take one split, the long ring "
+                                 "several")
 
     def ssd_inputs(self, b: int, s: int, h: int, p: int, n: int, dtype,
                    strong: bool = False):

@@ -11,6 +11,15 @@ kv-head share one pass and int8 caches are dequantised in the kernel by
 ``kv_scale``.  ``kernels.ops.decode_attention`` and
 ``kernels.ops.pool_decode_attention`` call these for CUDA tensors and
 the plain versions in ``ref`` for CPU tensors.
+
+The kernel splits each (stream, kv-head)'s keys into ``plan_splits``
+even shares (flash-decoding): one block per (kv-head, stream, split)
+streams its share through shared memory with 16-byte async copies, and
+when there is more than one split a second kernel of the same call
+merges their partial softmaxes from an fp32 workspace that the wrapper
+allocates.  The split count depends on the shapes and the card's SM
+count only, never on ``pos`` or the mask, so a call needs no host sync
+and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ _SHAPE_ARGS = [
     ctypes.c_int, ctypes.c_int,                          # KV, D
     ctypes.c_float, ctypes.c_float, ctypes.c_float,      # softcap, scale, kv_scale
     ctypes.c_int, ctypes.c_int,                          # dtype, cache dtype
+    ctypes.c_int, ctypes.c_void_p,                       # splits, workspace
 ]
 KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
@@ -39,12 +49,49 @@ POOL_KERNEL = Kernel("flash_decode.cu", "pool_flash_decode_launch", [
     *_SHAPE_ARGS,
 ])
 HEAD_DIMS = (64, 128, 256)
+# The fewest keys of the ring worth a split of their own.
+MIN_SPLIT_KEYS = 64
+
+
+def plan_splits(batch: int, kv_heads: int, width: int, sm_count: int) -> int:
+    """Key splits per (stream, kv-head) for a (batch, width, kv_heads)
+    cache on a card of ``sm_count`` SMs.
+
+    Each block keeps enough bytes in flight that a block or two per SM
+    already hold device memory busy, and a split costs a second launch
+    and a workspace pass; so one split when the batch * kv_heads blocks
+    cover the SMs one and a half times (in the pool a dead stream's
+    blocks exit at once, so fewer leave SMs idle).  Below that, each
+    block's serial chain of stages sets the time: then enough splits for
+    two blocks an SM, but none of fewer than ``MIN_SPLIT_KEYS`` keys of
+    the ring.  Shapes and the SM count only: never the positions or the
+    mask, so the plan needs no host sync.  ``scripts/flash_decode_ab.py
+    --sweep`` times every split count on the card.
+    """
+    blocks = batch * kv_heads
+    if 2 * blocks >= 3 * sm_count:
+        return 1
+    want = -(-2 * sm_count // blocks)
+    return max(1, min(want, width // MIN_SPLIT_KEYS))
+
+
+def _split_args(q: torch.Tensor, kv: int, w: int):
+    """(splits, workspace, its pointer) of a call: fp32 scratch of
+    B * H * S * (D + 2) floats when S > 1, none when S = 1."""
+    b, h, d = q.shape
+    splits = plan_splits(b, kv, w, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    if splits == 1:
+        return 1, None, 0
+    ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    return splits, ws, ws.data_ptr()
 
 
 def _check(name: str, q: torch.Tensor, k_cache: torch.Tensor,
            v_cache: torch.Tensor, kv_scale: float):
-    """(dtype code, cache dtype code) of a decode call; raises on what the
-    kernel does not take."""
+    """(dtype code, cache dtype code, k cache, v cache) of a decode call,
+    the caches contiguous; raises on what the kernel does not take."""
     code = dtype_code(name, q.dtype, (torch.float32, torch.bfloat16))
     b, h, d = q.shape
     kv = k_cache.shape[2]
@@ -61,8 +108,16 @@ def _check(name: str, q: torch.Tensor, k_cache: torch.Tensor,
                          "one")
     if k_cache.dtype not in (q.dtype, torch.int8):
         raise TypeError(f"cache dtype {k_cache.dtype} with q {q.dtype}")
-    return code, dtype_code(name, k_cache.dtype,
+    cache_code = dtype_code(name, k_cache.dtype,
                             (torch.float32, torch.bfloat16, torch.int8))
+    # the kernel copies the caches in 16-byte chunks (a row is a multiple
+    # of 16 bytes), so each must start on a 16-byte boundary: a contiguous
+    # view at an odd storage offset would fault on the card
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name} needs caches whose data start 16-byte "
+                         "aligned; got a view at an unaligned offset")
+    return code, cache_code, k_cache, v_cache
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -74,7 +129,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     A mask whose rows are one broadcast row (stride 0) is read as is.
     """
     device = require_cuda("flash_decode", q, k_cache, v_cache, kv_mask)
-    code, cache_code = _check("flash_decode", q, k_cache, v_cache, kv_scale)
+    code, cache_code, k_cache, v_cache = _check(
+        "flash_decode", q, k_cache, v_cache, kv_scale)
     b, h, d = q.shape
     w, kv = k_cache.shape[1], k_cache.shape[2]
     if kv_mask.shape != (b, w):
@@ -83,13 +139,14 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if mask.stride(1) != 1 or (mask.stride(0) != 0 and mask.stride(0) != w):
         mask = mask.contiguous()
     q = q.contiguous()
-    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     out = torch.empty_like(q)
     if out.numel() and w:
+        splits, ws, ws_ptr = _split_args(q, kv, w)
         KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
                       v_cache.data_ptr(), mask.data_ptr(), mask.stride(0),
                       out.data_ptr(), b, w, h, kv, d, softcap,
-                      1.0 / d ** 0.5, kv_scale, code, cache_code)
+                      1.0 / d ** 0.5, kv_scale, code, cache_code, splits,
+                      ws_ptr)
     return out
 
 
@@ -108,8 +165,8 @@ def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """
     tensors = (q, k_cache, v_cache, pos) + (() if live is None else (live,))
     device = require_cuda("pool_flash_decode", *tensors)
-    code, cache_code = _check("pool_flash_decode", q, k_cache, v_cache,
-                              kv_scale)
+    code, cache_code, k_cache, v_cache = _check(
+        "pool_flash_decode", q, k_cache, v_cache, kv_scale)
     b, h, d = q.shape
     w, kv = k_cache.shape[1], k_cache.shape[2]
     if pos.shape != (b,) or (live is not None and live.shape != (b,)):
@@ -126,11 +183,12 @@ def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         live = live.contiguous()
         live_ptr = live.data_ptr()
     q = q.contiguous()
-    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     out = torch.empty_like(q)
     if out.numel() and w:
+        splits, ws, ws_ptr = _split_args(q, kv, w)
         POOL_KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
                            v_cache.data_ptr(), pos.data_ptr(), live_ptr,
                            out.data_ptr(), b, w, h, kv, d, softcap,
-                           1.0 / d ** 0.5, kv_scale, code, cache_code)
+                           1.0 / d ** 0.5, kv_scale, code, cache_code,
+                           splits, ws_ptr)
     return out
