@@ -12,15 +12,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    44 coded streams, 256-token prompts, 16 decode steps; the slot-pool
    decode at a mix of per-stream depths with dead streams), in fp32 and
    bf16, and time kernel, plain version and one PyTorch library call
-   computing the same function;
+   computing the same function; the memory-bound kernels (B1, B2, B4,
+   B5, B6) with their operands in rotation over more than twice the L2,
+   B2 also at the E=0 and mamba2 tails' shapes beside ``torch.matmul``
+   of its decode matrices;
 3. the same comparison on the features the main paths do not use
    (window, softcap, prefix-LM, q_offset, int8 KV, ragged widths, node
    hits, the vote gather, rows that see no key, other head dims and GQA
-   ratios), and the decode kernels around their key splits (the E=0
+   ratios), the decode kernels around their key splits (the E=0
    serving shapes' two splits, a 4096-slot ring at 2 streams, keys in
-   one split, short streams, the multihost shape's one split); the
-   decode kernels are timed with their caches
-   in rotation over more than twice the L2;
+   one split, short streams, the multihost shape's one split), and B2
+   on the worker-major tails' strided views, on views that take its
+   one-column path, at the multihost shape and at K, N+1 near 64; then
+   the host syncs of one E=1 round's tail (``set_sync_debug_mode``);
 4. two batch serving runs through ``repro_torch.launch.serve`` at full
    width and depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent
    attacker at sigma 10, 16 requests each, counting every kernel's
@@ -46,7 +50,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    both whole-path checks at 2 layers;
 9. one E=1 prefill round and one decode round of each model at full
    width and depth under ``torch.profiler``: the device time of the
-   kernels, their share of the round's wall time, the largest of them;
+   kernels, their share of the round's wall time, the largest of them,
+   and the round's host syncs;
 10. worker-sharded serving (DESIGN.md §13) on the one card, W = 1: the
    worker-major encode ``berrut_encode_dispatch`` against its plain
    version and bitwise against ``berrut_apply`` + the permutation (at
@@ -304,6 +309,8 @@ class Smoke:
         self.phase("qwen3 variants", self.variants)
         self.phase("flash_decode split variants", self.decode_split_variants)
         self.phase("berrut_encode_dispatch variants", self.b6_variants)
+        self.phase("fused_group_decode variants", self.b2_variants)
+        self.phase("round tail syncs", self.tail_syncs)
         for dtype in ("float32", "bfloat16"):
             self.phase(f"mamba2 kernels {dtype}", self.mamba2_kernels, dtype)
         self.phase("mamba2 variants", self.mamba2_variants)
@@ -342,6 +349,8 @@ class Smoke:
                 "launches_pool_e1": launches[arch, pool, E][name],
                 "graph_ms": res["graph_ms"],
                 "tensor_cores": self.tensor_cores[name],
+                **{key: res[key] for key in ("l2_copies", "contraction_ms")
+                   if key in res},
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES):
             raise AssertionError(f"kernels measured: {sorted(self.kernels)}")
@@ -419,21 +428,25 @@ class Smoke:
         n1, b = coding.num_workers, GROUPS * coding.num_workers
         d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        v = cfg.vocab_size
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
-        # B1: the prefill encode (G, K, S*d) -> (G, N+1, S*d)
+        # B1: the prefill encode (G, K, S*d) -> (G, N+1, S*d), the input
+        # in rotation past the L2
         w = encode_matrix(coding, device=self.dev).to(dtype).float()
-        x = self.randn(GROUPS, K, PROMPT * d, dtype=dtype)
+        xs = self.rotation(lambda: (
+            self.randn(GROUPS, K, PROMPT * d, dtype=dtype),))
+        x = xs[0][0]
+        turn = itertools.cycle(xs).__next__
         f = x.shape[-1]
+        l2 = {"l2_copies": len(xs)}
         self.record(
             "berrut_apply", dtype_name, [list(w.shape), list(x.shape)],
             ops.berrut_apply(w, x), ref.berrut_apply_ref(w, x),
-            lambda: ops.berrut_apply(w, x),
-            lambda: ref.berrut_apply_ref(w, x),
-            lambda: torch.matmul(w.to(dtype), x),
+            lambda: ops.berrut_apply(w, *turn()),
+            lambda: ref.berrut_apply_ref(w, *turn()),
+            lambda: torch.matmul(w.to(dtype), *turn()),
             w.numel() * 4 + (K + n1) * GROUPS * f * size,
-            2 * n1 * K * f * GROUPS)
+            2 * n1 * K * f * GROUPS, extra=l2)
 
         # B6: the same encode written into the worker-major (N+1)*G rows
         # (two library calls: the product, then the layout copy)
@@ -443,35 +456,17 @@ class Smoke:
             [list(w.shape), list(x.shape)],
             ops.berrut_encode_dispatch(w, x),
             ref.berrut_encode_dispatch_ref(w, x),
-            lambda: ops.berrut_encode_dispatch(w, x),
-            lambda: ref.berrut_encode_dispatch_ref(w, x),
-            lambda: torch.matmul(w.to(dtype), x).transpose(0, 1).reshape(
-                -1, f),
+            lambda: ops.berrut_encode_dispatch(w, *turn()),
+            lambda: ref.berrut_encode_dispatch_ref(w, *turn()),
+            lambda: torch.matmul(w.to(dtype), *turn()).transpose(
+                0, 1).reshape(-1, f),
             w.numel() * 4 + (K + n1) * GROUPS * f * size,
-            2 * n1 * K * f * GROUPS)
+            2 * n1 * K * f * GROUPS, extra=l2)
         self.b6_check("berrut_encode_dispatch decode shape", w,
                       self.randn(GROUPS, K, d, dtype=dtype), dtype_name,
                       timed=True)
 
-        # B2: the round tail over (G, N+1, V) with per-group masks
-        grouped = self.randn(GROUPS, n1, v, dtype=dtype)
-        masks = torch.ones(GROUPS, n1, device=self.dev)
-        masks[:, 3] = 0.0                         # a straggler
-        masks[:, 7] = 0.0                         # a located worker
-        alphas = torch.tensor(coding.alphas, dtype=torch.float32,
-                              device=self.dev)
-        betas = torch.tensor(coding.betas, dtype=torch.float32,
-                             device=self.dev)
-        self.record(
-            "fused_group_decode", dtype_name,
-            [list(grouped.shape), list(masks.shape)],
-            ops.fused_group_decode(grouped, masks, alphas, betas),
-            ref.fused_group_decode_ref(grouped, masks, alphas, betas),
-            lambda: ops.fused_group_decode(grouped, masks, alphas, betas),
-            lambda: ref.fused_group_decode_ref(grouped, masks, alphas, betas),
-            None,
-            (n1 + K) * GROUPS * v * size + masks.numel() * 4 + (K + n1) * 4,
-            2 * K * n1 * v * GROUPS)
+        self.group_decode_kernels(dtype_name)
 
         # B3: causal prefill attention, GQA 16/8, head_dim 128
         q = self.randn(b, PROMPT, h, hd, dtype=dtype)
@@ -503,6 +498,251 @@ class Smoke:
                   "streams": streams, "width": width,
                   "blocks": streams * kvh, "splits": flash_decode.plan_splits(
                       streams, kvh, width, sms)})
+
+    def group_decode_kernels(self, dtype_name: str):
+        """B2 at the serving tails' shapes, each timed with its operands
+        (the (G, N+1, V) block and its masks) in rotation over more than
+        twice the card's L2: the E=1 batch tail (4, 11, 151936) with
+        per-group masks, the kernel's row; then the E=0 tail (4, 5,
+        151936) with the shared mask, and mamba2's E=1 tail (4, 11,
+        50280) without and with the vote gather (the serving tails
+        gather their votes apart, the reference's one-pass variant in
+        B2).  Each shape also times ``torch.matmul`` of
+        its (G, K, N+1) decode matrices, given, with the block:
+        ``contraction_ms``, a yardstick for the contraction alone, since no
+        one PyTorch call builds the matrices too (``library_ms`` is null).
+        """
+        torch = self.torch
+        from repro_torch.configs import mamba2_780m, qwen3_0_6b
+        from repro_torch.core import berrut
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        for what, e, v, c_vote in (
+                ("E=1", E, qwen3_0_6b.CONFIG.vocab_size, 0),
+                ("E=0", 0, qwen3_0_6b.CONFIG.vocab_size, 0),
+                ("mamba2 E=1", E, mamba2_780m.CONFIG.vocab_size, 0),
+                ("mamba2 E=1 c_vote=64", E, mamba2_780m.CONFIG.vocab_size,
+                 64)):
+            coding = CodingConfig(k=K, s=S, e=e)
+            n1 = coding.num_workers
+            alphas = torch.tensor(coding.alphas, dtype=torch.float32,
+                                  device=self.dev)
+            betas = torch.tensor(coding.betas, dtype=torch.float32,
+                                 device=self.dev)
+
+            def operands():
+                avail = torch.ones(n1, device=self.dev)
+                avail[3] = 0.0                     # a straggler
+                if not e:                          # E=0: the shared mask
+                    return (self.randn(GROUPS, n1, v, dtype=dtype),
+                            avail.expand(GROUPS, n1))
+                masks = avail.repeat(GROUPS, 1)
+                masks[:, 7] = 0.0                  # a located worker
+                return self.randn(GROUPS, n1, v, dtype=dtype), masks
+
+            copies = self.rotation(operands)
+            turn = itertools.cycle(copies).__next__
+            grouped, masks = copies[0]
+            dec = torch.stack([berrut.basis_matrix(
+                alphas, betas, berrut.survivor_weights(m), mask=m)
+                for m in masks]).to(dtype)           # (G, K, N+1)
+            c_count = min(v, c_vote)
+            nbytes = ((n1 + K) * GROUPS * v * size + GROUPS * n1 * 4
+                      + (K + n1) * 4 + GROUPS * n1 * c_count * 4)
+            yardstick = {
+                "variant": what, "l2_copies": len(copies),
+                "contraction_ms": self.time_ms(
+                    lambda: torch.matmul(dec, turn()[0])),
+                "contraction_graph_ms": self.graph_ms(
+                    lambda: torch.matmul(dec, turn()[0]))}
+            got = ops.fused_group_decode(grouped, masks, alphas, betas,
+                                         c_vote=c_vote)
+            want = ref.fused_group_decode_ref(grouped, masks, alphas, betas,
+                                              c_vote=c_vote)
+            if c_vote:
+                (got, got_votes), (want, want_votes) = got, want
+                if not torch.equal(got_votes, want_votes):
+                    raise AssertionError(f"fused_group_decode {what}: vote "
+                                         "gather differs")
+            if what == "E=1":
+                self.record(
+                    "fused_group_decode", dtype_name,
+                    [list(grouped.shape), list(masks.shape)], got, want,
+                    lambda: ops.fused_group_decode(*turn(), alphas, betas),
+                    lambda: ref.fused_group_decode_ref(*turn(), alphas,
+                                                       betas),
+                    None, nbytes, 2 * K * n1 * v * GROUPS, extra=yardstick)
+                continue
+            res = {"kernel": "fused_group_decode", "dtype": dtype_name,
+                   "shape": [list(grouped.shape), list(masks.shape)],
+                   **yardstick}
+            res.update(self.check(f"fused_group_decode {what}", got, want,
+                                  dtype_name))
+            res["ms"] = self.time_ms(lambda: ops.fused_group_decode(
+                *turn(), alphas, betas, c_vote=c_vote))
+            res["graph_ms"] = self.graph_ms(lambda: ops.fused_group_decode(
+                *turn(), alphas, betas, c_vote=c_vote))
+            res["bound_ms"], res["bound_by"] = self.bound(
+                nbytes, 2 * K * n1 * v * GROUPS, dtype_name)
+            emit(res)
+
+    def b2_variants(self):
+        """B2 off the main shapes, both dtypes, each against its plain
+        version on the same operands: the worker-major tails' strided
+        views (the survivor tail's ``index_select(...).transpose(0, 1)``
+        at width N+1 and at the quorum, the replicated tail's
+        ``transpose(0, 1)``), read in place; a ragged vocabulary (1001),
+        a view at an unaligned offset and one with an odd stride, which
+        take the one-column instantiation; the multihost shape (K=7,
+        N+1=9, 8 slots); K and N+1 near the limit of 64, where K is walked
+        in chunks, with the vote gather; and a view whose vocabulary axis
+        is strided, which the wrapper refuses."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig, nodes
+        from repro_torch.kernels import berrut_decode, ops, ref
+        from repro_torch.launch import worker_mesh as wm
+
+        def vector(grouped):
+            return berrut_decode.plan_vector(
+                grouped.shape[-1], grouped.stride()[:2],
+                grouped.element_size(), (grouped.data_ptr(),))
+
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            wide = 16 // dtype.itemsize
+            res = []
+            coding = CodingConfig(k=K, s=S, e=E)
+            n1 = coding.num_workers
+            alphas, betas = nodes(coding, self.dev)
+            block = self.randn(n1, GROUPS, 151936, dtype=dtype)
+            avail = torch.ones(n1, device=self.dev)
+            avail[3] = 0.0
+            located = torch.ones(GROUPS, n1, device=self.dev)
+            located[1, 7] = located[2, 0] = 0.0
+            mf = avail[None, :] * located
+            for width in (n1, coding.decode_quorum):
+                _, idx, valid = wm._survivor_slots(avail, width)
+                grouped = block.index_select(0, idx).transpose(0, 1)
+                if grouped.is_contiguous() or vector(grouped) != wide:
+                    raise AssertionError("fused_group_decode: the worker-"
+                                         "major view is contiguous or not "
+                                         "read 16 bytes wide")
+                masks = mf[:, idx] * valid[None, :]
+                res.append((f"fused_group_decode worker-major survivor "
+                            f"view width {width}",
+                            ops.fused_group_decode(grouped, masks, alphas,
+                                                   betas[idx]),
+                            ref.fused_group_decode_ref(grouped, masks, alphas,
+                                                       betas[idx])))
+            grouped = block.transpose(0, 1)
+            res.append(("fused_group_decode worker-major replicated view",
+                        ops.fused_group_decode(grouped, mf, alphas, betas),
+                        ref.fused_group_decode_ref(grouped, mf, alphas,
+                                                   betas)))
+            # one column a thread: ragged V, an unaligned offset, an odd
+            # stride
+            big = self.randn(GROUPS, n1, 1008, dtype=dtype)
+            for what, grouped in (
+                    ("V=1001", self.randn(GROUPS, n1, 1001, dtype=dtype)),
+                    ("unaligned offset", big[..., 1:1001]),
+                    ("odd stride", self.randn(GROUPS, n1, 1001,
+                                              dtype=dtype)[..., :1000])):
+                if vector(grouped) != 1:
+                    raise AssertionError(f"fused_group_decode {what}: "
+                                         "plan_vector chose "
+                                         f"{vector(grouped)}, not 1")
+                res.append((f"fused_group_decode {what} (one column a "
+                            "thread)",
+                            ops.fused_group_decode(grouped, mf, alphas,
+                                                   betas),
+                            ref.fused_group_decode_ref(grouped, mf, alphas,
+                                                       betas)))
+            # the multihost serve's tail: K=7 S=2 E=0, 8 slots
+            mh = CodingConfig(k=7, s=2, e=0)
+            a7, b9 = nodes(mh, self.dev)
+            grouped = self.randn(8, mh.num_workers, 151936, dtype=dtype)
+            m9 = torch.ones(mh.num_workers, device=self.dev)
+            m9[[2, 6]] = 0.0
+            res.append(("fused_group_decode multihost K=7 N+1=9 G=8",
+                        ops.fused_group_decode(grouped, m9, a7, b9),
+                        ref.fused_group_decode_ref(grouped, m9, a7, b9)))
+            # K and N+1 near 64: K walked in chunks of the kernel's rows
+            for big_k in (CodingConfig(k=60, s=4, e=0),
+                          CodingConfig(k=30, s=1, e=1)):
+                ak, bk = nodes(big_k, self.dev)
+                nk = big_k.num_workers
+                grouped = self.randn(3, nk, 1000, dtype=dtype)
+                mk = torch.ones(3, nk, device=self.dev)
+                mk[0, 5] = mk[1, nk - 1] = mk[2, 0] = 0.0
+                (got, gv), (want, wv) = (
+                    ops.fused_group_decode(grouped, mk, ak, bk, c_vote=64),
+                    ref.fused_group_decode_ref(grouped, mk, ak, bk,
+                                               c_vote=64))
+                if not torch.equal(gv, wv):
+                    raise AssertionError(f"fused_group_decode K={big_k.k}: "
+                                         "vote gather differs")
+                res.append((f"fused_group_decode K={big_k.k} N+1={nk} "
+                            "c_vote=64", got, want))
+            for what, got, want in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, dtype_name))
+                emit(out)
+        try:
+            ops.fused_group_decode(self.randn(GROUPS, n1, 2000)[..., ::2],
+                                   avail, alphas, betas)
+        except ValueError:
+            emit({"variant": "fused_group_decode strided vocabulary raises"})
+        else:
+            raise AssertionError("fused_group_decode took a block whose "
+                                 "vocabulary axis is strided")
+
+    def count_syncs(self, fn) -> int:
+        """Calls that synchronise the host with the card while ``fn`` runs
+        (``torch.cuda.set_sync_debug_mode("warn")``: one warning each)."""
+        import warnings
+        torch = self.torch
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return sum("called a synchronizing CUDA operation" in str(w.message)
+                   for w in caught)
+
+    def tail_syncs(self) -> None:
+        """Synchronising calls in one E=1 round's tail, from the locator
+        through B2, at the batch path's shape (44 coded streams, V =
+        151936): the group-major tail ``_finish_round`` and the one-rank
+        worker-major one ``_finish_round_wm`` (survivor gather at width
+        N+1).  Each runs once before it is counted, as every round but a
+        run's first does."""
+        torch = self.torch
+        from repro_torch.configs import qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
+        from repro_torch.serving import coded_serving as cs
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        coded = self.randn(GROUPS * n1, qwen3_0_6b.CONFIG.vocab_size)
+        avail = torch.ones(n1, device=self.dev)
+        avail[3] = 0.0
+        wshard = WorkerShardConfig(gather_width=n1)
+        tails = {
+            "group-major": lambda: cs._finish_round(coding, coded, avail,
+                                                    True),
+            "worker-major": lambda: cs._finish_round_wm(
+                coding, coded, avail, True, wshard, None, None)}
+        counts = {}
+        for what, fn in tails.items():
+            fn()
+            counts[what] = self.count_syncs(fn)
+        emit({"tail_syncs": counts, "rounds": "E=1 batch, K=4 S=1 G=4"})
 
     def decode_kernels(self, dtype_name: str):
         """B4 and B5 at the E=1 batch path's shapes (44 streams, GQA 16/8,
@@ -576,15 +816,21 @@ class Smoke:
             2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
             4 * hd * n_read * h, extra=l2)
 
+    def rotation(self, make) -> list:
+        """[make(), ...]: as many sets of operands (tuples of tensors) as
+        it takes for their bytes to exceed twice the card's L2, so that a
+        timed call that takes the next set at every call finds none of its
+        operands in L2 from one call to the next."""
+        l2 = self.torch.cuda.get_device_properties(self.dev).L2_cache_size
+        first = make()
+        one = sum(t.numel() * t.element_size() for t in first)
+        return [first] + [make() for _ in range(2 * l2 // one)]
+
     def cache_copies(self, b: int, width: int, kvh: int, hd: int, dtype):
-        """[(k, v)] caches of (b, width, kvh, hd): as many copies as it
-        takes for their bytes to exceed twice the card's L2."""
-        torch = self.torch
-        l2 = torch.cuda.get_device_properties(self.dev).L2_cache_size
-        one = 2 * b * width * kvh * hd * dtype.itemsize
-        return [(self.randn(b, width, kvh, hd, dtype=dtype),
-                 self.randn(b, width, kvh, hd, dtype=dtype))
-                for _ in range(2 * l2 // one + 1)]
+        """[(k, v)] caches of (b, width, kvh, hd) in rotation."""
+        return self.rotation(lambda: (
+            self.randn(b, width, kvh, hd, dtype=dtype),
+            self.randn(b, width, kvh, hd, dtype=dtype)))
 
     def b6_check(self, what: str, w, x, dtype_name: str,
                  timed: bool = False) -> None:
@@ -1052,8 +1298,9 @@ class Smoke:
             ssd_ops(b, PROMPT, h, p, n))
 
     def mamba2_variants(self):
-        """B7 off the main shape, and B2 at mamba2's ragged vocabulary with
-        the vote gather, both dtypes."""
+        """B7 off the main shape, and B2 at mamba2's vocabulary with the
+        vote gather, both dtypes (B2 is timed there by
+        ``group_decode_kernels``)."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
@@ -1094,7 +1341,7 @@ class Smoke:
                      torch.cat([y1, y2], 1), y, dtype_name),
                     ("ssd_chunked h0 halves = one pass h_final", h2, hf,
                      "float32")]
-            # B2 over mamba2's vocabulary: 50280 = 392 x 128 + 104
+            # B2 over mamba2's vocabulary (50280)
             cfg = CodingConfig(k=K, s=S, e=E)
             g = self.randn(GROUPS, cfg.num_workers, 50280, dtype=dtype)
             m = torch.ones(GROUPS, cfg.num_workers, device=self.dev)
@@ -1114,14 +1361,6 @@ class Smoke:
                 out = {"variant": what, "dtype": dtype_name}
                 out.update(self.check(what, got, want, tol_dtype))
                 emit(out)
-        # B2's time over mamba2's vocabulary, fp32 (the model's dtype)
-        g = g.float()
-        emit({"kernel": "fused_group_decode", "shape": list(g.shape),
-              "vocab": 50280, "c_vote": 64,
-              "ms": self.time_ms(lambda: ops.fused_group_decode(
-                  g, m, a, bt, c_vote=64)),
-              "graph_ms": self.graph_ms(lambda: ops.fused_group_decode(
-                  g, m, a, bt, c_vote=64))})
 
     def expected_launches(self, arch: str, prefills: int, decodes: int,
                           pool: bool, worker_major: bool = False) -> dict:
@@ -1331,6 +1570,9 @@ class Smoke:
             "decode": lambda: cs.coded_decode_step(
                 cfg, coding, params, state, nxt, **kw)}
         rounds["decode"]()                                  # warm-up
+        # host syncs of a whole round (the executors' one sync a round
+        # comes after it, at the caller)
+        syncs = {kind: self.count_syncs(fn) for kind, fn in rounds.items()}
         for kind, fn in rounds.items():
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1345,7 +1587,7 @@ class Smoke:
                  if ev.device_type == DeviceType.CUDA), reverse=True)
             device_ms = sum(k[0] for k in kernels)
             emit({"profile": f"{arch} K={K} S={S} E={E} {kind}",
-                  "wall_ms": wall,
+                  "syncs": syncs[kind], "wall_ms": wall,
                   "device_ms": device_ms if kernels else None,
                   "busy_share": device_ms / wall if kernels else None,
                   "top": [[name, count, ms] for ms, count, name

@@ -179,9 +179,32 @@ def _encode_matrix_np(k: int, s: int, e: int,
 
 
 def encode_matrix(cfg: CodingConfig, device=None) -> torch.Tensor:
-    """(N+1, K) float32 encode matrix on ``device``."""
-    return torch.tensor(_encode_matrix_np(cfg.k, cfg.s, cfg.e, cfg.systematic),
-                        device=device)
+    """(N+1, K) float32 encode matrix on ``device``, built once per
+    (config, device) and shared (see ``nodes``): never write to it."""
+    return _on_device(cfg, _device(device))[0]
+
+
+def nodes(cfg: CodingConfig, device=None) -> tuple:
+    """(alphas (K,), betas (N+1,)) as float32 tensors on ``device``,
+    built once per (config, device) and shared: never write to them.
+
+    A serving round reads them without copying from the host: a copy
+    from pageable host memory synchronises the stream, so the host would
+    wait for the round's model pass before it could queue the tail."""
+    return _on_device(cfg, _device(device))[1:]
+
+
+def _device(device) -> torch.device:
+    return torch.device("cpu") if device is None else torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(cfg: CodingConfig, device: torch.device) -> tuple:
+    """(encode matrix, alphas, betas) of ``cfg`` on ``device``."""
+    return (torch.tensor(_encode_matrix_np(cfg.k, cfg.s, cfg.e,
+                                           cfg.systematic), device=device),
+            torch.tensor(cfg.alphas, dtype=torch.float32, device=device),
+            torch.tensor(cfg.betas, dtype=torch.float32, device=device))
 
 
 def survivor_weights(mask: torch.Tensor) -> torch.Tensor:
@@ -204,10 +227,8 @@ def decode_matrix(cfg: CodingConfig, mask: torch.Tensor) -> torch.Tensor:
     The mask reaches ``basis_matrix`` explicitly so exact node hits on
     unavailable nodes fall back to interpolation.
     """
-    dev = mask.device
-    return basis_matrix(torch.tensor(cfg.alphas, device=dev),
-                        torch.tensor(cfg.betas, device=dev),
-                        survivor_weights(mask), mask=mask)
+    return basis_matrix(*nodes(cfg, mask.device), survivor_weights(mask),
+                        mask=mask)
 
 
 def encode(cfg: CodingConfig, queries: torch.Tensor,

@@ -89,7 +89,7 @@ def locate_and_decode(cfg: CodingConfig, preds: torch.Tensor,
     avail = torch.as_tensor(avail, dtype=torch.float32, device=preds.device)
     vals = gather_vote_values(preds.reshape(g, cfg.num_workers, -1),
                               cfg.c_vote)
-    betas = torch.tensor(cfg.betas, dtype=torch.float32, device=preds.device)
+    _, betas = berrut.nodes(cfg, preds.device)
     located, votes = locate_groups(betas, vals, avail, k=cfg.k, e=cfg.e)
     avail2d = avail.expand(g, cfg.num_workers)
     masks = avail2d.to(preds.dtype) * (1.0 - located.to(preds.dtype))

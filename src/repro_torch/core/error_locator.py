@@ -156,8 +156,7 @@ def locate_errors(betas: torch.Tensor, coded_values: torch.Tensor,
     if e == 0:
         return located
     votes = vote_errors(betas, coded_values, avail_mask, k=k, e=e)
-    located[_top_indices(votes, e, largest=True)] = True
-    return located
+    return located.index_fill_(0, _top_indices(votes, e, largest=True), True)
 
 
 def locate_groups(betas: torch.Tensor, grouped_values: torch.Tensor,
@@ -186,8 +185,11 @@ def locate_groups(betas: torch.Tensor, grouped_values: torch.Tensor,
     pooled = votes.clamp(min=0).sum(0)                    # (N+1,)
     # never locate a worker that is unavailable in EVERY group
     pooled = torch.where(avail.any(0), pooled, torch.full_like(pooled, -1))
-    top_mask = torch.zeros((n_nodes,), dtype=torch.bool, device=dev)
-    top_mask[_top_indices(pooled, e, largest=True)] = True
+    # index_fill_ takes the value as a scalar: an indexed assignment would
+    # copy it from the host, which blocks until the stream has drained
+    top_mask = torch.zeros((n_nodes,), dtype=torch.bool,
+                           device=dev).index_fill_(
+                               0, _top_indices(pooled, e, largest=True), True)
     confident = pooled * 2 > g * c_used       # strict majority of coords
     located = (top_mask & confident)[None, :] & avail
     return located, votes

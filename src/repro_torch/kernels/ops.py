@@ -71,7 +71,10 @@ def fused_group_decode(grouped: torch.Tensor, masks: torch.Tensor,
                        c_vote: int = 0):
     """Coded-round tail: per-group decode matrices from the masks fused
     with the (G, N+1, V) -> (G, K, V) contraction (plus the strided vote
-    columns when ``c_vote > 0``).  masks: (N+1,) or (G, N+1)."""
+    columns when ``c_vote > 0``).  masks: (N+1,) or (G, N+1).  ``grouped``
+    may be a strided view (a transposed worker-major block): the kernel
+    reads it in place, its vocabulary axis with unit stride, and raises
+    on any other."""
     if _on_card(grouped):
         return berrut_decode.fused_group_decode(grouped, masks, alphas, betas,
                                                 c_vote=c_vote)

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import berrut
 from repro_torch.core.berrut import CodingConfig
 from repro_torch.kernels import ops
 from repro_torch.models import partitioning
@@ -222,9 +223,7 @@ def _decode_tail(coding: CodingConfig, block: torch.Tensor,
     """``survivor_decode_tail`` over ``group``'s collectives, or with
     ``group=None`` the one-rank path's same math without them."""
     width = wshard.resolved_width(coding)
-    dev = block.device
-    alphas = torch.tensor(coding.alphas, dtype=torch.float32, device=dev)
-    betas = torch.tensor(coding.betas, dtype=torch.float32, device=dev)
+    alphas, betas = berrut.nodes(coding, block.device)
     mf = masks.to(torch.float32)
 
     if wshard.mode == "replicated":

@@ -108,8 +108,7 @@ def locate(coding: CodingConfig, coded_logits: torch.Tensor,
     else:
         vals = gather_vote_values(coded_logits.reshape(g, n1, -1),
                                   coding.c_vote)
-    betas = torch.tensor(coding.betas, dtype=torch.float32,
-                         device=coded_logits.device)
+    _, betas = berrut.nodes(coding, coded_logits.device)
     located, votes = locate_groups(betas, vals, avail, k=coding.k,
                                    e=coding.e)
     if locate_quorum is not None:
@@ -172,10 +171,8 @@ def _finish_round(coding: CodingConfig, coded_logits: torch.Tensor,
     masks, located, votes = locate(coding, coded_logits, avail,
                                    locate_quorum=locate_quorum)
     grouped = coded_logits.reshape(g, coding.num_workers, v)
-    logits = ops.fused_group_decode(
-        grouped, masks.to(torch.float32),
-        torch.tensor(coding.alphas, dtype=torch.float32, device=dev),
-        torch.tensor(coding.betas, dtype=torch.float32, device=dev))
+    logits = ops.fused_group_decode(grouped, masks.to(torch.float32),
+                                    *berrut.nodes(coding, dev))
     logits = logits.reshape(g * coding.k, v)
     return logits, ((located, votes) if with_report else None)
 
