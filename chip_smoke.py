@@ -25,10 +25,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    on the worker-major tails' strided views, on views that take its
    one-column path, at the multihost shape and at K, N+1 near 64; then
    the host syncs of one E=1 round's tail (``set_sync_debug_mode``);
-4. two batch serving runs through ``repro_torch.launch.serve`` at full
-   width and depth, K=4 S=1 E=0 and K=4 S=1 E=1 with a persistent
-   attacker at sigma 10, 16 requests each, counting every kernel's
-   launches;
+4. two batch serving runs with fixed masks through
+   ``repro_torch.launch.serve.run_fixed_masks`` (all requests one batch,
+   one random straggler a round) at full width and depth, K=4 S=1 E=0
+   and K=4 S=1 E=1 with a persistent attacker at sigma 10, 16 requests
+   each, counting every kernel's launches, the locator's precision and
+   recall 1 at E=1;
 5. two continuous-batching runs (``serve --continuous``) at full width
    and depth: K=4 S=1 over 4 group slots, 32 requests of 256 tokens with
    budgets 1..16 on a Poisson clock, at E=0 and at E=1 with a persistent
@@ -66,7 +68,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and E=1, with exactly the decode quorum surviving, and against the
    group-major path's tokens; and the round tail's collective branch
    (survivor and replicated) through a one-rank NCCL group on an E=1
-   round's coded logits, equal to the one-rank path.
+   round's coded logits, equal to the one-rank path;
+11. batch serving through the event-driven scheduler (``serve.run`` at
+   the reference's defaults: batches of 2 groups on a 5 ms flush
+   deadline at 2000 req/s, each round waiting for the decode quorum) at
+   full width and depth, 16 requests of 256 tokens and 16 steps: qwen3
+   E=0 and E=1, mamba2 E=1, qwen3 E=1 worker-major; launches held
+   against 2 batches x 17 rounds, each batch's trace against dispatch,
+   17 rounds and complete with exactly the quorum surviving, the
+   attacker located in some round; precision, recall, the missed
+   rounds, triggers, the event clock's p50/p99 and tokens/s printed (no
+   recall asserted: ROADMAP C);
+12. the scheduler's paths at full width and 2 layers, on the card and on
+   the CPU with the same weights, prompts, latency seed and noise: the
+   batch scheduler at E=1 and under the controller (``--adaptive``),
+   ``EngineExecutor`` over the model's last-position logits with an SLO
+   so that speculative decodes and corrections happen, and the slot pool
+   under the controller with quarantine; traces, tokens and decision
+   logs equal, the locator's vote columns equal within the logits'
+   tolerance wherever the inputs are, verdicts equal except where each
+   device's is explained by the exact tally of its own columns (its
+   fp64 verdict, or a near tie; printed).
 
 Each phase prints its wall time.
 
@@ -86,6 +108,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -166,6 +190,10 @@ RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
         ("mamba2-780m", "batch", 0), ("mamba2-780m", "batch", E),
         ("mamba2-780m", "continuous", E),
         ("qwen3-0.6b", "batch_wm", E), ("qwen3-0.6b", "continuous_wm", E)]
+# batch serving through the event-driven scheduler at the serve defaults:
+# (architecture, E, worker-major)
+SCHEDULER_RUNS = [("qwen3-0.6b", 0, False), ("qwen3-0.6b", E, False),
+                  ("mamba2-780m", E, False), ("qwen3-0.6b", E, True)]
 
 
 def emit(obj) -> None:
@@ -308,6 +336,7 @@ class Smoke:
                        dtype)
         self.phase("qwen3 variants", self.variants)
         self.phase("flash_decode split variants", self.decode_split_variants)
+        self.phase("scheduler batch shapes", self.scheduler_kernels)
         self.phase("berrut_encode_dispatch variants", self.b6_variants)
         self.phase("fused_group_decode variants", self.b2_variants)
         self.phase("round tail syncs", self.tail_syncs)
@@ -321,6 +350,10 @@ class Smoke:
             launches[arch, path, e] = self.phase(
                 f"{arch} {path} E={e}", serve, arch, e,
                 path.endswith("_wm"))
+        for arch, e, wm in SCHEDULER_RUNS:
+            path = "scheduler_wm" if wm else "scheduler"
+            launches[arch, path, e] = self.phase(
+                f"{arch} {path} E={e}", self.serve_scheduler, arch, e, wm)
         launches["qwen3-0.6b", "multihost", 0] = self.phase(
             "qwen3-0.6b multihost serve", self.multihost)
         for arch in PATH_KERNELS:
@@ -333,10 +366,18 @@ class Smoke:
         self.phase("qwen3-0.6b whole worker-major pool path",
                    self.whole_pool_path, "qwen3-0.6b", True)
         self.phase("worker tail over one-rank NCCL", self.nccl_tail)
+        self.phase("qwen3-0.6b whole scheduler path",
+                   self.whole_scheduler_path)
+        self.phase("qwen3-0.6b whole EngineExecutor path",
+                   self.whole_engine_path)
+        self.phase("qwen3-0.6b whole pool path under the controller",
+                   self.whole_pool_controller_path)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
             pool = path.replace("batch", "continuous")
+            scheduled = (launches[arch, path.replace("batch", "scheduler"),
+                                  E] if path.startswith("batch") else {})
             entries.append({
                 "name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -347,6 +388,7 @@ class Smoke:
                 "launches_e0": launches[arch, path_e0, 0][name],
                 "launches_e0_run": f"{arch} {path_e0} E=0",
                 "launches_pool_e1": launches[arch, pool, E][name],
+                "launches_scheduler": scheduled.get(name),
                 "graph_ms": res["graph_ms"],
                 "tensor_cores": self.tensor_cores[name],
                 **{key: res[key] for key in ("l2_copies", "contraction_ms")
@@ -487,12 +529,14 @@ class Smoke:
 
         self.decode_kernels(dtype_name)
         # key splits of the serving paths' decode calls: E=1 and E=0
-        # (44 and 20 streams) and the multihost serve (72 streams, its
-        # 256-slot ring)
+        # (44 and 20 streams), the scheduler's E=1 and E=0 batches (22
+        # and 10) and the multihost serve (72 streams, its 256-slot ring)
         sms = torch.cuda.get_device_properties(
             self.dev).multi_processor_count
         for streams, width in ((b, PROMPT + STEPS + 2),
                                (GROUPS * (K + S), PROMPT + STEPS + 2),
+                               (2 * n1, PROMPT + STEPS + 2),
+                               (2 * (K + S), PROMPT + STEPS + 2),
                                (72, 256)):
             emit({"variant": "flash_decode / pool_flash_decode plan",
                   "streams": streams, "width": width,
@@ -697,6 +741,101 @@ class Smoke:
         else:
             raise AssertionError("fused_group_decode took a block whose "
                                  "vocabulary axis is strided")
+
+    def scheduler_kernels(self):
+        """Every kernel of the batch scheduler's path at that path's own
+        shapes, both dtypes, against its plain version: batches of 2
+        groups (22 coded streams at E=1, 10 at E=0).  B1 on the prefill
+        and decode encodes at E=1 and E=0, B6 on both at E=1; B2 on the
+        E=1 tail (quorum survivors, 6 of 11, per-group masks with a
+        located worker), the E=0 tail (4 of 5, the shared mask), mamba2's
+        E=1 tail and the worker-major survivor view at the default gather
+        width; B3 on the 22- and 10-stream prefills; B7 on mamba2's
+        22-stream prefill.  (B4 at 22 and 10 streams is in the split
+        variants.)"""
+        torch = self.torch
+        from repro_torch.configs import mamba2_780m, qwen3_0_6b
+        from repro_torch.core.berrut import CodingConfig, encode_matrix, \
+            nodes
+        from repro_torch.kernels import ops, ref
+        from repro_torch.launch import worker_mesh as wm
+        from repro_torch.models.mamba2 import ssd_chunk
+        cfg, mcfg = qwen3_0_6b.CONFIG, mamba2_780m.CONFIG
+        d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        g = 2
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            for e in (E, 0):
+                coding = CodingConfig(k=K, s=S, e=e)
+                n1 = coding.num_workers
+                w = encode_matrix(coding, device=self.dev).float()
+                for what, f in (("prefill", PROMPT * d), ("decode", d)):
+                    x = self.randn(g, K, f, dtype=dtype)
+                    res.append((f"berrut_apply scheduler E={e} {what} "
+                                f"G={g}", ops.berrut_apply(w, x),
+                                ref.berrut_apply_ref(w, x), dtype_name))
+                    if e:
+                        self.b6_check(f"berrut_encode_dispatch scheduler "
+                                      f"E={e} {what} G={g}", w, x,
+                                      dtype_name)
+                alphas, betas = nodes(coding, self.dev)
+                # the round's survivors: the decode quorum of N+1
+                avail = torch.zeros(n1, device=self.dev)
+                avail[torch.randperm(n1, generator=self.gen,
+                                     device=self.dev)[
+                                         :coding.decode_quorum]] = 1.0
+                if e:
+                    masks = avail.repeat(g, 1)
+                    masks[:, int(avail.nonzero()[0])] = 0.0   # located
+                else:
+                    masks = avail.expand(g, n1)
+                vocabs = ((cfg.vocab_size, mcfg.vocab_size) if e
+                          else (cfg.vocab_size,))
+                for v in vocabs:
+                    grouped = self.randn(g, n1, v, dtype=dtype)
+                    res.append((f"fused_group_decode scheduler E={e} "
+                                f"({g}, {n1}, {v})",
+                                ops.fused_group_decode(grouped, masks,
+                                                       alphas, betas),
+                                ref.fused_group_decode_ref(grouped, masks,
+                                                           alphas, betas),
+                                dtype_name))
+                if e:
+                    width = wm.WorkerShardConfig().resolved_width(coding)
+                    block = self.randn(n1, g, cfg.vocab_size, dtype=dtype)
+                    _, idx, valid = wm._survivor_slots(avail, width)
+                    grouped = block.index_select(0, idx).transpose(0, 1)
+                    mc = masks[:, idx] * valid[None, :]
+                    res.append((f"fused_group_decode scheduler E={e} "
+                                f"worker-major survivor view width {width}",
+                                ops.fused_group_decode(grouped, mc, alphas,
+                                                       betas[idx]),
+                                ref.fused_group_decode_ref(
+                                    grouped, mc, alphas, betas[idx]),
+                                dtype_name))
+                b = g * n1
+                q = self.randn(b, PROMPT, h, hd, dtype=dtype)
+                k = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
+                vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
+                res.append((f"flash_attention scheduler E={e} B={b} "
+                            f"S={PROMPT}", ops.attention(q, k, vv),
+                            ref.attention_ref(q, k, vv), dtype_name))
+            b = g * CodingConfig(k=K, s=S, e=E).num_workers
+            args = self.ssd_inputs(b, PROMPT, mcfg.ssm_heads,
+                                   mcfg.ssm_head_dim, mcfg.ssm_state, dtype)
+            chunk = ssd_chunk(mcfg.ssm_chunk, PROMPT)
+            (y, hf), (yr, hr) = (ops.ssd(*args),
+                                 ref.ssd_chunked_ref(*args, chunk=chunk))
+            res += [(f"ssd_chunked scheduler E={E} B={b} y", y, yr,
+                     dtype_name),
+                    (f"ssd_chunked scheduler E={E} B={b} h_final", hf, hr,
+                     "float32")]
+            for what, got, want, tol_dtype in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, tol_dtype))
+                emit(out)
 
     def count_syncs(self, fn) -> int:
         """Calls that synchronise the host with the card while ``fn`` runs
@@ -1073,13 +1212,14 @@ class Smoke:
     def decode_split_variants(self):
         """B4 and B5 around their key splits, both dtypes: the E=0 serving
         shapes (20 streams over the 274-slot ring, two splits and the
-        combine), a long ring (W = 4096 at B = 2: many splits, most of
-        them empty for a short stream), B5 with every stream's keys inside
-        the first of the ring's shares, a B4 mask whose valid keys lie in
-        one split, an all-masked B4 row and dead B5 streams (exact zeros),
-        int8 + softcap and plain caches at D = 64, 128 and 256, and the
-        multihost serve's 72 x 8 blocks at 145 keys, which take one
-        split."""
+        combine), B4 at the batch scheduler's decode shapes (22 streams
+        at E=1, two splits; 10 at E=0, four), a long ring (W = 4096 at
+        B = 2: many splits, most of them empty for a short stream), B5
+        with every stream's keys inside the first of the ring's shares, a
+        B4 mask whose valid keys lie in one split, an all-masked B4 row
+        and dead B5 streams (exact zeros), int8 + softcap and plain caches
+        at D = 64, 128 and 256, and the multihost serve's 72 x 8 blocks at
+        145 keys, which take one split."""
         torch = self.torch
         from repro_torch.configs import qwen3_0_6b
         from repro_torch.core.berrut import CodingConfig
@@ -1093,6 +1233,15 @@ class Smoke:
         if flash_decode.plan_splits(e0[0], e0[3], e0[1], sms) < 2:
             raise AssertionError("flash_decode split plan: the E=0 serving "
                                  "shape must take more than one split")
+        # (what, streams, the splits the card's plan gives them)
+        sched_shapes = [(f"scheduler E={e}", 2 * CodingConfig(
+            k=K, s=S, e=e).num_workers) for e in (E, 0)]
+        splits = [flash_decode.plan_splits(b, e0[3], e0[1], sms)
+                  for _, b in sched_shapes]
+        if splits != [2, 4]:
+            raise AssertionError(f"flash_decode split plan: the scheduler's "
+                                 f"22 and 10 streams take {splits} splits, "
+                                 "not 2 and 4")
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             res = []
@@ -1145,6 +1294,29 @@ class Smoke:
                                         lv)
                 add(f"pool_flash_decode {where} {what}", b, w, kvh, got,
                     ref.pool_decode_attention_ref(q, kc, vc, pos, lv))
+
+            # the scheduler's batch decode calls: 2 groups a batch, 22
+            # streams at E=1 and 10 at E=0, over the same ring
+            for what, b in sched_shapes:
+                q = self.randn(b, h, hd, dtype=dtype)
+                kc = self.randn(b, w, kvh, hd, dtype=dtype)
+                vc = self.randn(b, w, kvh, hd, dtype=dtype)
+                where = f"{what} B={b} W={w} H={h} KV={kvh} D={hd}"
+                mask = last[None, :].expand(b, w)
+                add(f"flash_decode {where} broadcast mask", b, w, kvh,
+                    ops.decode_attention(q, kc, vc, mask),
+                    ref.decode_attention_ref(q, kc, vc, mask))
+                rows = torch.rand(b, w, generator=self.gen,
+                                  device=self.dev) < 0.5
+                rows[-1] = False
+                got = ops.decode_attention(q, kc, vc, rows)
+                if not torch.equal(got[-1].float(),
+                                   torch.zeros_like(got[-1].float())):
+                    raise AssertionError(f"flash_decode {where}: an "
+                                         "all-masked row is not exactly 0")
+                add(f"flash_decode {where} ragged mask", b, w, kvh, got,
+                    ref.decode_attention_ref(q, kc, vc, rows),
+                    slice(0, b - 1))
 
             # (B, W, H, KV, D): the long ring, and the multihost shape
             for b, w, h, kvh, hd in ((2, 4096, 16, 8, 128),
@@ -1422,7 +1594,9 @@ class Smoke:
             raise AssertionError(f"{where}: a round's logits are not finite")
 
     def serve(self, arch: str, e: int, worker_major: bool = False) -> dict:
-        """Batch serving through ``serve.run``; worker-major with a gather
+        """Batch serving with fixed masks through ``serve.run_fixed_masks``
+        (all requests one batch, one random straggler a round: the inputs
+        its recall-1 check was written for); worker-major with a gather
         width of N+1 (every round's S=1 straggler leaves N survivors)."""
         from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
@@ -1437,10 +1611,10 @@ class Smoke:
             k=K, s=S, e=e).num_workers) if worker_major else None)
         ops.reset_launch_counts()
         with self.finite_logits(where):
-            res = serve.run(arch, reduced=False, requests=requests, k=K,
-                            s=S, e=e, prompt_len=PROMPT, steps=STEPS,
-                            byz_sigma=10.0, seed=0, device="cuda",
-                            wshard=wshard)
+            res = serve.run_fixed_masks(
+                arch, reduced=False, requests=requests, k=K, s=S, e=e,
+                prompt_len=PROMPT, steps=STEPS, byz_sigma=10.0, seed=0,
+                device="cuda", wshard=wshard)
             self.torch.cuda.synchronize()
         launches = ops.launch_counts()
         expected = self.expected_launches(arch, 1, STEPS, pool=False,
@@ -1535,6 +1709,496 @@ class Smoke:
             raise AssertionError(f"{where}: no round admitted a group while "
                                  "another decoded")
         return launches
+
+    def serve_scheduler(self, arch: str, e: int,
+                        worker_major: bool = False) -> dict:
+        """Batch serving through ``serve.run`` at the reference's
+        defaults: the event-driven scheduler, batches of 2 groups on a
+        5 ms flush deadline at 2000 req/s, every round waiting for the
+        decode quorum (K, or K+2E at E=1), worker-major at the default
+        gather width.  16 requests make 2 batches of 22 streams, 17
+        rounds each.  Launches are held against 2 prefill and 32 decode
+        calls, each batch's trace against dispatch, 17 rounds and
+        complete; at E=1 the attacker must be located in some round.  The
+        locator's precision and recall, the rounds that missed the
+        attacker, each round's trigger, the event clock's p50/p99 and
+        tokens/s are printed: no recall is asserted, as at the bare
+        quorum the reference misses rounds too (ROADMAP C)."""
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
+        requests = GROUPS * K
+        coding = CodingConfig(k=K, s=S, e=e)
+        vocab = configs.get_config(arch).vocab_size
+        where = (f"{arch} scheduler K={K} S={S} E={e}"
+                 + (" worker-major" if worker_major else ""))
+        ops.reset_launch_counts()
+        with self.finite_logits(where):
+            res = serve.run(arch, reduced=False, requests=requests, k=K,
+                            s=S, e=e, prompt_len=PROMPT, steps=STEPS,
+                            byz_sigma=10.0, seed=0, device="cuda",
+                            wshard=(WorkerShardConfig() if worker_major
+                                    else None))
+            self.torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        batches = res["batches"]
+        expected = self.expected_launches(arch, len(batches),
+                                          len(batches) * STEPS, pool=False,
+                                          worker_major=worker_major)
+        emit({"path": where, "launches": launches, "expected": expected})
+        sizes = [len(b.plan.requests) for b in batches]
+        if sizes != [2 * K] * (GROUPS // 2):
+            raise AssertionError(f"{where}: batches of {sizes} requests, "
+                                 f"not {GROUPS // 2} of {2 * K}")
+        if launches != expected:
+            raise AssertionError(f"{where}: launch counts {launches} != "
+                                 f"{expected}")
+        toks = res["tokens"]
+        if toks.shape != (requests, 1 + STEPS) or toks.min() < 0 or \
+                toks.max() >= vocab:
+            raise AssertionError(f"{where}: bad token matrix {toks.shape}")
+        metrics = res["metrics"]
+        for b in batches:
+            events = [ev for ev in res["trace"]
+                      if ev[0] != "retune" and ev[1] == b.bid]
+            kinds = [ev[0] for ev in events]
+            if kinds != ["dispatch"] + ["round"] * (1 + STEPS) + \
+                    ["complete"] or [ev[2] for ev in events[1:-1]] != \
+                    list(range(1 + STEPS)):
+                raise AssertionError(f"{where}: batch {b.bid} trace {kinds}")
+            for ev, mask in zip(events[1:-1], b.round_masks):
+                if not len(ev[4]) == int(mask.sum()) == coding.decode_quorum:
+                    raise AssertionError(
+                        f"{where}: batch {b.bid} round {ev[2]} waited for "
+                        f"{len(ev[4])} workers, not {coding.decode_quorum}")
+        if metrics.degraded_rounds:
+            raise AssertionError(f"{where}: degraded rounds without holds")
+        attackers = res["attackers"]
+        missed = [[b.bid, r] for b in batches
+                  for r, (mask, located) in enumerate(zip(
+                      b.round_masks, res["located"][b.bid]))
+                  if any(mask[w] > 0 and w not in located
+                         for w in attackers)]
+        if e and not any(w in located for rounds in res["located"]
+                         for located in rounds for w in attackers):
+            raise AssertionError(f"{where}: the attacker was never located")
+        clock = metrics.percentiles()
+        emit({"serve": where, "batches": len(batches),
+              "streams_per_batch": 2 * coding.num_workers,
+              "rounds": sum(len(b.round_masks) for b in batches),
+              "wait_for": coding.decode_quorum,
+              "locator_precision_recall": (
+                  [res["precision"], res["recall"]] if e else None),
+              "attacker": attackers, "missed_rounds": missed,
+              "trigger_ms": [b.round_waits for b in batches],
+              "event_clock": {"p50_ms": clock["p50_ms"],
+                              "p99_ms": clock["p99_ms"]},
+              # round_ms runs in execution order, the trace's round order
+              "prefill_ms": [ms for ms, ev in zip(res["round_ms"], [
+                  ev for ev in res["trace"] if ev[0] == "round"])
+                  if ev[2] == 0],
+              "round_ms_mean": res["total_ms"] / len(res["round_ms"]),
+              "total_ms": res["total_ms"],
+              "tokens_per_s": res["tokens_per_s"]})
+        return launches
+
+    # ------------------------------------------------ card against CPU
+
+    @contextlib.contextmanager
+    def host_noise(self):
+        """Every attack's noise drawn by the CPU's generator and copied to
+        the device: the same noise on both devices."""
+        from repro_torch.serving import failures
+        real = failures.RoundAttack.noise
+
+        def noise(attack, groups, workers, vocab, device):
+            return real(attack, groups, workers, vocab, "cpu").to(device)
+
+        failures.RoundAttack.noise = noise
+        try:
+            yield
+        finally:
+            failures.RoundAttack.noise = real
+
+    @contextlib.contextmanager
+    def vote_columns(self, columns: list):
+        """Record the vote columns of every locate call of the serving
+        steps, on the host."""
+        from repro_torch.serving import coded_serving as cs
+        real = cs.locate_groups
+
+        def locate(betas, vals, avail, **kw):
+            columns.append((vals.float().cpu(), avail.float().cpu()))
+            return real(betas, vals, avail, **kw)
+
+        cs.locate_groups = locate
+        try:
+            yield
+        finally:
+            cs.locate_groups = real
+
+    def verdict_walk(self, where: str, coding, calls: dict,
+                     columns: dict, per_batch: bool = False) -> list:
+        """Walk the two devices' locate calls in order.  ``calls[device]``:
+        tuples whose last item is the (G, N+1) located verdicts (None
+        where no locator ran) and whose first is the batch id with
+        ``per_batch``; ``columns[device]``: the vote columns of its
+        locate calls.  The calls' keys (round, masks) must agree, and so
+        must the vote columns, within 1e-4 of max(1, max |cpu|) (the
+        whole paths' logits tolerance), on every call whose inputs are
+        still the same: before the first differing verdict, or with
+        ``per_batch`` before the first of its batch.  A verdict that
+        differs between the devices must be explained on each device by
+        the exact reading of its own columns
+        (``error_locator.exact_tally``): the fp64 verdict, or a near tie
+        (ROADMAP C).  Each is printed.  Past a differing verdict the
+        inputs differ: the walk stops there, or with ``per_batch`` skips
+        that batch's later calls.  Returns (the indices of the calls with
+        a differing verdict, {"calls": vote columns compared,
+        "worst_err_over_tol": the worst of them})."""
+        from repro_torch.core.error_locator import exact_tally
+        cols = {dev: iter(c) for dev, c in columns.items()}
+        disputes, tainted = [], set()
+        compared = {"calls": 0, "worst_err_over_tol": 0.0}
+        for i, (a, b) in enumerate(zip(calls["cpu"], calls["cuda"])):
+            pair = ({dev: next(cols[dev]) for dev in ("cpu", "cuda")}
+                    if a[-1] is not None else None)
+            if per_batch and a[0] in tainted:
+                continue
+            if a[:-1] != b[:-1]:
+                raise AssertionError(f"{where}: call {i} ran on {a[:-1]} "
+                                     f"on the cpu, {b[:-1]} on the card")
+            if a[-1] is None:
+                continue
+            (vc, ac), (vg, ag) = pair["cpu"], pair["cuda"]
+            err = (vg - vc).abs().max().item()
+            tol = 1e-4 * max(1.0, vc.abs().max().item())
+            if not (self.torch.equal(ag, ac) and err <= tol):
+                raise AssertionError(f"{where}: call {i}: vote columns "
+                                     f"differ by {err} > {tol}, or their "
+                                     "availability differs")
+            compared["calls"] += 1
+            compared["worst_err_over_tol"] = max(
+                compared["worst_err_over_tol"], err / tol)
+            disputed = np.flatnonzero((a[-1] != b[-1]).any(0))
+            for w in disputed:
+                why = {}
+                for dev, ver in (("cpu", a[-1]), ("cuda", b[-1])):
+                    reading = exact_tally(coding, *pair[dev])
+                    located = bool(ver[:, w].any())
+                    why[dev] = {"located": located,
+                                "exact": int(w) in reading.located,
+                                "tally": reading.tally[w],
+                                "threshold": reading.threshold,
+                                "fp32_moves": reading.moved,
+                                "near_tie": reading.near_tie(w),
+                                "explained": reading.explains(w, located)}
+                emit({"disputed_verdict": where, "call": i,
+                      "key": str(a[:-1]), "worker": int(w),
+                      "columns_err": err, "columns_tol": tol, **why})
+                if not all(r["explained"] for r in why.values()):
+                    raise AssertionError(f"{where}: call {i} worker {w}: "
+                                         "a verdict off its exact one and "
+                                         f"off a near tie {why}")
+            if disputed.size:
+                disputes.append(i)
+                if not per_batch:
+                    break
+                tainted.add(a[0])
+        return disputes, compared
+
+    def two_devices(self, cfg_layers: int = 2):
+        """(cfg, {device: params}, cpu device) at full width and
+        ``cfg_layers`` layers, the card's weights copied from the CPU's."""
+        from repro_torch import configs
+        from repro_torch.models.model import init_params
+        torch = self.torch
+        cfg = configs.get_config("qwen3-0.6b").with_updates(
+            num_layers=cfg_layers)
+        cpu = torch.device("cpu")
+        params = {"cpu": init_params(cfg, torch.Generator(cpu).manual_seed(3),
+                                     cpu)}
+        params["cuda"] = _tree_to(params["cpu"], self.dev)
+        return cfg, params, {"cpu": cpu, "cuda": self.dev}
+
+    def whole_scheduler_path(self):
+        """The batch scheduler over the LLM executor at full width and 2
+        layers, on the card and on the CPU with the same weights, prompts,
+        latency seed and noise, at the serve defaults (wait-for K+2E):
+        E=1 with a persistent attacker, then ``--adaptive`` (a controller
+        with the serve bounds).  Traces equal (up to the round of the
+        first disputed verdict under the controller, whose decisions read
+        the verdicts), verdicts equal except where ``verdict_walk``
+        explains them, decisions made before that round equal, and each
+        batch's tokens equal in the columns before its first disputed
+        round."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.core.scheme import BerrutScheme
+        from repro_torch.serving.controller import (ControllerConfig,
+                                                    RedundancyController)
+        from repro_torch.serving.executor import CodedLLMExecutor
+        from repro_torch.serving.failures import AdversaryConfig
+        from repro_torch.serving.latency import LatencyModel
+        from repro_torch.serving.scheduler import (CodedScheduler,
+                                                   SchedulerConfig)
+        cfg, params, _ = self.two_devices()
+        prompt, steps = 64, 4
+        coding = CodingConfig(k=K, s=S, e=E)
+        for adaptive, n in ((False, 16), (True, 32)):
+            prompts = np.random.RandomState(4).randint(
+                0, cfg.vocab_size, (n, prompt)).astype(np.int32)
+            runs, columns = {}, {}
+            for dev in ("cpu", "cuda"):
+                ctrl = (RedundancyController(
+                    BerrutScheme(coding), ControllerConfig(
+                        window_rounds=8, s_min=0, s_max=S + 1, e_min=0,
+                        e_max=E)) if adaptive else None)
+                executor = CodedLLMExecutor(
+                    cfg, ctrl.max_scheme.coding if adaptive else coding,
+                    params[dev], steps=steps, max_len=prompt + steps + 2)
+                sched = CodedScheduler(SchedulerConfig(
+                    scheme=None if adaptive else BerrutScheme(coding),
+                    groups_per_batch=2, flush_deadline_ms=5.0, seed=0,
+                    controller=ctrl, adversary=AdversaryConfig(
+                        kind="persistent", sigma=10.0, seed=0)),
+                    LatencyModel(), executor)
+                columns[dev] = []
+                with self.host_noise(), self.vote_columns(columns[dev]):
+                    sched.run(list(prompts), rate_rps=2000.0)
+                torch.cuda.synchronize()
+                runs[dev] = sched
+            where = ("qwen3-0.6b whole scheduler path"
+                     + (" adaptive" if adaptive else ""))
+            calls = {dev: scheduler_rounds(runs[dev]) for dev in runs}
+            # without a controller the masks do not read the verdicts: a
+            # dispute only changes its own batch's later rounds
+            disputes, compared = self.verdict_walk(
+                where, runs["cpu"].executor.coding, calls, columns,
+                per_batch=not adaptive)
+            cpu, gpu = runs["cpu"], runs["cuda"]
+            if disputes and adaptive:
+                upto = [j for j, ev in enumerate(cpu.trace)
+                        if ev[0] == "round"][disputes[0]]
+                same = gpu.trace[:upto + 1] == cpu.trace[:upto + 1]
+            else:
+                same = gpu.trace == cpu.trace
+            if not same:
+                raise AssertionError(f"{where}: traces differ")
+            if adaptive:
+                dec = [[(d.t_ms, d.round_idx, d.s, d.e, d.num_workers,
+                         d.wait_for, d.reason)
+                        for d in run.controller.decisions
+                        if not disputes or d.round_idx <= disputes[0]]
+                       for run in (cpu, gpu)]
+                if dec[0] != dec[1]:
+                    raise AssertionError(f"{where}: decision logs differ: "
+                                         f"{dec}")
+            # each batch's token columns before its first disputed round,
+            # of the rounds walked (under the controller the walk stops at
+            # the first dispute)
+            limit = disputes[0] if adaptive and disputes else len(
+                calls["cpu"])
+            cut = {b.bid: 0 for b in cpu.batches}
+            for bid, rnd, *_ in calls["cpu"][:limit]:
+                cut[bid] = rnd + 1
+            for i in disputes:
+                bid, rnd = calls["cpu"][i][:2]
+                cut[bid] = min(cut[bid], rnd)
+            checked = 0
+            for b_cpu, b_gpu in zip(cpu.batches, gpu.batches):
+                c = cut[b_cpu.bid]
+                for slot, req in enumerate(b_cpu.plan.requests):
+                    if not b_cpu.plan.valid[slot]:
+                        continue
+                    if not np.array_equal(b_gpu.outputs[slot][:c],
+                                          b_cpu.outputs[slot][:c]):
+                        raise AssertionError(f"{where}: request {req.uid} "
+                                             "tokens differ")
+                    checked += c
+            emit({"whole_scheduler_path": where, "requests": n,
+                  "batches": len(cpu.batches), "rounds": len(calls["cpu"]),
+                  "disputed_calls": disputes, "tokens_checked": checked,
+                  "vote_columns": compared,
+                  "decisions": (cpu.controller.decision_log() if adaptive
+                                else None),
+                  "locator_precision_recall": [
+                      [run.metrics.detection_precision(),
+                       run.metrics.detection_recall()] for run in (cpu, gpu)]})
+
+    def whole_engine_path(self):
+        """``EngineExecutor`` over the 2-layer model's last-position logits
+        (the model-agnostic f on coded prompt embeddings; B3 on the card),
+        K=4 S=2, on a heavy tail with an SLO so that straggling batches
+        are early-decoded at the SLO and corrected: the card against the
+        CPU on the same weights and payloads.  Traces equal, outputs
+        within the fp32 tolerance, the speculative decodes and corrections
+        counted alike."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import embed_inputs, init_caches, \
+            prefill
+        from repro_torch.serving.latency import LatencyModel
+        from repro_torch.serving.scheduler import (CodedScheduler,
+                                                   EngineExecutor,
+                                                   SchedulerConfig,
+                                                   poisson_arrivals)
+        cfg, params, devs = self.two_devices()
+        coding = CodingConfig(k=K, s=2)
+        n, prompt = 24, 32
+        tokens = torch.from_numpy(np.random.RandomState(5).randint(
+            0, cfg.vocab_size, (n, prompt)))
+        emb = embed_inputs(cfg, params["cpu"], {"tokens": tokens}).numpy()
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            def predict(x, _p=params[dev], _d=devs[dev]):
+                caches = init_caches(cfg, x.shape[0], x.shape[1],
+                                     torch.float32, _d)
+                return prefill(cfg, _p, {"embeddings": x}, caches)[0]
+
+            sched = CodedScheduler(
+                SchedulerConfig(coding=coding, groups_per_batch=1,
+                                flush_deadline_ms=2.0, slo_ms=14.0, seed=0),
+                LatencyModel(tail_prob=0.3),
+                EngineExecutor(predict, coding, device=devs[dev]))
+            metrics = sched.run(list(emb), poisson_arrivals(n, 8000.0,
+                                                            seed=1))
+            torch.cuda.synchronize()
+            runs[dev] = (sched, metrics)
+        (cpu, mc), (gpu, mg) = runs["cpu"], runs["cuda"]
+        where = "qwen3-0.6b whole EngineExecutor path"
+        if gpu.trace != cpu.trace:
+            raise AssertionError(f"{where}: traces differ")
+        worst = 0.0
+        for out in ("results", "spec_results"):
+            a, b = getattr(cpu, out), getattr(gpu, out)
+            if sorted(a) != sorted(b):
+                raise AssertionError(f"{where}: {out} keys differ")
+            for uid in a:
+                err = float(np.abs(b[uid] - a[uid]).max())
+                tol = 1e-4 * max(1.0, float(np.abs(a[uid]).max()))
+                worst = max(worst, err / tol)
+                if not err <= tol:
+                    raise AssertionError(f"{where}: {out}[{uid}] differs by "
+                                         f"{err} > {tol}")
+        counts = [(m.speculative_decodes, m.corrections) for m in (mc, mg)]
+        if counts[0] != counts[1] or not counts[0][0] or not counts[0][1]:
+            raise AssertionError(f"{where}: speculative decodes and "
+                                 f"corrections (cpu, cuda) {counts}")
+        emit({"whole_engine_path": where, "requests": n,
+              "batches": len(cpu.batches), "speculative_decodes":
+              counts[0][0], "corrections": counts[0][1],
+              "worst_err_over_tol": worst})
+
+    def whole_pool_controller_path(self):
+        """``serve --adaptive --continuous --quarantine`` at full width and
+        2 layers: the slot pool under the serve's controller, a persistent
+        attacker and quarantine, on the card and on the CPU with the same
+        weights, prompts, budgets, latency seed and noise.  The same rules
+        as ``whole_scheduler_path``: verdicts equal except where
+        ``verdict_walk`` explains them; traces, decisions and round widths
+        equal up to the round of the first disputed verdict; every
+        request's tokens equal when there is none."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.core.scheme import BerrutScheme
+        from repro_torch.serving.continuous import (ContinuousConfig,
+                                                    ContinuousLLMExecutor,
+                                                    ContinuousScheduler)
+        from repro_torch.serving.controller import (ControllerConfig,
+                                                    RedundancyController)
+        from repro_torch.serving.failures import AdversaryConfig
+        from repro_torch.serving.latency import LatencyModel
+        from repro_torch.serving.quarantine import QuarantineConfig
+        cfg, params, _ = self.two_devices()
+        prompt, steps, n = 32, 8, 24
+        coding = CodingConfig(k=K, s=S, e=E)
+        rng = np.random.RandomState(6)
+        prompts = rng.randint(0, cfg.vocab_size, (n, prompt)).astype(np.int32)
+        budgets = rng.randint(1, steps + 1, size=n)
+        runs, calls, columns = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            ctrl = RedundancyController(BerrutScheme(coding), ControllerConfig(
+                window_rounds=8, s_min=0, s_max=S + 1, e_min=0, e_max=E))
+            executor = ContinuousLLMExecutor(
+                cfg, ctrl.max_scheme.coding, params[dev], pool_groups=2,
+                max_len=prompt + steps + 2)
+            sched = ContinuousScheduler(ContinuousConfig(
+                pool_groups=2, flush_deadline_ms=5.0, seed=0,
+                adversary=AdversaryConfig(kind="persistent", sigma=10.0,
+                                          seed=0),
+                quarantine=QuarantineConfig(probation_ms=200.0),
+                controller=ctrl, max_new_tokens=steps), LatencyModel(),
+                executor)
+            calls[dev], columns[dev] = [], []
+            with self.host_noise(), self.vote_columns(columns[dev]), \
+                    self.pool_calls(executor, calls[dev]):
+                sched.run(list(prompts), rate_rps=2000.0,
+                          max_new_tokens=budgets)
+            torch.cuda.synchronize()
+            runs[dev] = sched
+        where = "qwen3-0.6b whole pool path adaptive quarantine"
+        disputes, compared = self.verdict_walk(
+            where, ctrl.max_scheme.coding, calls, columns)
+        first = disputes[0] if disputes else None
+        cpu, gpu = runs["cpu"], runs["cuda"]
+        rounds = [ev[1] for ev in cpu.trace if ev[0] == "round"
+                  for _ in range(bool(ev[3]) + bool(ev[4]))]
+        r = None if first is None else rounds[first]
+        if r is None:
+            same = gpu.trace == cpu.trace and gpu.round_widths == \
+                cpu.round_widths and all(np.array_equal(
+                    gpu.results[u], cpu.results[u]) for u in cpu.results)
+        else:
+            upto = [i for i, ev in enumerate(cpu.trace)
+                    if ev[0] == "round"][r]
+            same = (gpu.trace[:upto + 1] == cpu.trace[:upto + 1] and
+                    gpu.round_widths[:r + 1] == cpu.round_widths[:r + 1])
+        if not same:
+            raise AssertionError(f"{where}: traces, round widths or tokens "
+                                 "differ")
+        dec = [[(d.t_ms, d.round_idx, d.s, d.e, d.num_workers, d.wait_for,
+                 d.reason) for d in run.controller.decisions
+                if r is None or d.round_idx <= r] for run in (cpu, gpu)]
+        if dec[0] != dec[1]:
+            raise AssertionError(f"{where}: decision logs differ: {dec}")
+        m = cpu.metrics
+        emit({"whole_pool_controller_path": where, "requests": n,
+              "pool_rounds": cpu.rounds_run, "first_disputed_call": first,
+              "vote_columns": compared,
+              "round_widths": sorted(set(cpu.round_widths)),
+              "decisions": cpu.controller.decision_log(),
+              "quarantines": m.quarantine_events,
+              "locator_precision_recall": [
+                  [run.metrics.detection_precision(),
+                   run.metrics.detection_recall()] for run in (cpu, gpu)]})
+
+    @contextlib.contextmanager
+    def pool_calls(self, executor, log: list):
+        """Log each slot-pool call's (kind, straggler mask, group mask,
+        located) on ``executor``."""
+        real = {kind: getattr(executor, kind) for kind in ("prefill",
+                                                            "decode")}
+
+        def wrap(kind):
+            def call(state, tokens, group_mask, mask, *a, **kw):
+                out = real[kind](state, tokens, group_mask, mask, *a, **kw)
+                log.append((kind, np.asarray(mask).tolist(),
+                            np.asarray(group_mask).tolist(),
+                            None if out[2] is None
+                            else np.asarray(out[2].located)))
+                return out
+            return call
+
+        for kind in real:
+            setattr(executor, kind, wrap(kind))
+        try:
+            yield
+        finally:
+            for kind in real:
+                delattr(executor, kind)
 
     def profile_rounds(self, arch: str):
         """One E=1 prefill round and one decode round at full width and
@@ -1910,6 +2574,18 @@ def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
         return b * (s // q) * (h * per_head + q * (q + 1) * n)
     return min(at(1 << i) for i in range(s.bit_length())
                if s % (1 << i) == 0)
+
+
+def scheduler_rounds(sched) -> list:
+    """(batch, round, survivors, located or None) of every round a batch
+    scheduler ran, in the order it ran them."""
+    out = []
+    for ev in sched.trace:
+        if ev[0] == "round":
+            report = sched.batches[ev[1]].round_reports[ev[2]]
+            out.append((ev[1], ev[2], ev[4], None if report is None
+                        else np.asarray(report.located)))
+    return out
 
 
 def _tree_to(tree, device):

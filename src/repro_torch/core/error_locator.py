@@ -19,6 +19,8 @@ lower index, as ``jax.lax.top_k`` does.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 _RIDGE = 1e-7
@@ -193,6 +195,59 @@ def locate_groups(betas: torch.Tensor, grouped_values: torch.Tensor,
     confident = pooled * 2 > g * c_used       # strict majority of coords
     located = (top_mask & confident)[None, :] & avail
     return located, votes
+
+
+@dataclass(frozen=True)
+class ExactTally:
+    """One ``locate_groups`` call's pooled verdict read in fp64.
+
+    ``tally``: the fp64 pooled votes per worker; ``moved``: how many of
+    the G*C per-coordinate picks (each the E workers of smallest |Q|)
+    fp32 arithmetic moves on the same columns; ``threshold``: the strict
+    majority a tally must exceed; ``located``: the fp64 verdict.
+    """
+    tally: tuple
+    moved: int
+    threshold: float
+    located: frozenset
+
+    def near_tie(self, worker: int) -> bool:
+        """True when the picks fp32 moves can carry the worker's exact
+        tally across the threshold, so that fp32 inputs do not fix its
+        verdict.  A moved pick shifts a tally by at most one, and a
+        worker is located iff its tally exceeds the threshold: a located
+        worker's verdict flips once ``margin`` picks move, an unlocated
+        one's once more than ``-margin`` do."""
+        margin = self.tally[worker] - self.threshold
+        return self.moved >= margin if margin > 0 else self.moved > -margin
+
+    def explains(self, worker: int, located: bool) -> bool:
+        """A verdict is explained when it is the exact one or a near tie."""
+        return located == (worker in self.located) or self.near_tie(worker)
+
+
+def exact_tally(coding, vals: torch.Tensor,
+                avail: torch.Tensor) -> ExactTally:
+    """``locate_groups``'s pooled verdict on (G, N+1, C) vote columns and
+    (N+1,) or (G, N+1) availability, recomputed on the host in fp64 and
+    in fp32 (the verdicts at the bare K+2E quorum are often near ties).
+    ``coding``: a ``CodingConfig`` (its betas, K and E)."""
+    g, n1, c = vals.shape
+    vals = vals.detach().cpu()
+    avail = avail.detach().cpu().expand(g, n1).double()
+    picks = {}
+    for dt in (torch.float32, torch.float64):
+        q = q_magnitudes(torch.tensor(coding.betas, dtype=dt),
+                         vals.to(dt).mT, avail.to(dt).unsqueeze(-2),
+                         coding.k, coding.e)
+        picks[dt] = _top_indices(q, coding.e, largest=False).sort(-1)[0]
+    tally = torch.nn.functional.one_hot(picks[torch.float64], n1).sum(
+        (0, 1, 2)).tolist()
+    moved = int((picks[torch.float32] != picks[torch.float64]).any(-1).sum())
+    threshold = g * c / 2
+    top = sorted(range(n1), key=lambda w: (-tally[w], w))[:coding.e]
+    return ExactTally(tuple(tally), moved, threshold,
+                      frozenset(w for w in top if tally[w] > threshold))
 
 
 def vote_layout(num_classes: int, c_vote: int) -> tuple[int, int]:

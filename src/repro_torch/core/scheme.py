@@ -1,14 +1,20 @@
-"""Redundancy schemes behind one protocol (port of ``repro.core.scheme``:
-the fields the serving stack reads, and the Berrut scheme only).
+"""Redundancy schemes behind one protocol (port of ``repro.core.scheme``,
+the Berrut scheme only).
 
-The serving stack reads a scheme's static parameters (K, S, E, worker
-width, wait-for, decode quorum, whether it has a locator), re-plans it
-at another (S, E) with ``with_redundancy``, and wraps a bare
-``CodingConfig`` with ``as_scheme``.  The lifecycle methods (``plan``,
-``encode``, ``decode``, ``locate``) wait for the scheme-generic
-``EngineExecutor`` (ROADMAP A5).  ``get_scheme("berrut")`` works; the
-reference's other registered schemes are named here so that asking for
-one says it is not ported yet, rather than unknown.
+A scheme has static parameters (K, S, E, worker width, wait-for, decode
+quorum, whether it has a locator), re-plans at another (S, E) with
+``with_redundancy``, and serves one batch through the lifecycle
+
+    plan(groups)      -> DispatchPlan (worker-pool width, wait-for quorum)
+    encode(grouped)   -> per-worker payloads     (G, K, ...) -> (G, W, ...)
+    forward(f, coded) -> worker outputs          (G, W, ...) -> (G, W, C)
+    decode(outputs, avail)  -> recovered predictions          (G*K, C)
+    locate(outputs, avail)  -> decoded + locator verdicts / votes / masks
+
+that the event loop and ``EngineExecutor`` are written against.
+``as_scheme`` wraps a bare ``CodingConfig``.  ``get_scheme("berrut")``
+works; the reference's other registered schemes are named here so that
+asking for one says it is not ported yet, rather than unknown.
 """
 
 from __future__ import annotations
@@ -16,7 +22,38 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
+import numpy as np
+import torch
+
+from repro_torch.core import berrut as berrut_mod
 from repro_torch.core.berrut import CodingConfig
+from repro_torch.core.engine import decode_coded_preds, locate_and_decode
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchPlan:
+    """How one batch of ``groups`` query-groups is spread over workers.
+
+    ``num_workers`` is the worker-pool width W (streams per group);
+    ``wait_for`` the offline decode trigger; ``decode_quorum`` the
+    minimal adaptive wait-for the online scheduler may drop to.
+    """
+
+    scheme: str
+    groups: int
+    k: int
+    num_workers: int
+    wait_for: int
+    decode_quorum: int
+
+    @property
+    def queries(self) -> int:
+        return self.groups * self.k
+
+    @property
+    def overhead(self) -> float:
+        """workers per query: the paper's resource-overhead metric."""
+        return self.num_workers / self.k
 
 
 class RedundancyScheme:
@@ -53,9 +90,53 @@ class RedundancyScheme:
         return self.config.decode_quorum
 
     @property
+    def overhead(self) -> float:
+        return self.num_workers / self.k
+
+    @property
     def has_locator(self) -> bool:
         """Whether the scheme has an error locator (E > 0 for Berrut)."""
         return False
+
+    def plan(self, groups: int) -> DispatchPlan:
+        if groups < 1:
+            raise ValueError(f"need groups >= 1, got {groups}")
+        return DispatchPlan(scheme=self.name, groups=groups, k=self.k,
+                            num_workers=self.num_workers,
+                            wait_for=self.wait_for,
+                            decode_quorum=self.decode_quorum)
+
+    # -- lifecycle -------------------------------------------------------
+
+    def encode(self, grouped: torch.Tensor) -> torch.Tensor:
+        """(G, K, ...) real queries -> (G, W, ...) worker payloads."""
+        raise NotImplementedError
+
+    def forward(self, predict_fn: Callable[[torch.Tensor], torch.Tensor],
+                coded: torch.Tensor) -> torch.Tensor:
+        """Run the hosted model over every worker stream: all W streams
+        run the same model f."""
+        g, w = coded.shape[:2]
+        preds = predict_fn(coded.reshape(g * w, *coded.shape[2:]))
+        return preds.reshape(g, w, *preds.shape[1:])
+
+    def decode(self, outputs: torch.Tensor, avail: torch.Tensor, *,
+               locate: Optional[bool] = None) -> torch.Tensor:
+        """(G, W, C) worker outputs + (W,)/(G, W) availability ->
+        (G*K, C) recovered predictions."""
+        raise NotImplementedError
+
+    def locate(self, outputs: torch.Tensor, avail: torch.Tensor
+               ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray, np.ndarray]:
+        """Locate-then-decode.  Returns ``(decoded, located, votes,
+        masks)``, the last three (G, W) host arrays.  Without an error
+        locator: the plain decode and empty verdicts (masks == avail)."""
+        decoded = self.decode(outputs, avail)
+        g, w = outputs.shape[:2]
+        avail2d = np.broadcast_to(
+            np.asarray(torch.as_tensor(avail).cpu(), np.float32), (g, w))
+        return (decoded, np.zeros((g, w), bool), np.zeros((g, w), np.int32),
+                avail2d.copy())
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"{type(self).__name__}({self.config})"
@@ -123,3 +204,19 @@ class BerrutScheme(RedundancyScheme):
             return self
         # keep the knobs the registry does not carry (systematic, c_vote)
         return BerrutScheme(dataclasses.replace(self.coding, s=s, e=e))
+
+    def encode(self, grouped: torch.Tensor) -> torch.Tensor:
+        return berrut_mod.encode(self.coding, grouped, axis=1)
+
+    def decode(self, outputs: torch.Tensor, avail: torch.Tensor, *,
+               locate: Optional[bool] = None) -> torch.Tensor:
+        return decode_coded_preds(self.coding, outputs, avail,
+                                  locate=locate)
+
+    def locate(self, outputs: torch.Tensor, avail: torch.Tensor):
+        if self.coding.e == 0:
+            return super().locate(outputs, avail)
+        decoded, located, votes, masks = locate_and_decode(
+            self.coding, outputs, avail)
+        return (decoded, located.cpu().numpy(), votes.cpu().numpy(),
+                masks.cpu().numpy())

@@ -32,8 +32,11 @@ draw for draw, so a seed gives the same event trace in both.  With
 ``wshard=`` the pool is worker-major over the active worker group
 (``launch.worker_mesh``): each rank keeps only its own streams' caches,
 and the token ids come back the same on every rank, so every rank runs
-the same host loop on the same data.  Adaptive re-planning
-(``controller=``) is not ported yet.
+the same host loop on the same data.  With ``controller=`` a
+``RedundancyController`` retunes (N, E, wait_for) between rounds: the
+executor is built at the controller's maximum operating point and a
+narrower point dispatches to a prefix of its streams, the rest held out
+by the per-round ``live_mask``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from repro_torch.core.scheme import BerrutScheme, as_scheme
 from repro_torch.launch.worker_mesh import WorkerShardConfig
 from repro_torch.models.model import init_caches, param_dtype
 from repro_torch.serving.batcher import GroupBatcher
+from repro_torch.serving.controller import RedundancyController
 from repro_torch.serving.coded_serving import (coded_pool_decode_step,
                                                coded_pool_prefill,
                                                init_pool_state, pool_streams)
@@ -64,6 +68,7 @@ from repro_torch.serving.metrics import RequestRecord, ServingMetrics
 from repro_torch.serving.quarantine import QuarantineConfig, WorkerReputation
 from repro_torch.serving.sampling import SampleConfig
 from repro_torch.serving.scheduler import (LocateReport, apply_pool_state,
+                                           check_gather_bound,
                                            derive_seed_streams,
                                            resolve_arrivals,
                                            round_ground_truth)
@@ -90,8 +95,10 @@ class ContinuousConfig:
     # worker churn on the event clock (DESIGN.md §12); a churned-out
     # worker's results never land, exactly like a quarantine hold.
     churn: Optional[ChurnModel] = None
-    # adaptive (N, E, wait_for) retuning: not ported yet (ROADMAP A5)
-    controller: Optional[Any] = None
+    # adaptive (N, E, wait_for) retuning between rounds; the executor is
+    # built at the controller's MAXIMUM operating point and narrower
+    # points are masked off per round by the live mask
+    controller: Optional[RedundancyController] = None
     # "continuous": admit into free slots every round;
     # "run_to_completion": admit only into an EMPTY pool.
     mode: str = "continuous"
@@ -138,7 +145,13 @@ class ContinuousLLMExecutor:
     the calls and ``call_ms`` holds each call's wall time (host clock,
     ending in that sync).  ``byz_collude`` must match the adversary's
     behaviour model for the run, as in the reference.
+
+    ``live_mask`` on ``prefill``/``decode`` is the round's per-stream
+    operating-point mask (adaptive redundancy): streams beyond the
+    point's width are composed out of the straggler mask in the step.
     """
+
+    supports_replan = True
 
     def __init__(self, model_cfg, coding, params, pool_groups: int,
                  max_len: int, byz_collude: bool = False,
@@ -161,6 +174,7 @@ class ContinuousLLMExecutor:
         self.device = params["embeddings"]["embed"].device
         self._generator = torch.Generator(self.device).manual_seed(
             sample_seed)
+        self.max_replan_workers = self.coding.num_workers
         self._fresh = None               # prefill scratch, pool-shaped
         self.prefill_calls = 0
         self.decode_calls = 0
@@ -194,9 +208,15 @@ class ContinuousLLMExecutor:
         return mask, noise, float(attack.sigma)
 
     def _step_kwargs(self, mask: np.ndarray, attack: Optional[RoundAttack],
-                     locate_quorum) -> dict:
+                     live_mask, locate_quorum) -> dict:
         bm, noise, sigma = self._byz_args(attack)
+        live = None
+        if live_mask is not None and not np.all(np.asarray(live_mask) > 0):
+            # an all-live round composes to the same mask: skip the copy
+            live = torch.as_tensor(np.asarray(live_mask, np.float32),
+                                   device=self.device)
         return dict(
+            live_mask=live,
             straggler_mask=torch.as_tensor(np.asarray(mask, np.float32),
                                            device=self.device),
             byz_mask=bm, byz_noise=noise, byz_sigma=sigma, with_report=True,
@@ -228,6 +248,7 @@ class ContinuousLLMExecutor:
 
     def prefill(self, state, prompts: np.ndarray, admit_mask: np.ndarray,
                 mask: np.ndarray, attack: Optional[RoundAttack] = None,
+                live_mask: Optional[np.ndarray] = None,
                 locate_quorum: Optional[int] = None):
         """Consumes ``state``; returns ((P*K,) int32 token ids, new state,
         locate report)."""
@@ -241,11 +262,12 @@ class ContinuousLLMExecutor:
             self.model_cfg, self.coding, self.params, state,
             {"tokens": tokens}, np.asarray(admit_mask, np.float32),
             fresh=self._fresh,
-            **self._step_kwargs(mask, attack, locate_quorum))
+            **self._step_kwargs(mask, attack, live_mask, locate_quorum))
         return self._to_host("prefill", t0, toks, state, report, mask)
 
     def decode(self, state, tokens: np.ndarray, active_mask: np.ndarray,
                mask: np.ndarray, attack: Optional[RoundAttack] = None,
+               live_mask: Optional[np.ndarray] = None,
                locate_quorum: Optional[int] = None):
         """Consumes ``state``; returns ((P*K,) int32 token ids, new state,
         locate report)."""
@@ -256,7 +278,7 @@ class ContinuousLLMExecutor:
         toks, state, report = coded_pool_decode_step(
             self.model_cfg, self.coding, self.params, state, tokens,
             np.asarray(active_mask, np.float32),
-            **self._step_kwargs(mask, attack, locate_quorum))
+            **self._step_kwargs(mask, attack, live_mask, locate_quorum))
         return self._to_host("decode", t0, toks, state, report, mask)
 
 
@@ -288,12 +310,31 @@ class ContinuousScheduler:
             raise ValueError(
                 f"ContinuousConfig.pool_groups={config.pool_groups} but "
                 f"the executor's pool has {executor.pool_groups} slots")
-        if config.controller is not None:
-            raise NotImplementedError("adaptive redundancy (controller=) "
-                                      "is not ported yet (ROADMAP A5)")
-        wshard = getattr(executor, "wshard", None)
         wait_for = (scheme.decode_quorum if config.wait_for is None
                     else config.wait_for)
+        self.controller = config.controller
+        if self.controller is not None:
+            if not getattr(executor, "supports_replan", False):
+                raise ValueError(
+                    "adaptive redundancy needs an executor that re-plans "
+                    f"per round; {type(executor).__name__} cannot")
+            base = self.controller.base
+            if base.name != scheme.name or base.k != scheme.k:
+                raise ValueError(
+                    f"controller tunes scheme {base.name!r} K={base.k} "
+                    f"but the executor runs {scheme.name!r} K={scheme.k}")
+            if config.wait_for is not None:
+                raise ValueError("wait_for is controller-managed under "
+                                 "adaptive redundancy")
+            max_w = getattr(executor, "max_replan_workers",
+                            scheme.num_workers)
+            if self.controller.pool.num_workers > max_w:
+                raise ValueError(
+                    f"the controller's maximum operating point dispatches "
+                    f"{self.controller.pool.num_workers} workers but the "
+                    f"executor's pool covers {max_w}: construct the "
+                    f"executor at controller.max_scheme")
+        wshard = getattr(executor, "wshard", None)
         if wshard is not None:
             # survivor-only decode keeps a fixed gather width; a round
             # waiting for more responses than that would silently drop
@@ -304,7 +345,7 @@ class ContinuousScheduler:
                 raise ValueError(
                     f"worker-shard gather width {width} < the pool's "
                     f"maximum wait-for {bound}: survivor-only decode would "
-                    f"drop responses the round waited for; construct the "
+                    f"drop responses the round waited for — construct the "
                     f"executor with WorkerShardConfig(gather_width={bound})")
         self.scheme = scheme
         self.pool_groups = executor.pool_groups
@@ -315,6 +356,9 @@ class ContinuousScheduler:
         self.results: Dict[int, np.ndarray] = {}
         self.groups: List[SlotGroup] = []       # every admitted group
         self.trace: List[tuple] = []            # golden event log
+        # per-round dispatch widths (num_workers at the round's operating
+        # point): the adaptive runs' cost axis
+        self.round_widths: List[int] = []
         self._wait_for = wait_for
         if not 1 <= self._wait_for <= scheme.num_workers:
             raise ValueError(f"wait_for={self._wait_for} out of range for "
@@ -479,40 +523,67 @@ class ContinuousScheduler:
         if not admitted and not active:
             return
         full = self.scheme.num_workers
+        # the round's operating point is pinned here: the controller may
+        # retune BETWEEN rounds, never under one.  A narrower point
+        # dispatches to a PREFIX of the executor's streams; the rest are
+        # masked off by the live mask.
+        if self.controller is not None:
+            point = self.controller.scheme
+            wait_target = self.controller.wait_for
+        else:
+            point, wait_target = self.scheme, self._wait_for
+        width = point.num_workers
+        # latency draws always cover the widest pool (adaptive rounds
+        # slice a prefix), so the RNG stream, and the golden trace, does
+        # not depend on the controller's decisions
         times = self.latency_model.sample(self._rng, full)
         # quarantined / churned-out workers are pre-masked out of the
         # wait-for selection; the quorum invariant (apply_pool_state,
         # DESIGN.md §12) early-readmits held workers rather than let the
         # round silently wait below the K+2E locator quorum
-        wait, times, degraded, locate_quorum = apply_pool_state(
-            self.scheme, self._wait_for, times, now,
+        wait, times_w, degraded, locate_quorum = apply_pool_state(
+            point, wait_target, times[:width], now,
             reputation=self.reputation, churn=self._churn)
         if degraded:
             self.metrics.degraded_rounds += 1
-        mask, trigger = mask_from_completion_times(self.scheme, times,
-                                                   wait_for=wait)
+        mask_w, trigger = mask_from_completion_times(point, times_w,
+                                                     wait_for=wait)
         attack = (self.adversary.next_round()
                   if self.adversary is not None else None)
+        # the round's mask and attack live at the executor's width;
+        # streams beyond the operating point are not dispatched (mask 0),
+        # so the adversary cannot corrupt through them either
+        mask = np.zeros((full,), np.float32)
+        mask[:width] = mask_w
+        if attack is not None and width < full:
+            am = np.array(attack.mask, np.float32)
+            am[width:] = 0.0
+            attack = dataclasses.replace(attack, mask=am)
         self._inflight = True
+        self.round_widths.append(width)
         self.trace.append(("round", self._round_idx, now,
                            tuple(g.gid for g in admitted),
                            tuple(g.gid for g in active),
                            tuple(np.flatnonzero(mask).tolist())))
         self._push(now + float(trigger), _ROUND,
-                   (admitted, active, mask, attack, locate_quorum))
+                   (admitted, active, mask, attack, width, locate_quorum,
+                    times_w, float(trigger)))
 
     def _on_round(self, t: float, data) -> None:
-        admitted, active, mask, attack, locate_quorum = data
+        (admitted, active, mask, attack, width, locate_quorum, times_w,
+         trigger) = data
         self._inflight = False
         self.metrics.rounds += 1
         pool = self.pool_groups
+        live = (np.arange(self.scheme.num_workers) < width).astype(
+            np.float32)
         reports = []
         if admitted:
             admit_mask = np.zeros((pool,), np.float32)
             admit_mask[[g.slot for g in admitted]] = 1.0
             tokens, self._state, report = self.executor.prefill(
                 self._state, self._prompt_buf, admit_mask, mask, attack,
-                locate_quorum=locate_quorum)
+                live_mask=live, locate_quorum=locate_quorum)
             reports.append((report, admit_mask))
             for g in admitted:
                 g.prefilled = True
@@ -522,11 +593,12 @@ class ContinuousScheduler:
             act_mask[[g.slot for g in active]] = 1.0
             tokens, self._state, report = self.executor.decode(
                 self._state, self._token_buf, act_mask, mask, attack,
-                locate_quorum=locate_quorum)
+                live_mask=live, locate_quorum=locate_quorum)
             reports.append((report, act_mask))
             for g in active:
                 self._emit(g, tokens, t, first=False)
         self._observe(t, mask, attack, reports)
+        self._control(t, times_w, trigger, reports)
         for g in admitted + active:
             if g.done.all() and self._slots[g.slot] is g:
                 self._slots[g.slot] = None
@@ -604,3 +676,35 @@ class ContinuousScheduler:
         self.metrics.observe_locate(detected, true_corrupt, decode_corrupt)
         if self.reputation is not None:
             self.reputation.observe(t, detected, dispatched)
+
+    def _control(self, t: float, times_w: np.ndarray, trigger: float,
+                 reports: List[tuple]) -> None:
+        """Feed one pool round's telemetry to the adaptive controller.
+
+        The mixed round's per-call reports merge into ONE observation
+        (concatenated along the group axis; ``detected`` is their union),
+        as in ``_observe``: one coded dispatch, one strike.  ``times_w``
+        are the operating point's sliced completion times, so the
+        straggle statistic matches what the round dispatched.
+        """
+        if self.controller is None:
+            return
+        live = [r for r, _ in reports if r is not None]
+        merged = None
+        if live:
+            merged = LocateReport(
+                located=np.concatenate([r.located for r in live]),
+                votes=np.concatenate([r.votes for r in live]),
+                masks=np.concatenate([r.masks for r in live]))
+        before = len(self.controller.decisions)
+        held = (int(self.reputation.quarantined.sum())
+                if self.reputation is not None else 0)
+        decision = self.controller.observe_round(
+            t, times=times_w, trigger_ms=trigger, report=merged,
+            quarantined=held)
+        self.metrics.control_decisions += \
+            len(self.controller.decisions) - before
+        if decision is not None:
+            check_gather_bound(self.executor, decision.wait_for)
+            self.trace.append(("retune", t, decision.num_workers,
+                               decision.e, decision.wait_for))

@@ -20,6 +20,7 @@ consumed exactly as the reference consumes it.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -202,3 +203,23 @@ def make_adversary(coding,
     if config is None or config.kind == "none":
         return None
     return Adversary(coding, config)
+
+
+def corrupt_coded_preds(preds: torch.Tensor,
+                        attack: Optional[RoundAttack]) -> torch.Tensor:
+    """Apply one round's corruption to (G, N+1, ...) coded predictions.
+
+    Persistent/intermittent workers add independent ``sigma``-scaled
+    normal noise; colluding workers all add the SAME noise tensor (drawn
+    once per group, broadcast over the worker axis).  Deterministic in
+    ``attack.seed``, so recomputing for a speculative and a full decode
+    yields identical lies.
+    """
+    if attack is None or not attack.active:
+        return preds
+    g, n, rest = preds.shape[0], preds.shape[1], preds.shape[2:]
+    noise = attack.noise(g, n, math.prod(rest), preds.device).reshape(
+        g, 1 if attack.collude else n, *rest).to(preds.dtype)
+    m = torch.as_tensor(np.asarray(attack.mask), dtype=preds.dtype,
+                        device=preds.device).reshape(1, n, *[1] * len(rest))
+    return preds + attack.sigma * m * noise

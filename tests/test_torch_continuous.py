@@ -30,6 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
 
+from _torch_parity import (COLUMN_TOL, capture_columns,  # noqa: E402
+                           record_pool_calls)
 from repro.configs import qwen3_0_6b as jcfg  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.core import scheme as jscheme  # noqa: E402
@@ -38,6 +40,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.models import init_params as j_init_params  # noqa: E402
 from repro.serving import CodedLLMExecutor as JExecutor  # noqa: E402
 from repro.serving import batcher as jbatcher  # noqa: E402
+from repro.serving import coded_serving as jcs  # noqa: E402
 from repro.serving import continuous as jcont  # noqa: E402
 from repro.serving import failures as jfail  # noqa: E402
 from repro.serving import latency as jlat  # noqa: E402
@@ -53,6 +56,7 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving import batcher as tbatcher  # noqa: E402
 from repro_torch.serving import coded_serving as tcs  # noqa: E402
 from repro_torch.serving import continuous as tcont  # noqa: E402
+from repro_torch.serving import controller as tcontrol  # noqa: E402
 from repro_torch.serving import failures as tfail  # noqa: E402
 from repro_torch.serving import latency as tlat  # noqa: E402
 from repro_torch.serving import quarantine as tquar  # noqa: E402
@@ -176,65 +180,18 @@ def test_continuous_scheduler_matches_reference(model, monkeypatch, e, churn,
                    for ev in tsch.trace), "no mid-flight admission"
 
 
-def _record_calls(monkeypatch, executor_cls, log):
-    """Log every pool call's (kind, straggler mask, group mask, located)."""
-    for kind in ("prefill", "decode"):
-        real = getattr(executor_cls, kind)
-
-        def call(self, state, tokens, group_mask, mask, *a, _real=real,
-                 _kind=kind, **kw):
-            out = _real(self, state, tokens, group_mask, mask, *a, **kw)
-            log.append((_kind, np.asarray(mask).tolist(),
-                        np.asarray(group_mask).tolist(),
-                        np.asarray(out[2].located)))
-            return out
-
-        monkeypatch.setattr(executor_cls, kind, call)
-
-
-def _locator_margin(coding, vals, avail):
-    """The pooled verdict of one locate call in fp64 and what fp32 moves.
-
-    vals: (G, N+1, C) vote columns, avail: (N+1,) or (G, N+1).  Returns
-    the fp64 pooled tally per worker, the number of the G*C
-    per-coordinate picks that fp32 arithmetic moves on these inputs, and
-    the median relative fp32 error of the available |Q(beta_i)| in units
-    of fp32 eps.
-    """
-    g, n1, _ = vals.shape
-    avail = avail.expand(g, n1).double()
-    q, picks = {}, {}
-    for dt in (torch.float32, torch.float64):
-        q[dt] = tel.q_magnitudes(
-            torch.tensor(coding.betas, dtype=dt), vals.to(dt).mT,
-            avail.to(dt).unsqueeze(-2), coding.k, coding.e)
-        picks[dt] = q[dt].argmin(-1)                     # E = 1: one pick
-    tally = torch.nn.functional.one_hot(picks[torch.float64], n1).sum((0, 1))
-    moved = int((picks[torch.float32] != picks[torch.float64]).sum())
-    live = avail.bool().unsqueeze(-2).expand_as(q[torch.float64])
-    q64, q32 = q[torch.float64][live], q[torch.float32][live].double()
-    err = ((q32 - q64).abs() / q64)[q64 > 0].median().item()
-    return tally.tolist(), moved, err / np.finfo(np.float32).eps
-
-
 @pytest.mark.parametrize("mode", ["continuous", "run_to_completion"])
 def test_continuous_scheduler_at_the_locator_quorum(model, monkeypatch,
                                                     mode):
-    """E=1 at the default wait-for K+2E: verdicts agree with the
-    reference except on near-tie calls, whose fp64 readings are printed
-    (``pytest -s``) and must show that fp32 rounding moves more per-
-    coordinate picks than separate the exact pooled tally from the
-    majority threshold."""
-    jcalls, tcalls, columns = [], [], []
-    _record_calls(monkeypatch, jcont.ContinuousLLMExecutor, jcalls)
-    _record_calls(monkeypatch, tcont.ContinuousLLMExecutor, tcalls)
-    real_locate = tcs.locate_groups
-
-    def locate(betas, vals, avail, **kw):
-        columns.append((vals.clone(), avail.clone()))
-        return real_locate(betas, vals, avail, **kw)
-
-    monkeypatch.setattr(tcs, "locate_groups", locate)
+    """E=1 at the default wait-for K+2E: the vote columns agree with the
+    reference's up to the first near-tie call, and verdicts except on
+    near-tie calls, whose fp64 readings are printed (``pytest -s``) and
+    must show that fp32 rounding moves more per-coordinate picks than
+    separate the exact pooled tally from the majority threshold."""
+    jcalls, tcalls = [], []
+    record_pool_calls(monkeypatch, jcont.ContinuousLLMExecutor, jcalls)
+    record_pool_calls(monkeypatch, tcont.ContinuousLLMExecutor, tcalls)
+    jcolumns, columns = capture_columns(monkeypatch, jcs, tcs)
     (jsch, jm), (tsch, tm) = _serve_both(model, monkeypatch, 1, mode,
                                          quorum_wait=True)
     _assert_same_results(jsch, tsch)
@@ -247,16 +204,21 @@ def test_continuous_scheduler_at_the_locator_quorum(model, monkeypatch,
     for i, (jc, tc) in enumerate(zip(jcalls, tcalls)):
         if jc[:3] != tc[:3]:
             break                               # the masks have diverged
+        if not ties:                # the same inputs up to the first tie
+            (jv, ja), (tv, ta) = jcolumns[i], columns[i]
+            np.testing.assert_array_equal(ta.numpy(), ja)
+            np.testing.assert_allclose(tv.numpy(), jv, **COLUMN_TOL)
         disputed = np.flatnonzero((jc[3] != tc[3]).any(0))
         if not disputed.size:
             continue
         assert not np.asarray(tc[1])[attacker].any()    # a clean round
-        tally, moved, err = _locator_margin(coding, *columns[i])
+        reading = tel.exact_tally(coding, *columns[i])
+        assert reading.threshold == threshold
+        tally, moved = reading.tally, reading.moved
         for w in disputed:
             print(f"{mode} call {i} ({tc[0]}): worker {w} exact tally "
                   f"{tally[w]} vs threshold {threshold:g}, fp32 moves "
-                  f"{moved}/{POOL * coding.c_vote} picks, median fp32 |Q| "
-                  f"error {err:.3g} eps")
+                  f"{moved}/{POOL * coding.c_vote} picks")
             assert moved > abs(tally[w] - threshold), (i, w, tally, moved)
         ties.append(i)
     else:
@@ -283,10 +245,15 @@ def test_continuous_refuses_what_is_not_ported(model):
     coding = TCoding(k=K, s=S)
     ex = tcont.ContinuousLLMExecutor(tc, coding, tp, pool_groups=POOL,
                                      max_len=16)
-    with pytest.raises(NotImplementedError, match="A5"):
+    ctrl = tcontrol.RedundancyController(coding)
+    with pytest.raises(ValueError, match="controller-managed"):
         tcont.ContinuousScheduler(
-            tcont.ContinuousConfig(coding=coding, pool_groups=POOL,
-                                   controller=object()),
+            tcont.ContinuousConfig(pool_groups=POOL, controller=ctrl,
+                                   wait_for=3),
+            tlat.LatencyModel(), ex)
+    with pytest.raises(ValueError, match="controller.max_scheme"):
+        tcont.ContinuousScheduler(
+            tcont.ContinuousConfig(pool_groups=POOL, controller=ctrl),
             tlat.LatencyModel(), ex)
     with pytest.raises(ValueError, match="byz_collude"):
         tcont.ContinuousScheduler(

@@ -464,9 +464,12 @@ def test_continuous_executor_starts_on_an_ssm_model(model):
 def test_serve_runs_mamba2_on_cpu(continuous):
     kw = (dict(continuous=True, pool_groups=2, quarantine=True, requests=12)
           if continuous else dict(requests=8))
-    res = serve.run("mamba2-780m", reduced=True, k=4, s=1, e=1,
-                    prompt_len=6, steps=4, byz_sigma=10.0, seed=1,
-                    device="cpu", **kw)
+    # the batch case holds the fixed-mask loop (one batch, one random
+    # straggler a round), the inputs its recall-1 check was written for
+    run = serve.run if continuous else serve.run_fixed_masks
+    res = run("mamba2-780m", reduced=True, k=4, s=1, e=1,
+              prompt_len=6, steps=4, byz_sigma=10.0, seed=1,
+              device="cpu", **kw)
     if continuous:
         assert sorted(res["results"]) == list(range(12))
         for uid, toks in res["results"].items():

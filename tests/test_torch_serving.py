@@ -179,7 +179,7 @@ def test_executor_tokens_match_reference(model, narrow):
                                 point=jpoint)
     ex = CodedLLMExecutor(tc, TCoding(*wide), tp, steps=STEPS,
                           max_len=MAX_LEN)
-    h = ex.dispatch(prompts, point=TCoding(*point) if narrow else None)
+    h = ex.dispatch(prompts, scheme=TCoding(*point) if narrow else None)
     for r in range(STEPS):
         h, _ = ex.step(h, r, masks[r])
     got, report = ex.decode(h, masks[STEPS])
@@ -202,11 +202,11 @@ def test_executor_locates_a_persistent_attacker_and_keeps_order(model):
     with pytest.raises(RuntimeError, match="round accounting"):
         ex.step(h, 0, mask, attack)
     with pytest.raises(ValueError, match="operating point"):
-        ex.dispatch(np.zeros((4, PROMPT), np.int32), point=TCoding(k=3))
+        ex.dispatch(np.zeros((4, PROMPT), np.int32), scheme=TCoding(k=3))
 
 
 def test_serve_runs_the_batch_path_on_cpu():
-    res = serve.run(reduced=True, requests=8, k=4, s=1, e=1, prompt_len=6,
+    res = serve.run_fixed_masks(reduced=True, requests=8, k=4, s=1, e=1, prompt_len=6,
                     steps=2, byz_sigma=10.0, seed=1, device="cpu")
     assert res["tokens"].shape == (8, 3)
     assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
@@ -219,10 +219,29 @@ def test_serve_refuses_what_is_not_ported():
         pytest.skip("a CUDA device is present: device=None means it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run(reduced=True)
-    for argv in (["--adaptive"], ["--scheme", "parm"],
-                 ["--attack", "byzantine"], ["--quarantine"]):
+    for argv in (["--scheme", "parm"], ["--attack", "byzantine"]):
         with pytest.raises(SystemExit):
             serve.main(["--reduced", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("flag", [["--adaptive"], ["--quarantine"],
+                                  ["--traffic", "diurnal"]],
+                         ids=["adaptive", "quarantine", "traffic"])
+def test_serve_runs_the_batch_scheduler_flags(flag, capsys):
+    """The flags the batch path once refused run on the event clock of
+    the batch scheduler."""
+    res = serve.main(["--reduced", "--device", "cpu", "--requests", "8",
+                      "--k", "4", "--e", "1", "--byz-sigma", "10",
+                      "--steps", "2", *flag])
+    assert res["tokens"].shape == (8, 3)
+    assert [ev[0] for ev in res["trace"]].count("complete") == len(
+        res["batches"])
+    out = capsys.readouterr().out
+    if flag == ["--adaptive"]:
+        assert res["decisions"][0] == (11, 1, 6, 0)
+        assert "retune @round 0" in out
+    if flag == ["--traffic", "diurnal"]:
+        assert "(diurnal)" in out
 
 
 def test_sampling_greedy_and_top_k():
@@ -281,8 +300,8 @@ def test_top_k_sampling_on_ties_draws_the_reference_candidates():
 def test_serve_takes_the_reference_flags(continuous, capsys):
     """The launcher parses and runs the reference's flags: --top-k,
     --temperature, --attack-placement, --deadline-ms, and on the event
-    clock --probation-ms, --churn-up-ms, --churn-down-ms and --traffic
-    diurnal."""
+    clock of either path --probation-ms, --churn-up-ms, --churn-down-ms
+    and --traffic diurnal; the batch path also --groups and --slo-ms."""
     argv = ["--reduced", "--device", "cpu", "--k", "4", "--e", "1",
             "--byz-sigma", "10", "--top-k", "5", "--temperature", "0.7",
             "--attack-placement", "worst_case", "--seed", "3"]
@@ -298,10 +317,20 @@ def test_serve_takes_the_reference_flags(continuous, capsys):
             assert len(toks) == res["budgets"][uid]
         assert "(diurnal)" in capsys.readouterr().out
     else:
-        res = serve.main(argv + ["--requests", "8", "--steps", "3"])
+        res = serve.main(argv + ["--requests", "8", "--steps", "3",
+                                 "--groups", "1", "--slo-ms", "40",
+                                 "--quarantine", "--probation-ms", "20",
+                                 "--churn", "--churn-up-ms", "500",
+                                 "--churn-down-ms", "50", "--traffic",
+                                 "diurnal", "--rate", "400",
+                                 "--deadline-ms", "3"])
         assert res["tokens"].shape == (8, 4)
         assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
-    for bad in (["--traffic", "diurnal"], ["--flush-deadline-ms", "3"]):
+        # --groups 1: every batch is one group of K (padded if flushed)
+        assert all(len(b.plan.requests) == 4 for b in res["batches"])
+        assert res["metrics"].slo_ms == 40.0
+        assert "(diurnal)" in capsys.readouterr().out
+    for bad in (["--flush-deadline-ms", "3"],):
         with pytest.raises(SystemExit):
             serve.main(["--reduced", "--device", "cpu", *bad])
 
@@ -331,5 +360,6 @@ def test_serve_defaults_match_the_reference(monkeypatch):
     for flag in ("top_k", "temperature", "attack_placement", "deadline_ms",
                  "probation_ms", "churn_up_ms", "churn_down_ms", "traffic",
                  "rate", "byz_sigma", "attack", "attack_rate", "continuous",
-                 "pool_groups", "quarantine", "churn"):
+                 "pool_groups", "quarantine", "churn", "groups", "slo_ms",
+                 "adaptive"):
         assert port[flag] == ref_[flag], flag
