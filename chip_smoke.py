@@ -14,12 +14,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    bf16, and time kernel, plain version and one PyTorch library call
    computing the same function; the memory-bound kernels (B1, B2, B4,
    B5, B6) with their operands in rotation over more than twice the L2,
-   B2 also at the E=0 and mamba2 tails' shapes beside ``torch.matmul``
-   of its decode matrices;
+   B2 also at the E=0, mamba2 and phi4-mini (V = 200064) tails' shapes
+   beside ``torch.matmul`` of its decode matrices; then B3, B4 and B5
+   the same way at h2o-danube-1.8b's E=1 shapes, head_dim 80 (32/8
+   heads), B3/B4 checked (untimed) at phi4-mini's and stablelm's, and
+   B1 and B2 checked (untimed) at every dense variant's encodes
+   (d_model 2560, 3072, 2048) and at h2o-danube's and stablelm's tails
+   (V = 32000, 100352) with per-group quorum masks;
 3. the same comparison on the features the main paths do not use
    (window, softcap, prefix-LM, q_offset, int8 KV, ragged widths, node
    hits, the vote gather, rows that see no key, other head dims and GQA
-   ratios), the decode kernels around their key splits (the E=0
+   ratios; head_dim 80 in every one of B3, B4 and B5's variants, and
+   B4/B5 at h2o-danube's heads at 1, 2 and 4 key splits), the decode
+   kernels around their key splits (the E=0
    serving shapes' two splits, a 4096-slot ring at 2 streams, keys in
    one split, short streams, the multihost shape's one split), and B2
    on the worker-major tails' strided views, on views that take its
@@ -30,7 +37,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    one random straggler a round) at full width and depth, K=4 S=1 E=0
    and K=4 S=1 E=1 with a persistent attacker at sigma 10, 16 requests
    each, counting every kernel's launches, the locator's precision and
-   recall 1 at E=1;
+   recall 1 at E=1; the same E=1 run, and for h2o-danube-1.8b also the
+   continuous E=1 run of phase 5, for each dense variant (A3):
+   h2o-danube-1.8b (24 layers, 32/8 heads of 80, SWA 4096),
+   phi4-mini-3.8b (32 layers, 24/8 heads of 128, vocabulary 200064) and
+   stablelm-1.6b (24 layers, MHA 32/32 of 64, LayerNorm), each model's
+   memory given back before the next;
 5. two continuous-batching runs (``serve --continuous``) at full width
    and depth: K=4 S=1 over 4 group slots, 32 requests of 256 tokens with
    budgets 1..16 on a Poisson clock, at E=0 and at E=1 with a persistent
@@ -88,11 +100,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    logs equal, the locator's vote columns equal within the logits'
    tolerance wherever the inputs are, verdicts equal except where each
    device's is explained by the exact tally of its own columns (its
-   fp64 verdict, or a near tie; printed).
+   fp64 verdict, or a near tie; printed);
+13. each dense variant at full width and 2 layers, on the card and on
+   the CPU with the same weights: the batch whole path of phase 6, and
+   the full-sequence entry points ``forward`` (B3's launches counted),
+   ``predict_fn`` and ``lm_loss`` (with and without targets and a loss
+   mask) within the same tolerance.
 
 Each phase prints its wall time.
 
-The line before the last is one JSON object with every kernel's numbers;
+The line before the last is one JSON object with every kernel's numbers
+(one entry a kernel, B7's scores pass its own; B3, B4 and B5's entries
+also carry ``head_dim_80``: the fp32 check and times at h2o-danube's
+E=1 shapes and the launches of the h2o run that carries each kernel);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -159,14 +179,22 @@ FUNCTIONS = {
 }
 # Per architecture: its layers, and the kernels one call of each model
 # pass launches per layer (besides the round's one encode and one tail).
+DENSE = {"prefill": ("flash_attention",), "decode": ("flash_decode",),
+         "pool_decode": ("pool_flash_decode",)}
 PATH_KERNELS = {
-    "qwen3-0.6b": {"layers": 28, "prefill": ("flash_attention",),
-                   "decode": ("flash_decode",),
-                   "pool_decode": ("pool_flash_decode",)},
+    "qwen3-0.6b": {"layers": 28, **DENSE},
     "mamba2-780m": {"layers": 48,
                     "prefill": ("ssd_chunked", "ssd_chunk_scores"),
                     "decode": (), "pool_decode": ()},
+    "h2o-danube-1.8b": {"layers": 24, **DENSE},
+    "phi4-mini-3.8b": {"layers": 32, **DENSE},
+    "stablelm-1.6b": {"layers": 24, **DENSE},
 }
+# the architectures of the round profiles and the pool and worker-major
+# whole paths; the dense variants (A3) get the batch whole path and the
+# full-sequence check
+CORE_ARCHS = ("qwen3-0.6b", "mamba2-780m")
+DENSE_VARIANTS = ("h2o-danube-1.8b", "phi4-mini-3.8b", "stablelm-1.6b")
 # Which serving runs carry each kernel in the ``kernels`` line: (arch,
 # path, E=0 path).  ``launches`` come from the path's run at E=1,
 # ``launches_e0`` from the E=0 path's run and ``launches_pool_e1`` from
@@ -189,7 +217,16 @@ RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
         ("qwen3-0.6b", "continuous", 0), ("qwen3-0.6b", "continuous", E),
         ("mamba2-780m", "batch", 0), ("mamba2-780m", "batch", E),
         ("mamba2-780m", "continuous", E),
-        ("qwen3-0.6b", "batch_wm", E), ("qwen3-0.6b", "continuous_wm", E)]
+        ("qwen3-0.6b", "batch_wm", E), ("qwen3-0.6b", "continuous_wm", E),
+        ("h2o-danube-1.8b", "batch", E), ("h2o-danube-1.8b", "continuous", E),
+        ("phi4-mini-3.8b", "batch", E), ("stablelm-1.6b", "batch", E)]
+# head_dim 80 (h2o-danube-1.8b): the key of B3, B4 and B5's entries in
+# the kernels line that holds their timings at its E=1 shapes, and the
+# h2o run whose launches each reports
+HEAD_DIM_80 = "head_dim_80"
+D80_ARCH = "h2o-danube-1.8b"
+D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
+               "pool_flash_decode": "continuous"}
 # batch serving through the event-driven scheduler at the serve defaults:
 # (architecture, E, worker-major)
 SCHEDULER_RUNS = [("qwen3-0.6b", 0, False), ("qwen3-0.6b", E, False),
@@ -227,12 +264,18 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(self.dev).manual_seed(0)
+        # the head_dim 80 and dense-variant checks draw from their own
+        # generator, so that the inputs of every other check do not
+        # depend on them
+        self.extra_gen = torch.Generator(self.dev).manual_seed(1)
         self.kernels = {}                  # name -> JSON entry
+        self.kernels_d80 = {}              # B3/B4/B5 at head_dim 80
 
     # ------------------------------------------------------------ helpers
 
-    def randn(self, *shape, dtype=None):
-        t = self.torch.randn(shape, generator=self.gen, device=self.dev)
+    def randn(self, *shape, dtype=None, gen=None):
+        t = self.torch.randn(shape, generator=self.gen if gen is None
+                             else gen, device=self.dev)
         return t if dtype is None else t.to(dtype)
 
     def time_ms(self, fn, iters=20) -> float:
@@ -304,7 +347,9 @@ class Smoke:
                 else (t_ops, "operations"))
 
     def record(self, name, dtype, shape, got, want, kernel, plain,
-               library, nbytes, ops, extra=None):
+               library, nbytes, ops, extra=None, table=None):
+        """Check, time and print one kernel at one shape; the fp32
+        numbers go to ``table`` (the kernels line's entries when None)."""
         res = {"kernel": name, "dtype": dtype, "shape": shape, **(extra or {})}
         res.update(self.check(name, got, want, dtype))
         res["ms"] = self.time_ms(kernel)
@@ -314,7 +359,7 @@ class Smoke:
         res["bound_ms"], res["bound_by"] = self.bound(nbytes, ops, dtype)
         emit(res)
         if dtype == "float32":         # the model's dtype: the main path's
-            self.kernels[name] = res
+            (self.kernels if table is None else table)[name] = res
 
     # ------------------------------------------------------------ phases
 
@@ -334,6 +379,12 @@ class Smoke:
         for dtype in ("float32", "bfloat16"):
             self.phase(f"qwen3 kernels {dtype}", self.main_path_kernels,
                        dtype)
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"{D80_ARCH} head_dim 80 kernels {dtype}",
+                       self.d80_kernels, dtype)
+        self.phase("dense variant shapes", self.dense_variant_shapes)
+        self.phase("dense variant encode and decode shapes",
+                   self.dense_variant_coding)
         self.phase("qwen3 variants", self.variants)
         self.phase("flash_decode split variants", self.decode_split_variants)
         self.phase("scheduler batch shapes", self.scheduler_kernels)
@@ -350,17 +401,24 @@ class Smoke:
             launches[arch, path, e] = self.phase(
                 f"{arch} {path} E={e}", serve, arch, e,
                 path.endswith("_wm"))
+            if arch in DENSE_VARIANTS:     # the next model gets the card
+                self.free_memory()
         for arch, e, wm in SCHEDULER_RUNS:
             path = "scheduler_wm" if wm else "scheduler"
             launches[arch, path, e] = self.phase(
                 f"{arch} {path} E={e}", self.serve_scheduler, arch, e, wm)
         launches["qwen3-0.6b", "multihost", 0] = self.phase(
             "qwen3-0.6b multihost serve", self.multihost)
-        for arch in PATH_KERNELS:
+        for arch in CORE_ARCHS:
             self.phase(f"{arch} round profile", self.profile_rounds, arch)
-        for arch in PATH_KERNELS:
+        for arch in CORE_ARCHS:
             self.phase(f"{arch} whole path", self.whole_path, arch)
             self.phase(f"{arch} whole pool path", self.whole_pool_path, arch)
+        for arch in DENSE_VARIANTS:
+            self.phase(f"{arch} whole path", self.whole_path, arch)
+            self.phase(f"{arch} full-sequence forward", self.full_sequence,
+                       arch)
+            self.free_memory()
         self.phase("qwen3-0.6b whole worker-major path", self.whole_path,
                    "qwen3-0.6b", True)
         self.phase("qwen3-0.6b whole worker-major pool path",
@@ -393,14 +451,39 @@ class Smoke:
                 "tensor_cores": self.tensor_cores[name],
                 **{key: res[key] for key in ("l2_copies", "contraction_ms")
                    if key in res},
+                **({HEAD_DIM_80: self.d80_entry(name, launches)}
+                   if name in D80_CARRIER else {}),
             })
-        if sorted(e["name"] for e in entries) != sorted(REPLACES):
-            raise AssertionError(f"kernels measured: {sorted(self.kernels)}")
+        if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
+                sorted(self.kernels_d80) != sorted(D80_CARRIER):
+            raise AssertionError(f"kernels measured: {sorted(self.kernels)}"
+                                 f", at head_dim 80 "
+                                 f"{sorted(self.kernels_d80)}")
         emit({"kernels": entries})
         print(gpu_line(), flush=True)
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
+
+    def d80_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's ``head_dim_80`` numbers of ``name``: its
+        fp32 check and times at h2o-danube's E=1 shapes, and its
+        launches in the h2o run that carries it."""
+        res = self.kernels_d80[name]
+        path = D80_CARRIER[name]
+        return {"shape": res["shape"],
+                "launches": launches[D80_ARCH, path, E][name],
+                "launches_run": f"{D80_ARCH} {path} E={E}",
+                **{key: res[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "l2_copies")
+                   if key in res}}
+
+    def free_memory(self) -> None:
+        """Give the card's memory back between full-size models."""
+        import gc
+        gc.collect()
+        self.torch.cuda.empty_cache()
 
     def build(self):
         from repro_torch.kernels import build
@@ -468,9 +551,7 @@ class Smoke:
         cfg = qwen3_0_6b.CONFIG
         coding = CodingConfig(k=K, s=S, e=E)
         n1, b = coding.num_workers, GROUPS * coding.num_workers
-        d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
-            cfg.head_dim
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        d, kvh = cfg.d_model, cfg.num_kv_heads
 
         # B1: the prefill encode (G, K, S*d) -> (G, N+1, S*d), the input
         # in rotation past the L2
@@ -509,25 +590,8 @@ class Smoke:
                       timed=True)
 
         self.group_decode_kernels(dtype_name)
-
-        # B3: causal prefill attention, GQA 16/8, head_dim 128
-        q = self.randn(b, PROMPT, h, hd, dtype=dtype)
-        k = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
-        vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype)
-        pairs = PROMPT * (PROMPT + 1) // 2        # visible (q, k) per head
-        self.record(
-            "flash_attention", dtype_name,
-            [list(q.shape), list(k.shape)],
-            ops.attention(q, k, vv), ref.attention_ref(q, k, vv),
-            lambda: ops.attention(q, k, vv),
-            lambda: ref.attention_ref(q, k, vv),
-            lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                         vv.transpose(1, 2), is_causal=True,
-                         enable_gqa=True),
-            (2 * q.numel() + 2 * k.numel()) * size,
-            4 * hd * pairs * b * h)
-
-        self.decode_kernels(dtype_name)
+        self.prefill_kernel(dtype_name, cfg)
+        self.decode_kernels(dtype_name, cfg)
         # key splits of the serving paths' decode calls: E=1 and E=0
         # (44 and 20 streams), the scheduler's E=1 and E=0 batches (22
         # and 10) and the multihost serve (72 streams, its 256-slot ring)
@@ -543,21 +607,160 @@ class Smoke:
                   "blocks": streams * kvh, "splits": flash_decode.plan_splits(
                       streams, kvh, width, sms)})
 
+    def prefill_kernel(self, dtype_name: str, cfg, table=None, gen=None):
+        """B3 at an E=1 batch prefill's shapes: 44 coded streams of 256
+        tokens, causal, with the config's heads and window (qwen3: GQA
+        16/8 of 128; h2o-danube: 32/8 of 80, SWA 4096, wider than the
+        prompt), SDPA as the library call."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        dtype = getattr(torch, dtype_name)
+        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        window = cfg.sliding_window
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q = self.randn(b, PROMPT, h, hd, dtype=dtype, gen=gen)
+        k = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
+        vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
+        # visible (q, k) pairs per head under the causal wedge and window
+        pairs = sum(min(i + 1, window or PROMPT) for i in range(PROMPT))
+        self.record(
+            "flash_attention", dtype_name,
+            [list(q.shape), list(k.shape)],
+            ops.attention(q, k, vv, window=window),
+            ref.attention_ref(q, k, vv, window=window),
+            lambda: ops.attention(q, k, vv, window=window),
+            lambda: ref.attention_ref(q, k, vv, window=window),
+            lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                         vv.transpose(1, 2), is_causal=True,
+                         enable_gqa=True),
+            (2 * q.numel() + 2 * k.numel()) * dtype.itemsize,
+            4 * hd * pairs * b * h, extra={"window": window}, table=table)
+
+    def d80_kernels(self, dtype_name: str):
+        """B3, B4 and B5 at h2o-danube-1.8b's E=1 serving shapes (head_dim
+        80, GQA 32/8; the prefill's 44 x 256 tokens, the batch decode's
+        274-slot ring at depth 271, the pool decode's depths with dead
+        streams), checked and timed as at qwen3's: the kernels line
+        reports the fp32 numbers under ``head_dim_80``."""
+        from repro_torch import configs
+        cfg = configs.get_config(D80_ARCH)
+        if cfg.head_dim != 80 or PROMPT > cfg.sliding_window:
+            raise AssertionError(f"{D80_ARCH}: head_dim {cfg.head_dim}, "
+                                 f"window {cfg.sliding_window}")
+        self.prefill_kernel(dtype_name, cfg, self.kernels_d80,
+                            self.extra_gen)
+        self.decode_kernels(dtype_name, cfg, self.kernels_d80,
+                            self.extra_gen)
+
+    def dense_variant_shapes(self):
+        """B3 and B4 against their plain versions at the other dense
+        variants' E=1 serving shapes, both dtypes: phi4-mini (24/8 heads
+        of 128, rep 3: a kv-head's q-heads in two passes) and stablelm
+        (MHA 32/32 of 64, rep 1), 44 streams of 256 tokens and the
+        274-slot ring at depth 271 (h2o-danube's are in
+        ``d80_kernels``)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import ops, ref
+        b = GROUPS * (2 * (K + E) + S)
+        w = PROMPT + STEPS + 2
+        last = (torch.arange(w, device=self.dev)
+                <= PROMPT + STEPS - 1).to(torch.uint8)[None].expand(b, w)
+        gen = self.extra_gen
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            for arch in ("phi4-mini-3.8b", "stablelm-1.6b"):
+                cfg = configs.get_config(arch)
+                h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+                q = self.randn(b, PROMPT, h, hd, dtype=dtype, gen=gen)
+                k = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
+                vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
+                qd = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                kc = self.randn(b, w, kvh, hd, dtype=dtype, gen=gen)
+                vc = self.randn(b, w, kvh, hd, dtype=dtype, gen=gen)
+                heads = f"H={h} KV={kvh} D={hd}"
+                for what, got, want in (
+                        (f"flash_attention {arch} B={b} S={PROMPT} {heads}",
+                         ops.attention(q, k, vv),
+                         ref.attention_ref(q, k, vv)),
+                        (f"flash_decode {arch} B={b} W={w} {heads}",
+                         ops.decode_attention(qd, kc, vc, last),
+                         ref.decode_attention_ref(qd, kc, vc, last))):
+                    out = {"variant": what, "dtype": dtype_name}
+                    out.update(self.check(what, got, want, dtype_name))
+                    emit(out)
+
+    def dense_variant_coding(self):
+        """B1 and B2 against their plain versions at the dense variants'
+        E=1 batch serving shapes, both dtypes: B1 on the prefill encode
+        (4, 4, 256 x d_model) and the decode encode (4, 4, d_model) at
+        d_model 2560, 3072 and 2048; B2 on h2o-danube's (4, 11, 32000)
+        and stablelm's (4, 11, 100352) tails, each group with its own
+        decode quorum of survivors and one located worker among them
+        (phi4-mini's (4, 11, 200064) is in ``group_decode_kernels``).
+        Its inputs come from a generator of its own, so that no other
+        check's inputs depend on them."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig, encode_matrix, \
+            nodes
+        from repro_torch.kernels import ops, ref
+        gen = torch.Generator(self.dev).manual_seed(2)
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        w = encode_matrix(coding, device=self.dev).float()
+        alphas, betas = nodes(coding, self.dev)
+        masks = torch.zeros(GROUPS, n1, device=self.dev)
+        for mask in masks:
+            alive = torch.randperm(n1, generator=gen, device=self.dev)[
+                :coding.decode_quorum]
+            mask[alive] = 1.0
+            mask[alive[0]] = 0.0                 # a located worker
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            for arch in DENSE_VARIANTS:
+                cfg = configs.get_config(arch)
+                d = cfg.d_model
+                for what, f in (("prefill", PROMPT * d), ("decode", d)):
+                    x = self.randn(GROUPS, K, f, dtype=dtype, gen=gen)
+                    res.append((f"berrut_apply {arch} {what} "
+                                f"{list(x.shape)}", ops.berrut_apply(w, x),
+                                ref.berrut_apply_ref(w, x)))
+                if arch.startswith("phi4"):
+                    continue
+                v = cfg.vocab_size
+                grouped = self.randn(GROUPS, n1, v, dtype=dtype, gen=gen)
+                res.append((f"fused_group_decode {arch} E={E} "
+                            f"({GROUPS}, {n1}, {v}) per-group quorum masks",
+                            ops.fused_group_decode(grouped, masks, alphas,
+                                                   betas),
+                            ref.fused_group_decode_ref(grouped, masks, alphas,
+                                                       betas)))
+            for what, got, want in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, dtype_name))
+                emit(out)
+
     def group_decode_kernels(self, dtype_name: str):
         """B2 at the serving tails' shapes, each timed with its operands
         (the (G, N+1, V) block and its masks) in rotation over more than
         twice the card's L2: the E=1 batch tail (4, 11, 151936) with
         per-group masks, the kernel's row; then the E=0 tail (4, 5,
-        151936) with the shared mask, and mamba2's E=1 tail (4, 11,
-        50280) without and with the vote gather (the serving tails
-        gather their votes apart, the reference's one-pass variant in
-        B2).  Each shape also times ``torch.matmul`` of
+        151936) with the shared mask, mamba2's E=1 tail (4, 11, 50280)
+        without and with the vote gather (the serving tails gather their
+        votes apart, the reference's one-pass variant in B2), and
+        phi4-mini's E=1 tail (4, 11, 200064), the widest vocabulary the
+        port serves.  Each shape also times ``torch.matmul`` of
         its (G, K, N+1) decode matrices, given, with the block:
         ``contraction_ms``, a yardstick for the contraction alone, since no
         one PyTorch call builds the matrices too (``library_ms`` is null).
         """
         torch = self.torch
-        from repro_torch.configs import mamba2_780m, qwen3_0_6b
+        from repro_torch.configs import mamba2_780m, phi4_mini_3_8b, \
+            qwen3_0_6b
         from repro_torch.core import berrut
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
@@ -568,7 +771,9 @@ class Smoke:
                 ("E=0", 0, qwen3_0_6b.CONFIG.vocab_size, 0),
                 ("mamba2 E=1", E, mamba2_780m.CONFIG.vocab_size, 0),
                 ("mamba2 E=1 c_vote=64", E, mamba2_780m.CONFIG.vocab_size,
-                 64)):
+                 64),
+                ("phi4-mini E=1", E, phi4_mini_3_8b.CONFIG.vocab_size, 0)):
+            gen = self.extra_gen if what.startswith("phi4") else self.gen
             coding = CodingConfig(k=K, s=S, e=e)
             n1 = coding.num_workers
             alphas = torch.tensor(coding.alphas, dtype=torch.float32,
@@ -580,11 +785,11 @@ class Smoke:
                 avail = torch.ones(n1, device=self.dev)
                 avail[3] = 0.0                     # a straggler
                 if not e:                          # E=0: the shared mask
-                    return (self.randn(GROUPS, n1, v, dtype=dtype),
+                    return (self.randn(GROUPS, n1, v, dtype=dtype, gen=gen),
                             avail.expand(GROUPS, n1))
                 masks = avail.repeat(GROUPS, 1)
                 masks[:, 7] = 0.0                  # a located worker
-                return self.randn(GROUPS, n1, v, dtype=dtype), masks
+                return self.randn(GROUPS, n1, v, dtype=dtype, gen=gen), masks
 
             copies = self.rotation(operands)
             turn = itertools.cycle(copies).__next__
@@ -883,20 +1088,18 @@ class Smoke:
             counts[what] = self.count_syncs(fn)
         emit({"tail_syncs": counts, "rounds": "E=1 batch, K=4 S=1 G=4"})
 
-    def decode_kernels(self, dtype_name: str):
-        """B4 and B5 at the E=1 batch path's shapes (44 streams, GQA 16/8,
-        head_dim 128, a 274-slot ring at depth 271), timed over enough
-        copies of the caches in rotation that the card's L2 holds none of
-        them from one call to the next (a bf16 copy is about the L2's
-        size): the kernel, its plain version and the library call each
-        read the next copy at every call."""
+    def decode_kernels(self, dtype_name: str, cfg, table=None, gen=None):
+        """B4 and B5 at the E=1 batch path's shapes for ``cfg`` (44
+        streams, a 274-slot ring at depth 271; qwen3: GQA 16/8 of 128),
+        timed over enough copies of the caches in rotation that the
+        card's L2 holds none of them from one call to the next (a bf16
+        copy is about the L2's size): the kernel, its plain version and
+        the library call each read the next copy at every call."""
         torch = self.torch
-        from repro_torch.configs import qwen3_0_6b
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
-        cfg = qwen3_0_6b.CONFIG
         b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -904,8 +1107,8 @@ class Smoke:
         # B4: decode at the last step over the (B, W, KV, D) ring cache
         width = PROMPT + STEPS + 2
         pos = PROMPT + STEPS - 1
-        qd = self.randn(b, h, hd, dtype=dtype)
-        copies = self.cache_copies(b, width, kvh, hd, dtype)
+        qd = self.randn(b, h, hd, dtype=dtype, gen=gen)
+        copies = self.cache_copies(b, width, kvh, hd, dtype, gen)
         kc, vc = copies[0]
         turn = itertools.cycle(copies).__next__
         valid = (torch.arange(width, device=self.dev) <= pos).to(torch.uint8)
@@ -924,11 +1127,11 @@ class Smoke:
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
             + width,
-            4 * hd * n_valid * b * h, extra=l2)
+            4 * hd * n_valid * b * h, extra=l2, table=table)
 
         # B5: the slot-pool decode over the same (B, W, KV, D) caches, at
         # per-stream depths and with dead streams (E=0's live mask)
-        pos, live = self.pool_positions(b, width)
+        pos, live = self.pool_positions(b, width, gen)
         nkeys = (torch.clamp(pos, max=width - 1) + 1) * live
         n_read = int(nkeys.sum().item())             # keys the rows see
         got = ops.pool_decode_attention(qd, kc, vc, pos, live)
@@ -953,7 +1156,7 @@ class Smoke:
                          attn_mask=allowed[:, None, None, :],
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
-            4 * hd * n_read * h, extra=l2)
+            4 * hd * n_read * h, extra=l2, table=table)
 
     def rotation(self, make) -> list:
         """[make(), ...]: as many sets of operands (tuples of tensors) as
@@ -965,11 +1168,12 @@ class Smoke:
         one = sum(t.numel() * t.element_size() for t in first)
         return [first] + [make() for _ in range(2 * l2 // one)]
 
-    def cache_copies(self, b: int, width: int, kvh: int, hd: int, dtype):
+    def cache_copies(self, b: int, width: int, kvh: int, hd: int, dtype,
+                     gen=None):
         """[(k, v)] caches of (b, width, kvh, hd) in rotation."""
         return self.rotation(lambda: (
-            self.randn(b, width, kvh, hd, dtype=dtype),
-            self.randn(b, width, kvh, hd, dtype=dtype)))
+            self.randn(b, width, kvh, hd, dtype=dtype, gen=gen),
+            self.randn(b, width, kvh, hd, dtype=dtype, gen=gen)))
 
     def b6_check(self, what: str, w, x, dtype_name: str,
                  timed: bool = False) -> None:
@@ -1057,14 +1261,15 @@ class Smoke:
             raise AssertionError("berrut_encode_dispatch took more groups "
                                  "than its grid holds")
 
-    def pool_positions(self, b: int, width: int):
+    def pool_positions(self, b: int, width: int, gen=None):
         """(B,) int32 ring positions and (B,) uint8 live flags: most
         streams at the depths a 256-token prompt reaches in 16 steps,
         plus depth 0, both sides of a 16-key step, mid-ring, the last
         slot, and ring wraps past W; every fifth stream dead."""
         torch = self.torch
-        pos = PROMPT + torch.randint(0, STEPS + 1, (b,), generator=self.gen,
-                                     device=self.dev)
+        pos = PROMPT + torch.randint(
+            0, STEPS + 1, (b,), generator=self.gen if gen is None else gen,
+            device=self.dev)
         special = [0, 15, 16, 137, width - 1, width, 2 * width + 7]
         pos[:len(special)] = torch.tensor(special, device=self.dev)
         live = torch.ones(b, dtype=torch.uint8, device=self.dev)
@@ -1116,21 +1321,22 @@ class Smoke:
             res.append(("fused_group_decode V=151936 c_vote=64 gather",
                         got, want))
             # S and L off the kernel's 64-row and 32/64-key tiles
-            for hd in (64, 128, 256):
+            for hd in (64, 80, 128, 256):
+                gen = self.extra_gen if hd == 80 else self.gen
                 for kw in (dict(window=37), dict(softcap=20.0),
                            dict(prefix=40), dict(causal=False),
                            dict(q_offset=50)):
                     for s in (100, 77):
                         l_len = s + kw.get("q_offset", 0)
-                        q = self.randn(2, s, 8, hd, dtype=dtype)
-                        k = self.randn(2, l_len, 2, hd, dtype=dtype)
-                        vv = self.randn(2, l_len, 2, hd, dtype=dtype)
+                        q = self.randn(2, s, 8, hd, dtype=dtype, gen=gen)
+                        k = self.randn(2, l_len, 2, hd, dtype=dtype, gen=gen)
+                        vv = self.randn(2, l_len, 2, hd, dtype=dtype, gen=gen)
                         res.append((f"flash_attention D={hd} S={s} {kw}",
                                     ops.attention(q, k, vv, **kw),
                                     ref.attention_ref(q, k, vv, **kw)))
                 # rows before the first key see nothing: guarded zeros
-                q = self.randn(1, 20, 4, hd, dtype=dtype)
-                k = self.randn(1, 20, 4, hd, dtype=dtype)
+                q = self.randn(1, 20, 4, hd, dtype=dtype, gen=gen)
+                k = self.randn(1, 20, 4, hd, dtype=dtype, gen=gen)
                 out = ops.attention(q, k, k, q_offset=-5)
                 if not torch.equal(out[:, :5].float(),
                                    torch.zeros_like(out[:, :5].float())):
@@ -1146,16 +1352,30 @@ class Smoke:
             res.append(("flash_attention D=128 GQA 16/8 S=L=200",
                         ops.attention(q, k, vv),
                         ref.attention_ref(q, k, vv)))
-            for hd in (64, 128, 256):
+            # h2o-danube's head layout (32/8 heads of 80), causal and with
+            # a window shorter than the keys; prefix-LM with softcap
+            q = self.randn(3, 200, 32, 80, dtype=dtype, gen=self.extra_gen)
+            k = self.randn(3, 200, 8, 80, dtype=dtype, gen=self.extra_gen)
+            vv = self.randn(3, 200, 8, 80, dtype=dtype, gen=self.extra_gen)
+            for kw in ({}, dict(window=64)):
+                res.append((f"flash_attention D=80 GQA 32/8 S=L=200 {kw}",
+                            ops.attention(q, k, vv, **kw),
+                            ref.attention_ref(q, k, vv, **kw)))
+            kw = dict(prefix=40, softcap=20.0)
+            res.append((f"flash_attention D=80 GQA 32/8 S=L=200 {kw}",
+                        ops.attention(q, k, vv, **kw),
+                        ref.attention_ref(q, k, vv, **kw)))
+            for hd in (64, 80, 128, 256):
+                gen = self.extra_gen if hd == 80 else self.gen
                 b, w_len, h, kvh = 3, 300, 8, 2
-                q = self.randn(b, h, hd, dtype=dtype)
-                kf = self.randn(b, w_len, kvh, hd)
-                vf = self.randn(b, w_len, kvh, hd)
+                q = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                kf = self.randn(b, w_len, kvh, hd, gen=gen)
+                vf = self.randn(b, w_len, kvh, hd, gen=gen)
                 k8 = torch.clamp(torch.round(kf * 32), -127, 127).to(
                     torch.int8)
                 v8 = torch.clamp(torch.round(vf * 32), -127, 127).to(
                     torch.int8)
-                mask = torch.rand(b, w_len, generator=self.gen,
+                mask = torch.rand(b, w_len, generator=gen,
                                   device=self.dev) < 0.6
                 mask[2] = False               # a row that sees nothing
                 got = ops.decode_attention(q, k8, v8, mask, softcap=15.0,
@@ -1180,9 +1400,9 @@ class Smoke:
                 # B5 at other head dims and GQA ratios (MHA, rep 4, MQA),
                 # with int8 KV and softcap, dead streams and ring wraps
                 for h, kvh in ((8, 8), (8, 2), (8, 1)):
-                    q = self.randn(b, h, hd, dtype=dtype)
-                    kc = self.randn(b, w_len, kvh, hd, dtype=dtype)
-                    vc = self.randn(b, w_len, kvh, hd, dtype=dtype)
+                    q = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                    kc = self.randn(b, w_len, kvh, hd, dtype=dtype, gen=gen)
+                    vc = self.randn(b, w_len, kvh, hd, dtype=dtype, gen=gen)
                     pos = torch.tensor([0, 150, 2 * w_len + 3],
                                        dtype=torch.int32, device=self.dev)
                     live = torch.tensor([1, 1, 0], dtype=torch.uint8,
@@ -1218,8 +1438,9 @@ class Smoke:
         with every stream's keys inside the first of the ring's shares, a
         B4 mask whose valid keys lie in one split, an all-masked B4 row
         and dead B5 streams (exact zeros), int8 + softcap and plain caches
-        at D = 64, 128 and 256, and the multihost serve's 72 x 8 blocks at
-        145 keys, which take one split."""
+        at D = 64, 80, 128 and 256, the multihost serve's 72 x 8 blocks at
+        145 keys, which take one split, and head_dim 80 at h2o-danube's
+        serving shapes around the splits (``d80_split_variants``)."""
         torch = self.torch
         from repro_torch.configs import qwen3_0_6b
         from repro_torch.core.berrut import CodingConfig
@@ -1367,15 +1588,16 @@ class Smoke:
                     ref.pool_decode_attention_ref(q, kc, vc, short))
             # int8 + softcap and plain caches at each head dim, rep 4
             b, w, h, kvh = 2, 4096, 8, 2
-            for hd in (64, 128, 256):
-                q = self.randn(b, h, hd, dtype=dtype)
-                kf = self.randn(b, w, kvh, hd)
-                vf = self.randn(b, w, kvh, hd)
+            for hd in (64, 80, 128, 256):
+                gen = self.extra_gen if hd == 80 else self.gen
+                q = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                kf = self.randn(b, w, kvh, hd, gen=gen)
+                vf = self.randn(b, w, kvh, hd, gen=gen)
                 k8 = torch.clamp(torch.round(kf * 32), -127, 127).to(
                     torch.int8)
                 v8 = torch.clamp(torch.round(vf * 32), -127, 127).to(
                     torch.int8)
-                mask = torch.rand(b, w, generator=self.gen,
+                mask = torch.rand(b, w, generator=gen,
                                   device=self.dev) < 0.3
                 pos = torch.tensor([3000, 2 * w + 1], dtype=torch.int32,
                                    device=self.dev)
@@ -1406,6 +1628,82 @@ class Smoke:
             raise AssertionError("flash_decode split plan: the multihost "
                                  "shape must take one split, the long ring "
                                  "several")
+        self.d80_split_variants(sms)
+
+    def d80_split_variants(self, sms: int):
+        """B4 and B5 at head_dim 80, h2o-danube's 32/8 heads over the
+        served 274-slot ring, both dtypes, at 1, 2 and 4 key splits (44
+        streams at E=1, 20 at E=0, 10 in an E=0 scheduler batch): B4 with
+        the broadcast mask at the last step and with a ragged mask whose
+        last row sees nothing (exact zeros), B5 at per-stream depths with
+        ring wraps and dead streams (exact zeros), and both with int8
+        caches and softcap."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import flash_decode, ops, ref
+        cfg = configs.get_config(D80_ARCH)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        w = PROMPT + STEPS + 2
+        shapes = (GROUPS * (2 * (K + E) + S), GROUPS * (K + S), 2 * (K + S))
+        splits = [flash_decode.plan_splits(b, kvh, w, sms) for b in shapes]
+        if splits != [1, 2, 4]:
+            raise AssertionError(f"flash_decode split plan at head_dim 80: "
+                                 f"{shapes} streams take {splits} splits, "
+                                 "not 1, 2 and 4")
+        last = (torch.arange(w, device=self.dev)
+                <= PROMPT + STEPS - 1).to(torch.uint8)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            for b, n_split in zip(shapes, splits):
+                where = (f"D=80 B={b} W={w} H={h} KV={kvh} (splits "
+                         f"{n_split})")
+                q = self.randn(b, h, hd, dtype=dtype, gen=self.extra_gen)
+                kf = self.randn(b, w, kvh, hd, gen=self.extra_gen)
+                vf = self.randn(b, w, kvh, hd, gen=self.extra_gen)
+                kc, vc = kf.to(dtype), vf.to(dtype)
+                mask = last[None, :].expand(b, w)
+                res.append((f"flash_decode {where} broadcast mask",
+                            ops.decode_attention(q, kc, vc, mask),
+                            ref.decode_attention_ref(q, kc, vc, mask)))
+                rows = torch.rand(b, w, generator=self.extra_gen,
+                                  device=self.dev) < 0.5
+                rows[-1] = False
+                got = ops.decode_attention(q, kc, vc, rows)
+                if not torch.equal(got[-1].float(),
+                                   torch.zeros_like(got[-1].float())):
+                    raise AssertionError(f"flash_decode {where}: an "
+                                         "all-masked row is not exactly 0")
+                res.append((f"flash_decode {where} ragged mask", got[:-1],
+                            ref.decode_attention_ref(q, kc, vc,
+                                                     rows)[:-1]))
+                pos, live = self.pool_positions(b, w, self.extra_gen)
+                got = ops.pool_decode_attention(q, kc, vc, pos, live)
+                self.dead_rows_zero(f"pool_flash_decode {where}", got, live)
+                res.append((f"pool_flash_decode {where} wraps and dead "
+                            "streams", got, ref.pool_decode_attention_ref(
+                                q, kc, vc, pos, live)))
+                k8 = torch.clamp(torch.round(kf * 32), -127, 127).to(
+                    torch.int8)
+                v8 = torch.clamp(torch.round(vf * 32), -127, 127).to(
+                    torch.int8)
+                kw = dict(softcap=15.0, kv_scale=32.0)
+                # the plain path rounds dequantised caches to q's dtype
+                res.append((f"flash_decode {where} int8+softcap",
+                            ops.decode_attention(q, k8, v8, rows, **kw)[:-1],
+                            ref.decode_attention_ref(
+                                q, (k8.float() / 32.0).to(dtype),
+                                (v8.float() / 32.0).to(dtype), rows,
+                                softcap=15.0)[:-1]))
+                res.append((f"pool_flash_decode {where} int8+softcap",
+                            ops.pool_decode_attention(q, k8, v8, pos, live,
+                                                      **kw),
+                            ref.pool_decode_attention_ref(
+                                q, k8, v8, pos, live, **kw)))
+            for what, got, want in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, dtype_name))
+                emit(out)
 
     def ssd_inputs(self, b: int, s: int, h: int, p: int, n: int, dtype,
                    strong: bool = False):
@@ -1909,19 +2207,84 @@ class Smoke:
                 tainted.add(a[0])
         return disputes, compared
 
-    def two_devices(self, cfg_layers: int = 2):
-        """(cfg, {device: params}, cpu device) at full width and
-        ``cfg_layers`` layers, the card's weights copied from the CPU's."""
+    def two_devices(self, arch: str = "qwen3-0.6b", cfg_layers: int = 2):
+        """(cfg, {device: params}, {device: torch device}) of ``arch`` at
+        full width and ``cfg_layers`` layers, the card's weights copied
+        from the CPU's."""
         from repro_torch import configs
         from repro_torch.models.model import init_params
         torch = self.torch
-        cfg = configs.get_config("qwen3-0.6b").with_updates(
-            num_layers=cfg_layers)
+        cfg = configs.get_config(arch).with_updates(num_layers=cfg_layers)
         cpu = torch.device("cpu")
         params = {"cpu": init_params(cfg, torch.Generator(cpu).manual_seed(3),
                                      cpu)}
         params["cuda"] = _tree_to(params["cpu"], self.dev)
         return cfg, params, {"cpu": cpu, "cuda": self.dev}
+
+    def full_sequence(self, arch: str):
+        """The full-sequence entry points of ``arch`` at full width and 2
+        layers, on the card against the CPU's plain path with the same
+        weights and inputs: ``forward``'s logits (B3 on the card, its
+        launches counted), ``predict_fn`` on embeddings, and ``lm_loss``
+        without targets and with targets and a loss mask.  Logits within
+        1e-4 x max(1, max |cpu|) (the whole paths' tolerance), greedy
+        tokens equal, losses within 1e-5 relative."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.models import model
+        cfg, params, devs = self.two_devices(arch)
+        b, s, t = 2, 32, 8
+        rng = np.random.RandomState(7)
+        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+        targets = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, t)))
+        loss_mask = torch.from_numpy(rng.rand(b, t) < 0.6)
+        emb = model.embed_inputs(cfg, params["cpu"], {"tokens": tokens})
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p, d = params[dev], devs[dev]
+            ops.reset_launch_counts()
+            logits, aux = model.forward(cfg, p, {"tokens": tokens.to(d)})
+            if dev == "cuda":
+                launched = ops.launch_counts()
+            out[dev] = {
+                "forward": logits.float().cpu(),
+                "predict_fn": model.predict_fn(cfg, p)(emb.to(d)).cpu(),
+                "lm_loss": model.lm_loss(cfg, p, {"tokens": tokens.to(d)}
+                                         )[0].cpu(),
+                "lm_loss targets, loss_mask": model.lm_loss(cfg, p, {
+                    "tokens": tokens.to(d), "targets": targets.to(d),
+                    "loss_mask": loss_mask.to(d)})[0].cpu(),
+                "aux": sorted(float(v) for v in aux.values())}
+        torch.cuda.synchronize()
+        expected = {name: 0 for name in launched}
+        expected["flash_attention"] = cfg.num_layers
+        where = f"{arch} full sequence, full width, 2 layers"
+        if launched != expected:
+            raise AssertionError(f"{where}: forward launched {launched}, "
+                                 f"not {expected}")
+        cpu, gpu = out["cpu"], out["cuda"]
+        if cpu["aux"] != [0.0] * 3 or gpu["aux"] != cpu["aux"]:
+            raise AssertionError(f"{where}: aux {gpu['aux']}")
+        report = {"full_sequence": where, "tokens": [b, s],
+                  "launches": launched}
+        for name in ("forward", "predict_fn"):
+            lc, lg = cpu[name], gpu[name]
+            err = (lg - lc).abs().max().item()
+            tol = 1e-4 * max(1.0, lc.abs().max().item())
+            if not (lg.shape == lc.shape and err <= tol):
+                raise AssertionError(f"{where}: {name} differs by {err} > "
+                                     f"{tol}")
+            if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+                raise AssertionError(f"{where}: {name} greedy tokens differ")
+            report[name] = {"shape": list(lg.shape), "max_abs_err": err,
+                            "tol": tol}
+        for name in ("lm_loss", "lm_loss targets, loss_mask"):
+            lc, lg = float(cpu[name]), float(gpu[name])
+            if not abs(lg - lc) <= 1e-5 * abs(lc):
+                raise AssertionError(f"{where}: {name} {lg} on the card, "
+                                     f"{lc} on the cpu")
+            report[name] = [lc, lg]
+        emit(report)
 
     def whole_scheduler_path(self):
         """The batch scheduler over the LLM executor at full width and 2

@@ -2,10 +2,14 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_780m, qwen3_0_6b
+from repro_torch.configs import (h2o_danube_1_8b, mamba2_780m,
+                                 phi4_mini_3_8b, qwen3_0_6b, stablelm_1_6b)
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {"qwen3-0.6b": qwen3_0_6b, "mamba2-780m": mamba2_780m}
+_MODULES = {"qwen3-0.6b": qwen3_0_6b, "mamba2-780m": mamba2_780m,
+            "h2o-danube-1.8b": h2o_danube_1_8b,
+            "phi4-mini-3.8b": phi4_mini_3_8b,
+            "stablelm-1.6b": stablelm_1_6b}
 
 
 def list_archs() -> list:

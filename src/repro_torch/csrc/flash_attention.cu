@@ -45,6 +45,12 @@
 // P V product reads keys in the order 2t, 2t+1 of each 8-key step, the
 // order of the scores' accumulator, so P needs no shuffle; V's rows are
 // read in that order.
+//
+// Head dims 64, 80, 128 and 256 are instantiated.  Each is a multiple of
+// 16 (the bf16 k-step of Q K^T) with D / 8 even (the bf16 P V loop takes
+// two 8-column output tiles a step), and its padded row of D + 16 bytes
+// puts ldmatrix's eight rows, and the fp32 fragment loads, on distinct
+// banks (at D = 80: a pitch of 44 words, 12 mod 32).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -433,6 +439,10 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return launch_dim<T, 64>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
+                               kv_heads, causal, window, prefix, softcap,
+                               q_offset, scale, s);
+    case 80:
+      return launch_dim<T, 80>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
                                kv_heads, causal, window, prefix, softcap,
                                q_offset, scale, s);
     case 128:

@@ -54,6 +54,19 @@
 //   too few to cover the SMs: with the loads above, one block streams its
 //   keys fast enough that the second launch and the extra blocks cost
 //   more than they balance once there are 1.5 blocks an SM.
+// - Head dims 64, 128 and 256 make rows of 2^k bytes: a row divides a
+//   warp-load or is a whole number of them.  D = 80 (h2o-danube,
+//   hubert) makes rows of 320, 160 or 80 bytes, which straddle
+//   warp-loads, so it keeps the same lane geometry at a padded width:
+//   each row is laid out in shared memory and over the lanes as a row of
+//   kDp = 128 elements (D rounded up to a power of two), 32 lanes a row
+//   in fp32 (20 of them holding data), 16 in bf16 (10), 8 in int8 (5).
+//   A lane whose chunk lies past D copies nothing (cp.async of source
+//   size 0 fills its 16 bytes with zeros), holds q = 0 and adds 0 to the
+//   dot product.  Device-memory traffic stays at the real row bytes;
+//   shared memory and lanes are used at D / kDp = 62.5%.  With kDp = D
+//   the checks against D fold away and the code is that of the other
+//   head dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,10 +87,17 @@ constexpr int kSmem = kWarps * kDepth * 2 * kStageBytes;
 // memory each), so up to 660 blocks run in one wave on 132 SMs.
 constexpr int kBlocksPerSm = 5;
 
-// Where a lane's chunks fall, for caches of type C and head dim D.
+constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// Where a lane's chunks fall, for caches of type C and head dim D: a row
+// is laid out as kDp elements (the pitch in shared memory and over the
+// lanes), of which the first D hold data.
 template <typename C, int D>
 struct Geo {
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(C));
+  static constexpr int kDp = pow2_at_least(D);
+  static constexpr int kRowBytes = kDp * static_cast<int>(sizeof(C));
   static constexpr int kEpc = 16 / static_cast<int>(sizeof(C));  // per chunk
   // chunks of one key row a lane holds (2 for a 1 KB row), lanes per row
   static constexpr int kQch = kRowBytes > 512 ? kRowBytes / 512 : 1;
@@ -202,11 +222,13 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   float* ws_ml = ws == nullptr ? nullptr
       : ws + static_cast<long long>(gridDim.y) * heads * splits * D;
 
-  // element of a row where this lane's chunk qc starts
+  // element of a (padded) row where this lane's chunk qc starts, and
+  // whether it holds data (always, unless D is padded)
   auto elem = [&](int qc) {
     return ((qc * 512 + 16 * lane) % G::kRowBytes) /
            static_cast<int>(sizeof(C));
   };
+  auto in_row = [&](int e0) { return G::kDp == D || e0 < D; };
 
   for (int h0 = 0; h0 < rep; h0 += R) {
     const int rows = min(R, rep - h0);
@@ -221,9 +243,9 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
         for (int i = 0; i < kLoads; ++i) {
           const int o = 512 * i + 16 * lane;
           const int key = key0 + o / G::kRowBytes;
-          const bool ok = key < hi;
-          const long long off =
-              ok ? key * key_stride + (o % G::kRowBytes) / sizeof(C) : 0;
+          const int e0 = (o % G::kRowBytes) / static_cast<int>(sizeof(C));
+          const bool ok = key < hi && in_row(e0);
+          const long long off = ok ? key * key_stride + e0 : 0;
           cp_async16(st + o, kbase + off, ok);
           cp_async16(st + kStageBytes + o, vbase + off, ok);
         }
@@ -240,9 +262,9 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
       for (int qc = 0; qc < G::kQch; ++qc) {
 #pragma unroll
         for (int e = 0; e < G::kEpc; ++e) {
-          float x = r < rows ? load_f32(q + (head0 + r) * D + elem(qc) + e) *
-                                   scale
-                             : 0.f;
+          float x = r < rows && in_row(elem(qc))
+                        ? load_f32(q + (head0 + r) * D + elem(qc) + e) * scale
+                        : 0.f;
           if (kInt8) x /= kv_scale;      // scores of the integer keys
           qf[r][qc * G::kEpc + e] = x;
           acc[r][qc * G::kEpc + e] = 0.f;
@@ -370,6 +392,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
       for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int qc = 0; qc < G::kQch; ++qc) {
+          if (!in_row(elem(qc))) continue;
 #pragma unroll
           for (int e = 0; e < G::kEpc; ++e)
             sm_acc[(warp * R + r) * D + elem(qc) + e] =
@@ -492,6 +515,10 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       return launch_rows<T, C, 64, kPool>(q, k, v, valid, out, ws, batch,
+                                          width, heads, kv_heads, splits,
+                                          softcap, scale, kv_scale, s);
+    case 80:
+      return launch_rows<T, C, 80, kPool>(q, k, v, valid, out, ws, batch,
                                           width, heads, kv_heads, splits,
                                           softcap, scale, kv_scale, s);
     case 128:

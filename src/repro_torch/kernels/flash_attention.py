@@ -24,7 +24,7 @@ KERNEL = Kernel("flash_attention.cu", "flash_attention_launch", [
     ctypes.c_float, ctypes.c_int, ctypes.c_float,        # softcap, q_offset, scale
     ctypes.c_int,                                        # dtype
 ])
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -48,7 +48,7 @@ POOL_KERNEL = Kernel("flash_decode.cu", "pool_flash_decode_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # pos, live, out
     *_SHAPE_ARGS,
 ])
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 # The fewest keys of the ring worth a split of their own.
 MIN_SPLIT_KEYS = 64
 

@@ -1,10 +1,11 @@
 """Attention blocks with RoPE, qk-norm, GQA, sliding window, prefix-LM and
 softcap, plus the ring KV cache (port of ``repro.models.attention``).
 
-Ported: ``_qkv``, ``attention_prefill`` with its ring-cache population,
-and both branches of ``attention_decode``: one position shared by every
-stream (a Python int), or per-stream positions (a (B,) int tensor on the
-device, the slot-pool decode).  JAX returns fresh caches; the port writes
+Ported: ``_qkv``, the full-sequence ``attention_block`` (no cache),
+``attention_prefill`` with its ring-cache population, and both branches
+of ``attention_decode``: one position shared by every stream (a Python
+int), or per-stream positions (a (B,) int tensor on the device, the
+slot-pool decode).  JAX returns fresh caches; the port writes
 the caller's cache buffers in place, where the reference's serving
 executors donate them.
 """
@@ -63,6 +64,21 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return q, k, v
 
 
+def _attend(cfg: ModelConfig, q, k, v) -> torch.Tensor:
+    """The sequence's attention under the config's visibility rules."""
+    return ops.attention(
+        q, k, v, causal=cfg.causal, window=cfg.sliding_window,
+        prefix=cfg.num_patches if cfg.prefix_lm else 0,
+        softcap=cfg.attn_logit_softcap)
+
+
+def attention_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence attention (forward and training): no cache."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    return _out_project(_attend(cfg, q, k, v), p["wo"])
+
+
 # --------------------------------------------------------------- KV caching
 
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
@@ -96,10 +112,7 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     written in place.  With s >= W only the last W keys are kept, at ring
     slot pos % W."""
     q, k, v = _qkv(cfg, p, x, positions)
-    out = ops.attention(
-        q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-        prefix=cfg.num_patches if cfg.prefix_lm else 0,
-        softcap=cfg.attn_logit_softcap)
+    out = _attend(cfg, q, k, v)
     w = cache["k"].shape[1]
     s = k.shape[1]
     kq = quantize_kv(k, cache["k"].dtype)

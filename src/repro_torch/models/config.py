@@ -1,8 +1,9 @@
 """Model configuration dataclass (copy of ``repro.models.config``).
 
 Kept as a copy because importing ``repro.models`` pulls in JAX.  The
-fields are the reference's; derived counts the port does not use yet
-(parameter counts) are left to the slices that need them.
+fields and ``param_count`` are the reference's; its other derived counts
+(``active_param_count``, ``sliding_variant``) are left to the slices
+that need them.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ class ModelConfig:
 
     # --- misc ---
     norm_type: str = "rmsnorm"     # rmsnorm | layernorm
-    mlp_activation: str = "silu"   # silu (SwiGLU) | gelu
+    mlp_activation: str = "silu"   # silu (SwiGLU) | gelu | geglu
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
@@ -95,6 +96,39 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's; norms not
+        counted)."""
+        d, hd = self.d_model, self.head_dim
+        n = self.vocab_size * d           # embed
+        if not self.tie_embeddings:
+            n += self.vocab_size * d      # lm head
+        if self.modality in ("audio", "vlm") and self.frontend_dim:
+            n += self.frontend_dim * d
+        for kind in self.layer_pattern:
+            if kind in ("A", "M", "G"):
+                n += d * (self.num_heads * hd) + d * (2 * self.num_kv_heads * hd)
+                n += (self.num_heads * hd) * d          # out proj
+                mlp_mats = 2 if self.mlp_activation == "gelu" else 3
+                if kind == "M":
+                    n += d * self.num_experts           # router
+                    n += self.num_experts * 3 * d * self.moe_d_ff
+                else:
+                    n += mlp_mats * d * self.d_ff       # SwiGLU=3 / GELU=2
+            elif kind == "S":
+                din, st = self.ssm_d_inner, self.ssm_state
+                # in_proj emits [z, x, B, C, dt] (single B/C group, G=1)
+                n += d * (2 * din + 2 * st + self.ssm_heads)
+                n += din * d                             # out proj
+                n += self.ssm_conv * (din + 2 * st)
+        # shared "G" blocks share one set of weights: subtract duplicates
+        g = self.layer_pattern.count("G")
+        if g > 1:
+            per_g = d * (self.num_heads * hd) + d * (2 * self.num_kv_heads * hd) \
+                + (self.num_heads * hd) * d + 3 * d * self.d_ff
+            n -= (g - 1) * per_g
+        return n
 
     def with_updates(self, **kw) -> "ModelConfig":
         if "num_layers" in kw and "layer_pattern" not in kw:

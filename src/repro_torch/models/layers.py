@@ -34,14 +34,27 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
 # ---------------------------------------------------------------- norms
 
 def init_norm(cfg: ModelConfig, dtype, device) -> dict:
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm_type == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm (the only norm of the ported configurations)."""
+    """RMSNorm, or LayerNorm with a bias (``norm_type="layernorm"``), in
+    fp32.  LayerNorm divides by the population variance, as ``jnp.var``
+    does (``correction=0``; torch's default would be the sample one)."""
     xf = x.to(torch.float32)
-    ms = xf.square().mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].to(torch.float32) \
+            + p["bias"].to(torch.float32)
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) \
+            * p["scale"].to(torch.float32)
     return out.to(x.dtype)
 
 

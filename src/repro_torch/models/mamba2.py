@@ -92,6 +92,11 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
     return out, xbc_pad[:, -(k - 1):], h_final
 
 
+def mamba2_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence SSD (forward and training): no state returned."""
+    return mamba2_forward(cfg, p, x)[0]
+
+
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device,
                    layers_in_run: int) -> dict:
     """Zeroed SSM caches of one run of layers: conv (layers, B, K-1,

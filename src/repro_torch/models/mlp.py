@@ -1,5 +1,9 @@
-"""Dense SwiGLU MLP (port of ``repro.models.mlp``; the GELU variants of
-the encoder configurations are not ported yet)."""
+"""Dense MLP: SwiGLU (llama family), GELU (hubert / encoder style) or
+GeGLU (gemma / paligemma); port of ``repro.models.mlp``.
+
+``jax.nn.gelu`` defaults to the tanh approximation, so the port's GELU is
+``F.gelu(..., approximate="tanh")``.
+"""
 
 from __future__ import annotations
 
@@ -13,10 +17,20 @@ from repro_torch.models.config import ModelConfig
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     out_scale = 1.0 / (2 * cfg.num_layers) ** 0.5
+    if cfg.mlp_activation == "gelu":
+        return {"w_in": layers.dense_init(gen, d, f, dtype, device),
+                "w_out": layers.dense_init(gen, f, d, dtype, device,
+                                           out_scale)}
     return {"w_gate": layers.dense_init(gen, d, f, dtype, device),
             "w_in": layers.dense_init(gen, d, f, dtype, device),
             "w_out": layers.dense_init(gen, f, d, dtype, device, out_scale)}
 
 
 def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    if cfg.mlp_activation == "gelu":
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+    elif cfg.mlp_activation == "geglu":
+        h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_in"])
+    else:                                 # SwiGLU
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
+    return h @ p["w_out"]

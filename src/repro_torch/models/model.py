@@ -1,9 +1,10 @@
-"""Public model API: init / prefill / decode (port of ``repro.models.model``,
-text inputs, dense attention and Mamba2 blocks).
+"""Public model API: init / forward / loss / prefill / decode (port of
+``repro.models.model``, text inputs, dense attention and Mamba2 blocks).
 
 Inputs are dicts as in the reference: ``{"tokens": (B, S) int}`` or
-``{"embeddings": (B, S, d)}``; "embeddings" bypasses the token table and
-is how the coded serving steps feed coded queries.
+``{"embeddings": (B, S, d)}``, optionally with ``"targets"`` and
+``"loss_mask"`` for the loss; "embeddings" bypasses the token table and
+is how the coded serving steps and ``predict_fn`` feed coded queries.
 """
 
 from __future__ import annotations
@@ -46,6 +47,64 @@ def embed_inputs(cfg: ModelConfig, params: dict,
     return layers.embed_tokens(cfg, params["embeddings"], inputs["tokens"])
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def forward(cfg: ModelConfig, params: dict, inputs: dict
+            ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward.  Returns (logits (B, S, V) in the model's
+    dtype, aux)."""
+    x = embed_inputs(cfg, params, inputs)
+    x, aux = transformer.apply_runs(cfg, params["blocks"], x, _positions(x))
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return layers.unembed(cfg, params["embeddings"], x), aux
+
+
+def predict_fn(cfg: ModelConfig, params: dict):
+    """(B, S, d) coded embeddings -> (B, V) last-position fp32 logits:
+    the black-box ``f`` handed to the ApproxIFER engine."""
+    def f(embeddings: torch.Tensor) -> torch.Tensor:
+        logits, _ = forward(cfg, params, {"embeddings": embeddings})
+        return logits[:, -1].to(torch.float32)
+
+    return f
+
+
+def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (causal), or per-position CE against
+    ``batch["targets"]`` (encoder-only).  With ``targets`` in a causal
+    batch, targets[t] is the token after the position whose logits are
+    used: logits at -(T+1) .. -2.  ``loss_mask`` weighs the positions.
+    Returns (total, metrics) as the reference does."""
+    logits, aux = forward(cfg, params, batch)
+    logits = logits.to(torch.float32)
+    if cfg.causal:
+        targets = batch.get("targets")
+        if targets is None:
+            targets = batch["tokens"][:, 1:]
+            logits = logits[:, :-1]
+        else:
+            logits = logits[:, -(targets.shape[1] + 1):-1]
+    else:
+        targets = batch["targets"]
+    logp = torch.log_softmax(logits, -1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(torch.float32)
+        loss = (nll * mask).sum() / (mask.sum() + 1e-6)
+    total = loss + aux_weight * (aux["load_balance_loss"]
+                                 + 0.1 * aux["router_z_loss"])
+    return total, {"ce_loss": loss,
+                   "load_balance_loss": aux["load_balance_loss"],
+                   "dropped_fraction": aux["dropped_fraction"],
+                   "total_loss": total}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> list:
     return transformer.init_run_caches(cfg, batch, max_len, dtype, device)
@@ -56,9 +115,8 @@ def prefill(cfg: ModelConfig, params: dict, inputs: dict, caches: list
     """Process the full prompt; returns (last-token logits (B, V) fp32,
     caches), the caches written in place."""
     x = embed_inputs(cfg, params, inputs)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, caches = transformer.prefill_runs(cfg, params["blocks"], x,
-                                         positions, caches)
+                                         _positions(x), caches)
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = layers.unembed(cfg, params["embeddings"], x)[:, 0]
     return logits.to(torch.float32), caches

@@ -1,5 +1,7 @@
 """Block composition over runs of layers (port of
-``repro.models.transformer``: dense "A" and Mamba2 "S" runs).
+``repro.models.transformer``: dense "A" and Mamba2 "S" runs, through the
+full-sequence ``apply_runs`` and the serving ``prefill_runs`` /
+``decode_runs``).
 
 As in the reference, the layer pattern splits into runs of one block
 kind and each run's parameters and caches are stacked on a leading
@@ -27,20 +29,25 @@ def pattern_runs(pattern: str) -> List[Tuple[str, int]]:
     return runs
 
 
+NORMS = ("rmsnorm", "layernorm")
+MLPS = ("silu", "gelu", "geglu")
+
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for what the port does not cover yet: blocks other than
-    dense "A" and Mamba2 "S", norms other than RMSNorm, MLPs other than
-    SwiGLU, and non-text frontends."""
+    dense "A" and Mamba2 "S", and non-text frontends; a norm or MLP the
+    reference does not have either (``NORMS``, ``MLPS``) raises too."""
     other = set(cfg.layer_pattern) - {"A", "S"}
     if other:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(other)} are not ported yet "
             "(dense 'A' and Mamba2 'S' blocks only)")
-    if (cfg.norm_type, cfg.mlp_activation, cfg.modality) != (
-            "rmsnorm", "silu", "text"):
+    if (cfg.norm_type not in NORMS or cfg.mlp_activation not in MLPS
+            or cfg.modality != "text"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.norm_type} / {cfg.mlp_activation} / "
-            f"{cfg.modality} is not ported yet (rmsnorm, SwiGLU, text)")
+            f"{cfg.modality} is not ported yet (norms {NORMS}, MLPs "
+            f"{MLPS}, text inputs)")
 
 
 def _layer_view(tree, i: int):
@@ -85,6 +92,31 @@ def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
             if kind == "S" else
             attention.init_kv_cache(cfg, batch, max_len, dtype, device, count)
             for kind, count in pattern_runs(cfg.layer_pattern)]
+
+
+def block_apply(cfg: ModelConfig, kind: str, p: dict, x, positions):
+    """Full-sequence block.  Returns x: no ported block has the
+    reference's per-block aux (only "M" blocks make one)."""
+    if kind == "S":
+        return x + mamba2.mamba2_block(
+            cfg, p["ssm"], layers.apply_norm(cfg, p["norm"], x))
+    x = x + attention.attention_block(
+        cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions)
+    return x + mlp.mlp_block(cfg, p["mlp"],
+                             layers.apply_norm(cfg, p["norm2"], x))
+
+
+def apply_runs(cfg: ModelConfig, blocks: dict, x, positions):
+    """Forward through all runs (train / plain inference).  Returns
+    (x, aux): the reference's sum of the blocks' MoE statistics, all zero
+    while no "M" block is ported."""
+    for (kind, count), run_p in zip(pattern_runs(cfg.layer_pattern),
+                                    blocks["runs"]):
+        for i in range(count):
+            x = block_apply(cfg, kind, _layer_view(run_p, i), x, positions)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, {"load_balance_loss": zero, "router_z_loss": zero,
+               "dropped_fraction": zero}
 
 
 def block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,

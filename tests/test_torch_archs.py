@@ -1,0 +1,414 @@
+"""Port parity of the dense-model variants: h2o-danube-1.8b (SWA, GQA,
+head_dim 32 reduced / 80 full), phi4-mini-3.8b (GQA, untied, int8 KV)
+and stablelm-1.6b (MHA, LayerNorm, partial rotary) in their ``reduced()``
+sizes, against ``repro.models`` on the reference's XLA path.
+
+The port runs on the reference's own parameters (``params_from_jax``).
+Tolerances: fp32 logits and losses within ``LOGITS_TOL`` (rtol 1e-5,
+atol 1e-4: a different summation order in every product), greedy
+tokens and locator verdicts exactly, raw vote tallies within one pick.  The port's own decode against its
+own full forward within ``DECODE_TOL`` (rtol 1e-4, atol 1e-4: the cached
+path sums in another order again; the reference's own test allows 2e-2).
+int8 caches within ``INT8_TOL`` of the reference's (one quantisation
+step, 1/32, may round the other way) and within the reference's own
+bound of the fp32 forward.  Also: the full-sequence forward of qwen3 and
+mamba2, the LayerNorm and GELU / GeGLU units, ``check_ported``, and
+serving on the CPU for each new architecture, with one coded round and
+one scheduler run held against the reference's.
+"""
+
+import dataclasses
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+torch = pytest.importorskip("torch")
+
+from _torch_parity import share_noise  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro.core.berrut import CodingConfig as JCoding  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.models import decode_step as j_decode_step  # noqa: E402
+from repro.models import forward as j_forward  # noqa: E402
+from repro.models import init_caches as j_init_caches  # noqa: E402
+from repro.models import init_params as j_init_params  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import lm_loss as j_lm_loss  # noqa: E402
+from repro.models import mlp as jmlp  # noqa: E402
+from repro.models import predict_fn as j_predict_fn  # noqa: E402
+from repro.models import prefill as j_prefill  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.core.berrut import CodingConfig as TCoding  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import mlp as tmlp  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serving import coded_serving as tcs  # noqa: E402
+from test_torch_scheduler import (LLM_CASE, _assert_same_run,  # noqa: E402
+                                  _serve_llm)
+from test_torch_serving import (MAX_LEN, PROMPT, _jit_steps,  # noqa: E402
+                                _rounds)
+
+ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "stablelm-1.6b"]
+LOGITS_TOL = dict(rtol=1e-5, atol=1e-4)
+DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
+INT8_TOL = 1e-2           # of max |reference logits|
+
+
+@pytest.fixture(scope="module")
+def models():
+    """(reference config, port config, reference params, port params) of
+    each reduced architecture, built once."""
+    cache = {}
+
+    def get(arch):
+        if arch not in cache:
+            jc, tc = jconfigs.get_reduced(arch), configs.get_reduced(arch)
+            jp = j_init_params(jc, jax.random.PRNGKey(0))
+            tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+            cache[arch] = (jc, tc, jp, tp)
+        return cache[arch]
+
+    return get
+
+
+def _tokens(shape, seed):
+    return np.random.RandomState(seed).randint(0, 512, shape)
+
+
+# ------------------------------------------------------------- configs
+
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-0.6b", "mamba2-780m"])
+def test_config_copies_and_param_counts_match_reference(arch):
+    for jc, tc in ((jconfigs.get_config(arch), configs.get_config(arch)),
+                   (jconfigs.get_reduced(arch), configs.get_reduced(arch))):
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+        assert tc.param_count() == jc.param_count()
+    if arch == "h2o-danube-1.8b":
+        assert configs.get_config(arch).head_dim == 80
+    if arch == "stablelm-1.6b":
+        cfg = configs.get_config(arch)
+        assert (cfg.num_kv_heads, cfg.norm_type) == (32, "layernorm")
+
+
+# ------------------------------------------------------------- serving path
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_and_caches_match_reference(arch, models):
+    jc, tc, jp, tp = models(arch)
+    b, s, steps = 3, 10, 3
+    max_len = s + steps + 1
+    tokens = _tokens((b, s), 1)
+    with jops.force_kernel("xla"):
+        jl, jcache = j_prefill(jc, jp, {"tokens": jnp.asarray(tokens)},
+                               j_init_caches(jc, b, max_len))
+        tl, tcache = tmodel.prefill(
+            tc, tp, {"tokens": torch.from_numpy(tokens)},
+            tmodel.init_caches(tc, b, max_len, torch.float32, "cpu"))
+        for step in range(steps + 1):
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       **LOGITS_TOL)
+            nxt = np.asarray(jnp.argmax(jl, -1))
+            np.testing.assert_array_equal(tl.argmax(-1).numpy(), nxt)
+            if step == steps:
+                break
+            jl, jcache = j_decode_step(jc, jp, jcache,
+                                       {"tokens": jnp.asarray(nxt)[:, None]},
+                                       jnp.asarray(s + step, jnp.int32))
+            tl, tcache = tmodel.decode_step(
+                tc, tp, tcache, {"tokens": torch.tensor(nxt)[:, None]},
+                s + step)
+    for jr, tr in zip(jcache, tcache):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(tr[name].numpy(),
+                                       np.asarray(jr[name]), **LOGITS_TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_forward(arch, models):
+    """The port's serving path against its own full forward: prefill T
+    tokens, decode one more (``tests/test_archs.py``'s check)."""
+    _, tc, _, tp = models(arch)
+    b, t = 2, 16
+    tokens = torch.from_numpy(_tokens((b, t + 1), 3))
+    full, _ = tmodel.forward(tc, tp, {"tokens": tokens})
+    caches = tmodel.init_caches(tc, b, 64, torch.float32, "cpu")
+    pre, caches = tmodel.prefill(tc, tp, {"tokens": tokens[:, :t]}, caches)
+    torch.testing.assert_close(pre, full[:, -2], **DECODE_TOL)
+    dec, _ = tmodel.decode_step(tc, tp, caches,
+                                {"tokens": tokens[:, t:t + 1]}, t)
+    torch.testing.assert_close(dec, full[:, -1], **DECODE_TOL)
+
+
+def test_swa_ring_buffer_past_the_window(models):
+    """h2o-danube's reduced window is 64: 79 prompt tokens fill a
+    64-slot ring and wrap it, and the decode at position 79 sees the
+    last 64 keys only, as the full forward does; the reference's decode
+    agrees."""
+    jc, tc, jp, tp = models("h2o-danube-1.8b")
+    assert tc.sliding_window == 64
+    total = 80
+    tokens = _tokens((1, total), 4)
+    tt = torch.from_numpy(tokens)
+    full, _ = tmodel.forward(tc, tp, {"tokens": tt})
+    caches = tmodel.init_caches(tc, 1, total, torch.float32, "cpu")
+    assert caches[0]["k"].shape[2] == 64
+    _, caches = tmodel.prefill(tc, tp, {"tokens": tt[:, :-1]}, caches)
+    dec, _ = tmodel.decode_step(tc, tp, caches, {"tokens": tt[:, -1:]},
+                                total - 1)
+    torch.testing.assert_close(dec, full[:, -1], **DECODE_TOL)
+    with jops.force_kernel("xla"):
+        jcache = j_init_caches(jc, 1, total)
+        _, jcache = j_prefill(jc, jp, {"tokens": jnp.asarray(tokens[:, :-1])},
+                              jcache)
+        jdec, _ = j_decode_step(jc, jp, jcache,
+                                {"tokens": jnp.asarray(tokens[:, -1:])},
+                                jnp.asarray(total - 1, jnp.int32))
+    np.testing.assert_allclose(dec.numpy(), np.asarray(jdec), **LOGITS_TOL)
+
+
+def test_int8_kv_cache_decode_close(models):
+    """phi4-mini with int8 caches: the decode's argmax equals the fp32
+    forward's and its error stays inside the reference's bound (0.15 of
+    max |logits|); against the reference's own int8 decode within
+    ``INT8_TOL``."""
+    jc, tc, jp, tp = models("phi4-mini-3.8b")
+    jc, tc = (c.with_updates(kv_cache_dtype="int8") for c in (jc, tc))
+    b, t = 2, 16
+    tokens = _tokens((b, t + 1), 5)
+    tt = torch.from_numpy(tokens)
+    full, _ = tmodel.forward(tc, tp, {"tokens": tt})
+    caches = tmodel.init_caches(tc, b, 64, torch.float32, "cpu")
+    assert caches[0]["k"].dtype == torch.int8
+    _, caches = tmodel.prefill(tc, tp, {"tokens": tt[:, :t]}, caches)
+    dec, _ = tmodel.decode_step(tc, tp, caches, {"tokens": tt[:, t:t + 1]},
+                                t)
+    want = full[:, -1].numpy()
+    got = dec.numpy()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert np.abs(got - want).max() / np.abs(want).max() < 0.15
+    with jops.force_kernel("xla"):
+        jcache = j_init_caches(jc, b, 64)
+        _, jcache = j_prefill(jc, jp, {"tokens": jnp.asarray(tokens[:, :t])},
+                              jcache)
+        jdec, _ = j_decode_step(jc, jp, jcache,
+                                {"tokens": jnp.asarray(tokens[:, t:t + 1])},
+                                jnp.asarray(t, jnp.int32))
+    jdec = np.asarray(jdec)
+    assert np.abs(got - jdec).max() <= INT8_TOL * np.abs(jdec).max()
+    np.testing.assert_array_equal(got.argmax(-1), jdec.argmax(-1))
+
+
+# ------------------------------------------------------------- forward, loss
+
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-0.6b", "mamba2-780m"])
+def test_forward_predict_and_loss_match_reference(arch, models):
+    """``forward`` (logits and the zero aux), ``predict_fn`` on
+    embeddings, and ``lm_loss`` without targets, with targets, and with
+    targets and a loss mask."""
+    jc, tc, jp, tp = models(arch)
+    b, s, t = 2, 17, 6
+    tokens = _tokens((b, s), 6)
+    targets = _tokens((b, t), 7)
+    mask = (np.random.RandomState(8).rand(b, t) < 0.6).astype(np.float32)
+    emb = np.random.RandomState(9).randn(b, s, tc.d_model).astype(np.float32)
+    batches = {
+        "tokens": {"tokens": tokens},
+        "targets": {"tokens": tokens, "targets": targets},
+        "loss_mask": {"tokens": tokens, "targets": targets,
+                      "loss_mask": mask},
+    }
+    with jops.force_kernel("xla"):
+        jl, jaux = j_forward(jc, jp, {"tokens": jnp.asarray(tokens)})
+        jpred = j_predict_fn(jc, jp)(jnp.asarray(emb))
+        jloss = {k: j_lm_loss(jc, jp, jax.tree.map(jnp.asarray, v))
+                 for k, v in batches.items()}
+    tl, taux = tmodel.forward(tc, tp, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGITS_TOL)
+    assert sorted(taux) == sorted(jaux)
+    for key, val in taux.items():
+        assert float(val) == float(jaux[key]) == 0.0
+    tpred = tmodel.predict_fn(tc, tp)(torch.from_numpy(emb))
+    assert tpred.dtype == torch.float32 and tpred.shape == (b, tc.vocab_size)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
+                               **LOGITS_TOL)
+    for key, batch in batches.items():
+        total, metrics = tmodel.lm_loss(
+            tc, tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+        jtotal, jmetrics = jloss[key]
+        assert sorted(metrics) == sorted(jmetrics)
+        np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-5)
+        for name, val in metrics.items():
+            np.testing.assert_allclose(float(val), float(jmetrics[name]),
+                                       rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------------------- units
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_reference(dtype):
+    """LayerNorm with a bias, against ``repro.models.layers``: zero mean
+    and the population variance (``jnp.var``), not torch's default
+    sample variance."""
+    jc = jconfigs.get_reduced("stablelm-1.6b")
+    tc = configs.get_reduced("stablelm-1.6b")
+    rng = np.random.RandomState(11)
+    x = (3.0 + 2.0 * rng.randn(4, 5, tc.d_model)).astype(np.float32)
+    p = {"scale": rng.rand(tc.d_model).astype(np.float32) + 0.5,
+         "bias": rng.randn(tc.d_model).astype(np.float32)}
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jlayers.apply_norm(jc, {k: jnp.asarray(v, jdt)
+                                   for k, v in p.items()},
+                              jnp.asarray(x, jdt))
+    got = tlayers.apply_norm(tc, {k: torch.from_numpy(v).to(tdt)
+                                  for k, v in p.items()},
+                             torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               **(LOGITS_TOL if dtype == "float32"
+                                  else dict(rtol=2 ** -7, atol=2 ** -7)))
+    unit = tlayers.init_norm(tc, torch.float32, "cpu")
+    assert sorted(unit) == sorted(jlayers.init_norm(jc, jnp.float32))
+    y = tlayers.apply_norm(tc, unit, torch.from_numpy(x)).double()
+    np.testing.assert_allclose(y.mean(-1).numpy(), 0.0, atol=1e-5)
+    # the population variance gives unit mean square; the sample one
+    # would give (n - 1) / n = 0.996 at n = 256
+    np.testing.assert_allclose(y.square().mean(-1).numpy(), 1.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("activation", ["silu", "gelu", "geglu"])
+def test_mlp_block_matches_reference(activation):
+    """SwiGLU, GELU (two matrices, tanh form as ``jax.nn.gelu``) and
+    GeGLU on the reference's own weights."""
+    jc = jconfigs.get_reduced("qwen3-0.6b").with_updates(
+        mlp_activation=activation)
+    tc = configs.get_reduced("qwen3-0.6b").with_updates(
+        mlp_activation=activation)
+    jp = jmlp.init_mlp(jc, jax.random.PRNGKey(2), jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    own = tmlp.init_mlp(tc, torch.Generator().manual_seed(0), torch.float32,
+                        "cpu")
+    assert {k: tuple(v.shape) for k, v in own.items()} == {
+        k: v.shape for k, v in jp.items()}
+    assert ("w_gate" in own) == (activation != "gelu")
+    x = np.random.RandomState(12).randn(3, 7, tc.d_model).astype(np.float32)
+    want = jmlp.mlp_block(jc, jp, jnp.asarray(x))
+    got = tmlp.mlp_block(tc, tp, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS_TOL)
+
+
+@pytest.mark.parametrize("change", [
+    dict(norm_type="layernorm"), dict(mlp_activation="gelu"),
+    dict(mlp_activation="geglu")], ids=["layernorm", "gelu", "geglu"])
+def test_check_ported_admits_layernorm_and_gelu_mlps(change):
+    cfg = configs.get_reduced("qwen3-0.6b").with_updates(**change)
+    transformer.check_ported(cfg)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    logits, _ = tmodel.forward(cfg, params,
+                               {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("change", [
+    dict(num_layers=3, layer_pattern="AAM"),
+    dict(num_layers=3, layer_pattern="AGA"),
+    dict(modality="audio", frontend_dim=16),
+    dict(modality="vlm", frontend_dim=16, num_patches=4)],
+    ids=["moe", "shared", "audio", "vlm"])
+def test_check_ported_still_refuses(change):
+    cfg = configs.get_reduced("qwen3-0.6b").with_updates(**change)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        transformer.check_ported(cfg)
+
+
+# ------------------------------------------------------------- serving
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_fixed_masks_on_each_arch(arch):
+    res = serve.run_fixed_masks(arch, reduced=True, requests=8, k=4, s=1,
+                                e=1, prompt_len=6, steps=2, byz_sigma=10.0,
+                                seed=1, device="cpu")
+    assert res["tokens"].shape == (8, 3)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
+    assert res["precision"] == 1.0 and res["recall"] == 1.0
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_main_runs_each_arch_on_the_scheduler(arch, capsys):
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--requests", "8", "--k", "4", "--e", "1",
+                      "--byz-sigma", "10", "--steps", "2"])
+    assert res["tokens"].shape == (8, 3)
+    assert [ev[0] for ev in res["trace"]].count("complete") == len(
+        res["batches"])
+    assert configs.get_reduced(arch).name in capsys.readouterr().out
+
+
+def test_coded_rounds_match_reference_on_stablelm(models):
+    """One E=1 coded run of stablelm (LayerNorm, MHA, partial rotary)
+    against the reference's jitted steps, as
+    ``tests/test_torch_serving.py`` runs qwen3: stragglers each round, a
+    persistent attacker, a narrowing live mask; logits, greedy tokens and
+    verdicts equal, each vote tally within one pick."""
+    jc, tc, jp, tp = models("stablelm-1.6b")
+    k, s, e, g = 2, 1, 1, 2
+    jcoding, tcoding = JCoding(k=k, s=s, e=e), TCoding(k=k, s=s, e=e)
+    tokens = _tokens((g * k, PROMPT), 3)
+    jprefill, jdecode = _jit_steps(jc, jcoding)
+    key = jax.random.PRNGKey(7)
+    nxt = jstate = tstate = None
+    with jops.force_kernel("xla"):
+        for r, (m, live, byz) in enumerate(_rounds(k, s, e)):
+            key, sub = jax.random.split(key)
+            noise = np.array(jax.random.normal(
+                sub, (g, jcoding.num_workers, jc.vocab_size), jnp.float32))
+            lq = jcoding.decode_quorum
+            targs = dict(straggler_mask=torch.from_numpy(m),
+                         byz_mask=torch.from_numpy(byz),
+                         byz_noise=torch.from_numpy(noise), byz_sigma=10.0,
+                         with_report=True, live_mask=torch.from_numpy(live),
+                         locate_quorum=lq)
+            jargs = (jnp.asarray(m), jnp.asarray(byz), sub,
+                     jnp.asarray(live), jnp.asarray(lq, jnp.int32))
+            if r == 0:
+                jl, jstate, (jloc, jvotes) = jprefill(
+                    jp, jnp.asarray(tokens), *jargs)
+                tl, tstate, (tloc, tvotes) = tcs.coded_prefill(
+                    tc, tcoding, tp, {"tokens": torch.from_numpy(tokens)},
+                    MAX_LEN, **targs)
+            else:
+                jl, jstate, (jloc, jvotes) = jdecode(
+                    jp, jstate, jnp.asarray(nxt)[:, None], *jargs)
+                tl, tstate, (tloc, tvotes) = tcs.coded_decode_step(
+                    tc, tcoding, tp, tstate, torch.tensor(nxt)[:, None],
+                    **targs)
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       **LOGITS_TOL)
+            nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+            np.testing.assert_array_equal(tl.argmax(-1).numpy(), nxt)
+            np.testing.assert_array_equal(tloc.numpy(), np.asarray(jloc))
+            # a near-tie pick may move one vote of a tally (ROADMAP C,
+            # "Raw votes ... are not reproducible"); verdicts are exact
+            assert np.abs(tvotes.numpy() - np.asarray(jvotes)).max() <= 1
+            assert tloc.numpy()[:, 4].all()
+
+
+def test_llm_scheduler_matches_reference_on_h2o_danube(models, monkeypatch):
+    """The batch scheduler over reduced h2o-danube at E=1, waiting for
+    2(K+E) with quarantine, the reference's noise handed to the port
+    (``_torch_parity.share_noise``): traces, tokens and summaries
+    equal, as ``tests/test_torch_scheduler.py`` holds qwen3."""
+    model = models("h2o-danube-1.8b")
+    share_noise(monkeypatch)
+    with jops.force_kernel("xla"):
+        jrun = _serve_llm("jax", model, quorum_wait=False, **LLM_CASE)
+    trun = _serve_llm("torch", model, quorum_wait=False, **LLM_CASE)
+    _assert_same_run(jrun, trun, outputs=None)
+    assert trun[1].detection_precision() == 1.0

@@ -113,24 +113,34 @@ ATTN_CASES = {
 }
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", sorted(ATTN_CASES))
-def test_attention_plain_matches_reference(case, dtype):
+def _attention_case(case, dtype, d):
     kw = ATTN_CASES[case]
     rng = np.random.RandomState(len(case))
     s = 12
     l = s + kw.get("q_offset", 0)
-    jq, tq = _pair(rng.randn(2, s, 4, 64), dtype)
-    jk, tk = _pair(rng.randn(2, l, 2, 64), dtype)
-    jv, tv = _pair(rng.randn(2, l, 2, 64), dtype)
+    jq, tq = _pair(rng.randn(2, s, 4, d), dtype)
+    jk, tk = _pair(rng.randn(2, l, 2, d), dtype)
+    jv, tv = _pair(rng.randn(2, l, 2, d), dtype)
     got = ops.attention(tq, tk, tv, **kw)
     _close(got, jops.attention(jq, jk, jv, **kw), dtype)
 
 
-@pytest.mark.parametrize("variant", ["plain", "softcap", "int8"])
-def test_decode_attention_plain_matches_reference(variant):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_plain_matches_reference(case, dtype):
+    _attention_case(case, dtype, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_attention_plain_matches_reference_at_head_dim_80(case, dtype):
+    """h2o-danube's head dim, which the CUDA kernel also takes."""
+    _attention_case(case, dtype, 80)
+
+
+def _decode_attention_case(variant, d):
     rng = np.random.RandomState(7)
-    b, w, h, kv, d = 3, 20, 4, 2, 64
+    b, w, h, kv = 3, 20, 4, 2
     q = rng.randn(b, h, d).astype(np.float32)
     kc = rng.randn(b, w, kv, d).astype(np.float32)
     vc = rng.randn(b, w, kv, d).astype(np.float32)
@@ -149,6 +159,16 @@ def test_decode_attention_plain_matches_reference(variant):
                                torch.from_numpy(vc), torch.from_numpy(mask),
                                **kw)
     _close(got, want, "float32")
+
+
+@pytest.mark.parametrize("variant", ["plain", "softcap", "int8"])
+def test_decode_attention_plain_matches_reference(variant):
+    _decode_attention_case(variant, 64)
+
+
+@pytest.mark.parametrize("variant", ["plain", "softcap", "int8"])
+def test_decode_attention_plain_matches_reference_at_head_dim_80(variant):
+    _decode_attention_case(variant, 80)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -272,14 +292,18 @@ def _attention_tf32(q, k, v, terms, rounding):
 
 @pytest.mark.parametrize("rounding", ["nearest", "truncate"])
 def test_3xtf32_attention_holds_the_fp32_tolerance(rounding):
+    """At head dim 128 (the main path's) and 80 (h2o-danube's)."""
     rng = np.random.RandomState(16)
-    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
-               for shape in ((2, 100, 8, 128), (2, 100, 2, 128),
-                             (2, 100, 2, 128)))
-    want = ref.attention_ref(q, k, v)
-    assert _within_tol(_attention_tf32(q, k, v, 3, rounding), want) <= 1.0
-    # one TF32 term alone would not: the split is what keeps fp32
-    assert _within_tol(_attention_tf32(q, k, v, 1, rounding), want) > 1.0
+    for d in (128, 80):
+        q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   for shape in ((2, 100, 8, d), (2, 100, 2, d),
+                                 (2, 100, 2, d)))
+        want = ref.attention_ref(q, k, v)
+        assert _within_tol(_attention_tf32(q, k, v, 3, rounding),
+                           want) <= 1.0
+        # one TF32 term alone would not: the split is what keeps fp32
+        assert _within_tol(_attention_tf32(q, k, v, 1, rounding),
+                           want) > 1.0
 
 
 def _ssd_tf32(x, dt, a_log, b, c, d_skip, q, terms, rounding):
