@@ -105,14 +105,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the CPU with the same weights: the batch whole path of phase 6, and
    the full-sequence entry points ``forward`` (B3's launches counted),
    ``predict_fn`` and ``lm_loss`` (with and without targets and a loss
-   mask) within the same tolerance.
+   mask) within the same tolerance;
+14. the other redundancy schemes (``serve.run(scheme=...)``: each
+   prompt embedded once, ``predict_fn`` over the scheme's worker streams
+   under the batch scheduler) on qwen3-0.6b at full width and depth, 16
+   requests of 256 tokens at K=4: uncoded, replication, parm, nercc and
+   invnet at S=1 E=0 (uncoded S=0), and replication, nercc and uncoded
+   at S=1 E=1 with a persistent attacker at sigma 10; every request
+   served with finite logits, B3 launched 28 times a ``predict_fn`` call
+   and nothing else, uncoded (E=0) and replication (both) within 1e-4 x
+   max(1, max |clean|) of the clean model's logits with equal greedy
+   tokens past the margin; agreement, overhead, dispatch times, the
+   event clock's p50/p99 and NeRCC's precision, recall and pooled
+   tallies printed; B3 against its plain version at 2, 8, 16 and 24
+   streams of 256 tokens, both dtypes, timed; and NeRCC / InvNet at E=0
+   and NeRCC at E=1 on the 2-layer model, card against CPU: traces
+   equal, verdicts equal on every batch whose tallies lie more than a
+   vote from the majority, logits within the same tolerance.
 
 Each phase prints its wall time.
 
 The line before the last is one JSON object with every kernel's numbers
 (one entry a kernel, B7's scores pass its own; B3, B4 and B5's entries
 also carry ``head_dim_80``: the fp32 check and times at h2o-danube's
-E=1 shapes and the launches of the h2o run that carries each kernel);
+E=1 shapes and the launches of the h2o run that carries each kernel;
+B3's also ``scheme_streams``, its numbers at phase 14's stream counts,
+and ``launches_scheme``, its launches in each phase-14 run);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -231,6 +249,20 @@ D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
 # (architecture, E, worker-major)
 SCHEDULER_RUNS = [("qwen3-0.6b", 0, False), ("qwen3-0.6b", E, False),
                   ("mamba2-780m", E, False), ("qwen3-0.6b", E, True)]
+# the other redundancy schemes through ``serve.run(scheme=...)``: (name,
+# S, E), the straggler facet at E=0, then the Byzantine facet with a
+# persistent attacker at sigma 10; uncoded at E=1 is the defenceless
+# baseline.  Uncoded at E=0 and replication at both facets must give the
+# clean model's logits (replication's median is exact when one of three
+# replicas lies and all are present, its wait-for)
+FACEOFF = [("uncoded", 0, 0), ("replication", S, 0), ("parm", S, 0),
+           ("nercc", S, 0), ("invnet", S, 0), ("replication", S, E),
+           ("nercc", S, E), ("uncoded", S, E)]
+EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
+# B3 at the scheme path's stream counts (2 groups of W): ParM's parity
+# call (2), uncoded and ParM's data call (8), replication at E=0 (16) and
+# at E=1 (24)
+SCHEME_STREAMS = (2, 8, 16, 24)
 
 
 def emit(obj) -> None:
@@ -270,6 +302,10 @@ class Smoke:
         self.extra_gen = torch.Generator(self.dev).manual_seed(1)
         self.kernels = {}                  # name -> JSON entry
         self.kernels_d80 = {}              # B3/B4/B5 at head_dim 80
+        # B3 at the scheme path's stream counts: streams -> {name: entry},
+        # from a generator of its own
+        self.kernels_scheme = {}
+        self.scheme_gen = torch.Generator(self.dev).manual_seed(2)
 
     # ------------------------------------------------------------ helpers
 
@@ -430,6 +466,8 @@ class Smoke:
                    self.whole_engine_path)
         self.phase("qwen3-0.6b whole pool path under the controller",
                    self.whole_pool_controller_path)
+        scheme_launches = self.phase("qwen3-0.6b scheme faceoff path",
+                                     self.scheme_faceoff)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -453,6 +491,8 @@ class Smoke:
                    if key in res},
                 **({HEAD_DIM_80: self.d80_entry(name, launches)}
                    if name in D80_CARRIER else {}),
+                **(self.scheme_entry(scheme_launches)
+                   if name == "flash_attention" else {}),
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER):
@@ -478,6 +518,18 @@ class Smoke:
                     "max_abs_err", "ms", "graph_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
                    if key in res}}
+
+    def scheme_entry(self, scheme_launches: dict) -> dict:
+        """The kernels line's ``scheme_streams`` (B3's fp32 check and times
+        at each stream count of the scheme path) and ``launches_scheme``
+        (its launches over the faceoff runs, by run)."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        return {"scheme_streams": {
+                    str(n): {key: table["flash_attention"][key]
+                             for key in keys}
+                    for n, table in sorted(self.kernels_scheme.items())},
+                "launches_scheme": scheme_launches}
 
     def free_memory(self) -> None:
         """Give the card's memory back between full-size models."""
@@ -607,16 +659,17 @@ class Smoke:
                   "blocks": streams * kvh, "splits": flash_decode.plan_splits(
                       streams, kvh, width, sms)})
 
-    def prefill_kernel(self, dtype_name: str, cfg, table=None, gen=None):
+    def prefill_kernel(self, dtype_name: str, cfg, table=None, gen=None,
+                       streams=None):
         """B3 at an E=1 batch prefill's shapes: 44 coded streams of 256
-        tokens, causal, with the config's heads and window (qwen3: GQA
-        16/8 of 128; h2o-danube: 32/8 of 80, SWA 4096, wider than the
-        prompt), SDPA as the library call."""
+        tokens (or ``streams`` of them), causal, with the config's heads
+        and window (qwen3: GQA 16/8 of 128; h2o-danube: 32/8 of 80, SWA
+        4096, wider than the prompt), SDPA as the library call."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
         dtype = getattr(torch, dtype_name)
-        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        b = streams or GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         window = cfg.sliding_window
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2537,6 +2590,175 @@ class Smoke:
               "locator_precision_recall": [
                   [run.metrics.detection_precision(),
                    run.metrics.detection_recall()] for run in (cpu, gpu)]})
+
+    def scheme_faceoff(self) -> dict:
+        """The redundancy schemes other than Berrut (``FACEOFF``) through
+        ``serve.run(scheme=...)`` at full width and depth: qwen3-0.6b, 16
+        requests of 256 tokens, K=4, ``serve.run``'s rate, groups and
+        deadline, each prompt embedded once and ``predict_fn`` (B3 in every
+        layer) over each scheme's worker streams.  Held: every request
+        served, every served logit finite, B3 launched exactly layers x
+        ``predict_fn`` calls and no other kernel, and the exact schemes'
+        logits within 1e-4 x max(1, max |clean|) of the clean model's (one
+        ``predict_fn`` batch of the 16 embeddings on the card), their
+        greedy tokens equal wherever the clean top-2 margin is wider.
+        Printed: agreement with the clean tokens, overhead, dispatch wall
+        times, the event clock's p50/p99, and NeRCC's precision, recall
+        and pooled tallies.  Then B3 at the path's stream counts, and the
+        2-layer model card against CPU.  Returns B3's launches by run."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.models.model import embed_inputs, predict_fn
+        arch, requests = "qwen3-0.6b", GROUPS * K
+        layers = PATH_KERNELS[arch]["layers"]
+        # the weights and prompts serve.run draws, served clean in one batch
+        _, cfg, _, _, _, params, prompts = serve._setup(
+            arch, False, requests, K, S, 0, PROMPT, 0, self.dev,
+            "persistent", "poisson", 1, 1.0)
+        emb = embed_inputs(cfg, params, {"tokens": torch.as_tensor(
+            prompts, device=self.dev)})
+        clean = predict_fn(cfg, params)(emb).cpu().numpy()
+        del params, emb
+        self.free_memory()
+        tol = 1e-4 * max(1.0, float(np.abs(clean).max()))
+        top2 = np.sort(clean, -1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > tol
+        clean_tokens = clean.argmax(-1)
+        launches = {}
+        for name, s, e in FACEOFF:
+            where = f"{arch} scheme {name} S={s} E={e}"
+            ops.reset_launch_counts()
+            res = serve.run(arch, reduced=False, requests=requests, k=K,
+                            s=s, e=e, prompt_len=PROMPT, steps=STEPS,
+                            byz_sigma=10.0, seed=0, device="cuda",
+                            scheme=name)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            expected = {kernel: 0 for kernel in ops.KERNELS}
+            expected["flash_attention"] = layers * len(res["forward_streams"])
+            if counts != expected:
+                raise AssertionError(f"{where}: launch counts {counts} != "
+                                     f"{expected}")
+            logits, metrics = res["logits"], res["metrics"]
+            if metrics.count != requests or logits.shape != clean.shape or \
+                    not np.isfinite(logits).all():
+                raise AssertionError(f"{where}: {metrics.count} requests "
+                                     f"served, logits {logits.shape}, or "
+                                     f"non-finite")
+            err = float(np.abs(logits - clean).max())
+            tokens = res["tokens"][:, 0]
+            if (name, e) in EXACT_SCHEMES and (
+                    not err <= tol
+                    or (tokens[sure] != clean_tokens[sure]).any()):
+                raise AssertionError(f"{where}: logits off the clean model "
+                                     f"by {err} (tolerance {tol}) or greedy "
+                                     f"tokens differ past the margin")
+            batches = res["batches"]
+            tallies = [None if b.round_reports[-1] is None
+                       else {"pooled": b.round_reports[-1].votes[0].tolist(),
+                             "half": b.dispatch_plan.groups * min(
+                                 cfg.vocab_size, 64) / 2}
+                       for b in batches]
+            clock = metrics.percentiles()
+            scheme = batches[0].scheme
+            emit({"scheme_faceoff": where, "workers": scheme.num_workers,
+                  "overhead": scheme.overhead,
+                  "wait_for": scheme.decode_quorum,
+                  "forward_streams": res["forward_streams"],
+                  "dispatch_ms": res["dispatch_ms"],
+                  "agreement": float(np.mean(tokens == clean_tokens)),
+                  "max_abs_err_vs_clean": err, "tolerance": tol,
+                  "stragglers": res["stragglers"],
+                  "attacker": res["attackers"], "located": res["located"],
+                  "precision_recall": ([res["precision"], res["recall"]]
+                                       if e else None),
+                  "pooled_tallies": tallies,
+                  "event_clock": {"p50_ms": clock["p50_ms"],
+                                  "p99_ms": clock["p99_ms"]},
+                  "launches": counts["flash_attention"]})
+            launches[f"{name} E={e}"] = counts["flash_attention"]
+            del res
+            self.free_memory()
+        self.scheme_attention()
+        self.scheme_two_devices()
+        return launches
+
+    def scheme_attention(self):
+        """B3 against its plain version at the scheme path's stream counts
+        (``SCHEME_STREAMS`` x 256 tokens, qwen3's 16/8 heads of 128), both
+        dtypes, timed; the fp32 entries go to the kernels line."""
+        from repro_torch.configs import qwen3_0_6b
+        for dtype_name in ("float32", "bfloat16"):
+            for streams in SCHEME_STREAMS:
+                self.prefill_kernel(
+                    dtype_name, qwen3_0_6b.CONFIG,
+                    self.kernels_scheme.setdefault(streams, {}),
+                    self.scheme_gen, streams=streams)
+
+    def scheme_two_devices(self):
+        """NeRCC and Coded-InvNet at E=0 and NeRCC at E=1 (a persistent
+        attacker at sigma 10, the same noise on both devices) through the
+        scheme path at full width and 2 layers, 16 requests of 32 tokens,
+        on the card and on the CPU with the same weights and prompts:
+        traces equal, located sets equal on every batch whose pooled
+        tallies all lie more than one vote from half the coordinates
+        (others printed), and the served logits of batches with equal
+        verdicts within 1e-4 x max(1, max |cpu|)."""
+        from repro_torch.core.scheme import get_scheme
+        from repro_torch.launch import serve
+        cfg, params, devs = self.two_devices()
+        prompts = np.random.RandomState(6).randint(0, cfg.vocab_size,
+                                                   (GROUPS * K, 32))
+        for name, e in (("nercc", 0), ("invnet", 0), ("nercc", E)):
+            where = f"qwen3-0.6b 2-layer scheme {name} E={e}"
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                with self.host_noise():
+                    runs[dev] = serve._run_scheme(
+                        cfg, get_scheme(name, K, s=S, e=e), params[dev],
+                        prompts, serve._adversary(e, "persistent", 1.0, 10.0,
+                                                  "random", 0), devs[dev],
+                        seed=0, groups_per_batch=2, rate_rps=2000.0,
+                        flush_deadline_ms=5.0, slo_ms=None, quarantine=None,
+                        churn=None, traffic="poisson", controller=None)
+            cpu, gpu = runs["cpu"], runs["cuda"]
+            if gpu["trace"] != cpu["trace"]:
+                raise AssertionError(f"{where}: traces differ")
+            worst, disputed = 0.0, []
+            for bc, bg in zip(cpu["batches"], gpu["batches"]):
+                rc, rg = bc.round_reports[-1], bg.round_reports[-1]
+                same = rc is None or np.array_equal(rc.located, rg.located)
+                if rc is not None:
+                    half = bc.dispatch_plan.groups * min(cfg.vocab_size,
+                                                         64) / 2
+                    clear = (np.abs(rc.votes[0] - half) > 1).all() and \
+                        (np.abs(rg.votes[0] - half) > 1).all()
+                    if not same and clear:
+                        raise AssertionError(
+                            f"{where}: batch {bc.bid} located "
+                            f"{np.flatnonzero(rg.located[0]).tolist()} on "
+                            f"the card, {np.flatnonzero(rc.located[0])}"
+                            f" on the CPU, tallies {rg.votes[0].tolist()} / "
+                            f"{rc.votes[0].tolist()} against {half}")
+                    if not same:
+                        disputed.append({"batch": bc.bid,
+                                         "cuda": rg.votes[0].tolist(),
+                                         "cpu": rc.votes[0].tolist(),
+                                         "half": half})
+                        continue
+                for req in bc.plan.requests:
+                    a, b = cpu["logits"][req.uid], gpu["logits"][req.uid]
+                    t = 1e-4 * max(1.0, float(np.abs(a).max()))
+                    err = float(np.abs(b - a).max())
+                    worst = max(worst, err / t)
+                    if not err <= t:
+                        raise AssertionError(f"{where}: request {req.uid} "
+                                             f"differs by {err} > {t}")
+            emit({"scheme_two_devices": where,
+                  "batches": len(cpu["batches"]),
+                  "located": [cpu["located"], gpu["located"]],
+                  "worst_err_over_tol": worst, "disputed": disputed})
 
     @contextlib.contextmanager
     def pool_calls(self, executor, log: list):

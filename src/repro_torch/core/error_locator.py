@@ -264,3 +264,28 @@ def gather_vote_values(grouped: torch.Tensor, c_vote: int) -> torch.Tensor:
     the gathered slice is ever cast)."""
     c, stride = vote_layout(grouped.shape[-1], c_vote)
     return grouped[..., : c * stride : stride].to(torch.float32)
+
+
+def vote_coordinates(num_classes: int, c_vote: int,
+                     device=None) -> torch.Tensor:
+    """The strided logit coordinates of the majority vote (``vote_layout``)."""
+    c, stride = vote_layout(num_classes, c_vote)
+    return torch.arange(c, device=device) * stride
+
+
+def locate_errors_from_logits(cfg, betas: torch.Tensor,
+                              coded_logits: torch.Tensor,
+                              avail_mask: torch.Tensor) -> torch.Tensor:
+    """Vote-gated Algorithm 2 for one group from its full logits.
+
+    coded_logits: (N+1, C) or (N+1, ..., C); the extra axes fold into the
+    vote set (every (position, class) pair is one coordinate).  ``cfg``: a
+    ``CodingConfig`` (its K, E and c_vote).  Returns (N+1,) bool: on clean
+    data nobody is located (unlike ``locate_errors``, which always flags
+    E workers).
+    """
+    flat = coded_logits.reshape(1, coded_logits.shape[0], -1)
+    coords = vote_coordinates(flat.shape[-1], cfg.c_vote, flat.device)
+    located, _ = locate_groups(betas, flat[:, :, coords], avail_mask,
+                               k=cfg.k, e=cfg.e)
+    return located[0]

@@ -1,5 +1,4 @@
-"""Redundancy schemes behind one protocol (port of ``repro.core.scheme``,
-the Berrut scheme only).
+"""Redundancy schemes behind one protocol (port of ``repro.core.scheme``).
 
 A scheme has static parameters (K, S, E, worker width, wait-for, decode
 quorum, whether it has a locator), re-plans at another (S, E) with
@@ -12,15 +11,18 @@ quorum, whether it has a locator), re-plans at another (S, E) with
     locate(outputs, avail)  -> decoded + locator verdicts / votes / masks
 
 that the event loop and ``EngineExecutor`` are written against.
-``as_scheme`` wraps a bare ``CodingConfig``.  ``get_scheme("berrut")``
-works; the reference's other registered schemes are named here so that
-asking for one says it is not ported yet, rather than unknown.
+``as_scheme`` wraps a bare ``CodingConfig``.  Schemes register under a
+name (``register_scheme``): berrut, uncoded, replication and parm here,
+nercc and invnet in their own modules, which the foot of this one
+imports so that every name is registered whatever the caller imported
+first.  Worker i owns stream i of every group of a batch, so
+availability masks are (W,) over the worker pool, or (G, W).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +108,17 @@ class RedundancyScheme:
                             wait_for=self.wait_for,
                             decode_quorum=self.decode_quorum)
 
+    def with_redundancy(self, *, s: Optional[int] = None,
+                        e: Optional[int] = None) -> "RedundancyScheme":
+        """This scheme at another (S, E); K never changes.  Rebuilt
+        through the registry; schemes with constructor state the registry
+        does not carry override this to keep it."""
+        s = self.s if s is None else s
+        e = self.e if e is None else e
+        if (s, e) == (self.s, self.e):
+            return self
+        return get_scheme(self.name, self.k, s=s, e=e)
+
     # -- lifecycle -------------------------------------------------------
 
     def encode(self, grouped: torch.Tensor) -> torch.Tensor:
@@ -142,32 +155,43 @@ class RedundancyScheme:
         return f"{type(self).__name__}({self.config})"
 
 
-def _make_berrut(k: int, s: int = 1, e: int = 0, *, systematic: bool = False,
-                 c_vote: int = 64) -> "BerrutScheme":
-    return BerrutScheme(CodingConfig(k=k, s=s, e=e, systematic=systematic,
-                                     c_vote=c_vote))
+_REGISTRY: Dict[str, Callable[..., RedundancyScheme]] = {}
+_DESCRIPTIONS: Dict[str, str] = {}
 
 
-_REGISTRY: dict = {"berrut": _make_berrut}
-# registered in the reference, waiting for their port
-_NOT_PORTED = ("invnet", "nercc", "parm", "replication", "uncoded")
+def register_scheme(name: str, description: str = ""):
+    """Class/factory decorator adding a scheme to the string registry;
+    ``description`` (default: the factory's first docstring line) is the
+    one-line summary ``list_schemes`` gives."""
+    def deco(factory):
+        _REGISTRY[name] = factory
+        _DESCRIPTIONS[name] = (description
+                               or (factory.__doc__ or "").strip().split(
+                                   "\n")[0])
+        return factory
+    return deco
 
 
 def scheme_names() -> Tuple[str, ...]:
-    return tuple(sorted((*_REGISTRY, *_NOT_PORTED)))
+    return tuple(sorted(_REGISTRY))
+
+
+def list_schemes() -> Dict[str, str]:
+    """Every registered scheme: sorted ``{name: one-line description}``."""
+    return {name: _DESCRIPTIONS.get(name, "") for name in scheme_names()}
 
 
 def get_scheme(name: str, k: int, *, s: int = 1, e: int = 0,
                **kwargs) -> "RedundancyScheme":
-    """Instantiate a scheme by name (``berrut``; ``systematic`` and
-    ``c_vote`` pass through)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"scheme {name!r} is not ported yet "
-                                  "(ROADMAP A8)")
-    factory: Optional[Callable] = _REGISTRY.get(name)
-    if factory is None:
+    """Instantiate a registered scheme by name.  K, S and E are uniform;
+    scheme-specific extras pass through (``systematic`` / ``c_vote`` for
+    berrut, ``parity_fn`` for parm and invnet, the regression knobs of
+    nercc, the flow of invnet)."""
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
         raise ValueError(f"unknown scheme {name!r}; registered schemes: "
-                         f"{', '.join(scheme_names())}")
+                         f"{', '.join(scheme_names())}") from None
     return factory(k=k, s=s, e=e, **kwargs)
 
 
@@ -180,6 +204,15 @@ def as_scheme(obj) -> RedundancyScheme:
         return BerrutScheme(obj)
     raise TypeError(f"expected RedundancyScheme or CodingConfig, got "
                     f"{type(obj).__name__}")
+
+
+@register_scheme("berrut", description="ApproxIFER Berrut rational code "
+                 "(paper Eq. 4-11): model-agnostic, vote-gated locator, "
+                 "optional systematic nodes")
+def _make_berrut(k: int, s: int = 1, e: int = 0, *, systematic: bool = False,
+                 c_vote: int = 64) -> "BerrutScheme":
+    return BerrutScheme(CodingConfig(k=k, s=s, e=e, systematic=systematic,
+                                     c_vote=c_vote))
 
 
 class BerrutScheme(RedundancyScheme):
@@ -220,3 +253,221 @@ class BerrutScheme(RedundancyScheme):
             self.coding, outputs, avail)
         return (decoded, located.cpu().numpy(), votes.cpu().numpy(),
                 masks.cpu().numpy())
+
+
+def _avail2d(avail, g: int, w: int, dtype, device) -> torch.Tensor:
+    """(W,) or (G, W) availability as a (G, W) tensor."""
+    return torch.as_tensor(avail, dtype=dtype, device=device).expand(g, w)
+
+
+# ---------------------------------------------------------------- uncoded
+
+@dataclasses.dataclass(frozen=True)
+class UncodedConfig:
+    """No redundancy: K queries on K workers, wait for all of them."""
+
+    k: int
+    s: int = 0
+    e: int = 0
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"need K >= 1, got {self.k}")
+
+    @property
+    def num_workers(self) -> int:
+        return self.k
+
+    @property
+    def wait_for(self) -> int:
+        return self.k
+
+    @property
+    def decode_quorum(self) -> int:
+        return self.k
+
+
+@register_scheme("uncoded", description="no redundancy: K queries on K "
+                 "workers, waits for all, tolerates nothing (ground-truth "
+                 "baseline)")
+def _make_uncoded(k: int, s: int = 0, e: int = 0) -> "UncodedScheme":
+    # S and E are accepted for the registry's sake: an uncoded system
+    # tolerates neither
+    return UncodedScheme(UncodedConfig(k=k))
+
+
+class UncodedScheme(RedundancyScheme):
+    """The no-redundancy baseline: each query is its own worker stream,
+    the decoder waits for all K and recovers nothing."""
+
+    name = "uncoded"
+
+    def encode(self, grouped: torch.Tensor) -> torch.Tensor:
+        return grouped
+
+    def decode(self, outputs: torch.Tensor, avail, *,
+               locate: Optional[bool] = None) -> torch.Tensor:
+        # an unavailable slot answers zeros ("no response"), never an
+        # output that has not landed (speculative decodes below wait_for)
+        del locate
+        g, w = outputs.shape[:2]
+        extra = (1,) * (outputs.ndim - 2)
+        out = outputs * _avail2d(avail, g, w, outputs.dtype,
+                                 outputs.device).reshape(g, w, *extra)
+        return out.reshape(-1, *outputs.shape[2:])
+
+
+# ------------------------------------------------------------ replication
+
+@dataclasses.dataclass(frozen=True)
+class ReplicationConfig:
+    """(S+1)-replication for stragglers, (2E+1)-replication for Byzantine
+    workers (paper §1/§5)."""
+
+    k: int
+    s: int = 1
+    e: int = 0
+
+    def __post_init__(self):
+        if self.k < 1 or self.s < 0 or self.e < 0:
+            raise ValueError(f"invalid replication config {self}")
+
+    @property
+    def replicas(self) -> int:
+        return (self.s + 1) if self.e == 0 else (2 * self.e + 1)
+
+    @property
+    def num_workers(self) -> int:
+        return self.k * self.replicas
+
+    @property
+    def wait_for(self) -> int:
+        # stragglers: up to S missing workers in all (each query keeps one
+        # of its S+1 replicas); the Byzantine median needs every replica
+        if self.e == 0:
+            return self.num_workers - self.s
+        return self.num_workers
+
+    @property
+    def decode_quorum(self) -> int:
+        return self.wait_for
+
+
+@register_scheme("replication", description="(S+1)x / (2E+1)x replication "
+                 "(paper §1/§5): exact but at the overhead coding exists "
+                 "to avoid")
+def _make_replication(k: int, s: int = 1, e: int = 0) -> "ReplicationScheme":
+    return ReplicationScheme(ReplicationConfig(k=k, s=s, e=e))
+
+
+class ReplicationScheme(RedundancyScheme):
+    """Query q's replicas live on worker streams q*R .. q*R+R-1.  Straggler
+    recovery takes the first available replica, Byzantine recovery the
+    coordinate-wise median over the available ones."""
+
+    name = "replication"
+
+    @property
+    def replicas(self) -> int:
+        return self.config.replicas
+
+    def encode(self, grouped: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(grouped, self.replicas, dim=1)
+
+    def decode(self, outputs: torch.Tensor, avail, *,
+               locate: Optional[bool] = None) -> torch.Tensor:
+        from repro_torch.core.replication import recover_from_replicas
+        del locate
+        g, r = outputs.shape[0], self.replicas
+        per = outputs.reshape(g * self.k, r, *outputs.shape[2:])
+        am = _avail2d(avail, g, self.num_workers, torch.float32,
+                      outputs.device)
+        return recover_from_replicas(per, am.reshape(g * self.k, r), self.e)
+
+
+# ------------------------------------------------------------------ parm
+
+@dataclasses.dataclass(frozen=True)
+class ParMConfig:
+    """ParM (Kosaian et al., SOSP'19): K data workers + 1 learned-parity
+    worker per group; tolerates exactly one unavailable data worker."""
+
+    k: int
+    s: int = 1
+    e: int = 0
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"need K >= 1, got {self.k}")
+        if self.s != 1:
+            raise ValueError(f"ParM tolerates exactly S=1 straggler per "
+                             f"group, got s={self.s}")
+        if self.e != 0:
+            raise ValueError("ParM has no Byzantine recovery (e must "
+                             f"be 0, got {self.e})")
+
+    @property
+    def num_workers(self) -> int:
+        return self.k + 1
+
+    @property
+    def wait_for(self) -> int:
+        return self.k
+
+    @property
+    def decode_quorum(self) -> int:
+        return self.k
+
+
+@register_scheme("parm", description="ParM learned-parity code (Kosaian "
+                 "et al., SOSP'19): K data + 1 parity stream, exactly one "
+                 "straggler, parity model per hosted model")
+def _make_parm(k: int, s: int = 1, e: int = 0, *,
+               parity_fn: Optional[Callable] = None) -> "ParMScheme":
+    return ParMScheme(ParMConfig(k=k, s=s, e=e), parity_fn=parity_fn)
+
+
+class ParMScheme(RedundancyScheme):
+    """ParM: the parity query is the sum of the group, the parity worker
+    runs the learned parity model f_P (f_P(sum X) ~ sum f(X)), and one
+    missing data prediction is parity - sum(survivors).  Without
+    ``parity_fn`` the parity stream runs the hosted model itself: exact
+    for linear models only, ParM's need of a parity model per hosted
+    model made visible."""
+
+    name = "parm"
+
+    def __init__(self, config: ParMConfig,
+                 parity_fn: Optional[Callable] = None):
+        super().__init__(config)
+        self.parity_fn = parity_fn
+
+    def encode(self, grouped: torch.Tensor) -> torch.Tensor:
+        return torch.cat([grouped, grouped.sum(1, keepdim=True)], dim=1)
+
+    def forward(self, predict_fn, coded: torch.Tensor) -> torch.Tensor:
+        k, g = self.k, coded.shape[0]
+        data_preds = predict_fn(coded[:, :k].reshape(g * k,
+                                                     *coded.shape[2:]))
+        fp = self.parity_fn if self.parity_fn is not None else predict_fn
+        parity_preds = fp(coded[:, k])
+        data_preds = data_preds.reshape(g, k, *data_preds.shape[1:])
+        return torch.cat([data_preds, parity_preds[:, None]], dim=1)
+
+    def decode(self, outputs: torch.Tensor, avail, *,
+               locate: Optional[bool] = None) -> torch.Tensor:
+        del locate
+        k, g = self.k, outputs.shape[0]
+        avail2d = _avail2d(avail, g, k + 1, outputs.dtype, outputs.device)
+        extra = (1,) * (outputs.ndim - 2)
+        ad = avail2d[:, :k].reshape(g, k, *extra)       # data availability
+        ap = avail2d[:, k].reshape(g, *extra)           # parity's
+        data, parity = outputs[:, :k], outputs[:, k]
+        survivors = (data * ad).sum(1)
+        recon = (parity - survivors)[:, None] * ap[:, None]
+        out = data * ad + (1.0 - ad) * recon
+        return out.reshape(g * k, *outputs.shape[2:])
+
+
+# registered by importing them; they import this module
+from repro_torch.core import invnet, nercc  # noqa: E402,F401

@@ -1,5 +1,4 @@
-"""Coded serving launcher (port of the Berrut paths of
-``repro.launch.serve``).
+"""Coded serving launcher (port of ``repro.launch.serve``).
 
 Batch path (default): the event-driven scheduler (DESIGN.md §8).
 Requests arrive on a Poisson clock at ``--rate``, the deadline-flushing
@@ -49,8 +48,24 @@ straggler a round instead of the event clock: the port's counterpart of
 the reference's offline ``wait_for`` evaluation, which the CLI does not
 reach.  ``run(..., wshard=WorkerShardConfig(...))`` serves either path
 with the worker-major stream layout of ``launch.worker_mesh``; the CLI
-of several ranks is ``launch.multihost --mode serve``.  Redundancy
-schemes other than Berrut are not ported yet and are refused.
+of several ranks is ``launch.multihost --mode serve``.
+
+``--scheme`` picks any registered redundancy scheme (``berrut``,
+``uncoded``, ``replication``, ``parm``, ``nercc``, ``invnet``).  berrut,
+the default, takes the coded LLM paths above; every other scheme serves
+single-shot next-token prediction over the model's embeddings through
+``EngineExecutor`` under the same batch scheduler: each request's prompt
+is embedded once, the scheme encodes the groups' (prompt_len, d_model)
+embeddings into its worker streams (ParM adds their sum, replication
+copies them, NeRCC a Chebyshev regression over them, Coded-InvNet
+flow-mixed parity streams), every stream runs ``predict_fn`` (the
+model's last-position logits) and the scheme's decode recovers the
+straggled slots.  The answer is each request's greedy next token.  ParM's
+parity stream runs the hosted model on the summed embeddings, as no
+parity model is trained here.  ``--continuous`` serves berrut only.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
+      --requests 16 --k 4 --scheme replication --e 1 --byz-sigma 10
 """
 
 from __future__ import annotations
@@ -63,8 +78,8 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core.berrut import CodingConfig
-from repro_torch.core.scheme import BerrutScheme
-from repro_torch.models.model import init_params
+from repro_torch.core.scheme import BerrutScheme, get_scheme, scheme_names
+from repro_torch.models.model import embed_inputs, init_params, predict_fn
 from repro_torch.serving.continuous import (ContinuousConfig,
                                             ContinuousLLMExecutor,
                                             ContinuousScheduler)
@@ -76,7 +91,8 @@ from repro_torch.serving.latency import (ChurnModel, LatencyModel,
                                          TrafficModel, trace_arrivals)
 from repro_torch.serving.quarantine import QuarantineConfig
 from repro_torch.serving.sampling import SampleConfig
-from repro_torch.serving.scheduler import CodedScheduler, SchedulerConfig
+from repro_torch.serving.scheduler import (CodedScheduler, EngineExecutor,
+                                           SchedulerConfig)
 
 ATTACKS = ("persistent", "intermittent", "colluding")
 PLACEMENTS = ("random", "worst_case")
@@ -126,28 +142,46 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
         attack_placement: str = "random", probation_ms: float = 200.0,
         churn_up_ms: float = 2000.0, churn_down_ms: float = 200.0,
         traffic: str = "poisson", groups_per_batch: int = 2,
-        slo_ms: float | None = None, adaptive: bool = False) -> dict:
+        slo_ms: float | None = None, adaptive: bool = False,
+        scheme: str = "berrut") -> dict:
     """Serve ``requests`` random prompts through the batch scheduler or
-    (with ``continuous``) the slot pool, worker-major with ``wshard``.
-    Returns a dict of what the run measured; see ``_run_batch`` and
-    ``_run_continuous``."""
+    (with ``continuous``) the slot pool, worker-major with ``wshard``;
+    a ``scheme`` other than berrut through the scheme-generic path.
+    Returns a dict of what the run measured; see ``_run_batch``,
+    ``_run_continuous`` and ``_run_scheme``."""
+    schm = get_scheme(scheme, k=k, s=s, e=e)
+    if continuous and scheme != "berrut":
+        raise ValueError("--continuous drives the berrut slot-pool path; "
+                         f"scheme {scheme!r} serves single-shot")
+    if wshard is not None and scheme != "berrut":
+        raise ValueError("the worker-major layout serves the berrut LLM "
+                         f"paths; scheme {scheme!r} serves single-shot")
     device, cfg, coding, sample, rng, params, prompts = _setup(
         arch, reduced, requests, k, s, e, prompt_len, seed, device, attack,
         traffic, top_k, temperature)
+    # num_adversaries is the CLI's E, not the scheme's: a scheme that
+    # tolerates no Byzantine worker (uncoded) is still attacked
     adversary = _adversary(e, attack, attack_rate, byz_sigma,
                            attack_placement, seed)
     controller = None
     if adaptive:
         # one step of headroom above the CLI operating point on each
         # axis (E at least 1, so that the locator can be grown in); the
-        # executor is built at the controller's maximum point
+        # LLM executors are built at the controller's maximum point
         controller = RedundancyController(
-            BerrutScheme(coding), ControllerConfig(
+            schm, ControllerConfig(
                 window_rounds=8, s_min=0, s_max=s + 1, e_min=0,
                 e_max=max(e, 1)))
         print(f"adaptive redundancy: start (S={s}, E={e}), bounds "
               f"S<={s + 1} E<={max(e, 1)}, pool sized for "
               f"{controller.pool.num_workers} workers")
+    # quarantine acts on locator verdicts: without a locator (replication's
+    # median, uncoded, parm, invnet) it would run dead
+    if quarantine and e and not schm.has_locator:
+        print(f"warning: --quarantine is inactive for scheme "
+              f"{schm.name!r} (no error locator feeds the reputation "
+              f"policy); ignoring")
+        quarantine = False
     kw = dict(seed=seed, rate_rps=rate_rps,
               flush_deadline_ms=flush_deadline_ms, slo_ms=slo_ms,
               quarantine=(QuarantineConfig(probation_ms=probation_ms)
@@ -155,8 +189,11 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
               churn=(ChurnModel(mean_up_ms=churn_up_ms,
                                 mean_down_ms=churn_down_ms, seed=seed + 7)
                      if churn else None),
-              traffic=traffic, sample=sample, wshard=wshard,
-              controller=controller)
+              traffic=traffic, controller=controller)
+    if scheme != "berrut":
+        return _run_scheme(cfg, schm, params, prompts, adversary, device,
+                           groups_per_batch=groups_per_batch, **kw)
+    kw.update(sample=sample, wshard=wshard)
     if continuous:
         return _run_continuous(cfg, coding, params, prompts, rng, steps,
                                adversary, device, pool_groups=pool_groups,
@@ -260,6 +297,123 @@ def _run_batch(cfg, coding, params, prompts, steps, adversary_cfg, device,
     print(f"{total_ms:.1f} ms over {len(round_ms)} rounds (wall clock), "
           f"{result['tokens_per_s']:.1f} tokens/s")
     if e:
+        print(f"locator precision {result['precision']} "
+              f"recall {result['recall']}")
+    for i in range(min(4, requests)):
+        print(f"  request {i}: {tokens[i].tolist()}")
+    return result
+
+
+# what each scheme's banner says beside the run's header line
+_SCHEME_NOTES = {
+    "parm": "parm: the parity stream runs the hosted model on the summed "
+            "embeddings (no parity model is trained here: the retraining "
+            "per hosted model that ApproxIFER removes)",
+    "nercc": "nercc: nested-regression coding (arXiv 2402.04377), ridge "
+             "Chebyshev encoder and decoder over Berrut's worker geometry",
+    "invnet": "invnet: Coded-InvNet (arXiv 2106.06445), parity streams run "
+              "the hosted model on flow-mixed queries; a single failed "
+              "stream reconstructs exactly (trained-free fallback when no "
+              "flow is fit)",
+}
+
+
+class _TimedEngineExecutor(EngineExecutor):
+    """``EngineExecutor`` that keeps each dispatch's wall time (ms, ending
+    in a device sync) and the streams of each ``predict_fn`` call."""
+
+    def __init__(self, f, scheme, device):
+        self.forward_streams = []
+        self.dispatch_ms = []
+
+        def counted(x):
+            self.forward_streams.append(x.shape[0])
+            return f(x)
+
+        super().__init__(counted, scheme, device=device)
+
+    def dispatch(self, queries, scheme=None):
+        t0 = time.perf_counter()
+        out = super().dispatch(queries, scheme)
+        _sync(self.device)
+        self.dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _run_scheme(cfg, scheme, params, prompts, adversary_cfg, device, *,
+                seed, groups_per_batch, rate_rps, flush_deadline_ms,
+                slo_ms, quarantine, churn, traffic, controller) -> dict:
+    """The scheme-generic single-shot path: the prompts embedded once, each
+    request's (prompt_len, d_model) embedding a payload, ``EngineExecutor``
+    over ``predict_fn`` under the batch scheduler.  Returns each request's
+    greedy next token (``tokens``, (requests, 1)) and served last-position
+    logits (``logits``, (requests, V)) by uid, each dispatch's wall time
+    (``dispatch_ms``), the streams of each ``predict_fn`` call, the
+    stragglers and located workers of each batch (lists by batch id), the
+    locator's precision and recall against the adversary (None without
+    one or before a detection), the scheduler's ``metrics`` (event
+    clock), ``trace`` and ``batches``, the controller's decision log
+    (None without one) and the attacker's workers."""
+    requests = prompts.shape[0]
+    # host payloads, as the scheduler stacks them; fp32 as the reference's
+    emb = embed_inputs(cfg, params, {"tokens": torch.as_tensor(
+        prompts, device=device)})
+    payloads = list(emb.float().cpu().numpy())
+    executor = _TimedEngineExecutor(predict_fn(cfg, params), scheme, device)
+    sched = CodedScheduler(
+        SchedulerConfig(scheme=scheme, groups_per_batch=groups_per_batch,
+                        flush_deadline_ms=flush_deadline_ms, slo_ms=slo_ms,
+                        seed=seed, adversary=adversary_cfg,
+                        quarantine=quarantine, controller=controller,
+                        churn=churn),
+        LatencyModel(), executor)
+    k, s = scheme.k, scheme.s
+    attacked = adversary_cfg is not None
+    print(f"serving {requests} requests of {prompts.shape[1]} tokens on "
+          f"{device} ({cfg.name}) at {rate_rps:.0f} req/s ({traffic}): "
+          f"batches of {groups_per_batch} groups of K={k} x "
+          f"{scheme.num_workers} {scheme.name} worker streams (overhead "
+          f"{scheme.overhead:.2f}x), S={s} E={scheme.e}, wait-for "
+          f"{scheme.decode_quorum} of {scheme.num_workers}"
+          + (f", {adversary_cfg.kind} attacker on workers "
+             f"{sched.adversary.workers.tolist()} at sigma "
+             f"{adversary_cfg.sigma}" if attacked else ""))
+    if scheme.name in _SCHEME_NOTES:
+        print(_SCHEME_NOTES[scheme.name]
+              + (f"; E={scheme.e} runs the studentised-residual vote "
+                 f"locator" if scheme.name == "nercc" and scheme.e else ""))
+    arrival_ms, rate = _arrivals(traffic, requests, rate_rps, seed)
+    metrics = sched.run(payloads, arrival_ms=arrival_ms, rate_rps=rate)
+    _sync(device)
+    logits = np.stack([sched.results[u] for u in range(requests)])
+    tokens = np.argmax(logits, -1)[:, None]
+    result = {
+        "tokens": tokens, "logits": logits,
+        "dispatch_ms": list(executor.dispatch_ms),
+        "forward_streams": list(executor.forward_streams),
+        "stragglers": [np.flatnonzero(b.mask < 0.5).tolist()
+                       for b in sched.batches],
+        "located": [[] if b.round_reports[-1] is None
+                    else np.flatnonzero(b.round_reports[-1].detected).tolist()
+                    for b in sched.batches],
+        "precision": (_nan_none(metrics.detection_precision())
+                      if attacked else None),
+        "recall": (_nan_none(metrics.detection_recall())
+                   if attacked else None),
+        "metrics": metrics, "trace": sched.trace, "batches": sched.batches,
+        "decisions": (controller.decision_log() if controller is not None
+                      else None),
+        "attackers": ([] if sched.adversary is None
+                      else sched.adversary.workers.tolist()),
+    }
+    print(metrics.format_table())
+    _print_decisions(controller)
+    triggers = [w for b in sched.batches for w in b.round_waits]
+    print(f"per-batch decode trigger: p50 {np.percentile(triggers, 50):.1f}"
+          f"ms  p99 {np.percentile(triggers, 99):.1f}ms ({len(triggers)} "
+          f"batches); dispatch {np.mean(executor.dispatch_ms):.2f} ms mean "
+          f"(wall clock)")
+    if attacked:
         print(f"locator precision {result['precision']} "
               f"recall {result['recall']}")
     for i in range(min(4, requests)):
@@ -483,11 +637,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (cpu runs the plain "
                          "PyTorch path)")
-    # accepted so that it is refused with a reason, not as unknown
-    ap.add_argument("--scheme", default="berrut")
+    ap.add_argument("--scheme", default="berrut", choices=scheme_names(),
+                    help="redundancy scheme served through the event loop "
+                         "(berrut drives the autoregressive coded-LLM "
+                         "paths; the others serve next-token prediction "
+                         "over embeddings)")
     args = ap.parse_args(argv)
-    if args.scheme != "berrut":
-        ap.error(f"--scheme {args.scheme} is not ported yet (berrut only)")
     return run(args.arch, args.reduced, args.requests, args.k, args.s,
                args.e, args.prompt_len, args.steps, args.byz_sigma,
                seed=args.seed, device=args.device, attack=args.attack,
@@ -501,7 +656,7 @@ def main(argv=None):
                churn_up_ms=args.churn_up_ms,
                churn_down_ms=args.churn_down_ms, traffic=args.traffic,
                groups_per_batch=args.groups, slo_ms=args.slo_ms,
-               adaptive=args.adaptive)
+               adaptive=args.adaptive, scheme=args.scheme)
 
 
 if __name__ == "__main__":

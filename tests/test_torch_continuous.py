@@ -397,9 +397,10 @@ def test_scheme_registry():
     wider = berrut.with_redundancy(s=2)
     assert wider.coding == TCoding(k=4, s=2, e=1, c_vote=16)
     assert tscheme.as_scheme(TCoding(k=2)).config == TCoding(k=2)
+    # the other schemes build with the reference's worker width
     for name in ("parm", "replication", "uncoded", "nercc", "invnet"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tscheme.get_scheme(name, 4)
+        assert tscheme.get_scheme(name, 4).num_workers == \
+            jscheme.get_scheme(name, 4).num_workers
 
 
 # --------------------------------------------------------------- engine

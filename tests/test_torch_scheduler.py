@@ -266,8 +266,8 @@ def test_scheme_protocol_matches_reference():
         tsc.decode(tp, torch.from_numpy(mask), locate=False).numpy(),
         np.asarray(jsc.decode(jp, jnp.asarray(mask), locate=False)),
         **OUT_TOL)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tscheme.get_scheme("parm", 4)
+    parm = tscheme.get_scheme("parm", 4)
+    assert isinstance(parm, tscheme.ParMScheme) and parm.num_workers == 5
 
 
 # ------------------------------------------------ LLM scheduler, qwen3

@@ -219,9 +219,12 @@ def test_serve_refuses_what_is_not_ported():
         pytest.skip("a CUDA device is present: device=None means it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.run(reduced=True)
-    for argv in (["--scheme", "parm"], ["--attack", "byzantine"]):
-        with pytest.raises(SystemExit):
-            serve.main(["--reduced", "--device", "cpu", *argv])
+    with pytest.raises(SystemExit):
+        serve.main(["--reduced", "--device", "cpu", "--attack", "byzantine"])
+    # --scheme parm, refused until the schemes were ported, now serves
+    res = serve.main(["--reduced", "--device", "cpu", "--scheme", "parm",
+                      "--requests", "8"])
+    assert res["tokens"].shape == (8, 1)
 
 
 @pytest.mark.parametrize("flag", [["--adaptive"], ["--quarantine"],
