@@ -121,7 +121,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    streams of 256 tokens, both dtypes, timed; and NeRCC / InvNet at E=0
    and NeRCC at E=1 on the 2-layer model, card against CPU: traces
    equal, verdicts equal on every batch whose tallies lie more than a
-   vote from the majority, logits within the same tolerance.
+   vote from the majority, logits within the same tolerance;
+15. the hybrid and MoE families (ROADMAP A10): B3, B4, B5 and B7 at
+   zamba2-1.2b's E=1 shapes (MHA 32/32 heads of 64, one q-head a
+   kv-head; the SSD scan at 64 heads of 64, state 64) and B3 / B5 at
+   qwen3-moe-30b-a3b's multihost E=1 shapes (GQA 32/4 of 128, rep 8,
+   144 streams of 128 tokens, a 256-slot ring), both dtypes, timed; B1,
+   B2, B6 and the E=0 multihost shapes checked untimed; zamba2 (38
+   layers: 32 "S", the shared attention block at 6 "G" positions, fp32)
+   served with fixed masks at E=0 and E=1 and continuously at E=1 with
+   quarantine, at full width and depth, launches held against
+   ``PATH_KERNELS``, and its rounds profiled; qwen3-moe (48 layers of 128
+   experts, 3.05e10 parameters, bf16) served through ``launch.multihost
+   --mode serve`` at E=0 and E=1 at full width and depth after every
+   earlier model's memory is given back, printing its peak memory, the
+   depth run and the locator's verdicts; and both at full width and few
+   layers (zamba2 "SGSG", two G positions; qwen3-moe "MM"), card against
+   CPU in fp32: the batch and pool whole paths and the full-sequence
+   entry points, with every MoE router call's expert routes held equal
+   and its smallest top-k margin printed (a route that a near tie
+   changes is printed, and nothing past it is compared).
 
 Each phase prints its wall time.
 
@@ -129,6 +148,8 @@ The line before the last is one JSON object with every kernel's numbers
 (one entry a kernel, B7's scores pass its own; B3, B4 and B5's entries
 also carry ``head_dim_80``: the fp32 check and times at h2o-danube's
 E=1 shapes and the launches of the h2o run that carries each kernel;
+B3, B4, B5 and B7's also ``zamba2-1.2b`` (fp32) and B3 and B5's
+``qwen3-moe-30b-a3b`` (bf16), the same at those models' shapes;
 B3's also ``scheme_streams``, its numbers at phase 14's stream counts,
 and ``launches_scheme``, its launches in each phase-14 run);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -195,24 +216,49 @@ FUNCTIONS = {
     "ssd_chunked": ("ssd_chunked_kernel", None),
     "ssd_chunk_scores": ("ssd_scores_kernel", None),
 }
-# Per architecture: its layers, and the kernels one call of each model
-# pass launches per layer (besides the round's one encode and one tail).
-DENSE = {"prefill": ("flash_attention",), "decode": ("flash_decode",),
-         "pool_decode": ("pool_flash_decode",)}
+# Per architecture: the kernels one call of each model pass launches,
+# by kernel (besides the round's one encode and one tail): B3 in every
+# attention layer ("A", "M" and each shared "G" position) of a prefill,
+# B4 / B5 in each of a batch / pool decode, B7's scan and scores pass in
+# every Mamba2 "S" layer of a prefill.
+
+
+def per_call(attention: int, ssm: int) -> dict:
+    return {"prefill": {"flash_attention": attention, "ssd_chunked": ssm,
+                        "ssd_chunk_scores": ssm},
+            "decode": {"flash_decode": attention},
+            "pool_decode": {"pool_flash_decode": attention}}
+
+
+def pattern_kernels(cfg) -> dict:
+    """``per_call`` of a config's layer pattern."""
+    return per_call(sum(cfg.layer_pattern.count(c) for c in "AMG"),
+                    cfg.layer_pattern.count("S"))
+
+
 PATH_KERNELS = {
-    "qwen3-0.6b": {"layers": 28, **DENSE},
-    "mamba2-780m": {"layers": 48,
-                    "prefill": ("ssd_chunked", "ssd_chunk_scores"),
-                    "decode": (), "pool_decode": ()},
-    "h2o-danube-1.8b": {"layers": 24, **DENSE},
-    "phi4-mini-3.8b": {"layers": 32, **DENSE},
-    "stablelm-1.6b": {"layers": 24, **DENSE},
+    "qwen3-0.6b": per_call(28, 0),
+    "mamba2-780m": per_call(0, 48),
+    "h2o-danube-1.8b": per_call(24, 0),
+    "phi4-mini-3.8b": per_call(32, 0),
+    "stablelm-1.6b": per_call(24, 0),
+    # 32 "S" layers, the shared block at 6 "G" positions
+    "zamba2-1.2b": per_call(6, 32),
+    "qwen3-moe-30b-a3b": per_call(48, 0),
 }
 # the architectures of the round profiles and the pool and worker-major
 # whole paths; the dense variants (A3) get the batch whole path and the
 # full-sequence check
 CORE_ARCHS = ("qwen3-0.6b", "mamba2-780m")
 DENSE_VARIANTS = ("h2o-danube-1.8b", "phi4-mini-3.8b", "stablelm-1.6b")
+# A10: the hybrid zamba2 (fp32, full depth, batch and continuous) and the
+# MoE qwen3-moe (bf16, through ``launch.multihost --mode serve``); both
+# get the batch and pool whole paths and the full-sequence check at few
+# layers, zamba2 with two "G" positions so that the shared weights are
+# used twice and each position's cache is checked
+ZAMBA2, QWEN3_MOE = "zamba2-1.2b", "qwen3-moe-30b-a3b"
+HYBRID_MOE = (ZAMBA2, QWEN3_MOE)
+SMALL = {ZAMBA2: dict(num_layers=4, layer_pattern="SGSG")}
 # Which serving runs carry each kernel in the ``kernels`` line: (arch,
 # path, E=0 path).  ``launches`` come from the path's run at E=1,
 # ``launches_e0`` from the E=0 path's run and ``launches_pool_e1`` from
@@ -237,7 +283,9 @@ RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
         ("mamba2-780m", "continuous", E),
         ("qwen3-0.6b", "batch_wm", E), ("qwen3-0.6b", "continuous_wm", E),
         ("h2o-danube-1.8b", "batch", E), ("h2o-danube-1.8b", "continuous", E),
-        ("phi4-mini-3.8b", "batch", E), ("stablelm-1.6b", "batch", E)]
+        ("phi4-mini-3.8b", "batch", E), ("stablelm-1.6b", "batch", E),
+        (ZAMBA2, "batch", 0), (ZAMBA2, "batch", E),
+        (ZAMBA2, "continuous", E)]
 # head_dim 80 (h2o-danube-1.8b): the key of B3, B4 and B5's entries in
 # the kernels line that holds their timings at its E=1 shapes, and the
 # h2o run whose launches each reports
@@ -245,6 +293,21 @@ HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
                "pool_flash_decode": "continuous"}
+# the multihost serve's defaults: K=7 S=2 over 8 group slots, prompts of
+# half the 256-slot ring
+MH_K, MH_S, MH_SLOTS, MH_WIDTH = 7, 2, 8, 256
+MH_PROMPT = MH_WIDTH // 2
+# per A10 model: the key of B3, B4, B5 and B7's entries in the kernels
+# line that holds their timings at that model's shapes (zamba2's E=1
+# serving shapes in fp32, qwen3-moe's multihost E=1 shapes in bf16), and
+# the run whose launches each reports
+MODEL_CARRIER = {
+    ZAMBA2: {"flash_attention": "batch", "flash_decode": "batch",
+             "pool_flash_decode": "continuous", "ssd_chunked": "batch",
+             "ssd_chunk_scores": "batch"},
+    QWEN3_MOE: {"flash_attention": "multihost",
+                "pool_flash_decode": "multihost"},
+}
 # batch serving through the event-driven scheduler at the serve defaults:
 # (architecture, E, worker-major)
 SCHEDULER_RUNS = [("qwen3-0.6b", 0, False), ("qwen3-0.6b", E, False),
@@ -306,6 +369,12 @@ class Smoke:
         # from a generator of its own
         self.kernels_scheme = {}
         self.scheme_gen = torch.Generator(self.dev).manual_seed(2)
+        # B3, B4, B5 and B7 at the A10 models' shapes ({model: {name:
+        # entry}}), from a generator of their own; the few-layer models of
+        # their whole paths, built once
+        self.kernels_model = {arch: {} for arch in HYBRID_MOE}
+        self.model_gen = torch.Generator(self.dev).manual_seed(4)
+        self.small_models = {}
 
     # ------------------------------------------------------------ helpers
 
@@ -383,9 +452,11 @@ class Smoke:
                 else (t_ops, "operations"))
 
     def record(self, name, dtype, shape, got, want, kernel, plain,
-               library, nbytes, ops, extra=None, table=None):
-        """Check, time and print one kernel at one shape; the fp32
-        numbers go to ``table`` (the kernels line's entries when None)."""
+               library, nbytes, ops, extra=None, table=None,
+               keep="float32"):
+        """Check, time and print one kernel at one shape; the numbers in
+        ``keep`` (the model's dtype) go to ``table`` (the kernels line's
+        entries when None)."""
         res = {"kernel": name, "dtype": dtype, "shape": shape, **(extra or {})}
         res.update(self.check(name, got, want, dtype))
         res["ms"] = self.time_ms(kernel)
@@ -394,7 +465,7 @@ class Smoke:
         res["library_ms"] = None if library is None else self.time_ms(library)
         res["bound_ms"], res["bound_by"] = self.bound(nbytes, ops, dtype)
         emit(res)
-        if dtype == "float32":         # the model's dtype: the main path's
+        if dtype == keep:
             (self.kernels if table is None else table)[name] = res
 
     # ------------------------------------------------------------ phases
@@ -430,6 +501,11 @@ class Smoke:
         for dtype in ("float32", "bfloat16"):
             self.phase(f"mamba2 kernels {dtype}", self.mamba2_kernels, dtype)
         self.phase("mamba2 variants", self.mamba2_variants)
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"zamba2 and qwen3-moe kernels {dtype}",
+                       self.hybrid_moe_kernels, dtype)
+        self.phase("zamba2 and qwen3-moe encode and decode shapes",
+                   self.hybrid_moe_coding)
         launches = {}
         for arch, path, e in RUNS:
             serve = (self.serve if path.startswith("batch")
@@ -437,15 +513,21 @@ class Smoke:
             launches[arch, path, e] = self.phase(
                 f"{arch} {path} E={e}", serve, arch, e,
                 path.endswith("_wm"))
-            if arch in DENSE_VARIANTS:     # the next model gets the card
-                self.free_memory()
+            if arch in DENSE_VARIANTS + (ZAMBA2,):   # the next model gets
+                self.free_memory()                   # the card
         for arch, e, wm in SCHEDULER_RUNS:
             path = "scheduler_wm" if wm else "scheduler"
             launches[arch, path, e] = self.phase(
                 f"{arch} {path} E={e}", self.serve_scheduler, arch, e, wm)
         launches["qwen3-0.6b", "multihost", 0] = self.phase(
             "qwen3-0.6b multihost serve", self.multihost)
-        for arch in CORE_ARCHS:
+        for e in (0, E):
+            launches[QWEN3_MOE, "multihost", e] = self.phase(
+                f"{QWEN3_MOE} multihost serve E={e}", self.multihost_moe, e)
+        self.phase(f"{QWEN3_MOE} multihost round profile",
+                   self.profile_multihost)
+        self.free_memory()
+        for arch in CORE_ARCHS + (ZAMBA2,):
             self.phase(f"{arch} round profile", self.profile_rounds, arch)
         for arch in CORE_ARCHS:
             self.phase(f"{arch} whole path", self.whole_path, arch)
@@ -454,6 +536,13 @@ class Smoke:
             self.phase(f"{arch} whole path", self.whole_path, arch)
             self.phase(f"{arch} full-sequence forward", self.full_sequence,
                        arch)
+            self.free_memory()
+        for arch in HYBRID_MOE:
+            self.phase(f"{arch} whole path", self.whole_path, arch)
+            self.phase(f"{arch} whole pool path", self.whole_pool_path, arch)
+            self.phase(f"{arch} full-sequence forward", self.full_sequence,
+                       arch)
+            del self.small_models[arch]
             self.free_memory()
         self.phase("qwen3-0.6b whole worker-major path", self.whole_path,
                    "qwen3-0.6b", True)
@@ -491,14 +580,19 @@ class Smoke:
                    if key in res},
                 **({HEAD_DIM_80: self.d80_entry(name, launches)}
                    if name in D80_CARRIER else {}),
+                **{arch: self.model_entry(arch, name, launches)
+                   for arch in HYBRID_MOE if name in MODEL_CARRIER[arch]},
                 **(self.scheme_entry(scheme_launches)
                    if name == "flash_attention" else {}),
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
-                sorted(self.kernels_d80) != sorted(D80_CARRIER):
+                sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
+                    sorted(self.kernels_model[arch])
+                    != sorted(MODEL_CARRIER[arch]) for arch in HYBRID_MOE):
             raise AssertionError(f"kernels measured: {sorted(self.kernels)}"
                                  f", at head_dim 80 "
-                                 f"{sorted(self.kernels_d80)}")
+                                 f"{sorted(self.kernels_d80)}, at the A10 "
+                                 f"models' shapes {self.kernels_model}")
         emit({"kernels": entries})
         print(gpu_line(), flush=True)
         emit({"ok": True, "device": {
@@ -514,6 +608,20 @@ class Smoke:
         return {"shape": res["shape"],
                 "launches": launches[D80_ARCH, path, E][name],
                 "launches_run": f"{D80_ARCH} {path} E={E}",
+                **{key: res[key] for key in (
+                    "max_abs_err", "ms", "graph_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "l2_copies")
+                   if key in res}}
+
+    def model_entry(self, arch: str, name: str, launches: dict) -> dict:
+        """The kernels line's numbers of ``name`` under ``arch``: its check
+        and times at that model's shapes (``hybrid_moe_kernels``), and its
+        launches in the run of ``arch`` that carries it."""
+        res = self.kernels_model[arch][name]
+        path = MODEL_CARRIER[arch][name]
+        return {"dtype": res["dtype"], "shape": res["shape"],
+                "launches": launches[arch, path, E][name],
+                "launches_run": f"{arch} {path} E={E}",
                 **{key: res[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
@@ -660,11 +768,12 @@ class Smoke:
                       streams, kvh, width, sms)})
 
     def prefill_kernel(self, dtype_name: str, cfg, table=None, gen=None,
-                       streams=None):
+                       streams=None, prompt=PROMPT, keep="float32"):
         """B3 at an E=1 batch prefill's shapes: 44 coded streams of 256
-        tokens (or ``streams`` of them), causal, with the config's heads
-        and window (qwen3: GQA 16/8 of 128; h2o-danube: 32/8 of 80, SWA
-        4096, wider than the prompt), SDPA as the library call."""
+        tokens (or ``streams`` of ``prompt``), causal, with the config's
+        heads and window (qwen3: GQA 16/8 of 128; h2o-danube: 32/8 of 80,
+        SWA 4096, wider than the prompt; zamba2: MHA 32/32 of 64;
+        qwen3-moe: GQA 32/4 of 128), SDPA as the library call."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
@@ -673,11 +782,11 @@ class Smoke:
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         window = cfg.sliding_window
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        q = self.randn(b, PROMPT, h, hd, dtype=dtype, gen=gen)
-        k = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
-        vv = self.randn(b, PROMPT, kvh, hd, dtype=dtype, gen=gen)
+        q = self.randn(b, prompt, h, hd, dtype=dtype, gen=gen)
+        k = self.randn(b, prompt, kvh, hd, dtype=dtype, gen=gen)
+        vv = self.randn(b, prompt, kvh, hd, dtype=dtype, gen=gen)
         # visible (q, k) pairs per head under the causal wedge and window
-        pairs = sum(min(i + 1, window or PROMPT) for i in range(PROMPT))
+        pairs = sum(min(i + 1, window or prompt) for i in range(prompt))
         self.record(
             "flash_attention", dtype_name,
             [list(q.shape), list(k.shape)],
@@ -689,7 +798,8 @@ class Smoke:
                          vv.transpose(1, 2), is_causal=True,
                          enable_gqa=True),
             (2 * q.numel() + 2 * k.numel()) * dtype.itemsize,
-            4 * hd * pairs * b * h, extra={"window": window}, table=table)
+            4 * hd * pairs * b * h, extra={"window": window}, table=table,
+            keep=keep)
 
     def d80_kernels(self, dtype_name: str):
         """B3, B4 and B5 at h2o-danube-1.8b's E=1 serving shapes (head_dim
@@ -1141,25 +1251,30 @@ class Smoke:
             counts[what] = self.count_syncs(fn)
         emit({"tail_syncs": counts, "rounds": "E=1 batch, K=4 S=1 G=4"})
 
-    def decode_kernels(self, dtype_name: str, cfg, table=None, gen=None):
-        """B4 and B5 at the E=1 batch path's shapes for ``cfg`` (44
-        streams, a 274-slot ring at depth 271; qwen3: GQA 16/8 of 128),
-        timed over enough copies of the caches in rotation that the
-        card's L2 holds none of them from one call to the next (a bf16
-        copy is about the L2's size): the kernel, its plain version and
-        the library call each read the next copy at every call."""
+    def decode_kernels(self, dtype_name: str, cfg, table=None, gen=None,
+                       streams=None, prompt=PROMPT, width=None,
+                       which=("flash_decode", "pool_flash_decode"),
+                       keep="float32"):
+        """B4 and B5 (or those in ``which``) at the E=1 batch path's
+        shapes for ``cfg`` (44 streams, a 274-slot ring at depth 271;
+        qwen3: GQA 16/8 of 128), or at ``streams`` over a ``width``-slot
+        ring after a ``prompt``-token prompt, timed over enough copies of
+        the caches in rotation that the card's L2 holds none of them from
+        one call to the next (a bf16 copy is about the L2's size): the
+        kernel, its plain version and the library call each read the next
+        copy at every call."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
-        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        b = streams or GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sdpa = torch.nn.functional.scaled_dot_product_attention
 
         # B4: decode at the last step over the (B, W, KV, D) ring cache
-        width = PROMPT + STEPS + 2
-        pos = PROMPT + STEPS - 1
+        width = width or prompt + STEPS + 2
+        pos = prompt + STEPS - 1
         qd = self.randn(b, h, hd, dtype=dtype, gen=gen)
         copies = self.cache_copies(b, width, kvh, hd, dtype, gen)
         kc, vc = copies[0]
@@ -1168,23 +1283,26 @@ class Smoke:
         mask = valid[None, :].expand(b, width)
         n_valid = pos + 1
         l2 = {"l2_copies": len(copies)}
-        self.record(
-            "flash_decode", dtype_name, [list(qd.shape), list(kc.shape)],
-            ops.decode_attention(qd, kc, vc, mask),
-            ref.decode_attention_ref(qd, kc, vc, mask),
-            lambda: ops.decode_attention(qd, *turn(), mask),
-            lambda: ref.decode_attention_ref(qd, *turn(), mask),
-            lambda: sdpa(qd[:, :, None], *(c.transpose(1, 2)
-                                           for c in turn()),
-                         attn_mask=mask.bool()[:, None, None, :],
-                         enable_gqa=True),
-            2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
-            + width,
-            4 * hd * n_valid * b * h, extra=l2, table=table)
+        if "flash_decode" in which:
+            self.record(
+                "flash_decode", dtype_name, [list(qd.shape), list(kc.shape)],
+                ops.decode_attention(qd, kc, vc, mask),
+                ref.decode_attention_ref(qd, kc, vc, mask),
+                lambda: ops.decode_attention(qd, *turn(), mask),
+                lambda: ref.decode_attention_ref(qd, *turn(), mask),
+                lambda: sdpa(qd[:, :, None], *(c.transpose(1, 2)
+                                               for c in turn()),
+                             attn_mask=mask.bool()[:, None, None, :],
+                             enable_gqa=True),
+                2 * qd.numel() * size + 2 * b * n_valid * kvh * hd * size
+                + width,
+                4 * hd * n_valid * b * h, extra=l2, table=table, keep=keep)
+        if "pool_flash_decode" not in which:
+            return
 
         # B5: the slot-pool decode over the same (B, W, KV, D) caches, at
         # per-stream depths and with dead streams (E=0's live mask)
-        pos, live = self.pool_positions(b, width, gen)
+        pos, live = self.pool_positions(b, width, gen, prompt)
         nkeys = (torch.clamp(pos, max=width - 1) + 1) * live
         n_read = int(nkeys.sum().item())             # keys the rows see
         got = ops.pool_decode_attention(qd, kc, vc, pos, live)
@@ -1209,7 +1327,7 @@ class Smoke:
                          attn_mask=allowed[:, None, None, :],
                          enable_gqa=True),
             2 * qd.numel() * size + 2 * n_read * kvh * hd * size + 5 * b,
-            4 * hd * n_read * h, extra=l2, table=table)
+            4 * hd * n_read * h, extra=l2, table=table, keep=keep)
 
     def rotation(self, make) -> list:
         """[make(), ...]: as many sets of operands (tuples of tensors) as
@@ -1314,13 +1432,14 @@ class Smoke:
             raise AssertionError("berrut_encode_dispatch took more groups "
                                  "than its grid holds")
 
-    def pool_positions(self, b: int, width: int, gen=None):
+    def pool_positions(self, b: int, width: int, gen=None, prompt=PROMPT):
         """(B,) int32 ring positions and (B,) uint8 live flags: most
-        streams at the depths a 256-token prompt reaches in 16 steps,
+        streams at the depths a ``prompt``-token prompt reaches in 16
+        steps,
         plus depth 0, both sides of a 16-key step, mid-ring, the last
         slot, and ring wraps past W; every fifth stream dead."""
         torch = self.torch
-        pos = PROMPT + torch.randint(
+        pos = prompt + torch.randint(
             0, STEPS + 1, (b,), generator=self.gen if gen is None else gen,
             device=self.dev)
         special = [0, 15, 16, 137, width - 1, width, 2 * width + 7]
@@ -1759,7 +1878,7 @@ class Smoke:
                 emit(out)
 
     def ssd_inputs(self, b: int, s: int, h: int, p: int, n: int, dtype,
-                   strong: bool = False):
+                   strong: bool = False, gen=None):
         """The scan's inputs as the Mamba2 block hands them over: x, b and
         c strided views of one conv output, dt softplus'd fp32, the
         model's a_log and d_skip.  ``strong``: a = -16 and dt ~ 5, so the
@@ -1767,8 +1886,9 @@ class Smoke:
         torch = self.torch
         fn = torch.nn.functional
         din = h * p
-        xbc = fn.silu(self.randn(b, s, din + 2 * n)).to(dtype)
-        dt = fn.softplus(self.randn(b, s, h) + (5.0 if strong else 0.0))
+        xbc = fn.silu(self.randn(b, s, din + 2 * n, gen=gen)).to(dtype)
+        dt = fn.softplus(self.randn(b, s, h, gen=gen)
+                         + (5.0 if strong else 0.0))
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device=self.dev))
         if strong:
             a_log = torch.full_like(a_log, math.log(16.0))
@@ -1776,9 +1896,12 @@ class Smoke:
                 xbc[..., din:din + n], xbc[..., din + n:],
                 torch.ones(h, device=self.dev))
 
-    def mamba2_kernels(self, dtype_name: str):
+    def mamba2_kernels(self, dtype_name: str, cfg=None, table=None,
+                       gen=None):
         """B7 at the mamba2 prefill's shapes: 44 coded streams (G=4, K=4,
-        S=1, E=1) x 256 steps x 48 heads of 64, state 128."""
+        S=1, E=1) x 256 steps x 48 heads of 64, state 128; or at ``cfg``'s
+        (zamba2: 64 heads of 64, state 64), its fp32 numbers in
+        ``table``."""
         torch = self.torch
         from repro_torch.configs import mamba2_780m
         from repro_torch.core.berrut import CodingConfig
@@ -1786,15 +1909,15 @@ class Smoke:
         from repro_torch.models.mamba2 import ssd_chunk
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
-        cfg = mamba2_780m.CONFIG
+        cfg = cfg or mamba2_780m.CONFIG
         b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        args = self.ssd_inputs(b, PROMPT, h, p, n, dtype)
+        args = self.ssd_inputs(b, PROMPT, h, p, n, dtype, gen=gen)
         x, dt, a_log, bb, cc, d = args
         chunk = ssd_chunk(cfg.ssm_chunk, PROMPT)
         (y, hf), (yr, hr) = (ops.ssd(*args),
                              ref.ssd_chunked_ref(*args, chunk=chunk))
-        out = {"variant": f"ssd_chunked main shape h_final ({dtype_name})"}
+        out = {"variant": f"ssd_chunked {cfg.name} h_final ({dtype_name})"}
         out.update(self.check(out["variant"], hf, hr, "float32"))
         emit(out)
         # the scores pass alone: C B^T of each of the kernel's chunks (the
@@ -1811,14 +1934,14 @@ class Smoke:
             lambda: ref.ssd_chunk_scores_ref(bb, cc, q),
             lambda: torch.matmul(cb, bt),
             2 * bb.numel() * size + b * nc * q * q * 4,
-            2 * b * nc * q * q * n)
+            2 * b * nc * q * q * n, table=table)
         self.record(
             "ssd_chunked", dtype_name, [list(x.shape), list(bb.shape)],
             y, yr, lambda: ops.ssd(*args),
             lambda: ref.ssd_chunked_ref(*args, chunk=chunk), None,
             2 * x.numel() * size + hf.numel() * 4 + 2 * bb.numel() * size
             + dt.numel() * 4 + 2 * h * 4,
-            ssd_ops(b, PROMPT, h, p, n))
+            ssd_ops(b, PROMPT, h, p, n), table=table)
 
     def mamba2_variants(self):
         """B7 off the main shape, and B2 at mamba2's vocabulary with the
@@ -1885,21 +2008,152 @@ class Smoke:
                 out.update(self.check(what, got, want, tol_dtype))
                 emit(out)
 
+    def hybrid_moe_kernels(self, dtype_name: str):
+        """B3, B4, B5 and B7 at zamba2-1.2b's E=1 serving shapes (MHA
+        32/32 heads of 64, one q-head a kv-head: the prefill's 44 x 256
+        tokens, the batch decode's 274-slot ring at depth 271, the pool
+        decode's depths with dead streams; the SSD scan and its scores
+        pass at 64 heads of 64, state 64), and B3 / B5 at qwen3-moe-30b-
+        a3b's multihost E=1 shapes (GQA 32/4 of 128, eight q-heads a
+        kv-head: 8 slots x 18 streams of 128-token prompts, a 256-slot
+        ring), checked and timed as the main path's, SDPA as the
+        attention kernels' library call.  The kernels line reports
+        zamba2's fp32 numbers and qwen3-moe's bf16 ones (the dtype it
+        serves in) under each model's name."""
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        zamba2, moe = (configs.get_config(a) for a in HYBRID_MOE)
+        if (zamba2.head_dim, zamba2.num_heads // zamba2.num_kv_heads,
+                zamba2.ssm_state, zamba2.ssm_heads) != (64, 1, 64, 64) or (
+                moe.num_heads // moe.num_kv_heads, moe.head_dim) != (8, 128):
+            raise AssertionError("zamba2 / qwen3-moe shapes changed")
+        gen = self.model_gen
+        table = self.kernels_model[ZAMBA2]
+        self.prefill_kernel(dtype_name, zamba2, table, gen)
+        self.decode_kernels(dtype_name, zamba2, table, gen)
+        self.mamba2_kernels(dtype_name, zamba2, table, gen)
+        table = self.kernels_model[QWEN3_MOE]
+        streams = MH_SLOTS * CodingConfig(k=MH_K, s=MH_S, e=E).num_workers
+        self.prefill_kernel(dtype_name, moe, table, gen, streams=streams,
+                            prompt=MH_PROMPT, keep="bfloat16")
+        self.decode_kernels(dtype_name, moe, table, gen, streams=streams,
+                            prompt=MH_PROMPT, width=MH_WIDTH,
+                            which=("pool_flash_decode",), keep="bfloat16")
+
+    def hybrid_moe_coding(self):
+        """The other kernels of the A10 paths against their plain
+        versions, both dtypes, untimed: B1 on zamba2's prefill (4, 4,
+        256 x 2048) and decode (4, 4, 2048) encodes and B2 on its tails
+        (4, 5, 32000) at E=0 with one straggler and (4, 11, 32000) at E=1
+        with each group's own decode quorum and a located worker; on the
+        qwen3-moe multihost path at E=0 and E=1, B6 on the prefill (8, 7,
+        128 x 2048) and decode (8, 7, 2048) encodes, B2 on the worker-
+        major view of the (N+1, 8, 151936) tail with every worker
+        answering, B3 at the prefill's streams of 128 tokens and B5 at
+        the pool decode's.  The inputs come from a generator of their
+        own."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig, encode_matrix, \
+            nodes
+        from repro_torch.kernels import ops, ref
+        gen = torch.Generator(self.dev).manual_seed(5)
+        zamba2, moe = (configs.get_config(a) for a in HYBRID_MOE)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            res = []
+            for e in (0, E):
+                coding = CodingConfig(k=K, s=S, e=e)
+                n1 = coding.num_workers
+                w = encode_matrix(coding, device=self.dev).float()
+                for what, f in (("prefill", PROMPT * zamba2.d_model),
+                                ("decode", zamba2.d_model)):
+                    x = self.randn(GROUPS, K, f, dtype=dtype, gen=gen)
+                    res.append((f"berrut_apply {ZAMBA2} E={e} {what} "
+                                f"{list(x.shape)}", ops.berrut_apply(w, x),
+                                ref.berrut_apply_ref(w, x)))
+                alphas, betas = nodes(coding, self.dev)
+                masks = torch.zeros(GROUPS, n1, device=self.dev)
+                for mask in masks:
+                    alive = torch.randperm(n1, generator=gen,
+                                           device=self.dev)
+                    mask[alive[:coding.decode_quorum]] = 1.0
+                    if e:
+                        mask[alive[0]] = 0.0          # a located worker
+                grouped = self.randn(GROUPS, n1, zamba2.vocab_size,
+                                     dtype=dtype, gen=gen)
+                res.append((f"fused_group_decode {ZAMBA2} E={e} "
+                            f"({GROUPS}, {n1}, {zamba2.vocab_size})",
+                            ops.fused_group_decode(grouped, masks, alphas,
+                                                   betas),
+                            ref.fused_group_decode_ref(grouped, masks, alphas,
+                                                       betas)))
+            h, kvh, hd = moe.num_heads, moe.num_kv_heads, moe.head_dim
+            for e in (0, E):
+                coding = CodingConfig(k=MH_K, s=MH_S, e=e)
+                n1 = coding.num_workers
+                w = encode_matrix(coding, device=self.dev).float()
+                for what, f in (("prefill", MH_PROMPT * moe.d_model),
+                                ("decode", moe.d_model)):
+                    self.b6_check(
+                        f"berrut_encode_dispatch {QWEN3_MOE} multihost E={e} "
+                        f"{what}", w, self.randn(MH_SLOTS, MH_K, f,
+                                                 dtype=dtype, gen=gen),
+                        dtype_name)
+                alphas, betas = nodes(coding, self.dev)
+                block = self.randn(n1, MH_SLOTS, moe.vocab_size, dtype=dtype,
+                                   gen=gen)
+                every = torch.ones(n1, device=self.dev)
+                res.append((f"fused_group_decode {QWEN3_MOE} multihost E={e} "
+                            f"worker-major ({MH_SLOTS}, {n1}, "
+                            f"{moe.vocab_size})",
+                            ops.fused_group_decode(block.transpose(0, 1),
+                                                   every, alphas, betas),
+                            ref.fused_group_decode_ref(
+                                block.transpose(0, 1), every, alphas,
+                                betas)))
+                b = MH_SLOTS * n1
+                q = self.randn(b, MH_PROMPT, h, hd, dtype=dtype, gen=gen)
+                k = self.randn(b, MH_PROMPT, kvh, hd, dtype=dtype, gen=gen)
+                v = self.randn(b, MH_PROMPT, kvh, hd, dtype=dtype, gen=gen)
+                res.append((f"flash_attention {QWEN3_MOE} multihost E={e} "
+                            f"B={b} S={MH_PROMPT}", ops.attention(q, k, v),
+                            ref.attention_ref(q, k, v)))
+                del q, k, v
+                qd = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                kc = self.randn(b, MH_WIDTH, kvh, hd, dtype=dtype, gen=gen)
+                vc = self.randn(b, MH_WIDTH, kvh, hd, dtype=dtype, gen=gen)
+                pos, live = self.pool_positions(b, MH_WIDTH, gen, MH_PROMPT)
+                res.append((f"pool_flash_decode {QWEN3_MOE} multihost E={e} "
+                            f"B={b} W={MH_WIDTH}",
+                            ops.pool_decode_attention(qd, kc, vc, pos, live),
+                            ref.pool_decode_attention_ref(qd, kc, vc, pos,
+                                                          live)))
+            for what, got, want in res:
+                out = {"variant": what, "dtype": dtype_name}
+                out.update(self.check(what, got, want, dtype_name))
+                emit(out)
+
     def expected_launches(self, arch: str, prefills: int, decodes: int,
                           pool: bool, worker_major: bool = False) -> dict:
         """Launches of every kernel over ``prefills`` prefill and
         ``decodes`` decode calls of ``arch``: one encode (B6 when worker-
-        major, else B1) and one tail per call, and each call's per-layer
-        kernels of ``PATH_KERNELS``."""
+        major, else B1) and one tail per call, and each call's kernels of
+        ``PATH_KERNELS`` (which must agree with the config's pattern)."""
+        from repro_torch import configs
         from repro_torch.kernels import ops
         table = PATH_KERNELS[arch]
+        if table != pattern_kernels(configs.get_config(arch)):
+            raise AssertionError(f"{arch}: PATH_KERNELS {table} is not its "
+                                 "layer pattern's")
         out = {name: 0 for name in ops.KERNELS}
         encode = "berrut_encode_dispatch" if worker_major else "berrut_apply"
         out[encode] = out["fused_group_decode"] = prefills + decodes
-        for name in table["prefill"]:
-            out[name] += table["layers"] * prefills
-        for name in table["pool_decode" if pool else "decode"]:
-            out[name] += table["layers"] * decodes
+        for name, count in table["prefill"].items():
+            out[name] += count * prefills
+        for name, count in table["pool_decode" if pool
+                                 else "decode"].items():
+            out[name] += count * decodes
         return out
 
     @contextlib.contextmanager
@@ -2260,28 +2514,117 @@ class Smoke:
                 tainted.add(a[0])
         return disputes, compared
 
-    def two_devices(self, arch: str = "qwen3-0.6b", cfg_layers: int = 2):
+    def two_devices(self, arch: str = "qwen3-0.6b"):
         """(cfg, {device: params}, {device: torch device}) of ``arch`` at
-        full width and ``cfg_layers`` layers, the card's weights copied
-        from the CPU's."""
+        full width and few layers (``small_model``)."""
+        torch = self.torch
+        cpu = torch.device("cpu")
+        cfg, params = self.small_model(arch, torch.Generator(cpu).manual_seed(3))
+        return cfg, params, {"cpu": cpu, "cuda": self.dev}
+
+    def small_model(self, arch: str, gen):
+        """(cfg, {"cpu": params, "cuda": params}) of ``arch`` at full width
+        and 2 layers (``SMALL``'s pattern for zamba2: "SGSG"), the card's
+        weights the CPU's.  They are drawn from ``gen`` on the CPU, except
+        for the A10 models': the CPU's truncated-normal draw would take
+        minutes for qwen3-moe's 1.8e9, so theirs are drawn once on the
+        card (seed 0) and copied to the CPU, and shared by their whole
+        paths and full-sequence check."""
         from repro_torch import configs
         from repro_torch.models.model import init_params
         torch = self.torch
-        cfg = configs.get_config(arch).with_updates(num_layers=cfg_layers)
         cpu = torch.device("cpu")
-        params = {"cpu": init_params(cfg, torch.Generator(cpu).manual_seed(3),
-                                     cpu)}
-        params["cuda"] = _tree_to(params["cpu"], self.dev)
-        return cfg, params, {"cpu": cpu, "cuda": self.dev}
+        cfg = configs.get_config(arch).with_updates(
+            **SMALL.get(arch, dict(num_layers=2)))
+        if arch not in HYBRID_MOE:
+            params = {"cpu": init_params(cfg, gen, cpu)}
+            params["cuda"] = _tree_to(params["cpu"], self.dev)
+            return cfg, params
+        if arch not in self.small_models:
+            card = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                               self.dev)
+            self.small_models[arch] = {"cpu": _tree_to(card, cpu),
+                                       "cuda": card}
+        return cfg, self.small_models[arch]
+
+    @contextlib.contextmanager
+    def routes(self, log: list, run: str):
+        """Record every MoE router call on the host: (``run``, fp32 router
+        logits, top-k expert indices)."""
+        from repro_torch.models import moe
+        real = moe.router_probs
+
+        def probs(cfg, p, x):
+            out = real(cfg, p, x)
+            log.append((run, moe.router_logits(p, x).cpu(), out[1].cpu()))
+            return out
+
+        moe.router_probs = probs
+        try:
+            yield
+        finally:
+            moe.router_probs = real
+
+    def route_walk(self, where: str, log: list, k: int):
+        """Hold the card's MoE router calls in ``log`` (run "cuda")
+        against the CPU's (run "cpu"), in order: router logits within 1e-4 x max(1, max |cpu|) (the whole
+        paths' logits tolerance), and each token's set of top-k experts
+        equal wherever its CPU top-k margin (the k-th minus the (k+1)-th
+        router logit) is wider than twice that tolerance.  A token inside
+        that margin may take another expert on the other device (routing
+        is discrete; ROADMAP C): such a route is printed, and as its
+        token's output and every later input then differ, the walk ends
+        there and returns the call's index (None when every route is
+        equal).  Prints the smallest margin seen.  Empties ``log``."""
+        torch = self.torch
+        calls = {dev: [r[1:] for r in log if r[0] == dev]
+                 for dev in ("cpu", "cuda")}
+        log.clear()
+        if len(calls["cpu"]) != len(calls["cuda"]):
+            raise AssertionError(f"{where}: {len(calls['cpu'])} router calls "
+                                 f"on the cpu, {len(calls['cuda'])} on the "
+                                 "card")
+        least, worst = math.inf, 0.0
+        for i, ((lc, ic), (lg, ig)) in enumerate(zip(calls["cpu"],
+                                                     calls["cuda"])):
+            tol = 1e-4 * max(1.0, lc.abs().max().item())
+            err = (lg - lc).abs().max().item()
+            top = lc.sort(-1, descending=True).values
+            margin = (top[..., k - 1] - top[..., k] if lc.shape[-1] > k
+                      else torch.full(lc.shape[:-1], math.inf))
+            least = min(least, margin.min().item())
+            worst = max(worst, err / tol)
+            if not err <= tol:
+                raise AssertionError(f"{where}: router call {i}: logits "
+                                     f"differ by {err} > {tol}")
+            differ = (ig.sort(-1).values != ic.sort(-1).values).any(-1)
+            if differ.any():
+                near = margin[differ]
+                emit({"disputed_route": where, "call": i,
+                      "tokens": int(differ.sum()), "tol": tol,
+                      "margins": near.tolist()[:16],
+                      "explained": bool((near <= 2 * tol).all())})
+                if not (near <= 2 * tol).all():
+                    raise AssertionError(f"{where}: router call {i}: a "
+                                         "route differs off a near tie")
+                return i
+        emit({"routes": where, "router_calls": len(calls["cpu"]),
+              "least_topk_margin": least, "err_over_tol": worst,
+              "equal": True})
+        return None
 
     def full_sequence(self, arch: str):
         """The full-sequence entry points of ``arch`` at full width and 2
-        layers, on the card against the CPU's plain path with the same
-        weights and inputs: ``forward``'s logits (B3 on the card, its
-        launches counted), ``predict_fn`` on embeddings, and ``lm_loss``
-        without targets and with targets and a loss mask.  Logits within
-        1e-4 x max(1, max |cpu|) (the whole paths' tolerance), greedy
-        tokens equal, losses within 1e-5 relative."""
+        layers (zamba2: "SGSG"), on the card against the CPU's plain path
+        with the same weights and inputs: ``forward``'s logits (its B3 and
+        B7 launches counted) and aux (the MoE statistics summed over the
+        layers, zero without "M" blocks), ``predict_fn`` on embeddings,
+        and ``lm_loss`` without targets and with targets and a loss mask.
+        Logits within 1e-4 x max(1, max |cpu|) (the whole paths'
+        tolerance), greedy tokens equal, losses and aux within 1e-5
+        relative (aux: plus 1e-6); with "M" blocks, routes equal
+        (``route_walk``) and nothing compared from the first entry point
+        whose routes a near tie changed."""
         torch = self.torch
         from repro_torch.kernels import ops
         from repro_torch.models import model
@@ -2292,35 +2635,51 @@ class Smoke:
         targets = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, t)))
         loss_mask = torch.from_numpy(rng.rand(b, t) < 0.6)
         emb = model.embed_inputs(cfg, params["cpu"], {"tokens": tokens})
-        out = {}
+        names = ("forward", "predict_fn", "lm_loss",
+                 "lm_loss targets, loss_mask")
+        out, log = {}, []
         for dev in ("cpu", "cuda"):
             p, d = params[dev], devs[dev]
             ops.reset_launch_counts()
-            logits, aux = model.forward(cfg, p, {"tokens": tokens.to(d)})
-            if dev == "cuda":
-                launched = ops.launch_counts()
-            out[dev] = {
-                "forward": logits.float().cpu(),
-                "predict_fn": model.predict_fn(cfg, p)(emb.to(d)).cpu(),
-                "lm_loss": model.lm_loss(cfg, p, {"tokens": tokens.to(d)}
-                                         )[0].cpu(),
-                "lm_loss targets, loss_mask": model.lm_loss(cfg, p, {
-                    "tokens": tokens.to(d), "targets": targets.to(d),
-                    "loss_mask": loss_mask.to(d)})[0].cpu(),
-                "aux": sorted(float(v) for v in aux.values())}
+            with self.routes(log, dev):
+                logits, aux = model.forward(cfg, p, {"tokens": tokens.to(d)})
+                if dev == "cuda":
+                    launched = ops.launch_counts()
+                out[dev] = {
+                    "forward": logits.float().cpu(),
+                    "predict_fn": model.predict_fn(cfg, p)(emb.to(d)).cpu(),
+                    "lm_loss": model.lm_loss(cfg, p, {"tokens": tokens.to(d)}
+                                             )[0].cpu(),
+                    "lm_loss targets, loss_mask": model.lm_loss(cfg, p, {
+                        "tokens": tokens.to(d), "targets": targets.to(d),
+                        "loss_mask": loss_mask.to(d)})[0].cpu(),
+                    "aux": {k: float(v) for k, v in aux.items()}}
         torch.cuda.synchronize()
         expected = {name: 0 for name in launched}
-        expected["flash_attention"] = cfg.num_layers
-        where = f"{arch} full sequence, full width, 2 layers"
+        expected.update(pattern_kernels(cfg)["prefill"])
+        where = f"{arch} full sequence, full width, {cfg.layer_pattern}"
         if launched != expected:
             raise AssertionError(f"{where}: forward launched {launched}, "
                                  f"not {expected}")
+        moe_layers = cfg.layer_pattern.count("M")
+        compared = names
+        if moe_layers:
+            i = self.route_walk(where, log, cfg.experts_per_token)
+            compared = names if i is None else names[:i // moe_layers]
         cpu, gpu = out["cpu"], out["cuda"]
-        if cpu["aux"] != [0.0] * 3 or gpu["aux"] != cpu["aux"]:
-            raise AssertionError(f"{where}: aux {gpu['aux']}")
         report = {"full_sequence": where, "tokens": [b, s],
-                  "launches": launched}
+                  "launches": launched, "compared": compared,
+                  "aux": [cpu["aux"], gpu["aux"]]}
+        if "forward" in compared:
+            for key, lc in cpu["aux"].items():
+                lg = gpu["aux"][key]
+                if not (abs(lg - lc) <= 1e-5 * abs(lc) + 1e-6
+                        and (moe_layers or lc == lg == 0.0)):
+                    raise AssertionError(f"{where}: aux {key} {lg} on the "
+                                         f"card, {lc} on the cpu")
         for name in ("forward", "predict_fn"):
+            if name not in compared:
+                continue
             lc, lg = cpu[name], gpu[name]
             err = (lg - lc).abs().max().item()
             tol = 1e-4 * max(1.0, lc.abs().max().item())
@@ -2332,6 +2691,8 @@ class Smoke:
             report[name] = {"shape": list(lg.shape), "max_abs_err": err,
                             "tol": tol}
         for name in ("lm_loss", "lm_loss targets, loss_mask"):
+            if name not in compared:
+                continue
             lc, lg = float(cpu[name]), float(gpu[name])
             if not abs(lg - lc) <= 1e-5 * abs(lc):
                 raise AssertionError(f"{where}: {name} {lg} on the card, "
@@ -2611,7 +2972,7 @@ class Smoke:
         from repro_torch.launch import serve
         from repro_torch.models.model import embed_inputs, predict_fn
         arch, requests = "qwen3-0.6b", GROUPS * K
-        layers = PATH_KERNELS[arch]["layers"]
+        layers = PATH_KERNELS[arch]["prefill"]["flash_attention"]
         # the weights and prompts serve.run draws, served clean in one batch
         _, cfg, _, _, _, params, prompts = serve._setup(
             arch, False, requests, K, S, 0, PROMPT, 0, self.dev,
@@ -2792,8 +3153,6 @@ class Smoke:
         included), the device time of its kernels, their share of the
         wall time, and the kernels that take most of it."""
         torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.models.model import init_params
@@ -2821,26 +3180,79 @@ class Smoke:
         rounds["decode"]()                                  # warm-up
         # host syncs of a whole round (the executors' one sync a round
         # comes after it, at the caller)
-        syncs = {kind: self.count_syncs(fn) for kind, fn in rounds.items()}
         for kind, fn in rounds.items():
+            self.profile_call(f"{arch} K={K} S={S} E={E} {kind}", fn,
+                              self.count_syncs(fn))
+
+    def profile_call(self, where: str, fn, syncs: int) -> None:
+        """``fn()`` once under torch.profiler: its wall time (the
+        profiler's host cost included), the device time of its kernels,
+        their share of the wall time, and the kernels that take most of
+        it."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            kernels = sorted(
-                ((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
-                  ev.key[:90]) for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA), reverse=True)
-            device_ms = sum(k[0] for k in kernels)
-            emit({"profile": f"{arch} K={K} S={S} E={E} {kind}",
-                  "syncs": syncs[kind], "wall_ms": wall,
-                  "device_ms": device_ms if kernels else None,
-                  "busy_share": device_ms / wall if kernels else None,
-                  "top": [[name, count, ms] for ms, count, name
-                          in kernels[:10]]})
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = sorted(
+            ((getattr(ev, "self_device_time_total", 0) / 1e3, ev.count,
+              ev.key[:90]) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA), reverse=True)
+        device_ms = sum(k[0] for k in kernels)
+        emit({"profile": where, "syncs": syncs, "wall_ms": wall,
+              "device_ms": device_ms if kernels else None,
+              "busy_share": device_ms / wall if kernels else None,
+              "top": [[name, count, ms] for ms, count, name
+                      in kernels[:10]]})
+
+    def profile_multihost(self):
+        """One prefill call and one decode call of the multihost serve's
+        slot pool on qwen3-moe-30b-a3b at E=1 (bf16, full width and depth,
+        8 slots x 18 streams, 128-token prompts), through the executor on
+        the one-rank path, each after a warm-up call, under torch.profiler
+        (``profile_call``); ``syncs`` counts the call's own transfer of
+        tokens and verdicts to the host."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
+        from repro_torch.models.model import init_params
+        from repro_torch.serving.continuous import ContinuousLLMExecutor
+        cfg = configs.get_config(QWEN3_MOE).with_updates(
+            param_dtype="bfloat16", activation_dtype="bfloat16")
+        coding = CodingConfig(k=MH_K, s=MH_S, e=E)
+        n1 = coding.num_workers
+        self.free_memory()
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        ex = ContinuousLLMExecutor(
+            cfg, coding, params, pool_groups=MH_SLOTS, max_len=MH_WIDTH,
+            wshard=WorkerShardConfig(gather_width=n1))
+        box = {"state": ex.init_state()}
+        prompts = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (MH_SLOTS * MH_K, MH_PROMPT))
+        admit = np.ones((MH_SLOTS,), np.float32)
+        every = np.ones((n1,), np.float32)
+
+        def call(kind):
+            def run():
+                args = (prompts if kind == "prefill"
+                        else box["tokens"].reshape(-1, 1), admit, every)
+                box["tokens"], box["state"], _ = getattr(ex, kind)(
+                    box["state"], *args)
+            return run
+
+        for kind in ("prefill", "decode"):
+            call(kind)()                                    # warm-up
+            self.profile_call(
+                f"{QWEN3_MOE} multihost pool K={MH_K} S={MH_S} E={E} "
+                f"bf16 {kind}", call(kind), self.count_syncs(call(kind)))
+        del params, ex, box
 
     def survivors(self, n1: int, quorum: int, gen, keep=()):
         """(N+1,) mask with exactly ``quorum`` workers up, ``keep`` among
@@ -2853,25 +3265,24 @@ class Smoke:
         return m
 
     def whole_path(self, arch: str, worker_major: bool = False):
-        """Full width, 2 layers: the card against the CPU's plain path on
-        the same weights, prompts, masks and noise.  Worker-major: E=0 and
+        """Full width, 2 layers (zamba2: "SGSG"): the card against the CPU's
+        plain path on the same weights, prompts, masks and noise; with "M"
+        blocks also the expert routes (``route_walk``), comparing nothing
+        past a route a near tie changed.  Worker-major: E=0 and
         E=1, exactly the decode quorum surviving each round, the card's
         tokens also held against its group-major path's.  At that bare
         K+2E quorum some survivor sets leave the locator no majority
         (ROADMAP C), so there the attacker must be located alike on both
         devices, not located at all."""
         torch = self.torch
-        from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.launch.worker_mesh import WorkerShardConfig
-        from repro_torch.models.model import init_params
         from repro_torch.serving import coded_serving as cs
-        cfg = configs.get_config(arch).with_updates(num_layers=2)
         prompt, steps = 64, 4
         cpu = torch.device("cpu")
         gen = torch.Generator(cpu).manual_seed(1)
-        params = {"cpu": init_params(cfg, gen, cpu)}
-        params["cuda"] = _tree_to(params["cpu"], self.dev)
+        cfg, params = self.small_model(arch, gen)
+        moe_k = cfg.experts_per_token if "M" in cfg.layer_pattern else 0
         tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, prompt),
                                generator=gen)
         ws = WorkerShardConfig() if worker_major else None
@@ -2897,25 +3308,30 @@ class Smoke:
                     m[stragglers[r]] = 0.0
                 noise = torch.randn(GROUPS, n1, cfg.vocab_size,
                                     generator=gen)
-                outs = {}
+                outs, log = {}, []
                 for name, dev, wshard in runs:
                     kw = dict(straggler_mask=m.to(dev), byz_mask=byz.to(dev),
                               byz_noise=noise.to(dev), byz_sigma=10.0,
                               with_report=True, wshard=wshard)
                     p = params[dev.type]
-                    if r == 0:
-                        logits, states[name], rep = cs.coded_prefill(
-                            cfg, coding, p, {"tokens": tokens.to(dev)},
-                            prompt + steps + 2, **kw)
-                    else:
-                        logits, states[name], rep = cs.coded_decode_step(
-                            cfg, coding, p, states[name], nxt.to(dev), **kw)
+                    with self.routes(log, name):
+                        if r == 0:
+                            logits, states[name], rep = cs.coded_prefill(
+                                cfg, coding, p, {"tokens": tokens.to(dev)},
+                                prompt + steps + 2, **kw)
+                        else:
+                            logits, states[name], rep = \
+                                cs.coded_decode_step(cfg, coding, p,
+                                                     states[name],
+                                                     nxt.to(dev), **kw)
                     outs[name] = (logits.float().cpu(), rep[0].cpu())
                 (lc, loc_c), (lg, loc_g) = outs["cpu"], outs["cuda"]
                 err = (lg - lc).abs().max().item()
                 tol = 1e-4 * max(1.0, lc.abs().max().item())
-                worst = max(worst, err / tol)
                 where = f"{arch}{kind} whole path E={e} round {r}"
+                if moe_k and self.route_walk(where, log, moe_k) is not None:
+                    break              # inputs differ from here on
+                worst = max(worst, err / tol)
                 if not err <= tol:
                     raise AssertionError(f"{where}: logits differ by {err} "
                                          f"> {tol}")
@@ -2935,32 +3351,34 @@ class Smoke:
                       "tol": tol, "survivors": m.nonzero()[:, 0].tolist(),
                       "attacker_located": (loc_c[:, 5].tolist() if e
                                            else None)})
-        emit({"whole_path": f"{arch}{kind} full width, 2 layers, cuda vs "
+        emit({"whole_path": f"{arch}{kind} full width, {cfg.layer_pattern}, "
+              "cuda vs "
               "cpu", "rounds": 1 + steps, "worst_err_over_tol": worst})
 
     def whole_pool_path(self, arch: str, worker_major: bool = False):
-        """The slot pool at full width and 2 layers: the card against the
-        CPU's plain path on the same weights, prompts, masks and noise,
-        over five pool rounds in which groups are admitted while others
-        decode, at E=0 (the live mask reaches the kernel) and E=1.
+        """The slot pool at full width and 2 layers (zamba2: "SGSG"): the
+        card against the CPU's plain path on the same weights, prompts,
+        masks and noise, over five pool rounds in which groups are
+        admitted while others decode, at E=0 (the live mask reaches the
+        kernel) and E=1; with "M" blocks also the expert routes of every
+        stream, a free slot's included (``route_walk``), comparing nothing
+        past a route a near tie changed.
         Worker-major: exactly the decode quorum surviving each round, the
         card's tokens also held against its group-major path's, and the
         attacker located alike on both devices (see ``whole_path``)."""
         torch = self.torch
-        from repro_torch import configs
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.launch.worker_mesh import WorkerShardConfig
-        from repro_torch.models.model import init_caches, init_params
+        from repro_torch.models.model import init_caches
         from repro_torch.serving import coded_serving as cs
-        cfg = configs.get_config(arch).with_updates(num_layers=2)
         pool, prompt, max_len = 2, 64, 72
         # (admitted slots, active slots) per round
         rounds = [((0,), ()), ((1,), (0,)), ((), (0, 1)), ((0,), (1,)),
                   ((), (0, 1))]
         cpu = torch.device("cpu")
         gen = torch.Generator(cpu).manual_seed(2)
-        params = {"cpu": init_params(cfg, gen, cpu)}
-        params["cuda"] = _tree_to(params["cpu"], self.dev)
+        cfg, params = self.small_model(arch, gen)
+        moe_k = cfg.experts_per_token if "M" in cfg.layer_pattern else 0
         ws = WorkerShardConfig() if worker_major else None
         runs = [("cpu", cpu, ws), ("cuda", self.dev, ws)]
         if worker_major:
@@ -2981,7 +3399,10 @@ class Smoke:
                 torch.float32, dev) for name, dev, wshard in runs}
             prompts = torch.zeros(pool * K, prompt, dtype=torch.int64)
             nxt = torch.zeros(pool * K, 1, dtype=torch.int64)
+            diverged = False
             for r, (admitted, active) in enumerate(rounds):
+                if diverged:
+                    break
                 if worker_major:
                     m = self.survivors(n1, coding.decode_quorum, gen,
                                        keep=(5,) if e else ())
@@ -3000,24 +3421,25 @@ class Smoke:
                 for call, slots in calls:
                     gm = torch.zeros(pool)
                     gm[list(slots)] = 1.0
-                    outs = {}
+                    outs, log = {}, []
                     for name, dev, wshard in runs:
                         kw = dict(straggler_mask=m.to(dev),
                                   byz_mask=byz.to(dev),
                                   byz_noise=noise.to(dev), byz_sigma=10.0,
                                   with_report=True, wshard=wshard)
                         p = params[dev.type]
-                        if call == "prefill":
-                            logits, states[name], rep = \
-                                cs.coded_pool_prefill(
-                                    cfg, coding, p, states[name],
-                                    {"tokens": prompts.to(dev)}, gm.numpy(),
-                                    fresh=fresh[name], **kw)
-                        else:
-                            logits, states[name], rep = \
-                                cs.coded_pool_decode_step(
-                                    cfg, coding, p, states[name],
-                                    nxt.to(dev), gm.to(dev), **kw)
+                        with self.routes(log, name):
+                            if call == "prefill":
+                                logits, states[name], rep = \
+                                    cs.coded_pool_prefill(
+                                        cfg, coding, p, states[name],
+                                        {"tokens": prompts.to(dev)},
+                                        gm.numpy(), fresh=fresh[name], **kw)
+                            else:
+                                logits, states[name], rep = \
+                                    cs.coded_pool_decode_step(
+                                        cfg, coding, p, states[name],
+                                        nxt.to(dev), gm.to(dev), **kw)
                         outs[name] = (logits.float().cpu(), rep[0].cpu(),
                                       states[name].pos.cpu())
                     (lc, loc_c, pos_c), (lg, loc_g, pos_g) = (outs["cpu"],
@@ -3025,9 +3447,14 @@ class Smoke:
                     rows = gm.repeat_interleave(K) > 0
                     err = (lg[rows] - lc[rows]).abs().max().item()
                     tol = 1e-4 * max(1.0, lc[rows].abs().max().item())
-                    worst = max(worst, err / tol)
                     where = (f"{arch}{kind} pool whole path E={e} round {r} "
                              f"{call}")
+                    # a free slot's streams enter the router too
+                    if moe_k and self.route_walk(where, log,
+                                                 moe_k) is not None:
+                        diverged = True        # inputs differ from here on
+                        break
+                    worst = max(worst, err / tol)
                     if not err <= tol:
                         raise AssertionError(f"{where}: live logits differ "
                                              f"by {err} > {tol}")
@@ -3050,8 +3477,9 @@ class Smoke:
                           "logits_max_abs_diff": err, "tol": tol,
                           "attacker_located": (loc_c[gm > 0, 5].tolist()
                                                if e else None)})
-        emit({"whole_pool_path": f"{arch}{kind} full width, 2 layers, cuda "
-              "vs cpu", "rounds": len(rounds), "worst_err_over_tol": worst})
+        emit({"whole_pool_path": f"{arch}{kind} full width, "
+              f"{cfg.layer_pattern}, cuda vs cpu", "rounds": len(rounds),
+              "worst_err_over_tol": worst})
 
     def multihost(self) -> dict:
         """``launch.multihost --mode serve`` at its defaults (qwen3-0.6b in
@@ -3092,6 +3520,86 @@ class Smoke:
               "decode_ms": ms["decode"],
               "tokens_per_s": toks.size / (sum(ms["prefill"])
                                            + sum(ms["decode"])) * 1e3})
+        return launches
+
+    def multihost_moe(self, e: int) -> dict:
+        """``launch.multihost --mode serve --arch qwen3-moe-30b-a3b`` at
+        its defaults (bf16, K=7 S=2, 8 slots, 128-token prompts) and
+        ``--e e``, for STEPS decode steps through its ``main``, on a
+        one-rank NCCL group: full width and depth (48 layers of 128
+        experts, 3.05e10 parameters, 61 GB in bf16) after every earlier
+        model's memory is given back.  Launches held against its calls
+        (B6 once a call, B1 never), tokens in range and every round's
+        logits finite; printed: the tokens, each call's wall time, the
+        locator's verdicts (workers located a call, at E=1), the depth run
+        and ``torch.cuda.max_memory_allocated()``."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops
+        from repro_torch.launch import multihost
+        from repro_torch.serving.continuous import ContinuousLLMExecutor
+        cfg = configs.get_config(QWEN3_MOE)
+        coding = CodingConfig(k=MH_K, s=MH_S, e=e)
+        self.free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        store = ROOT / "build" / "multihost-store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        verdicts = []
+        real = {kind: getattr(ContinuousLLMExecutor, kind)
+                for kind in ("prefill", "decode")}
+
+        def recorded(kind):
+            def call(executor, *args, **kw):
+                out = real[kind](executor, *args, **kw)
+                verdicts.append(None if out[2] is None else
+                                np.flatnonzero(out[2].located.any(0))
+                                .tolist())
+                return out
+            return call
+
+        ops.reset_launch_counts()
+        where = f"multihost serve {QWEN3_MOE} E={e}"
+        try:
+            for kind in real:
+                setattr(ContinuousLLMExecutor, kind, recorded(kind))
+            with self.finite_logits(where):
+                res = multihost.main([
+                    "--mode", "serve", "--arch", QWEN3_MOE, "--e", str(e),
+                    "--coordinator", f"file://{store}", "--num-processes",
+                    "1", "--process-id", "0", "--steps", str(STEPS)])
+                torch.cuda.synchronize()
+        finally:
+            for kind, fn in real.items():
+                setattr(ContinuousLLMExecutor, kind, fn)
+            store.unlink(missing_ok=True)
+        launches = ops.launch_counts()
+        expected = self.expected_launches(QWEN3_MOE, 1, STEPS, pool=True,
+                                          worker_major=True)
+        emit({"path": where, "launches": launches, "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"{where}: launch counts {launches} != "
+                                 f"{expected}")
+        toks = res["tokens"]
+        if toks.shape != (1 + STEPS, MH_SLOTS * MH_K) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{where}: bad tokens {toks.shape}")
+        ms = res["call_ms"]
+        emit({"serve": f"{where} bf16 K={MH_K} S={MH_S} W=1",
+              "depth": cfg.num_layers, "params": cfg.param_count(),
+              "param_gb_bf16": cfg.param_count() * 2 / 1e9,
+              "streams": MH_SLOTS * coding.num_workers,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+              / 1e9, "held_before_gb": held / 1e9,
+              "prefill_ms": ms["prefill"][0],
+              "decode_ms_mean": sum(ms["decode"]) / STEPS,
+              "decode_ms": ms["decode"],
+              "tokens_per_s": toks.size / (sum(ms["prefill"])
+                                           + sum(ms["decode"])) * 1e3,
+              "located_per_call": verdicts,
+              "tokens": toks[:, :8].tolist()})
         return launches
 
     def nccl_tail(self):

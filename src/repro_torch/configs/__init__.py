@@ -2,14 +2,19 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import (h2o_danube_1_8b, mamba2_780m,
-                                 phi4_mini_3_8b, qwen3_0_6b, stablelm_1_6b)
+from repro_torch.configs import (grok_1_314b, h2o_danube_1_8b, mamba2_780m,
+                                 phi4_mini_3_8b, qwen3_0_6b,
+                                 qwen3_moe_30b_a3b, stablelm_1_6b,
+                                 zamba2_1_2b)
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {"qwen3-0.6b": qwen3_0_6b, "mamba2-780m": mamba2_780m,
             "h2o-danube-1.8b": h2o_danube_1_8b,
             "phi4-mini-3.8b": phi4_mini_3_8b,
-            "stablelm-1.6b": stablelm_1_6b}
+            "stablelm-1.6b": stablelm_1_6b,
+            "zamba2-1.2b": zamba2_1_2b,
+            "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+            "grok-1-314b": grok_1_314b}
 
 
 def list_archs() -> list:

@@ -1,9 +1,8 @@
 """Model configuration dataclass (copy of ``repro.models.config``).
 
 Kept as a copy because importing ``repro.models`` pulls in JAX.  The
-fields and ``param_count`` are the reference's; its other derived counts
-(``active_param_count``, ``sliding_variant``) are left to the slices
-that need them.
+fields, ``param_count`` and ``active_param_count`` are the reference's;
+``sliding_variant`` is left to the slice that needs it.
 """
 
 from __future__ import annotations
@@ -129,6 +128,18 @@ class ModelConfig:
                 + (self.num_heads * hd) * d + 3 * d * self.d_ff
             n -= (g - 1) * per_g
         return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        full = self.param_count()
+        moe_layers = self.layer_pattern.count("M")
+        all_exp = moe_layers * self.num_experts * 3 * self.d_model \
+            * self.moe_d_ff
+        act_exp = moe_layers * self.experts_per_token * 3 * self.d_model \
+            * self.moe_d_ff
+        return full - all_exp + act_exp
 
     def with_updates(self, **kw) -> "ModelConfig":
         if "num_layers" in kw and "layer_pattern" not in kw:

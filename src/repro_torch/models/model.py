@@ -1,5 +1,6 @@
 """Public model API: init / forward / loss / prefill / decode (port of
-``repro.models.model``, text inputs, dense attention and Mamba2 blocks).
+``repro.models.model``, text inputs; dense attention, MoE, Mamba2 and
+zamba2's shared blocks).
 
 Inputs are dicts as in the reference: ``{"tokens": (B, S) int}`` or
 ``{"embeddings": (B, S, d)}``, optionally with ``"targets"`` and
@@ -54,7 +55,7 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 def forward(cfg: ModelConfig, params: dict, inputs: dict
             ) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward.  Returns (logits (B, S, V) in the model's
-    dtype, aux)."""
+    dtype, aux: the MoE statistics summed over the layers)."""
     x = embed_inputs(cfg, params, inputs)
     x, aux = transformer.apply_runs(cfg, params["blocks"], x, _positions(x))
     x = layers.apply_norm(cfg, params["final_norm"], x)

@@ -1,12 +1,15 @@
 """Block composition over runs of layers (port of
-``repro.models.transformer``: dense "A" and Mamba2 "S" runs, through the
-full-sequence ``apply_runs`` and the serving ``prefill_runs`` /
-``decode_runs``).
+``repro.models.transformer``: dense "A", MoE "M", Mamba2 "S" and
+zamba2's shared "G" blocks, through the full-sequence ``apply_runs`` and
+the serving ``prefill_runs`` / ``decode_runs``).
 
 As in the reference, the layer pattern splits into runs of one block
 kind and each run's parameters and caches are stacked on a leading
 layer axis; the JAX ``scan`` over that axis becomes a Python loop over
-per-layer views, which the blocks write in place.
+per-layer views, which the blocks write in place.  A "G" position is a
+run of its own: its parameter entry is ``{}`` and every G position
+applies ``blocks["shared"]`` as an "A" block, with a KV cache of its
+own (a run of leading size 1).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import List, Tuple
 
 import torch
 
-from repro_torch.models import attention, layers, mamba2, mlp
+from repro_torch.models import attention, layers, mamba2, mlp, moe
 from repro_torch.models.config import ModelConfig
 
 
@@ -29,19 +32,20 @@ def pattern_runs(pattern: str) -> List[Tuple[str, int]]:
     return runs
 
 
+KINDS = ("A", "M", "S", "G")
 NORMS = ("rmsnorm", "layernorm")
 MLPS = ("silu", "gelu", "geglu")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: blocks other than
-    dense "A" and Mamba2 "S", and non-text frontends; a norm or MLP the
-    reference does not have either (``NORMS``, ``MLPS``) raises too."""
-    other = set(cfg.layer_pattern) - {"A", "S"}
+    """Raise for what the port does not cover yet: non-text frontends,
+    and a block kind, norm or MLP the reference does not have either
+    (``NORMS``, ``MLPS``)."""
+    other = set(cfg.layer_pattern) - set(KINDS)
     if other:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(other)} are not ported yet "
-            "(dense 'A' and Mamba2 'S' blocks only)")
+            f"{cfg.name}: block kinds {sorted(other)} are not ported "
+            f"(kinds {KINDS})")
     if (cfg.norm_type not in NORMS or cfg.mlp_activation not in MLPS
             or cfg.modality != "text"):
         raise NotImplementedError(
@@ -57,10 +61,18 @@ def _layer_view(tree, i: int):
     return tree[i]
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _copy_into(stacked, tree, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_into(stacked[k], v, i)
+    else:
+        stacked[i].copy_(tree)
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
@@ -68,25 +80,50 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
     if kind == "S":
         return {"norm": layers.init_norm(cfg, dtype, device),
                 "ssm": mamba2.init_mamba2(cfg, gen, dtype, device)}
-    return {"norm1": layers.init_norm(cfg, dtype, device),
-            "attn": attention.init_attention(cfg, gen, dtype, device),
-            "norm2": layers.init_norm(cfg, dtype, device),
-            "mlp": mlp.init_mlp(cfg, gen, dtype, device)}
+    p = {"norm1": layers.init_norm(cfg, dtype, device),
+         "attn": attention.init_attention(cfg, gen, dtype, device),
+         "norm2": layers.init_norm(cfg, dtype, device)}
+    if kind == "M":
+        p["moe"] = moe.init_moe(cfg, gen, dtype, device)
+    else:
+        p["mlp"] = mlp.init_mlp(cfg, gen, dtype, device)
+    return p
+
+
+def _init_run(cfg: ModelConfig, kind: str, count: int,
+              gen: torch.Generator, dtype, device) -> dict:
+    """A run's parameters stacked on a leading layer axis, drawn layer
+    by layer into one buffer a leaf: the run is never held twice (a
+    full-depth MoE run is most of the card's memory)."""
+    first = _init_block(cfg, kind, gen, dtype, device)
+    stacked = _map(lambda t: t.new_empty((count,) + tuple(t.shape)), first)
+    _copy_into(stacked, first, 0)
+    del first
+    for i in range(1, count):
+        _copy_into(stacked, _init_block(cfg, kind, gen, dtype, device), i)
+    return stacked
 
 
 def init_blocks(cfg: ModelConfig, gen: torch.Generator, dtype,
                 device) -> dict:
+    """{"runs": [stacked params per run, {} at each G run], "shared": the
+    G blocks' one "A" parameter set (only when the pattern has a G)},
+    the reference's tree."""
     check_ported(cfg)
-    return {"runs": [
-        _stack([_init_block(cfg, kind, gen, dtype, device)
-                for _ in range(count)])
+    out: dict = {"runs": [
+        {} if kind == "G" else _init_run(cfg, kind, count, gen, dtype,
+                                         device)
         for kind, count in pattern_runs(cfg.layer_pattern)]}
+    if "G" in cfg.layer_pattern:
+        out["shared"] = _init_block(cfg, "A", gen, dtype, device)
+    return out
 
 
 def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device) -> list:
     """One cache dict per run, stacked on the run's layer axis: a ring
-    KV cache for "A", the conv window and fp32 state for "S"."""
+    KV cache for "A", "M" and each "G" position, the conv window and
+    fp32 state for "S"."""
     check_ported(cfg)
     return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count)
             if kind == "S" else
@@ -94,29 +131,55 @@ def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for kind, count in pattern_runs(cfg.layer_pattern)]
 
 
+def _ffn(cfg: ModelConfig, kind: str, p: dict, h):
+    """The block's second half: (y, aux) for "M", (y, None) else."""
+    if kind == "M":
+        return moe.moe_block(cfg, p["moe"], h)
+    return mlp.mlp_block(cfg, p["mlp"], h), None
+
+
+def _runs(cfg: ModelConfig, blocks: dict):
+    """(kind, count, stacked params) of every run; a G run applies the
+    shared parameters as an "A" block of a one-layer run."""
+    for (kind, count), run_p in zip(pattern_runs(cfg.layer_pattern),
+                                    blocks["runs"]):
+        if kind == "G":
+            yield "A", count, _map(lambda t: t[None], blocks["shared"])
+        else:
+            yield kind, count, run_p
+
+
 def block_apply(cfg: ModelConfig, kind: str, p: dict, x, positions):
-    """Full-sequence block.  Returns x: no ported block has the
-    reference's per-block aux (only "M" blocks make one)."""
+    """Full-sequence block.  Returns (x, aux): aux is the MoE block's
+    statistics, None for every other kind."""
     if kind == "S":
         return x + mamba2.mamba2_block(
-            cfg, p["ssm"], layers.apply_norm(cfg, p["norm"], x))
+            cfg, p["ssm"], layers.apply_norm(cfg, p["norm"], x)), None
     x = x + attention.attention_block(
         cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions)
-    return x + mlp.mlp_block(cfg, p["mlp"],
-                             layers.apply_norm(cfg, p["norm2"], x))
+    y, aux = _ffn(cfg, kind, p, layers.apply_norm(cfg, p["norm2"], x))
+    return x + y, aux
+
+
+AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
 
 def apply_runs(cfg: ModelConfig, blocks: dict, x, positions):
     """Forward through all runs (train / plain inference).  Returns
-    (x, aux): the reference's sum of the blocks' MoE statistics, all zero
-    while no "M" block is ported."""
-    for (kind, count), run_p in zip(pattern_runs(cfg.layer_pattern),
-                                    blocks["runs"]):
+    (x, aux): as the reference, each MoE statistic summed over the
+    layers (zero without "M" blocks)."""
+    total = {name: torch.zeros((), dtype=torch.float32, device=x.device)
+             for name in AUX}
+    for kind, count, run_p in _runs(cfg, blocks):
+        auxs = []
         for i in range(count):
-            x = block_apply(cfg, kind, _layer_view(run_p, i), x, positions)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"load_balance_loss": zero, "router_z_loss": zero,
-               "dropped_fraction": zero}
+            x, aux = block_apply(cfg, kind, _layer_view(run_p, i), x,
+                                 positions)
+            auxs.append(aux)
+        if kind == "M":
+            total = {name: total[name] + torch.stack(
+                [a[name] for a in auxs]).sum() for name in AUX}
+    return x, total
 
 
 def block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
@@ -129,8 +192,8 @@ def block_prefill(cfg: ModelConfig, kind: str, p: dict, x, positions,
         cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions,
         cache)
     x = x + att
-    return x + mlp.mlp_block(cfg, p["mlp"],
-                             layers.apply_norm(cfg, p["norm2"], x)), cache
+    y, _ = _ffn(cfg, kind, p, layers.apply_norm(cfg, p["norm2"], x))
+    return x + y, cache
 
 
 def block_decode(cfg: ModelConfig, kind: str, p: dict, x, pos, cache,
@@ -146,13 +209,14 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, pos, cache,
         cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), pos, cache,
         live=live)
     x = x + att
-    return x + mlp.mlp_block(cfg, p["mlp"],
-                             layers.apply_norm(cfg, p["norm2"], x)), cache
+    # a free slot's stream enters the MoE router too, and competes for
+    # expert capacity, as in the reference
+    y, _ = _ffn(cfg, kind, p, layers.apply_norm(cfg, p["norm2"], x))
+    return x + y, cache
 
 
 def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
-    for (kind, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
-                                           blocks["runs"], caches):
+    for (kind, count, run_p), cache in zip(_runs(cfg, blocks), caches):
         for i in range(count):
             x, _ = block_prefill(cfg, kind, _layer_view(run_p, i), x,
                                  positions, _layer_view(cache, i))
@@ -160,8 +224,7 @@ def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
 
 
 def decode_runs(cfg: ModelConfig, blocks: dict, x, pos, caches, live=None):
-    for (kind, count), run_p, cache in zip(pattern_runs(cfg.layer_pattern),
-                                           blocks["runs"], caches):
+    for (kind, count, run_p), cache in zip(_runs(cfg, blocks), caches):
         for i in range(count):
             x, _ = block_decode(cfg, kind, _layer_view(run_p, i), x, pos,
                                 _layer_view(cache, i), live=live)

@@ -55,6 +55,9 @@ from test_torch_serving import (MAX_LEN, PROMPT, _jit_steps,  # noqa: E402
                                 _rounds)
 
 ARCHS = ["h2o-danube-1.8b", "phi4-mini-3.8b", "stablelm-1.6b"]
+# the hybrid and MoE families (A10): their model tests are
+# tests/test_torch_zamba2.py and tests/test_torch_moe.py
+NEW_ARCHS = ["zamba2-1.2b", "qwen3-moe-30b-a3b", "grok-1-314b"]
 LOGITS_TOL = dict(rtol=1e-5, atol=1e-4)
 DECODE_TOL = dict(rtol=1e-4, atol=1e-4)
 INT8_TOL = 1e-2           # of max |reference logits|
@@ -83,7 +86,8 @@ def _tokens(shape, seed):
 
 # ------------------------------------------------------------- configs
 
-@pytest.mark.parametrize("arch", ARCHS + ["qwen3-0.6b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCHS + ["qwen3-0.6b", "mamba2-780m"]
+                         + NEW_ARCHS)
 def test_config_copies_and_param_counts_match_reference(arch):
     for jc, tc in ((jconfigs.get_config(arch), configs.get_config(arch)),
                    (jconfigs.get_reduced(arch), configs.get_reduced(arch))):
@@ -323,14 +327,31 @@ def test_check_ported_admits_layernorm_and_gelu_mlps(change):
     dict(modality="vlm", frontend_dim=16, num_patches=4)],
     ids=["moe", "shared", "audio", "vlm"])
 def test_check_ported_still_refuses(change):
+    """``check_ported`` refuses the audio and vlm frontends (ROADMAP
+    A10.3); the MoE "M" and shared "G" blocks it now takes build a model
+    whose forward is finite."""
     cfg = configs.get_reduced("qwen3-0.6b").with_updates(**change)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        transformer.check_ported(cfg)
+    if "modality" in change:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            transformer.check_ported(cfg)
+        return
+    cfg = cfg.with_updates(num_experts=4, experts_per_token=2,
+                           moe_d_ff=64, moe_group_size=8)
+    transformer.check_ported(cfg)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    logits, aux = tmodel.forward(
+        cfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert ("shared" in params["blocks"]) == ("G" in cfg.layer_pattern)
+    assert (float(aux["load_balance_loss"]) > 0) == ("M" in
+                                                     cfg.layer_pattern)
 
 
 # ------------------------------------------------------------- serving
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_serve_fixed_masks_on_each_arch(arch):
     res = serve.run_fixed_masks(arch, reduced=True, requests=8, k=4, s=1,
                                 e=1, prompt_len=6, steps=2, byz_sigma=10.0,

@@ -99,12 +99,22 @@ def test_config_copy_matches_reference():
 
 
 def test_check_ported_takes_ssm_and_still_refuses_moe_and_hybrid():
+    """``check_ported`` takes the "S" model and, since the MoE and hybrid
+    slice, "S" runs mixed with an "M" or a shared "G" block: each builds
+    and its forward is finite (the audio and vlm refusals are held in
+    ``tests/test_torch_archs.py``)."""
     transformer.check_ported(tcfg.CONFIG)
     for pattern in ("SSM", "SSG"):
-        cfg = tcfg.reduced().with_updates(num_layers=3,
-                                          layer_pattern=pattern)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            transformer.check_ported(cfg)
+        cfg = tcfg.reduced().with_updates(
+            num_layers=3, layer_pattern=pattern, num_heads=4,
+            num_kv_heads=4, d_ff=128, num_experts=4, experts_per_token=2,
+            moe_d_ff=64, moe_group_size=8)
+        transformer.check_ported(cfg)
+        params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        logits, _ = tmodel.forward(
+            cfg, params, {"tokens": torch.zeros(2, 5, dtype=torch.long)})
+        assert torch.isfinite(logits).all()
 
 
 # ------------------------------------------------------------- params
