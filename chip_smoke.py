@@ -140,7 +140,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    CPU in fp32: the batch and pool whole paths and the full-sequence
    entry points, with every MoE router call's expert routes held equal
    and its smallest top-k margin printed (a route that a near tie
-   changes is printed, and nothing past it is compared).
+   changes is printed, and nothing past it is compared);
+16. the vlm and audio frontends (ROADMAP A10.3, fp32): every kernel of
+   their paths at their E=1 shapes, both dtypes, timed (B3 under
+   prefix-LM over 256 of 512 positions at paligemma-3b's MQA 8/1 heads
+   of 256, and non-causal over hubert-xlarge's 500 frames at MHA 16/16
+   of 80; B4 and B5 at D = 256 on one kv-head over a 530-slot ring; B1
+   on both prefill encodes; B2 at V = 257216 and 504); paligemma (18
+   layers) served with fixed masks at E=0 and E=1 through
+   ``coded_prefill`` on 16 requests of 256 patch embeddings and 256 text
+   tokens and 16 ``coded_decode_step``s, printing its peak memory;
+   hubert (48 layers) through four ``coded_prefill`` calls on 500
+   frames a request at E=0 and E=1, and through ``EngineExecutor`` over
+   ``predict_fn`` under the batch scheduler at E=1 (``serve``'s scheme
+   path on frame embeddings); launches held exactly, precision and
+   recall 1 on the fixed-mask E=1 runs; then at full width and 2
+   layers, card against CPU: paligemma's batch and pool whole paths
+   (the pool's live caches too) and hubert's coded round and engine
+   call, and both models' full-sequence entry points.
 
 Each phase prints its wall time.
 
@@ -151,7 +168,10 @@ E=1 shapes and the launches of the h2o run that carries each kernel;
 B3, B4, B5 and B7's also ``zamba2-1.2b`` (fp32) and B3 and B5's
 ``qwen3-moe-30b-a3b`` (bf16), the same at those models' shapes;
 B3's also ``scheme_streams``, its numbers at phase 14's stream counts,
-and ``launches_scheme``, its launches in each phase-14 run);
+and ``launches_scheme``, its launches in each phase-14 run; B1, B2, B3,
+B4 and B5's also ``paligemma-3b`` and B1, B2 and B3's ``hubert-xlarge``,
+their fp32 numbers at phase 16's shapes, B5's launches from paligemma's
+2-layer pool whole path and B3's also ``launches_engine``);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -231,9 +251,11 @@ def per_call(attention: int, ssm: int) -> dict:
 
 
 def pattern_kernels(cfg) -> dict:
-    """``per_call`` of a config's layer pattern."""
-    return per_call(sum(cfg.layer_pattern.count(c) for c in "AMG"),
-                    cfg.layer_pattern.count("S"))
+    """``per_call`` of a config's layer pattern; an encoder-only config
+    (``causal=False``) has no decode step."""
+    calls = per_call(sum(cfg.layer_pattern.count(c) for c in "AMG"),
+                     cfg.layer_pattern.count("S"))
+    return calls if cfg.causal else {"prefill": calls["prefill"]}
 
 
 PATH_KERNELS = {
@@ -245,6 +267,10 @@ PATH_KERNELS = {
     # 32 "S" layers, the shared block at 6 "G" positions
     "zamba2-1.2b": per_call(6, 32),
     "qwen3-moe-30b-a3b": per_call(48, 0),
+    "paligemma-3b": per_call(18, 0),
+    # encoder-only: a prefill (the coded round, or a ``predict_fn`` call)
+    # and no decode step
+    "hubert-xlarge": {"prefill": per_call(48, 0)["prefill"]},
 }
 # the architectures of the round profiles and the pool and worker-major
 # whole paths; the dense variants (A3) get the batch whole path and the
@@ -259,6 +285,25 @@ DENSE_VARIANTS = ("h2o-danube-1.8b", "phi4-mini-3.8b", "stablelm-1.6b")
 ZAMBA2, QWEN3_MOE = "zamba2-1.2b", "qwen3-moe-30b-a3b"
 HYBRID_MOE = (ZAMBA2, QWEN3_MOE)
 SMALL = {ZAMBA2: dict(num_layers=4, layer_pattern="SGSG")}
+# A10.3, the vlm and audio frontends (fp32, full width and depth):
+# paligemma-3b (18 layers, MQA 8/1 of 256, prefix-LM over its 256 patch
+# embeddings) served with fixed masks through the coded round functions
+# on {"patches", "tokens"}; hubert-xlarge (48 layers, MHA 16/16 of 80,
+# non-causal, no decode step) through ``coded_prefill`` on {"frames"}
+# and through ``EngineExecutor`` over ``predict_fn`` (the scheme path).
+# At full width and 2 layers, card against CPU, their whole paths take
+# one group of K at E=1 (the CPU's share is the patches' and frames'
+# positions), paligemma's text is FRONT_TEXT tokens and its pool path
+# runs FRONT_POOL_ROUNDS.
+PALIGEMMA, HUBERT = "paligemma-3b", "hubert-xlarge"
+FRONTENDS = (PALIGEMMA, HUBERT)
+FRAMES = 500            # 10 s of 16 kHz audio at HuBERT's 20 ms stride
+AUDIO_CALLS = 4         # coded_prefill calls of each hubert coded run
+FRONT_TEXT = 16
+FRONT_POOL_ROUNDS = [((0,), ()), ((1,), (0,)), ((), (0, 1)), ((), (0, 1))]
+# the key of paligemma's 2-layer pool whole path (card side) in the
+# launch table: B5's launches at its shapes come from there
+POOL_2_LAYERS = "whole pool path, 2 layers"
 # Which serving runs carry each kernel in the ``kernels`` line: (arch,
 # path, E=0 path).  ``launches`` come from the path's run at E=1,
 # ``launches_e0`` from the E=0 path's run and ``launches_pool_e1`` from
@@ -307,6 +352,11 @@ MODEL_CARRIER = {
              "ssd_chunk_scores": "batch"},
     QWEN3_MOE: {"flash_attention": "multihost",
                 "pool_flash_decode": "multihost"},
+    PALIGEMMA: {"berrut_apply": "batch", "fused_group_decode": "batch",
+                "flash_attention": "batch", "flash_decode": "batch",
+                "pool_flash_decode": POOL_2_LAYERS},
+    HUBERT: {"berrut_apply": "coded", "fused_group_decode": "coded",
+             "flash_attention": "coded"},
 }
 # batch serving through the event-driven scheduler at the serve defaults:
 # (architecture, E, worker-major)
@@ -372,9 +422,13 @@ class Smoke:
         # B3, B4, B5 and B7 at the A10 models' shapes ({model: {name:
         # entry}}), from a generator of their own; the few-layer models of
         # their whole paths, built once
-        self.kernels_model = {arch: {} for arch in HYBRID_MOE}
+        self.kernels_model = {arch: {} for arch in MODEL_CARRIER}
         self.model_gen = torch.Generator(self.dev).manual_seed(4)
         self.small_models = {}
+        # the frontends' kernel checks (A10.3) draw from their own
+        # generator too; hubert's full-depth weights, shared by its runs
+        self.front_gen = torch.Generator(self.dev).manual_seed(6)
+        self.audio_params = None
 
     # ------------------------------------------------------------ helpers
 
@@ -506,6 +560,9 @@ class Smoke:
                        self.hybrid_moe_kernels, dtype)
         self.phase("zamba2 and qwen3-moe encode and decode shapes",
                    self.hybrid_moe_coding)
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"paligemma-3b and hubert-xlarge kernels {dtype}",
+                       self.frontend_kernels, dtype)
         launches = {}
         for arch, path, e in RUNS:
             serve = (self.serve if path.startswith("batch")
@@ -527,6 +584,17 @@ class Smoke:
         self.phase(f"{QWEN3_MOE} multihost round profile",
                    self.profile_multihost)
         self.free_memory()
+        for e in (0, E):
+            launches[PALIGEMMA, "batch", e] = self.phase(
+                f"{PALIGEMMA} batch E={e}", self.serve_vlm, e)
+        self.free_memory()
+        for e in (0, E):
+            launches[HUBERT, "coded", e] = self.phase(
+                f"{HUBERT} coded E={e}", self.serve_audio, e)
+        launches[HUBERT, "engine", E] = self.phase(
+            f"{HUBERT} EngineExecutor E={E}", self.serve_audio_engine)
+        self.audio_params = None
+        self.free_memory()
         for arch in CORE_ARCHS + (ZAMBA2,):
             self.phase(f"{arch} round profile", self.profile_rounds, arch)
         for arch in CORE_ARCHS:
@@ -540,6 +608,16 @@ class Smoke:
         for arch in HYBRID_MOE:
             self.phase(f"{arch} whole path", self.whole_path, arch)
             self.phase(f"{arch} whole pool path", self.whole_pool_path, arch)
+            self.phase(f"{arch} full-sequence forward", self.full_sequence,
+                       arch)
+            del self.small_models[arch]
+            self.free_memory()
+        self.phase(f"{PALIGEMMA} whole path", self.whole_path, PALIGEMMA)
+        launches[PALIGEMMA, POOL_2_LAYERS, E] = self.phase(
+            f"{PALIGEMMA} whole pool path", self.whole_pool_path, PALIGEMMA)
+        self.phase(f"{HUBERT} whole coded and engine path",
+                   self.whole_audio_path)
+        for arch in FRONTENDS:
             self.phase(f"{arch} full-sequence forward", self.full_sequence,
                        arch)
             del self.small_models[arch]
@@ -581,14 +659,14 @@ class Smoke:
                 **({HEAD_DIM_80: self.d80_entry(name, launches)}
                    if name in D80_CARRIER else {}),
                 **{arch: self.model_entry(arch, name, launches)
-                   for arch in HYBRID_MOE if name in MODEL_CARRIER[arch]},
+                   for arch in MODEL_CARRIER if name in MODEL_CARRIER[arch]},
                 **(self.scheme_entry(scheme_launches)
                    if name == "flash_attention" else {}),
             })
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
                     sorted(self.kernels_model[arch])
-                    != sorted(MODEL_CARRIER[arch]) for arch in HYBRID_MOE):
+                    != sorted(MODEL_CARRIER[arch]) for arch in MODEL_CARRIER):
             raise AssertionError(f"kernels measured: {sorted(self.kernels)}"
                                  f", at head_dim 80 "
                                  f"{sorted(self.kernels_d80)}, at the A10 "
@@ -619,9 +697,13 @@ class Smoke:
         launches in the run of ``arch`` that carries it."""
         res = self.kernels_model[arch][name]
         path = MODEL_CARRIER[arch][name]
+        extra = {}
+        if (arch, name) == (HUBERT, "flash_attention"):   # its engine run
+            extra = {"launches_engine": launches[arch, "engine", E][name],
+                     "launches_engine_run": f"{arch} engine E={E}"}
         return {"dtype": res["dtype"], "shape": res["shape"],
                 "launches": launches[arch, path, E][name],
-                "launches_run": f"{arch} {path} E={E}",
+                "launches_run": f"{arch} {path} E={E}", **extra,
                 **{key: res[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
@@ -770,36 +852,51 @@ class Smoke:
     def prefill_kernel(self, dtype_name: str, cfg, table=None, gen=None,
                        streams=None, prompt=PROMPT, keep="float32"):
         """B3 at an E=1 batch prefill's shapes: 44 coded streams of 256
-        tokens (or ``streams`` of ``prompt``), causal, with the config's
-        heads and window (qwen3: GQA 16/8 of 128; h2o-danube: 32/8 of 80,
-        SWA 4096, wider than the prompt; zamba2: MHA 32/32 of 64;
-        qwen3-moe: GQA 32/4 of 128), SDPA as the library call."""
+        positions (or ``streams`` of ``prompt``) under the config's rule
+        and heads: causal with its window (qwen3: GQA 16/8 of 128;
+        h2o-danube: 32/8 of 80, SWA 4096, wider than the prompt; zamba2:
+        MHA 32/32 of 64; qwen3-moe: GQA 32/4 of 128), prefix-LM over the
+        patches (paligemma: MQA 8/1 of 256) or non-causal (hubert: MHA
+        16/16 of 80).  SDPA is the library call: ``is_causal`` for a
+        causal rule, an explicit boolean mask for prefix-LM, neither for
+        a non-causal one.  The bound counts the pairs the rule lets a
+        head see (``visible_pairs``)."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.kernels import ops, ref
         dtype = getattr(torch, dtype_name)
         b = streams or GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        window = cfg.sliding_window
+        rule = dict(causal=cfg.causal, window=cfg.sliding_window,
+                    prefix=cfg.num_patches if cfg.prefix_lm else 0)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         q = self.randn(b, prompt, h, hd, dtype=dtype, gen=gen)
         k = self.randn(b, prompt, kvh, hd, dtype=dtype, gen=gen)
         vv = self.randn(b, prompt, kvh, hd, dtype=dtype, gen=gen)
-        # visible (q, k) pairs per head under the causal wedge and window
-        pairs = sum(min(i + 1, window or prompt) for i in range(prompt))
+        pairs = visible_pairs(prompt, **rule)
+        library = dict(is_causal=cfg.causal)
+        if rule["prefix"]:
+            pos = torch.arange(prompt, device=self.dev)
+            seen = (pos[None, :] <= pos[:, None]) | (
+                pos[None, :] < rule["prefix"])
+            if rule["window"] is not None:
+                seen &= pos[None, :] > pos[:, None] - rule["window"]
+            if int(seen.sum()) != pairs:
+                raise AssertionError(f"prefix-LM pairs {pairs} against the "
+                                     f"mask's {int(seen.sum())}")
+            library = dict(attn_mask=seen)
         self.record(
             "flash_attention", dtype_name,
             [list(q.shape), list(k.shape)],
-            ops.attention(q, k, vv, window=window),
-            ref.attention_ref(q, k, vv, window=window),
-            lambda: ops.attention(q, k, vv, window=window),
-            lambda: ref.attention_ref(q, k, vv, window=window),
+            ops.attention(q, k, vv, **rule),
+            ref.attention_ref(q, k, vv, **rule),
+            lambda: ops.attention(q, k, vv, **rule),
+            lambda: ref.attention_ref(q, k, vv, **rule),
             lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                         vv.transpose(1, 2), is_causal=True,
-                         enable_gqa=True),
+                         vv.transpose(1, 2), enable_gqa=True, **library),
             (2 * q.numel() + 2 * k.numel()) * dtype.itemsize,
-            4 * hd * pairs * b * h, extra={"window": window}, table=table,
-            keep=keep)
+            4 * hd * pairs * b * h, extra={**rule, "pairs": pairs},
+            table=table, keep=keep)
 
     def d80_kernels(self, dtype_name: str):
         """B3, B4 and B5 at h2o-danube-1.8b's E=1 serving shapes (head_dim
@@ -2134,6 +2231,119 @@ class Smoke:
                 out.update(self.check(what, got, want, dtype_name))
                 emit(out)
 
+    def frontend_kernels(self, dtype_name: str):
+        """Every kernel of the frontends' paths at their E=1 serving
+        shapes (A10.3), checked and timed as the main path's: at
+        paligemma-3b's, B3 over 44 streams of 512 positions (256 patches,
+        then 256 text tokens) under prefix-LM at 256 with MQA 8/1 of 256,
+        B4 over the 530-slot ring at depth 527 and B5 at per-stream
+        depths with dead streams (one kv-head), B1 on the prefill encode
+        (4, 4, 512 x 2048) and B2 on the (4, 11, 257216) tail; at
+        hubert-xlarge's, B3 over 44 streams of 500 frames, non-causal,
+        MHA 16/16 of 80 (the last 64-row tile partial), B1 on (4, 4, 500
+        x 1280) and B2 on (4, 11, 504).  SDPA is the attention kernels'
+        library call, ``torch.matmul`` B1's.  The kernels line reports
+        the fp32 numbers under each model's name."""
+        from repro_torch import configs
+        pali, audio = (configs.get_config(a) for a in FRONTENDS)
+        if (pali.num_heads, pali.num_kv_heads, pali.head_dim,
+                pali.num_patches, pali.prefix_lm) != (8, 1, 256, 256, True) \
+                or (audio.num_heads, audio.num_kv_heads, audio.head_dim,
+                    audio.causal) != (16, 16, 80, False):
+            raise AssertionError("paligemma / hubert shapes changed")
+        gen = self.front_gen
+        seq = pali.num_patches + PROMPT
+        table = self.kernels_model[PALIGEMMA]
+        self.prefill_kernel(dtype_name, pali, table, gen, prompt=seq)
+        self.decode_kernels(dtype_name, pali, table, gen, prompt=seq)
+        self.coding_kernels(dtype_name, pali, table, gen, seq)
+        table = self.kernels_model[HUBERT]
+        self.prefill_kernel(dtype_name, audio, table, gen, prompt=FRAMES)
+        self.coding_kernels(dtype_name, audio, table, gen, FRAMES)
+
+    def coding_kernels(self, dtype_name: str, cfg, table, gen, seq: int):
+        """B1 and B2 at ``cfg``'s E=1 batch shapes, both timed with their
+        operands in rotation past the L2 (as the main path's): B1 on the
+        prefill encode (4, 4, seq x d_model), ``torch.matmul`` the library
+        call; B2 on the (4, 11, V) tail, each group with a straggler and
+        a located worker, beside ``torch.matmul`` of its decode matrices
+        (``contraction_ms``; no one call builds them too).  A causal
+        model's decode encode (4, 4, d_model) and the E=0 tail (4, 5, V)
+        with the shared mask are checked untimed."""
+        torch = self.torch
+        from repro_torch.core import berrut
+        from repro_torch.core.berrut import CodingConfig, encode_matrix, \
+            nodes
+        from repro_torch.kernels import ops, ref
+        dtype = getattr(torch, dtype_name)
+        size = dtype.itemsize
+        d, v = cfg.d_model, cfg.vocab_size
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        w = encode_matrix(coding, device=self.dev).to(dtype).float()
+        xs = self.rotation(lambda: (
+            self.randn(GROUPS, K, seq * d, dtype=dtype, gen=gen),))
+        turn = itertools.cycle(xs).__next__
+        x = xs[0][0]
+        f = x.shape[-1]
+        self.record(
+            "berrut_apply", dtype_name, [list(w.shape), list(x.shape)],
+            ops.berrut_apply(w, x), ref.berrut_apply_ref(w, x),
+            lambda: ops.berrut_apply(w, *turn()),
+            lambda: ref.berrut_apply_ref(w, *turn()),
+            lambda: torch.matmul(w.to(dtype), *turn()),
+            w.numel() * 4 + (K + n1) * GROUPS * f * size,
+            2 * n1 * K * f * GROUPS, extra={"l2_copies": len(xs)},
+            table=table)
+        del xs, x
+        alphas, betas = nodes(coding, self.dev)
+        masks = torch.ones(GROUPS, n1, device=self.dev)
+        masks[:, 3] = 0.0                          # a straggler
+        masks[:, 7] = 0.0                          # a located worker
+        blocks = self.rotation(lambda: (
+            self.randn(GROUPS, n1, v, dtype=dtype, gen=gen),))
+        turn = itertools.cycle(blocks).__next__
+        grouped = blocks[0][0]
+        dec = torch.stack([berrut.basis_matrix(
+            alphas, betas, berrut.survivor_weights(m), mask=m)
+            for m in masks]).to(dtype)              # (G, K, N+1)
+        self.record(
+            "fused_group_decode", dtype_name,
+            [list(grouped.shape), list(masks.shape)],
+            ops.fused_group_decode(grouped, masks, alphas, betas),
+            ref.fused_group_decode_ref(grouped, masks, alphas, betas),
+            lambda: ops.fused_group_decode(*turn(), masks, alphas, betas),
+            lambda: ref.fused_group_decode_ref(*turn(), masks, alphas,
+                                               betas),
+            None,
+            (n1 + K) * GROUPS * v * size + GROUPS * n1 * 4 + (K + n1) * 4,
+            2 * K * n1 * v * GROUPS,
+            extra={"l2_copies": len(blocks),
+                   "contraction_ms": self.time_ms(
+                       lambda: torch.matmul(dec, turn()[0])),
+                   "contraction_graph_ms": self.graph_ms(
+                       lambda: torch.matmul(dec, turn()[0]))},
+            table=table)
+        del blocks, grouped
+        res = []
+        if cfg.causal:
+            x = self.randn(GROUPS, K, d, dtype=dtype, gen=gen)
+            res.append((f"berrut_apply {cfg.name} decode {list(x.shape)}",
+                        ops.berrut_apply(w, x), ref.berrut_apply_ref(w, x)))
+        e0 = CodingConfig(k=K, s=S, e=0)
+        a0, b0 = nodes(e0, self.dev)
+        avail = torch.ones(e0.num_workers, device=self.dev)
+        avail[2] = 0.0
+        grouped = self.randn(GROUPS, e0.num_workers, v, dtype=dtype, gen=gen)
+        res.append((f"fused_group_decode {cfg.name} E=0 "
+                    f"{list(grouped.shape)}",
+                    ops.fused_group_decode(grouped, avail, a0, b0),
+                    ref.fused_group_decode_ref(grouped, avail, a0, b0)))
+        for what, got, want in res:
+            out = {"variant": what, "dtype": dtype_name}
+            out.update(self.check(what, got, want, dtype_name))
+            emit(out)
+
     def expected_launches(self, arch: str, prefills: int, decodes: int,
                           pool: bool, worker_major: bool = False) -> dict:
         """Launches of every kernel over ``prefills`` prefill and
@@ -2151,8 +2361,8 @@ class Smoke:
         out[encode] = out["fused_group_decode"] = prefills + decodes
         for name, count in table["prefill"].items():
             out[name] += count * prefills
-        for name, count in table["pool_decode" if pool
-                                 else "decode"].items():
+        for name, count in table.get("pool_decode" if pool
+                                     else "decode", {}).items():
             out[name] += count * decodes
         return out
 
@@ -2409,6 +2619,269 @@ class Smoke:
               "tokens_per_s": res["tokens_per_s"]})
         return launches
 
+    def coded_rounds(self, where: str, cfg, coding, params, inputs: dict,
+                     e: int, rounds: int, max_len: int, rng) -> dict:
+        """``rounds`` coded rounds of ``cfg`` at full width and depth, as
+        ``serve.run_fixed_masks`` runs a text model's, but through the
+        round functions on a modality dict: the first round
+        ``coded_prefill`` on ``inputs``; later ones ``coded_decode_step``
+        on the greedy tokens when ``cfg`` decodes, else ``coded_prefill``
+        again (an encoder's coded round).  Each round takes one random
+        straggler (from ``rng``) and at E > 0 a persistent attacker at
+        sigma 10 (``serve``'s adversary; its noise drawn before the
+        round's clock starts).  Every round's logits are held finite
+        (``finite_logits``) and the launches against ``PATH_KERNELS``.
+        Returns the round times (ms, each ending in a sync), the greedy
+        tokens (requests, rounds), the launches and the locator's
+        precision and recall against the attacker (None at E=0)."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.serving import coded_serving as cs
+        from repro_torch.serving.failures import make_adversary
+        n1, groups = coding.num_workers, GROUPS
+        adversary = make_adversary(coding, serve._adversary(
+            e, "persistent", 1.0, 10.0, "random", 0))
+        round_ms, tokens, verdicts = [], [], []
+        ops.reset_launch_counts()
+        with self.finite_logits(where):
+            for r in range(rounds):
+                mask = np.ones(n1, np.float32)
+                mask[rng.choice(n1, S, replace=False)] = 0.0
+                kw = dict(straggler_mask=torch.from_numpy(mask).to(self.dev),
+                          with_report=True)
+                attack = adversary.next_round() if adversary else None
+                if attack is not None:
+                    kw.update(byz_mask=torch.from_numpy(attack.mask).to(
+                        self.dev), byz_sigma=attack.sigma,
+                        byz_noise=attack.noise(groups, n1, cfg.vocab_size,
+                                               self.dev))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if r == 0 or not cfg.causal:
+                    # an encoder's caches are not read again: the last
+                    # round's go before this round's are drawn
+                    state = None
+                    logits, state, report = cs.coded_prefill(
+                        cfg, coding, params, inputs, max_len, **kw)
+                else:
+                    logits, state, report = cs.coded_decode_step(
+                        cfg, coding, params, state, nxt, **kw)
+                nxt = logits.argmax(-1)[:, None]
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+                tokens.append(nxt[:, 0].cpu().numpy())
+                corrupt = (attack.mask > 0 if attack is not None
+                           else np.zeros(n1, bool)) & (mask > 0)
+                verdicts.append((report[0].any(0).cpu().numpy(), corrupt))
+            del state
+        launches = ops.launch_counts()
+        decodes = rounds - 1 if cfg.causal else 0
+        expected = self.expected_launches(cfg.name, rounds - decodes,
+                                          decodes, pool=False)
+        emit({"path": where, "launches": launches, "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"{where}: launch counts {launches} != "
+                                 f"{expected}")
+        tokens = np.stack(tokens, 1)
+        if tokens.min() < 0 or tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"{where}: tokens out of range")
+        tp = sum(int((d & c).sum()) for d, c in verdicts)
+        fp = sum(int((d & ~c).sum()) for d, c in verdicts)
+        fn = sum(int((~d & c).sum()) for d, c in verdicts)
+        pr = ([tp / (tp + fp) if tp + fp else None,
+               tp / (tp + fn) if tp + fn else None] if e else None)
+        if e and pr != [1.0, 1.0]:
+            raise AssertionError(f"{where}: locator precision and recall "
+                                 f"{pr}")
+        return {"round_ms": round_ms, "tokens": tokens,
+                "launches": launches, "precision_recall": pr,
+                "located": [np.flatnonzero(d).tolist() for d, _ in verdicts]}
+
+    def profile_coded(self, where: str, cfg, params, inputs: dict,
+                      max_len: int, gen) -> None:
+        """One E=1 coded round of ``cfg`` on ``inputs`` under
+        torch.profiler (``profile_call``: its wall time, the profiler's
+        host cost included, the device time of its kernels, their share
+        of the wall time and the kernels that take most of it), after a
+        warm-up, the attacker on worker 5 with noise from ``gen``: the
+        prefill (an encoder's whole coded round) and, for a decoder, one
+        decode step after it (the same step each call: caches of fixed
+        shape).  Each round's host syncs are counted outside the
+        profiler (the executors' one sync a round comes after it)."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.serving import coded_serving as cs
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        byz = torch.zeros(n1, device=self.dev)
+        byz[5] = 1.0
+        kw = dict(byz_mask=byz, byz_sigma=10.0, with_report=True,
+                  byz_noise=self.randn(GROUPS, n1, cfg.vocab_size, gen=gen))
+        box = {}
+
+        def prefill():
+            box["state"] = None          # the last call's caches go first
+            box["logits"], box["state"], _ = cs.coded_prefill(
+                cfg, coding, params, inputs, max_len, **kw)
+
+        prefill()                                           # warm-up
+        rounds = {"prefill": prefill}
+        if cfg.causal:
+            state, nxt = box["state"], box["logits"].argmax(-1)[:, None]
+            rounds["decode"] = lambda: cs.coded_decode_step(
+                cfg, coding, params, state, nxt, **kw)
+            rounds["decode"]()                              # warm-up
+        for kind, fn in rounds.items():
+            self.profile_call(f"{where} {kind}", fn, self.count_syncs(fn))
+
+    def serve_vlm(self, e: int) -> dict:
+        """paligemma-3b at full width and depth (fp32, 18 layers, 2.5e9
+        parameters), a fixed-mask coded batch at K=4 S=1 and ``e``: 16
+        requests of 256 patch embeddings (1152 wide, numpy seed 0) and
+        256 text tokens, ``coded_prefill`` over the 512 positions
+        (prefix-LM over the patches) and 16 ``coded_decode_step``s from
+        position 512 (``coded_rounds``).  Precision and recall 1 at E=1;
+        printed: prefill ms, mean decode ms, tokens/s and the peak
+        ``max_memory_allocated``; at E=1 its rounds are then profiled
+        (``profile_coded``)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_params
+        cfg = configs.get_config(PALIGEMMA)
+        coding = CodingConfig(k=K, s=S, e=e)
+        requests = GROUPS * K
+        where = f"{PALIGEMMA} K={K} S={S} E={e}"
+        self.free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        rng = np.random.RandomState(0)
+        inputs = {"patches": rng.randn(requests, cfg.num_patches,
+                                       cfg.frontend_dim).astype(np.float32),
+                  "tokens": rng.randint(0, cfg.vocab_size,
+                                        (requests, PROMPT))}
+        inputs = {k: torch.from_numpy(v).to(self.dev)
+                  for k, v in inputs.items()}
+        seq = cfg.num_patches + PROMPT
+        res = self.coded_rounds(where, cfg, coding, params, inputs, e,
+                                1 + STEPS, seq + STEPS + 2, rng)
+        ms = res["round_ms"]
+        emit({"serve": where, "depth": cfg.num_layers,
+              "params": cfg.param_count(),
+              "streams": GROUPS * coding.num_workers,
+              "prefill_positions": seq, "prefill_ms": ms[0],
+              "decode_round_ms_mean": sum(ms[1:]) / STEPS,
+              "total_ms": sum(ms),
+              "tokens_per_s": res["tokens"].size / sum(ms) * 1e3,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+              / 1e9,
+              "locator_precision_recall": res["precision_recall"],
+              "located": res["located"],
+              "tokens": res["tokens"][:4].tolist()})
+        if e:
+            self.profile_coded(where, cfg, params, inputs, seq + STEPS + 2,
+                               self.front_gen)
+        return res["launches"]
+
+    def hubert(self):
+        """hubert-xlarge's full-depth weights (fp32, 48 layers, 9.5e8
+        parameters), drawn on the card once for its runs."""
+        from repro_torch import configs
+        from repro_torch.models.model import init_params
+        cfg = configs.get_config(HUBERT)
+        if self.audio_params is None:
+            self.free_memory()
+            self.audio_params = init_params(
+                cfg, self.torch.Generator(self.dev).manual_seed(0), self.dev)
+        return cfg, self.audio_params
+
+    def audio_frames(self, cfg) -> np.ndarray:
+        """16 requests of 500 frame embeddings (numpy seed 0)."""
+        return np.random.RandomState(0).randn(
+            GROUPS * K, FRAMES, cfg.frontend_dim).astype(np.float32)
+
+    def serve_audio(self, e: int) -> dict:
+        """hubert-xlarge's coded round at full width and depth:
+        ``coded_prefill`` on 16 requests of 500 frames at K=4 S=1 and
+        ``e``, four calls (``coded_rounds``), each with its own straggler
+        and at E=1 the attacker; each call launches B3 48 times (non-
+        causal, head_dim 80) and B1 and B2 once.  Precision and recall 1
+        at E=1; printed: each call's ms, requests/s, peak memory; at E=1
+        a call is then profiled (``profile_coded``)."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        cfg, params = self.hubert()
+        coding = CodingConfig(k=K, s=S, e=e)
+        where = f"{HUBERT} coded K={K} S={S} E={e}"
+        torch.cuda.reset_peak_memory_stats()
+        frames = torch.from_numpy(self.audio_frames(cfg)).to(self.dev)
+        res = self.coded_rounds(where, cfg, coding, params,
+                                {"frames": frames}, e, AUDIO_CALLS, FRAMES,
+                                np.random.RandomState(1))
+        ms = res["round_ms"]
+        emit({"serve": where, "depth": cfg.num_layers,
+              "params": cfg.param_count(),
+              "streams": GROUPS * coding.num_workers, "frames": FRAMES,
+              "call_ms": ms, "call_ms_mean": sum(ms) / len(ms),
+              "requests_per_s": GROUPS * K * len(ms) / sum(ms) * 1e3,
+              "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+              / 1e9,
+              "locator_precision_recall": res["precision_recall"],
+              "located": res["located"]})
+        if e:
+            self.profile_coded(where, cfg, params, {"frames": frames},
+                               FRAMES, self.front_gen)
+        return res["launches"]
+
+    def serve_audio_engine(self) -> dict:
+        """hubert-xlarge served as the reference serves a black-box model:
+        ``EngineExecutor`` over ``predict_fn`` with the Berrut scheme under
+        the batch scheduler (``serve``'s scheme path at its rate, groups
+        and deadline; K=4 S=1 E=1, a persistent attacker at sigma 10), on
+        16 payloads that are the rows of ``embed_inputs`` on frames.  B3
+        launched 48 times a ``predict_fn`` call and nothing else; every
+        request served with finite logits.  Printed: precision and recall
+        (not asserted: at the bare quorum the reference misses rounds
+        too, ROADMAP C), dispatch ms, the event clock's p50/p99."""
+        from repro_torch.core.scheme import get_scheme
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        cfg, params = self.hubert()
+        where = f"{HUBERT} EngineExecutor K={K} S={S} E={E}"
+        ops.reset_launch_counts()
+        res = serve._run_scheme(
+            cfg, get_scheme("berrut", K, s=S, e=E), params,
+            {"frames": self.audio_frames(cfg)},
+            serve._adversary(E, "persistent", 1.0, 10.0, "random", 0),
+            self.dev, seed=0, groups_per_batch=2, rate_rps=2000.0,
+            flush_deadline_ms=5.0, slo_ms=None, quarantine=None, churn=None,
+            traffic="poisson", controller=None)
+        self.torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        expected = self.expected_launches(
+            HUBERT, len(res["forward_streams"]), 0, pool=False)
+        expected["berrut_apply"] = expected["fused_group_decode"] = 0
+        emit({"path": where, "launches": launches, "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"{where}: launch counts {launches} != "
+                                 f"{expected}")
+        logits = res["logits"]
+        if logits.shape != (GROUPS * K, cfg.vocab_size) or \
+                not np.isfinite(logits).all():
+            raise AssertionError(f"{where}: logits {logits.shape} or "
+                                 "non-finite")
+        clock = res["metrics"].percentiles()
+        emit({"serve": where, "depth": cfg.num_layers, "frames": FRAMES,
+              "forward_streams": res["forward_streams"],
+              "dispatch_ms": res["dispatch_ms"],
+              "precision_recall": [res["precision"], res["recall"]],
+              "attacker": res["attackers"], "located": res["located"],
+              "event_clock": {"p50_ms": clock["p50_ms"],
+                              "p99_ms": clock["p99_ms"]}})
+        return launches
+
     # ------------------------------------------------ card against CPU
 
     @contextlib.contextmanager
@@ -2527,16 +3000,16 @@ class Smoke:
         and 2 layers (``SMALL``'s pattern for zamba2: "SGSG"), the card's
         weights the CPU's.  They are drawn from ``gen`` on the CPU, except
         for the A10 models': the CPU's truncated-normal draw would take
-        minutes for qwen3-moe's 1.8e9, so theirs are drawn once on the
-        card (seed 0) and copied to the CPU, and shared by their whole
-        paths and full-sequence check."""
+        minutes for qwen3-moe's 1.8e9 (or paligemma's 527M-entry table),
+        so theirs are drawn once on the card (seed 0) and copied to the
+        CPU, and shared by their whole paths and full-sequence check."""
         from repro_torch import configs
         from repro_torch.models.model import init_params
         torch = self.torch
         cpu = torch.device("cpu")
         cfg = configs.get_config(arch).with_updates(
             **SMALL.get(arch, dict(num_layers=2)))
-        if arch not in HYBRID_MOE:
+        if arch not in HYBRID_MOE + FRONTENDS:
             params = {"cpu": init_params(cfg, gen, cpu)}
             params["cuda"] = _tree_to(params["cpu"], self.dev)
             return cfg, params
@@ -2619,7 +3092,11 @@ class Smoke:
         with the same weights and inputs: ``forward``'s logits (its B3 and
         B7 launches counted) and aux (the MoE statistics summed over the
         layers, zero without "M" blocks), ``predict_fn`` on embeddings,
-        and ``lm_loss`` without targets and with targets and a loss mask.
+        and ``lm_loss`` without targets (paligemma: over the text after
+        its patches; hubert, which has no next token: against per-frame
+        targets) and with targets and a loss mask.  paligemma takes one
+        request of its 256 patches and 32 tokens, hubert two of 32
+        frames.
         Logits within 1e-4 x max(1, max |cpu|) (the whole paths'
         tolerance), greedy tokens equal, losses and aux within 1e-5
         relative (aux: plus 1e-6); with "M" blocks, routes equal
@@ -2629,30 +3106,40 @@ class Smoke:
         from repro_torch.kernels import ops
         from repro_torch.models import model
         cfg, params, devs = self.two_devices(arch)
-        b, s, t = 2, 32, 8
+        b = 1 if cfg.modality == "vlm" else 2
+        s, t = 32, 8
         rng = np.random.RandomState(7)
-        tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, s)))
+        if cfg.modality == "audio":
+            t = s                             # a cluster target a frame
+            inputs = {"frames": torch.from_numpy(rng.randn(
+                b, s, cfg.frontend_dim).astype(np.float32))}
+        else:
+            inputs = {"tokens": torch.from_numpy(
+                rng.randint(0, cfg.vocab_size, (b, s)))}
         targets = torch.from_numpy(rng.randint(0, cfg.vocab_size, (b, t)))
         loss_mask = torch.from_numpy(rng.rand(b, t) < 0.6)
-        emb = model.embed_inputs(cfg, params["cpu"], {"tokens": tokens})
-        names = ("forward", "predict_fn", "lm_loss",
-                 "lm_loss targets, loss_mask")
+        if cfg.modality == "vlm":
+            inputs["patches"] = torch.from_numpy(rng.randn(
+                b, cfg.num_patches, cfg.frontend_dim).astype(np.float32))
+        losses = {"lm_loss": (inputs if cfg.causal
+                              else {**inputs, "targets": targets}),
+                  "lm_loss targets, loss_mask": {
+                      **inputs, "targets": targets, "loss_mask": loss_mask}}
+        emb = model.embed_inputs(cfg, params["cpu"], inputs)
+        names = ("forward", "predict_fn", *losses)
         out, log = {}, []
         for dev in ("cpu", "cuda"):
             p, d = params[dev], devs[dev]
             ops.reset_launch_counts()
             with self.routes(log, dev):
-                logits, aux = model.forward(cfg, p, {"tokens": tokens.to(d)})
+                logits, aux = model.forward(cfg, p, _tree_to(inputs, d))
                 if dev == "cuda":
                     launched = ops.launch_counts()
                 out[dev] = {
                     "forward": logits.float().cpu(),
                     "predict_fn": model.predict_fn(cfg, p)(emb.to(d)).cpu(),
-                    "lm_loss": model.lm_loss(cfg, p, {"tokens": tokens.to(d)}
-                                             )[0].cpu(),
-                    "lm_loss targets, loss_mask": model.lm_loss(cfg, p, {
-                        "tokens": tokens.to(d), "targets": targets.to(d),
-                        "loss_mask": loss_mask.to(d)})[0].cpu(),
+                    **{name: model.lm_loss(cfg, p, _tree_to(batch, d))[0].cpu()
+                       for name, batch in losses.items()},
                     "aux": {k: float(v) for k, v in aux.items()}}
         torch.cuda.synchronize()
         expected = {name: 0 for name in launched}
@@ -3078,8 +3565,9 @@ class Smoke:
                 with self.host_noise():
                     runs[dev] = serve._run_scheme(
                         cfg, get_scheme(name, K, s=S, e=e), params[dev],
-                        prompts, serve._adversary(e, "persistent", 1.0, 10.0,
-                                                  "random", 0), devs[dev],
+                        {"tokens": prompts}, serve._adversary(
+                            e, "persistent", 1.0, 10.0, "random", 0),
+                        devs[dev],
                         seed=0, groups_per_batch=2, rate_rps=2000.0,
                         flush_deadline_ms=5.0, slo_ms=None, quarantine=None,
                         churn=None, traffic="poisson", controller=None)
@@ -3149,40 +3637,17 @@ class Smoke:
     def profile_rounds(self, arch: str):
         """One E=1 prefill round and one decode round at full width and
         depth (G=4, K=4: 44 streams, 256-token prompts) under
-        torch.profiler: the round's wall time (the profiler's host cost
-        included), the device time of its kernels, their share of the
-        wall time, and the kernels that take most of it."""
+        torch.profiler (``profile_coded``)."""
         torch = self.torch
         from repro_torch import configs
-        from repro_torch.core.berrut import CodingConfig
         from repro_torch.models.model import init_params
-        from repro_torch.serving import coded_serving as cs
         cfg = configs.get_config(arch)
-        coding = CodingConfig(k=K, s=S, e=E)
-        n1 = coding.num_workers
         params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
                              self.dev)
         tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, PROMPT),
                                generator=self.gen, device=self.dev)
-        byz = torch.zeros(n1, device=self.dev)
-        byz[5] = 1.0
-        kw = dict(byz_mask=byz, byz_sigma=10.0, with_report=True,
-                  byz_noise=self.randn(GROUPS, n1, cfg.vocab_size))
-        logits, state, _ = cs.coded_prefill(
-            cfg, coding, params, {"tokens": tokens}, PROMPT + 4, **kw)
-        nxt = logits.argmax(-1)[:, None]
-        rounds = {
-            "prefill": lambda: cs.coded_prefill(
-                cfg, coding, params, {"tokens": tokens}, PROMPT + 4, **kw),
-            # the same decode step again each call: caches of fixed shape
-            "decode": lambda: cs.coded_decode_step(
-                cfg, coding, params, state, nxt, **kw)}
-        rounds["decode"]()                                  # warm-up
-        # host syncs of a whole round (the executors' one sync a round
-        # comes after it, at the caller)
-        for kind, fn in rounds.items():
-            self.profile_call(f"{arch} K={K} S={S} E={E} {kind}", fn,
-                              self.count_syncs(fn))
+        self.profile_coded(f"{arch} K={K} S={S} E={E}", cfg, params,
+                           {"tokens": tokens}, PROMPT + 4, self.gen)
 
     def profile_call(self, where: str, fn, syncs: int) -> None:
         """``fn()`` once under torch.profiler: its wall time (the
@@ -3264,11 +3729,29 @@ class Smoke:
         m[list(keep) + rest[:quorum - len(keep)]] = 1.0
         return m
 
+    def model_inputs(self, cfg, batch: int, length: int, gen) -> dict:
+        """A 2-layer check's CPU inputs of ``batch`` requests: ``length``
+        tokens drawn from ``gen``, then for the vlm its patch embeddings
+        (the text after them); for the audio frontend ``length``
+        frames."""
+        torch = self.torch
+        if cfg.modality == "audio":
+            return {"frames": torch.randn(batch, length, cfg.frontend_dim,
+                                          generator=gen)}
+        inputs = {"tokens": torch.randint(0, cfg.vocab_size,
+                                          (batch, length), generator=gen)}
+        if cfg.modality == "vlm":
+            inputs["patches"] = torch.randn(batch, cfg.num_patches,
+                                            cfg.frontend_dim, generator=gen)
+        return inputs
+
     def whole_path(self, arch: str, worker_major: bool = False):
         """Full width, 2 layers (zamba2: "SGSG"): the card against the CPU's
         plain path on the same weights, prompts, masks and noise; with "M"
         blocks also the expert routes (``route_walk``), comparing nothing
-        past a route a near tie changed.  Worker-major: E=0 and
+        past a route a near tie changed.  paligemma: one group of K on
+        its 256 patches and FRONT_TEXT text tokens, decoding from
+        position 272.  Worker-major: E=0 and
         E=1, exactly the decode quorum surviving each round, the card's
         tokens also held against its group-major path's.  At that bare
         K+2E quorum some survivor sets leave the locator no majority
@@ -3278,13 +3761,15 @@ class Smoke:
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.launch.worker_mesh import WorkerShardConfig
         from repro_torch.serving import coded_serving as cs
-        prompt, steps = 64, 4
+        prompt, steps, groups = 64, 4, GROUPS
         cpu = torch.device("cpu")
         gen = torch.Generator(cpu).manual_seed(1)
         cfg, params = self.small_model(arch, gen)
+        if arch in FRONTENDS:
+            prompt, groups = FRONT_TEXT, 1
         moe_k = cfg.experts_per_token if "M" in cfg.layer_pattern else 0
-        tokens = torch.randint(0, cfg.vocab_size, (GROUPS * K, prompt),
-                               generator=gen)
+        inputs = self.model_inputs(cfg, groups * K, prompt, gen)
+        seq = prompt + cfg.num_patches
         ws = WorkerShardConfig() if worker_major else None
         runs = [("cpu", cpu, ws), ("cuda", self.dev, ws)]
         if worker_major:
@@ -3306,7 +3791,7 @@ class Smoke:
                 else:
                     m = torch.ones(n1)
                     m[stragglers[r]] = 0.0
-                noise = torch.randn(GROUPS, n1, cfg.vocab_size,
+                noise = torch.randn(groups, n1, cfg.vocab_size,
                                     generator=gen)
                 outs, log = {}, []
                 for name, dev, wshard in runs:
@@ -3317,8 +3802,9 @@ class Smoke:
                     with self.routes(log, name):
                         if r == 0:
                             logits, states[name], rep = cs.coded_prefill(
-                                cfg, coding, p, {"tokens": tokens.to(dev)},
-                                prompt + steps + 2, **kw)
+                                cfg, coding, p, {key: x.to(dev) for key, x
+                                                 in inputs.items()},
+                                seq + steps + 2, **kw)
                         else:
                             logits, states[name], rep = \
                                 cs.coded_decode_step(cfg, coding, p,
@@ -3355,6 +3841,91 @@ class Smoke:
               "cuda vs "
               "cpu", "rounds": 1 + steps, "worst_err_over_tol": worst})
 
+    def whole_audio_path(self):
+        """hubert-xlarge at full width and 2 layers, card against CPU on
+        the same weights, frames (one group of K=4 requests of 500
+        frames), masks and noise, E=1 with a straggler and an attacker:
+        the coded round (``coded_prefill`` on {"frames"}: B3 twice,
+        non-causal at head_dim 80, B1 and B2 once) and the engine call
+        (``EngineExecutor`` over ``predict_fn`` on the rows of
+        ``embed_inputs``: B3 twice, nothing else).  Decoded logits within
+        1e-4 x max(1, max |cpu|), greedy tokens and verdicts equal, the
+        attacker located."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.core.scheme import BerrutScheme
+        from repro_torch.kernels import ops
+        from repro_torch.launch import serve
+        from repro_torch.models.model import embed_inputs, predict_fn
+        from repro_torch.serving import coded_serving as cs
+        from repro_torch.serving.failures import make_adversary
+        from repro_torch.serving.scheduler import EngineExecutor
+        cpu = torch.device("cpu")
+        gen = torch.Generator(cpu).manual_seed(3)
+        cfg, params = self.small_model(HUBERT, gen)
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        frames = self.model_inputs(cfg, K, FRAMES, gen)["frames"]
+        mask = torch.ones(n1)
+        mask[2] = 0.0                           # a straggler
+        byz = torch.zeros(n1)
+        byz[5] = 1.0                            # the attacker
+        noise = torch.randn(1, n1, cfg.vocab_size, generator=gen)
+        emb = embed_inputs(cfg, params["cpu"], {"frames": frames}).numpy()
+        outs, launched = {}, {}
+        for name, dev in (("cpu", cpu), ("cuda", self.dev)):
+            p = params[name]
+            ops.reset_launch_counts()
+            logits, _, (located, _) = cs.coded_prefill(
+                cfg, coding, p, {"frames": frames.to(dev)}, FRAMES,
+                straggler_mask=mask.to(dev), byz_mask=byz.to(dev),
+                byz_noise=noise.to(dev), byz_sigma=10.0, with_report=True)
+            launched["coded"] = ops.launch_counts()
+            ex = EngineExecutor(predict_fn(cfg, p), BerrutScheme(coding),
+                                device=dev)
+            attack = make_adversary(coding, serve._adversary(
+                E, "persistent", 1.0, 10.0, "random", 0)).next_round()
+            ops.reset_launch_counts()
+            with self.host_noise():
+                served, report = ex.decode(ex.dispatch(emb), mask.numpy(),
+                                           attack)
+            launched["engine"] = ops.launch_counts()
+            outs[name] = {"coded": (logits.cpu(), located.cpu()),
+                              "engine": (torch.from_numpy(served),
+                                         torch.from_numpy(report.located)),
+                              "attacker": attack.mask}
+        torch.cuda.synchronize()
+        engine = {name: 0 for name in ops.KERNELS}
+        engine.update(pattern_kernels(cfg)["prefill"])
+        expected = {"coded": dict(engine, berrut_apply=1,
+                                  fused_group_decode=1), "engine": engine}
+        emit({"path": f"{HUBERT} whole coded and engine path",
+              "launches": launched, "expected": expected})
+        if launched != expected:
+            raise AssertionError(f"{HUBERT} whole path: launches {launched} "
+                                 f"!= {expected}")
+        report = {"whole_audio_path": f"{HUBERT} full width, "
+                  f"{cfg.layer_pattern}, cuda vs cpu", "frames": FRAMES}
+        for run in ("coded", "engine"):
+            (lc, loc_c), (lg, loc_g) = outs["cpu"][run], outs["cuda"][run]
+            err = (lg - lc).abs().max().item()
+            tol = 1e-4 * max(1.0, lc.abs().max().item())
+            attacker = np.flatnonzero(outs["cpu"]["attacker"]) if \
+                run == "engine" else [5]
+            where = f"{HUBERT} whole {run} path E={E}"
+            if not (lg.shape == lc.shape and err <= tol):
+                raise AssertionError(f"{where}: logits differ by {err} > "
+                                     f"{tol}")
+            if not torch.equal(lg.argmax(-1), lc.argmax(-1)):
+                raise AssertionError(f"{where}: greedy tokens differ")
+            if not (torch.equal(loc_g, loc_c)
+                    and loc_c[:, attacker].all()):
+                raise AssertionError(f"{where}: located workers differ or "
+                                     "miss the attacker")
+            report[run] = {"max_abs_err": err, "tol": tol,
+                           "attacker": [int(w) for w in attacker]}
+        emit(report)
+
     def whole_pool_path(self, arch: str, worker_major: bool = False):
         """The slot pool at full width and 2 layers (zamba2: "SGSG"): the
         card against the CPU's plain path on the same weights, prompts,
@@ -3362,12 +3933,18 @@ class Smoke:
         admitted while others decode, at E=0 (the live mask reaches the
         kernel) and E=1; with "M" blocks also the expert routes of every
         stream, a free slot's included (``route_walk``), comparing nothing
-        past a route a near tie changed.
+        past a route a near tie changed.  paligemma (B5 at D = 256, rep
+        8, one kv-head): E=1 over FRONT_POOL_ROUNDS, each admission its
+        patches and FRONT_TEXT tokens, and the KV caches of the slots
+        admitted so far held card against CPU after every call (a free
+        slot's are garbage, ROADMAP C).
         Worker-major: exactly the decode quorum surviving each round, the
         card's tokens also held against its group-major path's, and the
-        attacker located alike on both devices (see ``whole_path``)."""
+        attacker located alike on both devices (see ``whole_path``).
+        Returns the card's kernel launches over the run."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops
         from repro_torch.launch.worker_mesh import WorkerShardConfig
         from repro_torch.models.model import init_caches
         from repro_torch.serving import coded_serving as cs
@@ -3375,17 +3952,23 @@ class Smoke:
         # (admitted slots, active slots) per round
         rounds = [((0,), ()), ((1,), (0,)), ((), (0, 1)), ((0,), (1,)),
                   ((), (0, 1))]
+        es = (0, E)
         cpu = torch.device("cpu")
         gen = torch.Generator(cpu).manual_seed(2)
         cfg, params = self.small_model(arch, gen)
+        front = arch in FRONTENDS
+        if front:
+            prompt, rounds, es = FRONT_TEXT, FRONT_POOL_ROUNDS, (E,)
+            max_len = cfg.num_patches + prompt + 8
         moe_k = cfg.experts_per_token if "M" in cfg.layer_pattern else 0
         ws = WorkerShardConfig() if worker_major else None
         runs = [("cpu", cpu, ws), ("cuda", self.dev, ws)]
         if worker_major:
             runs.append(("group-major", self.dev, None))
         kind = " worker-major" if worker_major else ""
-        worst = 0.0
-        for e in (0, E):
+        worst = worst_cache = 0.0
+        ops.reset_launch_counts()
+        for e in es:
             coding = CodingConfig(k=K, s=S, e=e)
             n1 = coding.num_workers
             byz = torch.zeros(n1)
@@ -3397,8 +3980,13 @@ class Smoke:
             fresh = {name: init_caches(
                 cfg, cs.pool_streams(coding, pool, wshard), max_len,
                 torch.float32, dev) for name, dev, wshard in runs}
-            prompts = torch.zeros(pool * K, prompt, dtype=torch.int64)
+            inputs = {"tokens": torch.zeros(pool * K, prompt,
+                                            dtype=torch.int64)}
+            if cfg.modality == "vlm":
+                inputs["patches"] = torch.zeros(pool * K, cfg.num_patches,
+                                                cfg.frontend_dim)
             nxt = torch.zeros(pool * K, 1, dtype=torch.int64)
+            live = set()
             diverged = False
             for r, (admitted, active) in enumerate(rounds):
                 if diverged:
@@ -3413,8 +4001,10 @@ class Smoke:
                 calls = []
                 if admitted:
                     for slot in admitted:
-                        prompts[slot * K:(slot + 1) * K] = torch.randint(
-                            0, cfg.vocab_size, (K, prompt), generator=gen)
+                        for key, x in self.model_inputs(cfg, K, prompt,
+                                                        gen).items():
+                            inputs[key][slot * K:(slot + 1) * K] = x
+                    live.update(admitted)
                     calls.append(("prefill", admitted))
                 if active:
                     calls.append(("decode", active))
@@ -3433,7 +4023,8 @@ class Smoke:
                                 logits, states[name], rep = \
                                     cs.coded_pool_prefill(
                                         cfg, coding, p, states[name],
-                                        {"tokens": prompts.to(dev)},
+                                        {key: x.to(dev) for key, x
+                                         in inputs.items()},
                                         gm.numpy(), fresh=fresh[name], **kw)
                             else:
                                 logits, states[name], rep = \
@@ -3473,13 +4064,41 @@ class Smoke:
                         raise AssertionError(f"{where}: worker-major tokens "
                                              "differ from group-major ones")
                     nxt[rows, 0] = lc[rows].argmax(-1)
+                    if front:
+                        worst_cache = max(worst_cache, self.live_caches(
+                            where, states, sorted(live), n1))
                     emit({"whole_pool_path": where,
                           "logits_max_abs_diff": err, "tol": tol,
                           "attacker_located": (loc_c[gm > 0, 5].tolist()
                                                if e else None)})
+        launched = ops.launch_counts()
         emit({"whole_pool_path": f"{arch}{kind} full width, "
               f"{cfg.layer_pattern}, cuda vs cpu", "rounds": len(rounds),
-              "worst_err_over_tol": worst})
+              "worst_err_over_tol": worst,
+              "caches_worst_err_over_tol": worst_cache if front else None,
+              "launches": launched})
+        return launched
+
+    def live_caches(self, where: str, states: dict, slots: list,
+                    n1: int) -> float:
+        """Hold the card's pool caches against the CPU's on the streams of
+        ``slots`` (group-major: slot g owns streams g(N+1) .. g(N+1)+N),
+        within 1e-4 x max(1, max |cpu|) a leaf; returns the worst error
+        over its tolerance."""
+        torch = self.torch
+        idx = torch.tensor([g * n1 + i for g in slots for i in range(n1)])
+        worst = 0.0
+        for run_c, run_g in zip(states["cpu"].caches, states["cuda"].caches):
+            for leaf, cc in run_c.items():
+                cc = cc[:, idx].float()
+                cg = run_g[leaf][:, idx.to(self.dev)].float().cpu()
+                err = (cg - cc).abs().max().item()
+                tol = 1e-4 * max(1.0, cc.abs().max().item())
+                if not err <= tol:
+                    raise AssertionError(f"{where}: cache {leaf} of the live "
+                                         f"slots differs by {err} > {tol}")
+                worst = max(worst, err / tol)
+        return worst
 
     def multihost(self) -> dict:
         """``launch.multihost --mode serve`` at its defaults (qwen3-0.6b in
@@ -3652,6 +4271,19 @@ class Smoke:
         finally:
             dist.destroy_process_group()
             store.unlink(missing_ok=True)
+
+
+def visible_pairs(s: int, *, causal: bool, window, prefix: int) -> int:
+    """(query, key) pairs one head sees over ``s`` positions: causal, row
+    i sees keys 0..i; prefix-LM, rows i < P see the P prefix keys and
+    rows i >= P keys 0..i; non-causal, every key; a window keeps the
+    keys after i - window."""
+    total = 0
+    for i in range(s):
+        hi = max(i + 1, min(prefix, s)) if causal else s
+        lo = 0 if window is None else max(0, i - window + 1)
+        total += max(0, hi - lo)
+    return total
 
 
 def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:

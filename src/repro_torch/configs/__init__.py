@@ -2,7 +2,8 @@
 
 from __future__ import annotations
 
-from repro_torch.configs import (grok_1_314b, h2o_danube_1_8b, mamba2_780m,
+from repro_torch.configs import (grok_1_314b, h2o_danube_1_8b,
+                                 hubert_xlarge, mamba2_780m, paligemma_3b,
                                  phi4_mini_3_8b, qwen3_0_6b,
                                  qwen3_moe_30b_a3b, stablelm_1_6b,
                                  zamba2_1_2b)
@@ -14,7 +15,9 @@ _MODULES = {"qwen3-0.6b": qwen3_0_6b, "mamba2-780m": mamba2_780m,
             "stablelm-1.6b": stablelm_1_6b,
             "zamba2-1.2b": zamba2_1_2b,
             "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
-            "grok-1-314b": grok_1_314b}
+            "grok-1-314b": grok_1_314b,
+            "paligemma-3b": paligemma_3b,
+            "hubert-xlarge": hubert_xlarge}
 
 
 def list_archs() -> list:

@@ -62,6 +62,7 @@ def serve_main(args) -> dict:
     in the call's host sync)."""
     from repro_torch.core.berrut import CodingConfig
     from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.serve import refuse_frontends
     from repro_torch.launch.worker_mesh import WorkerShardConfig
     from repro_torch.models import partitioning
     from repro_torch.models.model import init_params
@@ -77,6 +78,7 @@ def serve_main(args) -> dict:
             f"stream count is a multiple of {group.size})")
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
+    refuse_frontends(cfg)
     cfg = cfg.with_updates(param_dtype="bfloat16",
                            activation_dtype="bfloat16")
     ranks = host_worker_ranks(group)

@@ -104,12 +104,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# what the audio and vlm frontends read instead of token prompts alone
+FRONTEND_INPUTS = {"audio": "frames", "vlm": "patches"}
+
+
+def refuse_frontends(cfg) -> None:
+    """Raise for a model whose inputs are not token prompts alone.  The
+    launchers build token prompts only, so the reference's ``serve.run``
+    fails inside ``embed_inputs`` on such a model (a ``KeyError`` for
+    ``'frames'`` or ``'patches'``); the port refuses it before it builds
+    the weights."""
+    if cfg.modality in FRONTEND_INPUTS:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.modality} frontend takes "
+            f"{FRONTEND_INPUTS[cfg.modality]!r} inputs, and serving builds "
+            "token prompts only; drive its modality dicts through "
+            "serving.coded_serving or an EngineExecutor instead")
+
+
 def _setup(arch, reduced, requests, k, s, e, prompt_len, seed, device,
            attack, traffic, top_k, temperature):
     """(device, model config, coding, sample config, prompt rng, params,
     prompts) of a run: the prompts are the rng's first draws."""
     device = resolve_device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
+    refuse_frontends(cfg)
     coding = CodingConfig(k=k, s=s, e=e)
     if attack not in ATTACKS:
         raise ValueError(f"attack must be one of {ATTACKS}, got {attack!r}")
@@ -191,7 +210,8 @@ def run(arch: str = "qwen3-0.6b", reduced: bool = False, requests: int = 16,
                      if churn else None),
               traffic=traffic, controller=controller)
     if scheme != "berrut":
-        return _run_scheme(cfg, schm, params, prompts, adversary, device,
+        return _run_scheme(cfg, schm, params, {"tokens": prompts},
+                           adversary, device,
                            groups_per_batch=groups_per_batch, **kw)
     kw.update(sample=sample, wshard=wshard)
     if continuous:
@@ -340,11 +360,13 @@ class _TimedEngineExecutor(EngineExecutor):
         return out
 
 
-def _run_scheme(cfg, scheme, params, prompts, adversary_cfg, device, *,
+def _run_scheme(cfg, scheme, params, inputs, adversary_cfg, device, *,
                 seed, groups_per_batch, rate_rps, flush_deadline_ms,
                 slo_ms, quarantine, churn, traffic, controller) -> dict:
-    """The scheme-generic single-shot path: the prompts embedded once, each
-    request's (prompt_len, d_model) embedding a payload, ``EngineExecutor``
+    """The scheme-generic single-shot path: the requests' inputs (a
+    modality dict of host arrays, one row a request: ``{"tokens":
+    prompts}``, or an encoder's ``{"frames": ...}``) embedded once, each
+    request's (length, d_model) embedding a payload, ``EngineExecutor``
     over ``predict_fn`` under the batch scheduler.  Returns each request's
     greedy next token (``tokens``, (requests, 1)) and served last-position
     logits (``logits``, (requests, V)) by uid, each dispatch's wall time
@@ -354,11 +376,12 @@ def _run_scheme(cfg, scheme, params, prompts, adversary_cfg, device, *,
     one or before a detection), the scheduler's ``metrics`` (event
     clock), ``trace`` and ``batches``, the controller's decision log
     (None without one) and the attacker's workers."""
-    requests = prompts.shape[0]
     # host payloads, as the scheduler stacks them; fp32 as the reference's
-    emb = embed_inputs(cfg, params, {"tokens": torch.as_tensor(
-        prompts, device=device)})
+    emb = embed_inputs(cfg, params, {
+        key: torch.as_tensor(val, device=device)
+        for key, val in inputs.items()})
     payloads = list(emb.float().cpu().numpy())
+    requests, length = emb.shape[:2]
     executor = _TimedEngineExecutor(predict_fn(cfg, params), scheme, device)
     sched = CodedScheduler(
         SchedulerConfig(scheme=scheme, groups_per_batch=groups_per_batch,
@@ -369,7 +392,7 @@ def _run_scheme(cfg, scheme, params, prompts, adversary_cfg, device, *,
         LatencyModel(), executor)
     k, s = scheme.k, scheme.s
     attacked = adversary_cfg is not None
-    print(f"serving {requests} requests of {prompts.shape[1]} tokens on "
+    print(f"serving {requests} requests of {length} positions on "
           f"{device} ({cfg.name}) at {rate_rps:.0f} req/s ({traffic}): "
           f"batches of {groups_per_batch} groups of K={k} x "
           f"{scheme.num_workers} {scheme.name} worker streams (overhead "

@@ -107,6 +107,9 @@ def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                   device)
+    if cfg.modality in ("audio", "vlm") and cfg.frontend_dim:
+        p["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model,
+                                        dtype, device)
     return p
 
 
@@ -114,6 +117,13 @@ def embed_tokens(cfg: ModelConfig, p: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
     e = p["embed"][tokens]
     return (e * math.sqrt(cfg.d_model)).to(e.dtype)
+
+
+def project_frontend(cfg: ModelConfig, p: dict,
+                     frames: torch.Tensor) -> torch.Tensor:
+    """Project stubbed frame / patch embeddings (B, T, frontend_dim) into
+    the residual stream."""
+    return frames.to(p["frontend_proj"].dtype) @ p["frontend_proj"]
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Public model API: init / forward / loss / prefill / decode (port of
-``repro.models.model``, text inputs; dense attention, MoE, Mamba2 and
-zamba2's shared blocks).
+``repro.models.model``: dense attention, MoE, Mamba2 and zamba2's shared
+blocks, with text, audio and vlm inputs).
 
-Inputs are dicts as in the reference: ``{"tokens": (B, S) int}`` or
-``{"embeddings": (B, S, d)}``, optionally with ``"targets"`` and
+Inputs are dicts as in the reference, so every modality has the same
+entry points:
+  text:  ``{"tokens": (B, S) int}``
+  audio: ``{"frames": (B, T, frontend_dim)}`` (stubbed codec output)
+  vlm:   ``{"patches": (B, P, frontend_dim), "tokens": (B, S_text)}``
+or ``{"embeddings": (B, S, d)}``, optionally with ``"targets"`` and
 ``"loss_mask"`` for the loss; "embeddings" bypasses the token table and
 is how the coded serving steps and ``predict_fn`` feed coded queries.
 """
@@ -42,10 +46,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def embed_inputs(cfg: ModelConfig, params: dict,
                  inputs: dict) -> torch.Tensor:
-    """-> (B, S, d) residual-stream inputs."""
+    """-> (B, S, d) residual-stream inputs: audio frames projected; vlm
+    patches projected, then the text's token embeddings after them on
+    the sequence axis."""
     if "embeddings" in inputs:
         return inputs["embeddings"].to(param_dtype(cfg))
-    return layers.embed_tokens(cfg, params["embeddings"], inputs["tokens"])
+    emb = params["embeddings"]
+    if cfg.modality == "audio":
+        return layers.project_frontend(cfg, emb, inputs["frames"])
+    if cfg.modality == "vlm":
+        x = layers.project_frontend(cfg, emb, inputs["patches"])
+        if "tokens" not in inputs:
+            return x
+        return torch.cat([x, layers.embed_tokens(cfg, emb, inputs["tokens"])],
+                         dim=1)
+    return layers.embed_tokens(cfg, emb, inputs["tokens"])
 
 
 def _positions(x: torch.Tensor) -> torch.Tensor:
@@ -74,18 +89,23 @@ def predict_fn(cfg: ModelConfig, params: dict):
 
 def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01) -> Tuple[torch.Tensor, dict]:
-    """Next-token cross-entropy (causal), or per-position CE against
-    ``batch["targets"]`` (encoder-only).  With ``targets`` in a causal
-    batch, targets[t] is the token after the position whose logits are
-    used: logits at -(T+1) .. -2.  ``loss_mask`` weighs the positions.
-    Returns (total, metrics) as the reference does."""
+    """Next-token cross-entropy (causal; vlm: over the text suffix only,
+    the patches being inputs), or per-position CE against
+    ``batch["targets"]`` (encoder-only: hubert's frame labels).  With
+    ``targets`` in a causal batch, targets[t] is the token after the
+    position whose logits are used: logits at -(T+1) .. -2.
+    ``loss_mask`` weighs the positions.  Returns (total, metrics) as the
+    reference does."""
     logits, aux = forward(cfg, params, batch)
     logits = logits.to(torch.float32)
     if cfg.causal:
         targets = batch.get("targets")
         if targets is None:
             targets = batch["tokens"][:, 1:]
-            logits = logits[:, :-1]
+            if cfg.modality == "vlm":
+                logits = logits[:, -batch["tokens"].shape[1]:-1]
+            else:
+                logits = logits[:, :-1]
         else:
             logits = logits[:, -(targets.shape[1] + 1):-1]
     else:

@@ -38,20 +38,18 @@ MLPS = ("silu", "gelu", "geglu")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not cover yet: non-text frontends,
-    and a block kind, norm or MLP the reference does not have either
-    (``NORMS``, ``MLPS``)."""
+    """Raise for a block kind, norm or MLP the reference does not have
+    either (``KINDS``, ``NORMS``, ``MLPS``).  Every modality (text, and
+    the audio and vlm frontends) is ported."""
     other = set(cfg.layer_pattern) - set(KINDS)
     if other:
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(other)} are not ported "
             f"(kinds {KINDS})")
-    if (cfg.norm_type not in NORMS or cfg.mlp_activation not in MLPS
-            or cfg.modality != "text"):
+    if cfg.norm_type not in NORMS or cfg.mlp_activation not in MLPS:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.norm_type} / {cfg.mlp_activation} / "
-            f"{cfg.modality} is not ported yet (norms {NORMS}, MLPs "
-            f"{MLPS}, text inputs)")
+            f"{cfg.name}: {cfg.norm_type} / {cfg.mlp_activation} is not "
+            f"ported (norms {NORMS}, MLPs {MLPS})")
 
 
 def _layer_view(tree, i: int):

@@ -253,7 +253,11 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                   wshard: Optional[WorkerShardConfig] = None):
     """Prefill G*K real prompts as G*(N+1) coded streams.
 
-    inputs: {"tokens": (G*K, S)} or {"embeddings": (G*K, S, d)}.
+    inputs: a modality dict with G*K rows (``{"tokens": (G*K, S)}``,
+    vlm ``{"patches", "tokens"}``, audio ``{"frames"}``) or
+    ``{"embeddings": (G*K, S, d)}``; the N+1 coded streams of a group
+    encode its whole residual stream (a vlm's patches, then its text),
+    and the state's ``pos`` is its length.
     ``cache_dtype``: the coded caches' dtype (default the coded
     streams').
     Byzantine workers (``byz_mask``, (N+1,)) add ``byz_sigma * byz_noise``
@@ -422,8 +426,10 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                        wshard: Optional[WorkerShardConfig] = None):
     """Prefill admitted group slots into the persistent pool.
 
-    inputs: {"tokens": (P*K, S)} or {"embeddings": ...}, the pool-wide
-    prompt buffer (rows of slots not admitted carry stale prompts).
+    inputs: a modality dict of (P*K, ...) rows (``{"tokens": (P*K, S)}``,
+    vlm ``{"patches", "tokens"}``, audio ``{"frames"}``) or
+    ``{"embeddings": ...}``, the pool-wide prompt buffer (rows of slots
+    not admitted carry stale prompts).
     ``admit_mask``: (P,) 0/1 host array (numpy or a CPU tensor) of the
     slots admitted this round.  The whole pool prefills, as in the
     reference: at E > 0 the locator pools votes across every row of the

@@ -327,13 +327,25 @@ def test_check_ported_admits_layernorm_and_gelu_mlps(change):
     dict(modality="vlm", frontend_dim=16, num_patches=4)],
     ids=["moe", "shared", "audio", "vlm"])
 def test_check_ported_still_refuses(change):
-    """``check_ported`` refuses the audio and vlm frontends (ROADMAP
-    A10.3); the MoE "M" and shared "G" blocks it now takes build a model
-    whose forward is finite."""
+    """Nothing of these is refused any more: the MoE "M" and shared "G"
+    blocks, and (since ROADMAP A10.3) the audio and vlm frontends, build
+    a model whose forward on its own inputs is finite.  What
+    ``check_ported`` still refuses is in
+    ``tests/test_torch_frontends.py::test_check_ported_admits_the_frontends``."""
     cfg = configs.get_reduced("qwen3-0.6b").with_updates(**change)
     if "modality" in change:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            transformer.check_ported(cfg)
+        transformer.check_ported(cfg)
+        params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        assert tuple(params["embeddings"]["frontend_proj"].shape) == (
+            16, cfg.d_model)
+        x = torch.randn(1, 6, 16, generator=torch.Generator().manual_seed(1))
+        inputs = ({"frames": x} if cfg.modality == "audio" else
+                  {"patches": x[:, :4], "tokens": torch.zeros(
+                      1, 2, dtype=torch.long)})
+        logits, _ = tmodel.forward(cfg, params, inputs)
+        assert logits.shape == (1, 6, cfg.vocab_size)
+        assert torch.isfinite(logits).all()
         return
     cfg = cfg.with_updates(num_experts=4, experts_per_token=2,
                            moe_d_ff=64, moe_group_size=8)
