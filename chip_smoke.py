@@ -157,7 +157,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    recall 1 on the fixed-mask E=1 runs; then at full width and 2
    layers, card against CPU: paligemma's batch and pool whole paths
    (the pool's live caches too) and hubert's coded round and engine
-   call, and both models' full-sequence entry points.
+   call, and both models' full-sequence entry points;
+17. B3's backward kernel (``flash_attention_bwd``, training) and the
+   forward's row log-sum-exp against their plain versions, and in fp32
+   against autograd of the plain forward, at qwen3-0.6b's training
+   shape (8 x 128 tokens, GQA 16/8 of 128, causal) and at 4 x 2048, both
+   dtypes, timed beside the backward of autograd through SDPA; every
+   rule, head dim and GQA ratio untimed (h2o-danube's window at D = 80,
+   paligemma's prefix-LM at D = 256 rep 8, softcap, q_offset, rows that
+   see no key); and a kernel without a backward (B4) refusing a q that
+   requires grad;
+18. training (ROADMAP A11) on qwen3-0.6b: one ``train_step`` at full
+   width and 2 layers, card against CPU on the same weights and batch
+   (loss, grad norm, every leaf's gradient, the updated parameters under
+   Adam's sign-flip rule); ``launch.train.run`` at full width and depth
+   (28 layers, fp32) at the reference's defaults for 8 steps, with and
+   without remat: losses finite and equal between the two, ms a step,
+   tokens/s, peak memory, and B3 / B3-backward launches held at 28 / 28
+   a step (56 / 28 under remat); one step under torch.profiler.
 
 Each phase prints its wall time.
 
@@ -171,7 +188,11 @@ B3's also ``scheme_streams``, its numbers at phase 14's stream counts,
 and ``launches_scheme``, its launches in each phase-14 run; B1, B2, B3,
 B4 and B5's also ``paligemma-3b`` and B1, B2 and B3's ``hubert-xlarge``,
 their fp32 numbers at phase 16's shapes, B5's launches from paligemma's
-2-layer pool whole path and B3's also ``launches_engine``);
+2-layer pool whole path and B3's also ``launches_engine``; B3's also
+``launches_train`` and ``launches_train_remat``, its launches in phase
+18's two runs; B3's backward ``flash_attention_bwd`` its own entry, at
+the training shape, with its launches in those runs and its numbers at
+4 x 2048 under ``long``);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -217,6 +238,8 @@ REPLACES = {
     "pool_flash_decode": "src/repro/kernels/flash_decode.py:177",
     "ssd_chunked": "src/repro/kernels/ssd_scan.py:75",
     "ssd_chunk_scores": "src/repro/kernels/ssd_scan.py:75",
+    # no Pallas backward: the gradient of the reference's plain attention
+    "flash_attention_bwd": "src/repro/kernels/ref.py:112",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["berrut_encode_dispatch"] = "src/repro_torch/csrc/berrut_apply.cu"
@@ -235,6 +258,7 @@ FUNCTIONS = {
     "pool_flash_decode": ("flash_decode_kernel", "true"),
     "ssd_chunked": ("ssd_chunked_kernel", None),
     "ssd_chunk_scores": ("ssd_scores_kernel", None),
+    "flash_attention_bwd": ("flash_attention_bwd_kernel", None),
 }
 # Per architecture: the kernels one call of each model pass launches,
 # by kernel (besides the round's one encode and one tail): B3 in every
@@ -372,6 +396,15 @@ FACEOFF = [("uncoded", 0, 0), ("replication", S, 0), ("parm", S, 0),
            ("nercc", S, 0), ("invnet", S, 0), ("replication", S, E),
            ("nercc", S, E), ("uncoded", S, E)]
 EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
+# Training (A11): qwen3-0.6b through ``launch.train.run`` at the
+# reference's defaults (8 sequences of 128 tokens, lr 3e-3, warmup 20),
+# TRAIN_STEPS steps at full width and depth, with and without remat; B3's
+# backward also timed at LONG_SHAPE (4 sequences of 2048 tokens).  B3's
+# backward has no Pallas twin: the reference trains through XLA's
+# autodiff of its plain attention, which the kernel computes.
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 3e-3
+LONG_SHAPE = (4, 2048)
 # B3 at the scheme path's stream counts (2 groups of W): ParM's parity
 # call (2), uncoded and ParM's data call (8), replication at E=0 (16) and
 # at E=1 (24)
@@ -429,6 +462,10 @@ class Smoke:
         # generator too; hubert's full-depth weights, shared by its runs
         self.front_gen = torch.Generator(self.dev).manual_seed(6)
         self.audio_params = None
+        # B3's backward at the training shapes ({"train", "long"}: fp32
+        # entry), from a generator of its own
+        self.kernels_train = {}
+        self.train_gen = torch.Generator(self.dev).manual_seed(8)
 
     # ------------------------------------------------------------ helpers
 
@@ -635,6 +672,15 @@ class Smoke:
                    self.whole_pool_controller_path)
         scheme_launches = self.phase("qwen3-0.6b scheme faceoff path",
                                      self.scheme_faceoff)
+        self.free_memory()
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"B3 backward {dtype}", self.b3_backward, dtype)
+        self.phase("no backward, no grad", self.grad_guard)
+        self.phase(f"{TRAIN_ARCH} training, 2 layers, card against CPU",
+                   self.train_card_vs_cpu)
+        train_launches = self.phase(f"{TRAIN_ARCH} training",
+                                    self.train_runs)
+        self.phase(f"{TRAIN_ARCH} train step profile", self.train_profile)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -662,7 +708,11 @@ class Smoke:
                    for arch in MODEL_CARRIER if name in MODEL_CARRIER[arch]},
                 **(self.scheme_entry(scheme_launches)
                    if name == "flash_attention" else {}),
+                **({"launches_train": train_launches[False][name],
+                    "launches_train_remat": train_launches[True][name]}
+                   if name == "flash_attention" else {}),
             })
+        entries.append(self.train_entry(train_launches))
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
                     sorted(self.kernels_model[arch])
@@ -708,6 +758,32 @@ class Smoke:
                     "max_abs_err", "ms", "graph_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
                    if key in res}}
+
+    def train_entry(self, train_launches: dict) -> dict:
+        """The kernels line's entry of B3's backward: its fp32 check and
+        times at the training shape, its launches in the full-depth run
+        (and under remat), and the same numbers at ``LONG_SHAPE``."""
+        name = "flash_attention_bwd"
+        res = self.kernels_train["train"]
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        return {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "replaces_note": "no Pallas backward: XLA's autodiff of the "
+                             "reference's attention_ref",
+            "launches": train_launches[False][name],
+            "launches_run": f"{TRAIN_ARCH} launch.train.run, "
+                            f"{TRAIN_STEPS} steps",
+            "launches_remat": train_launches[True][name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "library": "backward of autograd through "
+                       "scaled_dot_product_attention",
+            "graph_ms": res["graph_ms"],
+            "tensor_cores": self.tensor_cores[name],
+            "long": {key: self.kernels_train["long"][key] for key in keys}}
 
     def scheme_entry(self, scheme_launches: dict) -> dict:
         """The kernels line's ``scheme_streams`` (B3's fp32 check and times
@@ -3633,6 +3709,359 @@ class Smoke:
         finally:
             for kind in real:
                 delattr(executor, kind)
+
+    # ------------------------------------------------- training (A11)
+
+    def b3_backward(self, dtype_name: str):
+        """B3's backward kernel and the forward's row log-sum-exp against
+        their plain versions (``ref.attention_bwd_ref``, given the
+        kernel's own output and log-sum-exp, and ``ref.attention_lse_ref``;
+        in fp32 also autograd of the plain forward ``ref.attention_ref``),
+        at qwen3-0.6b's training shape (8 sequences of 128 tokens, GQA
+        16/8 of 128, causal) and at 4 x 2048, timed: the kernel (``ms``,
+        ``graph_ms``), its plain version, and, as a yardstick only, the
+        backward of autograd through SDPA with the same causal mask
+        (``library_ms``).  The bound counts 10 D flops a visible (row,
+        key) pair (S, dP, dq, dk and dv: five products) against q, k, v,
+        o, dO and the log-sum-exp read once and dq, dk, dv written once.
+        Then, untimed, every rule at every head dim (64, 80, 128, 256) and
+        GQA ratio 1, 2 and 8: h2o-danube's window at D = 80, paligemma's
+        prefix-LM at D = 256 rep 8, softcap, q_offset, and rows that see
+        no key (q_offset -5: their dq exactly 0, their log-sum-exp -inf,
+        as the plain version's)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import flash_attention as fa, ref
+        dtype = getattr(torch, dtype_name)
+        gen = self.train_gen
+        cfg = configs.get_config(TRAIN_ARCH)
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for key, (b, s) in (("train", (TRAIN_BATCH, TRAIN_SEQ)),
+                            ("long", LONG_SHAPE)):
+            q = self.randn(b, s, h, hd, dtype=dtype, gen=gen)
+            k = self.randn(b, s, kvh, hd, dtype=dtype, gen=gen)
+            v = self.randn(b, s, kvh, hd, dtype=dtype, gen=gen)
+            do = self.randn(b, s, h, hd, dtype=dtype, gen=gen)
+            where = f"flash_attention_bwd B={b} S={s} H={h} KV={kvh} D={hd}"
+            res = {"kernel": "flash_attention_bwd", "dtype": dtype_name,
+                   "shape": [list(q.shape), list(k.shape)], "causal": True}
+            res.update(self.b3_backward_checks(where, dtype_name, q, k, v,
+                                               do, {}))
+            out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            res["ms"] = self.time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
+            res["graph_ms"] = self.graph_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
+            res["plain_ms"] = self.time_ms(
+                lambda: ref.attention_bwd_ref(q, k, v, out, lse, do))
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            so = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+            dos = do.transpose(1, 2)
+            res["library_ms"] = self.time_ms(lambda: torch.autograd.grad(
+                so, (qs, ks, vs), dos, retain_graph=True))
+            pairs = visible_pairs(s, causal=True, window=None, prefix=0)
+            res["bound_ms"], res["bound_by"] = self.bound(
+                4 * (q.numel() + k.numel()) * dtype.itemsize
+                + 4 * lse.numel(), 10 * hd * pairs * b * h, dtype_name)
+            res["pairs"] = pairs
+            emit(res)
+            if dtype_name == "float32":
+                self.kernels_train[key] = res
+            del so, qs, ks, vs
+        # every rule, head dim and GQA ratio, untimed
+        cases = []
+        for d in fa.HEAD_DIMS:
+            for heads in ((8, 8), (8, 4), (8, 1)):
+                for kw in (dict(window=37), dict(softcap=20.0),
+                           dict(prefix=40), dict(causal=False),
+                           dict(q_offset=50), dict(q_offset=-5),
+                           dict(prefix=30, window=45, softcap=10.0)):
+                    cases.append((2, 100, *heads, d, kw))
+        h2o = configs.get_config("h2o-danube-1.8b")
+        pali = configs.get_config("paligemma-3b")
+        cases += [(2, 200, h2o.num_heads, h2o.num_kv_heads, h2o.head_dim,
+                   dict(window=64)),
+                  (1, 2 * pali.num_patches, pali.num_heads,
+                   pali.num_kv_heads, pali.head_dim,
+                   dict(prefix=pali.num_patches)),
+                  (3, 77, h, kvh, hd, {})]
+        for b, s, hh, kk, d, kw in cases:
+            l_len = s + kw.get("q_offset", 0)
+            q = self.randn(b, s, hh, d, dtype=dtype, gen=gen)
+            k = self.randn(b, l_len, kk, d, dtype=dtype, gen=gen)
+            v = self.randn(b, l_len, kk, d, dtype=dtype, gen=gen)
+            do = self.randn(b, s, hh, d, dtype=dtype, gen=gen)
+            where = f"flash_attention_bwd B={b} S={s} H={hh} KV={kk} D={d}"
+            out = {"variant": f"{where} {kw}", "dtype": dtype_name}
+            out.update(self.b3_backward_checks(where, dtype_name, q, k, v,
+                                               do, kw))
+            emit(out)
+
+    def b3_backward_checks(self, where: str, dtype_name: str, q, k, v, do,
+                           rule: dict) -> dict:
+        """dq, dk, dv and the log-sum-exp of B3 against their plain
+        versions under ``rule`` (and, in fp32 with every row seeing a key,
+        against autograd of the plain forward), each with ``check``'s
+        tolerance; a row that sees no key must have a -inf log-sum-exp and
+        an exactly zero dq on the card.  Returns the worst error and its
+        ratio to the tolerance."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **rule)
+        want_lse = ref.attention_lse_ref(q, k, **rule)
+        torch.cuda.synchronize()
+        blind = torch.isneginf(want_lse)
+        if not torch.equal(torch.isneginf(lse), blind):
+            raise AssertionError(f"{where} {rule}: the log-sum-exp's -inf "
+                                 f"rows differ from the plain version's")
+        seen = ~blind
+        results = [self.check(f"{where} lse {rule}", lse[seen],
+                              want_lse[seen], "float32")]
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **rule)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, **rule)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            results.append(self.check(f"{where} {name} {rule}", g, w,
+                                      dtype_name))
+        if blind.any():
+            rows = blind.all(1)                       # (B, S): no key seen
+            if got[0][rows].abs().max().item() != 0.0:
+                raise AssertionError(f"{where} {rule}: dq of a row that "
+                                     f"sees no key is not exactly 0")
+        elif dtype_name == "float32":
+            args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            auto = torch.autograd.grad(ref.attention_ref(*args, **rule),
+                                       args, do)
+            for name, g, w in zip(("dq", "dk", "dv"), got, auto):
+                results.append(self.check(
+                    f"{where} {name} {rule} vs autograd", g, w, dtype_name))
+        worst = max(results, key=lambda r: r["err_over_tol"])
+        return {"max_abs_err": max(r["max_abs_err"] for r in results),
+                "err_over_tol": worst["err_over_tol"]}
+
+    def train_card_vs_cpu(self):
+        """One ``train_step`` of qwen3-0.6b at full width and 2 layers,
+        card against CPU, on the same weights (drawn on the card and
+        copied) and the same batch of 8 x 128 tokens at the launcher's
+        optimizer settings: loss, grad norm and lr within 1e-4 relative;
+        every leaf's clipped gradient (the first moment over 1 - b1)
+        within 1e-4 x the leaf's max |grad| (the whole paths' tolerance);
+        updated parameters within 1e-5 |p| + 0.02 lr where the CPU's
+        gradient clears 100 x that tolerance, else within Adam's
+        sign-flip bound 2 lr (1 + wd |p|) (ROADMAP C); launches: B3 and
+        its backward twice each (two layers)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data import SyntheticLMDataset
+        from repro_torch.kernels import ops
+        from repro_torch.models.model import init_params
+        from repro_torch.optim import init_opt_state
+        from repro_torch.training import train_step
+        from repro_torch.tree import flatten_with_path, keystr
+        cfg = configs.get_config(TRAIN_ARCH).with_updates(num_layers=2)
+        tcfg = self.train_config(TRAIN_STEPS)
+        params = {"cuda": init_params(
+            cfg, torch.Generator(self.dev).manual_seed(0), self.dev)}
+        params["cpu"] = _tree_to(params["cuda"], torch.device("cpu"))
+        batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, seed=0).batch(
+            TRAIN_BATCH, np.random.RandomState(1))
+        out = {}
+        devs = {"cpu": torch.device("cpu"), "cuda": self.dev}
+        for dev in ("cpu", "cuda"):
+            p = params[dev]
+            ops.reset_launch_counts()
+            new_p, new_o, m = train_step(
+                cfg, tcfg, p, init_opt_state(p),
+                {k: torch.from_numpy(v).to(devs[dev])
+                 for k, v in batch.items()})
+            launched = ops.launch_counts()
+            out[dev] = (new_p, new_o, {k: float(x) for k, x in m.items()})
+        torch.cuda.synchronize()
+        expected = {name: 0 for name in launched}
+        expected.update(flash_attention=2, flash_attention_bwd=2)
+        if launched != expected:
+            raise AssertionError(f"2-layer card train_step launched "
+                                 f"{launched}, not {expected}")
+        (cp, co, cm), (gp, go, gm) = out["cpu"], out["cuda"]
+        for key in ("loss", "ce_loss", "grad_norm", "lr"):
+            if not abs(gm[key] - cm[key]) <= 1e-4 * abs(cm[key]):
+                raise AssertionError(f"train_step {key}: card {gm[key]}, "
+                                     f"cpu {cm[key]}")
+        b1, lr = tcfg.optimizer.b1, cm["lr"]
+        wd = tcfg.optimizer.weight_decay
+        before = {keystr(k): t for k, t in flatten_with_path(params["cpu"])}
+        gmu = {keystr(k): t.cpu() for k, t in flatten_with_path(go.mu)}
+        gnew = {keystr(k): t.cpu() for k, t in flatten_with_path(gp)}
+        worst_g = worst_p = 0.0
+        strong = total = 0
+        for (path, mu), (_, newp) in zip(flatten_with_path(co.mu),
+                                         flatten_with_path(cp)):
+            key = keystr(path)
+            g_cpu, g_card = mu / (1 - b1), gmu[key] / (1 - b1)
+            tol = 1e-4 * max(g_cpu.abs().max().item(), 1e-30)
+            worst_g = max(worst_g, (g_card - g_cpu).abs().max().item() / tol)
+            p0 = before[key].abs()
+            diff = (gnew[key] - newp).abs()
+            if not (diff <= 2 * lr * (1 + wd * p0) + 1e-6).all():
+                raise AssertionError(f"train_step {key}: an updated "
+                                     f"parameter past 2 lr (1 + wd |p|)")
+            sure = g_cpu.abs() > 100 * tol
+            strict = 1e-5 * newp.abs() + 0.02 * lr
+            if sure.any():
+                worst_p = max(worst_p, (diff[sure] / strict[sure]).max()
+                              .item())
+            strong += int(sure.sum())
+            total += sure.numel()
+        if not (worst_g <= 1.0 and worst_p <= 1.0):
+            raise AssertionError(f"train_step card vs cpu: gradients at "
+                                 f"{worst_g} and strict parameters at "
+                                 f"{worst_p} of their tolerances")
+        emit({"train_step_card_vs_cpu": f"{TRAIN_ARCH} 2 layers, full "
+              f"width, {TRAIN_BATCH} x {TRAIN_SEQ}",
+              "loss": [cm["loss"], gm["loss"]],
+              "grad_norm": [cm["grad_norm"], gm["grad_norm"]],
+              "grads_err_over_tol": worst_g,
+              "strict_params_err_over_tol": worst_p,
+              "strict_share": strong / total, "launches": launched})
+
+    def train_config(self, steps: int):
+        """The launcher's optimizer settings (``launch.train.run``): the
+        reference's default lr 3e-3, warmup 20, cosine over ``steps``."""
+        from repro_torch.optim import OptimizerConfig
+        from repro_torch.training import TrainConfig
+        return TrainConfig(optimizer=OptimizerConfig(
+            learning_rate=TRAIN_LR, warmup_steps=20, total_steps=steps))
+
+    def train_full(self, remat: bool) -> dict:
+        """``launch.train.run`` on qwen3-0.6b at full width and depth (28
+        layers, fp32, tied 151936-token table) at the reference's defaults
+        (8 x 128 tokens, AdamW at lr 3e-3, warmup 20) for ``TRAIN_STEPS``
+        steps, with or without ``remat``: every loss finite, the ms a step
+        after the first, tokens/s, peak ``max_memory_allocated``, and the
+        launches held exactly: B3's backward 28 a step, B3 28 a step (56
+        under remat, which launches each block's forward again), nothing
+        else.  Returns the launches and the losses."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as launch_train
+        self.free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        history = []
+        launch_train.run(TRAIN_ARCH, False, TRAIN_STEPS, TRAIN_BATCH,
+                         TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
+                         log_every=TRAIN_STEPS, device=self.dev, seed=0,
+                         remat=remat, history=history)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        layers = PATH_KERNELS[TRAIN_ARCH]["prefill"]["flash_attention"]
+        expected = {name: 0 for name in launched}
+        expected.update(
+            flash_attention=layers * TRAIN_STEPS * (2 if remat else 1),
+            flash_attention_bwd=layers * TRAIN_STEPS)
+        if launched != expected:
+            raise AssertionError(f"train run (remat {remat}) launched "
+                                 f"{launched}, not {expected}")
+        losses = [h["loss"] for h in history]
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"train run losses {losses}")
+        steady = [h["seconds"] for h in history[1:]]
+        ms = 1e3 * float(np.mean(steady))
+        emit({"train_run": f"{TRAIN_ARCH} full width and depth, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps",
+              "remat": remat, "losses": losses,
+              "grad_norms": [h["grad_norm"] for h in history],
+              "first_step_ms": 1e3 * history[0]["seconds"],
+              "ms_per_step": ms, "ms_per_step_min": 1e3 * min(steady),
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+              "peak_gb": peak / 1e9,
+              "launches_per_step": {name: n / TRAIN_STEPS
+                                    for name, n in launched.items() if n},
+              "launches": launched})
+        return {"launches": launched, "losses": losses}
+
+    def train_runs(self):
+        """The two full-depth runs (``train_full``); the same weights and
+        batches with and without remat give losses within 1e-4 relative
+        (remat recomputes the same kernels on the same inputs)."""
+        runs = {remat: self.train_full(remat) for remat in (False, True)}
+        a, b = runs[False]["losses"], runs[True]["losses"]
+        worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+        emit({"train_remat_loss_rel_diff": worst})
+        if not worst <= 1e-4:
+            raise AssertionError(f"losses with remat {b}, without {a}")
+        return {remat: run["launches"] for remat, run in runs.items()}
+
+    def train_profile(self):
+        """One full-depth training step (after a warm-up step) under
+        torch.profiler: device time by kernel, busy share, and the host
+        syncs of a step (``count_syncs``, outside the profiler); then one
+        step's two halves timed apart with CUDA events: ``loss_and_grads``
+        (forward and backward) and ``adamw_update``."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data import ShardedLoader, SyntheticLMDataset
+        from repro_torch.models.model import init_params
+        from repro_torch.optim import adamw_update, init_opt_state
+        from repro_torch.training import train_step
+        from repro_torch.training.train import loss_and_grads
+        self.free_memory()
+        cfg = configs.get_config(TRAIN_ARCH)
+        tcfg = self.train_config(TRAIN_STEPS)
+        box = {"params": init_params(
+            cfg, torch.Generator(self.dev).manual_seed(0), self.dev)}
+        box["opt"] = init_opt_state(box["params"])
+        loader = ShardedLoader(SyntheticLMDataset(
+            cfg.vocab_size, TRAIN_SEQ, seed=0).stream(TRAIN_BATCH),
+            device=self.dev)
+
+        def step():
+            box["params"], box["opt"], _ = train_step(
+                cfg, tcfg, box["params"], box["opt"], next(loader))
+
+        step()
+        syncs = self.count_syncs(step)
+        self.profile_call(f"{TRAIN_ARCH} train step, {TRAIN_BATCH} x "
+                          f"{TRAIN_SEQ}", step, syncs)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        batch = next(loader)
+        torch.cuda.synchronize()
+        events[0].record()
+        _, _, grads = loss_and_grads(cfg, tcfg, box["params"], batch)
+        events[1].record()
+        adamw_update(tcfg.optimizer, box["params"], grads, box["opt"])
+        events[2].record()
+        torch.cuda.synchronize()
+        emit({"train_step_split": f"{TRAIN_ARCH}, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}",
+              "loss_and_grads_ms": events[0].elapsed_time(events[1]),
+              "adamw_update_ms": events[1].elapsed_time(events[2])})
+        del box, grads
+        self.free_memory()
+
+    def grad_guard(self):
+        """On the card a kernel without a backward refuses an input that
+        requires grad: B4 with such a q raises, naming ROADMAP A12; the
+        same call under ``no_grad`` runs."""
+        torch = self.torch
+        from repro_torch.kernels import ops
+        q = self.randn(4, 16, 128, gen=self.train_gen).requires_grad_(True)
+        cache = self.randn(4, 32, 8, 128, gen=self.train_gen)
+        mask = torch.ones(4, 32, dtype=torch.uint8, device=self.dev)
+        try:
+            ops.decode_attention(q, cache, cache, mask)
+        except RuntimeError as err:
+            if "flash_decode has no backward kernel" not in str(err):
+                raise
+            emit({"grad_guard": str(err)})
+        else:
+            raise AssertionError("flash_decode ran on a q that requires "
+                                 "grad")
+        with torch.no_grad():
+            ops.decode_attention(q, cache, cache, mask)
+        torch.cuda.synchronize()
 
     def profile_rounds(self, arch: str):
         """One E=1 prefill round and one decode round at full width and

@@ -6,7 +6,13 @@
 // sliding-window, prefix-LM, logit softcap and q_offset visibility rules;
 // keys at or beyond kv_len are masked; fp32 running max, sum and
 // accumulator; a row that sees no key gives the guarded 0, never NaN
-// (m_safe, denominator at least 1e-30), as the TPU kernel does.
+// (m_safe, denominator at least 1e-30), as the TPU kernel does.  With a
+// non-null lse pointer the kernel also writes each row's log-sum-exp
+// (fp32, (B, H, S), natural log, in the scaled and softcapped score
+// space it normalises in; -inf for a row that sees no key), which the
+// backward kernel (flash_attention_bwd.cu) reads to rebuild P.  That
+// write is a template choice (kLse): compiled into the serving instance,
+// it made fp32 at D = 128 20% slower on an H100.
 //
 // Bound: operations at the main path's shapes (S = L = 256, D = 128: the
 // causal half of 4*S*L*D flops per head against q, k, v and out read or
@@ -62,6 +68,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 
@@ -187,10 +194,11 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int s_len,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int s_len,
                        int kv_len, int heads, int kv_heads, bool causal,
                        int window, int prefix, float softcap, int q_offset,
                        float scale) {
@@ -393,6 +401,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
     const int row = row0 + wrow + g + 8 * rr;
     if (row >= s_len) continue;
+    if (kLse && t == 0) {
+      // m is in log2 units; a row that saw no key keeps m at kNegInf
+      lse[(b * heads + h) * s_len + row] =
+          m[rr] <= kNegInf ? __int_as_float(0xff800000)   // -inf
+                          : (m[rr] + log2f(lsum)) * kLn2;
+    }
     const float inv = 1.f / fmaxf(lsum, 1e-30f);
     T* op = out + ((b * s_len + row) * heads + h) * D + 2 * t;
 #pragma unroll
@@ -402,57 +416,74 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dim(const T* q, const T* k, const T* v, T* out, int batch,
-                       int s_len, int kv_len, int heads, int kv_heads,
-                       bool causal, int window, int prefix, float softcap,
-                       int q_offset, float scale, cudaStream_t s) {
+template <typename T, int D, bool kLse>
+cudaError_t launch_kernel(const T* q, const T* k, const T* v, T* out,
+                          float* lse, int batch, int s_len, int kv_len,
+                          int heads, int kv_heads, bool causal, int window,
+                          int prefix, float softcap, int q_offset,
+                          float scale, cudaStream_t s) {
   const size_t smem = Cfg<T, D>::kSmem;
   // above 48 KB only once raised; set before every launch, since the
   // attribute is per device and the current device may change
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<T, D, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, D, kLse>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   constexpr int kRows = Cfg<T, D>::kRows;
   const dim3 grid((s_len + kRows - 1) / kRows, heads, batch);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, s>>>(
-      q, k, v, out, s_len, kv_len, heads, kv_heads, causal, window, prefix,
-      softcap, q_offset, scale);
+  flash_attention_kernel<T, D, kLse><<<grid, kThreads, smem, s>>>(
+      q, k, v, out, lse, s_len, kv_len, heads, kv_heads, causal, window,
+      prefix, softcap, q_offset, scale);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dim(const T* q, const T* k, const T* v, T* out, float* lse,
+                       int batch, int s_len, int kv_len, int heads,
+                       int kv_heads, bool causal, int window, int prefix,
+                       float softcap, int q_offset, float scale,
+                       cudaStream_t s) {
+  if (lse != nullptr) {
+    return launch_kernel<T, D, true>(q, k, v, out, lse, batch, s_len, kv_len,
+                                     heads, kv_heads, causal, window, prefix,
+                                     softcap, q_offset, scale, s);
+  }
+  return launch_kernel<T, D, false>(q, k, v, out, lse, batch, s_len, kv_len,
+                                    heads, kv_heads, causal, window, prefix,
+                                    softcap, q_offset, scale, s);
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, int batch, int s_len, int kv_len,
-                         int heads, int kv_heads, int head_dim, bool causal,
-                         int window, int prefix, float softcap, int q_offset,
-                         float scale, cudaStream_t s) {
+                         void* out, float* lse, int batch, int s_len,
+                         int kv_len, int heads, int kv_heads, int head_dim,
+                         bool causal, int window, int prefix, float softcap,
+                         int q_offset, float scale, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(out);
   switch (head_dim) {
     case 64:
-      return launch_dim<T, 64>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
-                               kv_heads, causal, window, prefix, softcap,
-                               q_offset, scale, s);
+      return launch_dim<T, 64>(qt, kt, vt, ot, lse, batch, s_len, kv_len,
+                               heads, kv_heads, causal, window, prefix,
+                               softcap, q_offset, scale, s);
     case 80:
-      return launch_dim<T, 80>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
-                               kv_heads, causal, window, prefix, softcap,
-                               q_offset, scale, s);
+      return launch_dim<T, 80>(qt, kt, vt, ot, lse, batch, s_len, kv_len,
+                               heads, kv_heads, causal, window, prefix,
+                               softcap, q_offset, scale, s);
     case 128:
-      return launch_dim<T, 128>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
-                                kv_heads, causal, window, prefix, softcap,
-                                q_offset, scale, s);
+      return launch_dim<T, 128>(qt, kt, vt, ot, lse, batch, s_len, kv_len,
+                                heads, kv_heads, causal, window, prefix,
+                                softcap, q_offset, scale, s);
     case 256:
-      return launch_dim<T, 256>(qt, kt, vt, ot, batch, s_len, kv_len, heads,
-                                kv_heads, causal, window, prefix, softcap,
-                                q_offset, scale, s);
+      return launch_dim<T, 256>(qt, kt, vt, ot, lse, batch, s_len, kv_len,
+                                heads, kv_heads, causal, window, prefix,
+                                softcap, q_offset, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -461,24 +492,26 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window < 0 means no sliding window.
-// q, k, v and out must be 16-byte aligned.  Returns the launch's error
+// q, k, v and out must be 16-byte aligned.  lse: null, or a float32
+// (B, H, S) output for the rows' log-sum-exp.  Returns the launch's error
 // code (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int batch,
-                                      int s_len, int kv_len, int heads,
-                                      int kv_heads, int head_dim, int causal,
-                                      int window, int prefix, float softcap,
-                                      int q_offset, float scale, int dtype,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse,
+                                      int batch, int s_len, int kv_len,
+                                      int heads, int kv_heads, int head_dim,
+                                      int causal, int window, int prefix,
+                                      float softcap, int q_offset,
+                                      float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0) {
     return static_cast<int>(launch_typed<float>(
-        q, k, v, out, batch, s_len, kv_len, heads, kv_heads, head_dim,
+        q, k, v, out, lse_f, batch, s_len, kv_len, heads, kv_heads, head_dim,
         causal != 0, window, prefix, softcap, q_offset, scale, s));
   }
   if (dtype == 1) {
     return static_cast<int>(launch_typed<__nv_bfloat16>(
-        q, k, v, out, batch, s_len, kv_len, heads, kv_heads, head_dim,
+        q, k, v, out, lse_f, batch, s_len, kv_len, heads, kv_heads, head_dim,
         causal != 0, window, prefix, softcap, q_offset, scale, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -6,6 +6,13 @@ Nothing else selects the path: no environment variable, no global
 switch, no fallback from a failed kernel to the plain version.  This
 takes the place of the reference's ``KernelType`` dispatch
 (``repro.kernels.ops``).
+
+Gradients: on the card, prefill attention runs under autograd as
+``flash_attention.FlashAttentionFn`` (B3 forward, then its backward
+kernel) whenever grad is enabled and an input requires it.  Every other
+kernel has no backward, so on the card it raises in that case rather
+than hand autograd an output with no history.  On the CPU the plain
+versions are differentiated by autograd as they are.
 """
 
 from __future__ import annotations
@@ -18,12 +25,14 @@ from repro_torch.kernels import (berrut_decode, berrut_matmul,
                                  flash_attention, flash_decode, ref,
                                  ssd_scan)
 
-# The kernels of the coded serving rounds, batch and slot pool, by name.
+# The kernels of the coded serving rounds, batch and slot pool, and B3's
+# backward (training), by name.
 KERNELS = {
     "berrut_apply": berrut_matmul.KERNEL,
     "berrut_encode_dispatch": berrut_matmul.DISPATCH_KERNEL,
     "fused_group_decode": berrut_decode.KERNEL,
     "flash_attention": flash_attention.KERNEL,
+    "flash_attention_bwd": flash_attention.BWD_KERNEL,
     "flash_decode": flash_decode.KERNEL,
     "pool_flash_decode": flash_decode.POOL_KERNEL,
     "ssd_chunked": ssd_scan.KERNEL,
@@ -49,9 +58,31 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {x.device}")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+# the ROADMAP item that would bring a backward kernel to each kernel that
+# has none
+_NO_BACKWARD = "A12: serving kernels, which no training path reaches"
+_B7_BACKWARD = "A12: B7's backward, for Mamba2 and zamba2 training"
+
+
+def _refuse_grad(name: str, item: str, *tensors) -> None:
+    """On the card: raise if autograd would have to differentiate kernel
+    ``name``, which has no backward kernel."""
+    if _needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel on the card (ROADMAP {item}); "
+            f"call it under torch.no_grad() or on tensors that do not "
+            f"require grad")
+
+
 def berrut_apply(weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(O, I) @ (..., I, F) -> (..., O, F), fp32 accumulation."""
     if _on_card(x):
+        _refuse_grad("berrut_apply", _NO_BACKWARD, weights, x)
         return berrut_matmul.berrut_apply(weights, x)
     return ref.berrut_apply_ref(weights, x)
 
@@ -62,6 +93,7 @@ def berrut_encode_dispatch(weights: torch.Tensor,
     ``o*G + g`` row order, fp32 accumulation; ``weights`` may be a row
     slice of the encode matrix."""
     if _on_card(x):
+        _refuse_grad("berrut_encode_dispatch", _NO_BACKWARD, weights, x)
         return berrut_matmul.berrut_encode_dispatch(weights, x)
     return ref.berrut_encode_dispatch_ref(weights, x)
 
@@ -76,6 +108,8 @@ def fused_group_decode(grouped: torch.Tensor, masks: torch.Tensor,
     reads it in place, its vocabulary axis with unit stride, and raises
     on any other."""
     if _on_card(grouped):
+        _refuse_grad("fused_group_decode", _NO_BACKWARD, grouped, masks,
+                     alphas, betas)
         return berrut_decode.fused_group_decode(grouped, masks, alphas, betas,
                                                 c_vote=c_vote)
     return ref.fused_group_decode_ref(grouped, masks, alphas, betas,
@@ -86,8 +120,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               prefix: int = 0, softcap: float = 0.0,
               q_offset: int = 0) -> torch.Tensor:
-    """Prefill attention: q (B, S, H, D), k and v (B, L, KV, D)."""
+    """Prefill attention: q (B, S, H, D), k and v (B, L, KV, D).  On the
+    card, under autograd when grad is enabled and an input requires it
+    (B3 forward and its backward kernel)."""
     if _on_card(q):
+        if _needs_grad(q, k, v):
+            return flash_attention.FlashAttentionFn.apply(
+                q, k, v, causal, window, prefix, softcap, q_offset)
         return flash_attention.flash_attention(
             q, k, v, causal=causal, window=window, prefix=prefix,
             softcap=softcap, q_offset=q_offset)
@@ -104,6 +143,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask.  kv_scale > 0 marks int8 caches quantised as round(x*scale):
     the kernel dequantises in registers, the plain path up front."""
     if _on_card(q):
+        _refuse_grad("flash_decode", _NO_BACKWARD, q, k_cache, v_cache)
         return flash_decode.flash_decode(q, k_cache, v_cache, kv_mask,
                                          softcap=softcap, kv_scale=kv_scale)
     if kv_scale > 0.0:
@@ -123,6 +163,7 @@ def pool_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     optional (B,) live mask instead of a (B, W) mask.  A stream that sees
     no key (live 0) gives exact zeros on both paths."""
     if _on_card(q):
+        _refuse_grad("pool_flash_decode", _NO_BACKWARD, q, k_cache, v_cache)
         return flash_decode.pool_flash_decode(
             q, k_cache, v_cache, pos, live, softcap=softcap,
             kv_scale=kv_scale)
@@ -139,6 +180,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     chunk; the kernel tiles S its own way, which the chunked algebra
     allows."""
     if _on_card(x):
+        _refuse_grad("ssd_chunked", _B7_BACKWARD, x, dt, a_log, b, c,
+                     d_skip, h0)
         return ssd_scan.ssd_chunked(x, dt, a_log, b, c, d_skip, h0=h0)
     return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, h0=h0, chunk=chunk)
 
@@ -147,6 +190,7 @@ def ssd_chunk_scores(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The SSD scan's scores pass: C B^T within each of the kernel's
     chunks, (B, S, N) -> (B, ceil(S / CHUNK), CHUNK, CHUNK) fp32."""
     if _on_card(b):
+        _refuse_grad("ssd_chunk_scores", _B7_BACKWARD, b, c)
         return ssd_scan.ssd_chunk_scores(b, c)
     return ref.ssd_chunk_scores_ref(b, c, ssd_scan.CHUNK)
 

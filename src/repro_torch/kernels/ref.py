@@ -96,6 +96,71 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def _scaled_scores(q: torch.Tensor, k: torch.Tensor, softcap: float):
+    """(raw, c): fp32 (B, KV, rep, S, L) scores q k^T / sqrt(D), and the
+    same softcapped (``c`` is ``raw`` without a softcap)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.to(torch.float32).reshape(b, s, kv, h // kv, d)
+    raw = torch.einsum("bsgrd,blgd->bgrsl", qg,
+                       k.to(torch.float32)) * (1.0 / d ** 0.5)
+    if softcap > 0.0:
+        return raw, softcap * torch.tanh(raw / softcap)
+    return raw, raw
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      prefix: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0) -> torch.Tensor:
+    """The rows' log-sum-exp that B3 writes for its backward: (B, H, S)
+    fp32, natural log over the keys the rule lets each row see, in the
+    scaled and softcapped score space; -inf for a row that sees no key."""
+    b, s, h, _ = q.shape
+    _, c = _scaled_scores(q, k, softcap)
+    allowed = _mask_bias(s, k.shape[1], causal=causal, window=window,
+                         prefix=prefix, q_offset=q_offset, device=q.device)
+    c = torch.where(allowed, c, float("-inf"))
+    return torch.logsumexp(c, dim=-1).reshape(b, h, s)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      prefix: int = 0, softcap: float = 0.0,
+                      q_offset: int = 0):
+    """The gradient B3's backward kernel computes, written out: (dq, dk,
+    dv) in q's, k's and v's dtype from the forward's output ``o``, its
+    log-sum-exp ``lse`` (B, H, S) and the output gradient ``do``.
+
+    P = exp(c - lse) on the visible pairs (0 elsewhere), dP = dO v^T,
+    Delta = rowsum(dO * o), dC = P (dP - Delta), dS = dC (1 - (c/cap)^2)
+    with a softcap; dq = dS k / sqrt(D), dk = dS^T q / sqrt(D), dv = P^T
+    dO.  A row that sees no key gets dq = 0 and adds nothing to dk or dv
+    (B3's output for it is 0; ``attention_ref``'s is a uniform mean)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    rep = h // kv
+    _, c = _scaled_scores(q, k, softcap)
+    allowed = _mask_bias(s, k.shape[1], causal=causal, window=window,
+                         prefix=prefix, q_offset=q_offset, device=q.device)
+    lse_g = lse.to(torch.float32).reshape(b, kv, rep, s)[..., None]
+    p = torch.where(allowed, torch.exp(c - lse_g), 0.0)
+    dof = do.to(torch.float32).reshape(b, s, kv, rep, d)
+    dp = torch.einsum("bsgrd,blgd->bgrsl", dof, v.to(torch.float32))
+    delta = (dof * o.to(torch.float32).reshape(b, s, kv, rep, d)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    if softcap > 0.0:
+        ds = ds * (1.0 - (c / softcap) ** 2)
+    scale = 1.0 / d ** 0.5
+    qg = q.to(torch.float32).reshape(b, s, kv, rep, d)
+    dq = torch.einsum("bgrsl,blgd->bsgrd", ds, k.to(torch.float32)) * scale
+    dk = torch.einsum("bgrsl,bsgrd->blgd", ds, qg) * scale
+    dv = torch.einsum("bgrsl,bsgrd->blgd", p, dof)
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
                          softcap: float = 0.0) -> torch.Tensor:

@@ -140,7 +140,9 @@ def main(argv: Optional[list] = None) -> dict:
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
     if args.mode == "train":
-        ap.error("--mode train is not ported yet (ROADMAP A11)")
+        ap.error("--mode train is not ported yet: it trains on the "
+                 "production mesh (ROADMAP A9's model and pod axes); one "
+                 "device trains through repro_torch.launch.train")
     if args.multi_pod:
         ap.error("--multi-pod is not ported yet (the A9 model and pod "
                  "axes)")

@@ -31,3 +31,12 @@ def params_from_jax(tree, device=None):
         return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
     return convert(tree)
+
+
+def opt_state_from_jax(state, device=None):
+    """The reference's ``OptState`` (its leaves numpy arrays:
+    ``jax.tree.map(np.asarray, state)``) as the port's, on ``device``."""
+    from repro_torch.optim import OptState
+    return OptState(step=params_from_jax(state.step, device),
+                    mu=params_from_jax(state.mu, device),
+                    nu=params_from_jax(state.nu, device))

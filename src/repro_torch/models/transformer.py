@@ -9,7 +9,10 @@ layer axis; the JAX ``scan`` over that axis becomes a Python loop over
 per-layer views, which the blocks write in place.  A "G" position is a
 run of its own: its parameter entry is ``{}`` and every G position
 applies ``blocks["shared"]`` as an "A" block, with a KV cache of its
-own (a run of leading size 1).
+own (a run of leading size 1).  With ``cfg.remat`` the full-sequence
+driver checkpoints each block (the reference's ``_maybe_remat``): its
+activations are recomputed in the backward pass, so a block's kernels
+launch twice a training step.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention, layers, mamba2, mlp, moe
 from repro_torch.models.config import ModelConfig
@@ -52,11 +56,17 @@ def check_ported(cfg: ModelConfig) -> None:
             f"ported (norms {NORMS}, MLPs {MLPS})")
 
 
-def _layer_view(tree, i: int):
-    """The i-th layer of a stacked parameter or cache tree (views)."""
+def _layer_views(tree, count: int) -> list:
+    """All ``count`` layers of a stacked parameter or cache tree, as
+    views from one ``unbind`` a leaf (a cache is written in place through
+    them).  Autograd then stacks the layers' gradients into each leaf in
+    one op; indexing layer by layer would build a zero-filled gradient of
+    the whole stacked leaf for every layer and add them up, which at full
+    depth is most of a training step's elementwise time."""
     if isinstance(tree, dict):
-        return {k: _layer_view(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _layer_views(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(count)]
+    return tree.unbind(0)
 
 
 def _map(fn, tree):
@@ -162,17 +172,30 @@ def block_apply(cfg: ModelConfig, kind: str, p: dict, x, positions):
 AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
 
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` checkpointed (recomputed in the backward pass) when
+    ``cfg.remat``, as ``jax.checkpoint`` in the reference."""
+    if not cfg.remat:
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+
+    return remat
+
+
 def apply_runs(cfg: ModelConfig, blocks: dict, x, positions):
     """Forward through all runs (train / plain inference).  Returns
     (x, aux): as the reference, each MoE statistic summed over the
     layers (zero without "M" blocks)."""
     total = {name: torch.zeros((), dtype=torch.float32, device=x.device)
              for name in AUX}
+    apply = _maybe_remat(cfg, block_apply)
     for kind, count, run_p in _runs(cfg, blocks):
         auxs = []
-        for i in range(count):
-            x, aux = block_apply(cfg, kind, _layer_view(run_p, i), x,
-                                 positions)
+        for layer_p in _layer_views(run_p, count):
+            x, aux = apply(cfg, kind, layer_p, x, positions)
             auxs.append(aux)
         if kind == "M":
             total = {name: total[name] + torch.stack(
@@ -215,15 +238,16 @@ def block_decode(cfg: ModelConfig, kind: str, p: dict, x, pos, cache,
 
 def prefill_runs(cfg: ModelConfig, blocks: dict, x, positions, caches):
     for (kind, count, run_p), cache in zip(_runs(cfg, blocks), caches):
-        for i in range(count):
-            x, _ = block_prefill(cfg, kind, _layer_view(run_p, i), x,
-                                 positions, _layer_view(cache, i))
+        for layer_p, layer_c in zip(_layer_views(run_p, count),
+                                    _layer_views(cache, count)):
+            x, _ = block_prefill(cfg, kind, layer_p, x, positions, layer_c)
     return x, caches
 
 
 def decode_runs(cfg: ModelConfig, blocks: dict, x, pos, caches, live=None):
     for (kind, count, run_p), cache in zip(_runs(cfg, blocks), caches):
-        for i in range(count):
-            x, _ = block_decode(cfg, kind, _layer_view(run_p, i), x, pos,
-                                _layer_view(cache, i), live=live)
+        for layer_p, layer_c in zip(_layer_views(run_p, count),
+                                    _layer_views(cache, count)):
+            x, _ = block_decode(cfg, kind, layer_p, x, pos, layer_c,
+                                live=live)
     return x, caches

@@ -1,0 +1,9 @@
+"""optim of the PyTorch port (mirrors repro.optim)."""
+
+from repro_torch.optim.adamw import (OptimizerConfig, OptState,
+                                     adamw_update, clip_by_global_norm,
+                                     global_norm, init_opt_state,
+                                     learning_rate)
+
+__all__ = ["OptimizerConfig", "OptState", "adamw_update", "init_opt_state",
+           "learning_rate", "global_norm", "clip_by_global_norm"]

@@ -198,7 +198,8 @@ def test_launch_counts_cover_the_four_kernels():
     assert set(ops.launch_counts()) == {"berrut_apply",
                                         "berrut_encode_dispatch",
                                         "fused_group_decode",
-                                        "flash_attention", "flash_decode",
+                                        "flash_attention",
+                                        "flash_attention_bwd", "flash_decode",
                                         "pool_flash_decode", "ssd_chunked",
                                         "ssd_chunk_scores"}
     ops.reset_launch_counts()
