@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's coded LLM serving paths on one CUDA card.
+"""Run the PyTorch port's coded LLM serving and training paths on one
+CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -174,7 +175,29 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (28 layers, fp32) at the reference's defaults for 8 steps, with and
    without remat: losses finite and equal between the two, ms a step,
    tokens/s, peak memory, and B3 / B3-backward launches held at 28 / 28
-   a step (56 / 28 under remat); one step under torch.profiler.
+   a step (56 / 28 under remat); one step under torch.profiler;
+19. B7's backward (ROADMAP A12: ``ssd_chunked_bwd`` and its head sum
+   ``ssd_bwd_head_sum``, ``csrc/ssd_scan_bwd.cu``) against its plain
+   version ``ref.ssd_chunked_bwd_ref``, fp32 and bf16, at mamba2-780m's
+   and zamba2-1.2b's training shapes (8 x 128; 48 heads of 64, state
+   128; 64 heads of 64, state 64), over ``BWD_DRAWS`` draws of each
+   variant (h0, a gradient of h_final, both, S = 1, 31, 33 and 2048,
+   strong decay), the worst share of ``BWD_TOL`` printed; in fp32 also
+   against autograd of the plain forward; timed at both shapes, the
+   head sum beside ``torch.sum``;
+20. training mamba2-780m and zamba2-1.2b on the card: one ``train_step``
+   card against CPU at full width and 2 layers (zamba2: 6, "SSSSSG")
+   under phase 18's rules; ``launch.train.run`` at full width and depth
+   (48 and 38 layers, fp32) for 8 steps with and without remat, the
+   launches held (each of B7's four launches 48 / 32 a step, the
+   forward's twice under remat; zamba2's B3 and its backward 6); one
+   step of each profiled, with its memory split (parameters and
+   moments, the forward and backward's peak, the optimizer's);
+21. one ``train_step`` card against CPU at full width and 2 layers for
+   each family not trained on the card before: qwen3-moe-30b-a3b
+   (router routes held, ``route_walk``), paligemma-3b (2 x 256 patches
+   and 32 text tokens), hubert-xlarge (2 x 500 frames, frame targets)
+   and h2o-danube-1.8b (head_dim 80), under phase 18's rules.
 
 Each phase prints its wall time.
 
@@ -192,7 +215,11 @@ their fp32 numbers at phase 16's shapes, B5's launches from paligemma's
 ``launches_train`` and ``launches_train_remat``, its launches in phase
 18's two runs; B3's backward ``flash_attention_bwd`` its own entry, at
 the training shape, with its launches in those runs and its numbers at
-4 x 2048 under ``long``);
+4 x 2048 under ``long``; B7's entries also ``launches_train``,
+``launches_train_remat`` (mamba2's runs) and ``launches_train_zamba2``;
+B7's backward and its head sum their own entries, at mamba2's training
+shape, with their launches in phase 20's runs and their numbers at
+zamba2's under ``zamba2-1.2b``);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -240,12 +267,17 @@ REPLACES = {
     "ssd_chunk_scores": "src/repro/kernels/ssd_scan.py:75",
     # no Pallas backward: the gradient of the reference's plain attention
     "flash_attention_bwd": "src/repro/kernels/ref.py:112",
+    # no Pallas backward: the gradient of the reference's chunked scan
+    "ssd_chunked_bwd": "src/repro/kernels/ref.py:334",
+    "ssd_bwd_head_sum": "src/repro/kernels/ref.py:334",
 }
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["berrut_encode_dispatch"] = "src/repro_torch/csrc/berrut_apply.cu"
 SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd_scan.cu"
 SOURCES["ssd_chunk_scores"] = "src/repro_torch/csrc/ssd_scan.cu"
+SOURCES["ssd_chunked_bwd"] = "src/repro_torch/csrc/ssd_scan_bwd.cu"
+SOURCES["ssd_bwd_head_sum"] = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 # The device function of each kernel in the built libraries, and the
 # value of its last template argument where two kernels share one
 # (berrut_apply_kernel's kWorkerMajor, flash_decode_kernel's kPool).
@@ -259,6 +291,8 @@ FUNCTIONS = {
     "ssd_chunked": ("ssd_chunked_kernel", None),
     "ssd_chunk_scores": ("ssd_scores_kernel", None),
     "flash_attention_bwd": ("flash_attention_bwd_kernel", None),
+    "ssd_chunked_bwd": ("ssd_bwd_kernel", None),
+    "ssd_bwd_head_sum": ("ssd_bwd_head_sum_kernel", None),
 }
 # Per architecture: the kernels one call of each model pass launches,
 # by kernel (besides the round's one encode and one tail): B3 in every
@@ -405,6 +439,34 @@ EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 3e-3
 LONG_SHAPE = (4, 2048)
+# A12: mamba2-780m and zamba2-1.2b train on the card through B7's forward
+# and its backward (``ssd_chunked_bwd``, then ``ssd_bwd_head_sum``), which
+# the reference does not have either: it trains through XLA's autodiff of
+# its plain chunked scan.  The backward is held against its plain version
+# over BWD_DRAWS draws of every variant at both models' training shapes
+# (TRAIN_BATCH x TRAIN_SEQ); each model trains one step card against CPU
+# at full width and TRAIN_SMALL's depth, then through ``launch.train.run``
+# at full width and depth like qwen3-0.6b.  TRAIN_FAMILIES, which had
+# never trained on the card, each take the card-against-CPU step at full
+# width and 2 layers (paligemma on TRAIN_VLM_TEXT text tokens after its
+# patches, hubert on FRAMES frames with frame targets, TRAIN_FRONT_BATCH
+# sequences each).
+TRAIN_SSM = ("mamba2-780m", ZAMBA2)
+TRAIN_SMALL = {"mamba2-780m": dict(num_layers=2),
+               ZAMBA2: dict(num_layers=6, layer_pattern="SSSSSG")}
+TRAIN_FAMILIES = (QWEN3_MOE, PALIGEMMA, HUBERT, "h2o-danube-1.8b")
+TRAIN_FRONT_BATCH, TRAIN_VLM_TEXT = 2, 32
+BWD_DRAWS = 5
+# B7's backward against its plain version: an fp32 output within
+# BWD_TOL x max(1, max |plain|) (``sums``: d a_log and dD, each a sum over
+# every (stream, step)), a bf16 one (dx, db, dc) under ``check``'s bf16
+# rule.  Both sum the same fp32 terms in other orders, and the terms of
+# ddt (x . d xbar + a d la, |a| up to 16) and of d a_log (d la la over
+# every step) cancel, so their errors follow the terms' magnitudes, not
+# the result's.  Measured (H100, 3 draws of each variant at both shapes):
+# at most 6.1e-5 (ddt) and 1.4e-4 (d a_log) of max(1, max |plain|), the
+# other outputs under 2e-5; the tolerances are over 3x that.
+BWD_TOL = {"grads": 2e-4, "sums": 5e-4}
 # B3 at the scheme path's stream counts (2 groups of W): ParM's parity
 # call (2), uncoded and ParM's data call (8), replication at E=0 (16) and
 # at E=1 (24)
@@ -466,6 +528,10 @@ class Smoke:
         # entry), from a generator of its own
         self.kernels_train = {}
         self.train_gen = torch.Generator(self.dev).manual_seed(8)
+        # B7's backward and its head sum at the SSM models' training shapes
+        # ({(kernel, arch): fp32 entry}), from a generator of their own
+        self.kernels_ssd_train = {}
+        self.bwd_gen = torch.Generator(self.dev).manual_seed(10)
 
     # ------------------------------------------------------------ helpers
 
@@ -677,10 +743,24 @@ class Smoke:
             self.phase(f"B3 backward {dtype}", self.b3_backward, dtype)
         self.phase("no backward, no grad", self.grad_guard)
         self.phase(f"{TRAIN_ARCH} training, 2 layers, card against CPU",
-                   self.train_card_vs_cpu)
-        train_launches = self.phase(f"{TRAIN_ARCH} training",
-                                    self.train_runs)
-        self.phase(f"{TRAIN_ARCH} train step profile", self.train_profile)
+                   self.train_card_vs_cpu, TRAIN_ARCH)
+        trained = {TRAIN_ARCH: self.phase(f"{TRAIN_ARCH} training",
+                                          self.train_runs, TRAIN_ARCH)}
+        self.phase(f"{TRAIN_ARCH} train step profile", self.train_profile,
+                   TRAIN_ARCH)
+        for dtype in ("float32", "bfloat16"):
+            self.phase(f"B7 backward {dtype}", self.b7_backward, dtype)
+        for arch in TRAIN_SSM:
+            depth = TRAIN_SMALL[arch]["num_layers"]
+            self.phase(f"{arch} training, {depth} layers, card against CPU",
+                       self.train_card_vs_cpu, arch)
+            trained[arch] = self.phase(f"{arch} training", self.train_runs,
+                                       arch)
+            self.phase(f"{arch} train step profile", self.train_profile,
+                       arch)
+        for arch in TRAIN_FAMILIES:
+            self.phase(f"{arch} training, 2 layers, card against CPU",
+                       self.train_card_vs_cpu, arch)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -708,11 +788,15 @@ class Smoke:
                    for arch in MODEL_CARRIER if name in MODEL_CARRIER[arch]},
                 **(self.scheme_entry(scheme_launches)
                    if name == "flash_attention" else {}),
-                **({"launches_train": train_launches[False][name],
-                    "launches_train_remat": train_launches[True][name]}
+                **({"launches_train": trained[TRAIN_ARCH][False][name],
+                    "launches_train_remat": trained[TRAIN_ARCH][True][name]}
                    if name == "flash_attention" else {}),
+                **(self.ssd_train_launches(name, trained)
+                   if name.startswith("ssd_") else {}),
             })
-        entries.append(self.train_entry(train_launches))
+        entries.append(self.train_entry(trained[TRAIN_ARCH]))
+        entries += [self.ssd_train_entry(name, trained)
+                    for name in ("ssd_chunked_bwd", "ssd_bwd_head_sum")]
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
                     sorted(self.kernels_model[arch])
@@ -759,7 +843,7 @@ class Smoke:
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
                    if key in res}}
 
-    def train_entry(self, train_launches: dict) -> dict:
+    def train_entry(self, launches: dict) -> dict:
         """The kernels line's entry of B3's backward: its fp32 check and
         times at the training shape, its launches in the full-depth run
         (and under remat), and the same numbers at ``LONG_SHAPE``."""
@@ -772,10 +856,10 @@ class Smoke:
             "replaces": REPLACES[name],
             "replaces_note": "no Pallas backward: XLA's autodiff of the "
                              "reference's attention_ref",
-            "launches": train_launches[False][name],
+            "launches": launches[False][name],
             "launches_run": f"{TRAIN_ARCH} launch.train.run, "
                             f"{TRAIN_STEPS} steps",
-            "launches_remat": train_launches[True][name],
+            "launches_remat": launches[True][name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
@@ -784,6 +868,46 @@ class Smoke:
             "graph_ms": res["graph_ms"],
             "tensor_cores": self.tensor_cores[name],
             "long": {key: self.kernels_train["long"][key] for key in keys}}
+
+    def ssd_train_launches(self, name: str, trained: dict) -> dict:
+        """B7's launches of ``name`` in the SSM models' full-depth training
+        runs: mamba2-780m's as ``launches_train`` (and under remat), and
+        zamba2-1.2b's under ``launches_train_zamba2``."""
+        mamba2, zamba2 = (trained[arch] for arch in TRAIN_SSM)
+        return {"launches_train": mamba2[False][name],
+                "launches_train_remat": mamba2[True][name],
+                "launches_train_run": f"{TRAIN_SSM[0]} launch.train.run, "
+                                      f"{TRAIN_STEPS} steps",
+                "launches_train_zamba2": {"plain": zamba2[False][name],
+                                          "remat": zamba2[True][name]}}
+
+    def ssd_train_entry(self, name: str, trained: dict) -> dict:
+        """The kernels line's entry of one of B7's backward launches: its
+        fp32 check and times at mamba2-780m's training shape, its launches
+        in mamba2's full-depth runs (and under remat), the worst share of
+        its tolerance over every draw, and the same under
+        ``zamba2-1.2b``."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        mamba2, zamba2 = TRAIN_SSM
+        res = self.kernels_ssd_train[name, mamba2]
+        return {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "replaces_note": "no Pallas backward: XLA's autodiff of the "
+                             "reference's ssd_chunked_ref",
+            "launches": trained[mamba2][False][name],
+            "launches_run": f"{mamba2} launch.train.run, {TRAIN_STEPS} "
+                            f"steps",
+            "launches_remat": trained[mamba2][True][name],
+            **{key: res[key] for key in keys},
+            "library": None if name == "ssd_chunked_bwd"
+            else "torch.sum over the heads",
+            "tensor_cores": self.tensor_cores[name],
+            zamba2: {**{key: self.kernels_ssd_train[name, zamba2][key]
+                        for key in keys},
+                     "launches": trained[zamba2][False][name],
+                     "launches_remat": trained[zamba2][True][name]}}
 
     def scheme_entry(self, scheme_launches: dict) -> dict:
         """The kernels line's ``scheme_streams`` (B3's fp32 check and times
@@ -3840,54 +3964,247 @@ class Smoke:
         return {"max_abs_err": max(r["max_abs_err"] for r in results),
                 "err_over_tol": worst["err_over_tol"]}
 
-    def train_card_vs_cpu(self):
-        """One ``train_step`` of qwen3-0.6b at full width and 2 layers,
-        card against CPU, on the same weights (drawn on the card and
-        copied) and the same batch of 8 x 128 tokens at the launcher's
-        optimizer settings: loss, grad norm and lr within 1e-4 relative;
-        every leaf's clipped gradient (the first moment over 1 - b1)
-        within 1e-4 x the leaf's max |grad| (the whole paths' tolerance);
-        updated parameters within 1e-5 |p| + 0.02 lr where the CPU's
-        gradient clears 100 x that tolerance, else within Adam's
-        sign-flip bound 2 lr (1 + wd |p|) (ROADMAP C); launches: B3 and
-        its backward twice each (two layers)."""
+    def b7_backward(self, dtype_name: str):
+        """B7's backward (``ssd_chunked_bwd``: the kernel and its head sum)
+        against its plain version ``ref.ssd_chunked_bwd_ref`` at
+        mamba2-780m's and zamba2-1.2b's training shapes (8 sequences of
+        128 steps; 48 heads of 64, state 128, and 64 heads of 64, state
+        64), the inputs as the Mamba2 block hands them over (x, b and c
+        strided views of one conv output), over ``BWD_DRAWS`` draws of
+        each variant: with and without h0 and a gradient of h_final, S of
+        1, 31, 33 (short last chunks) and 2048 (2 sequences), and strong
+        decay; in fp32 at the training shape also against autograd of the
+        plain forward.  Each output under ``BWD_TOL`` (fp32) or ``check``'s
+        bf16 rule; the worst share of its tolerance is printed.  Timed at
+        each training shape: the kernel (both launches; ``ms``,
+        ``graph_ms``), the plain version, and the head sum alone with its
+        plain version and ``torch.sum`` over the heads (``library_ms``);
+        no library call computes the scan's gradient."""
         torch = self.torch
         from repro_torch import configs
-        from repro_torch.data import SyntheticLMDataset
+        from repro_torch.kernels import ref, ssd_scan
+        from repro_torch.models.mamba2 import ssd_chunk
+        dtype = getattr(torch, dtype_name)
+        gen = self.bwd_gen
+        worst = {}
+        for arch in TRAIN_SSM:
+            cfg = configs.get_config(arch)
+            h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            b0, s0 = TRAIN_BATCH, TRAIN_SEQ
+            # (what, B, S, h0, dh_final, strong decay)
+            for what, b, s, with_h0, with_dh, strong in (
+                    ("train", b0, s0, False, False, False),
+                    ("h0", b0, s0, True, False, False),
+                    ("dh_final", b0, s0, False, True, False),
+                    ("h0 dh_final", b0, s0, True, True, False),
+                    ("strong decay", b0, s0, True, True, True),
+                    ("S=1", b0, 1, True, True, False),
+                    ("S=31", b0, 31, True, True, False),
+                    ("S=33", b0, 33, False, True, False),
+                    ("S=2048", 2, 2048, True, True, False)):
+                where = (f"ssd_chunked_bwd {arch} {what} B={b} S={s} H={h} "
+                         f"P={p} N={n}")
+                chunk = ssd_chunk(cfg.ssm_chunk, s)
+                shares = []
+                for _ in range(BWD_DRAWS):
+                    args = self.ssd_inputs(b, s, h, p, n, dtype,
+                                           strong=strong, gen=gen)
+                    dy = self.randn(b, s, h, p, dtype=dtype, gen=gen)
+                    h0 = self.randn(b, h, p, n, gen=gen) if with_h0 else None
+                    dh = self.randn(b, h, p, n, gen=gen) if with_dh else None
+                    got = ssd_scan.ssd_chunked_bwd(*args, dy, h0=h0,
+                                                   dh_final=dh)
+                    want = ref.ssd_chunked_bwd_ref(*args, dy, h0=h0,
+                                                   dh_final=dh, chunk=chunk)
+                    res = self.bwd_checks(where, dtype_name, got, want, worst)
+                    if what == "train" and dtype_name == "float32":
+                        leaves = [t.detach().requires_grad_(True)
+                                  for t in args]
+                        y, _ = ref.ssd_chunked_ref(*leaves, chunk=chunk)
+                        auto = torch.autograd.grad(y, leaves, dy)
+                        res = max(res, self.bwd_checks(
+                            f"{where} vs autograd", dtype_name, got[:6],
+                            auto, worst), key=lambda r: r["err_over_tol"])
+                    shares.append(res["err_over_tol"])
+                emit({"variant": where, "dtype": dtype_name,
+                      "draws": BWD_DRAWS, "err_over_tol": max(shares),
+                      "err_over_tol_draws": shares})
+                if what == "train":
+                    self.b7_backward_timing(arch, dtype_name, args, dy,
+                                            chunk, got, want)
+        emit({"b7_backward_worst": dtype_name, "draws": BWD_DRAWS,
+              "tol": BWD_TOL, "err_over_tol": worst})
+
+    def bwd_checks(self, where: str, dtype_name: str, got, want,
+                   worst: dict) -> dict:
+        """B7's backward outputs ``got`` (dx, ddt, da_log, db, dc, dd[,
+        dh0]) against ``want``: finite, the same dtype, an fp32 output
+        within ``BWD_TOL`` x max(1, max |want|) and a bf16 one under
+        ``check``'s bf16 rule.  Keeps each output's worst share of its
+        tolerance in ``worst``; returns the worst of this call."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        out = {"err_over_tol": 0.0, "max_abs_err": 0.0}
+        names = ("dx", "ddt", "da_log", "db", "dc", "dd", "dh0")
+        for name, g, w in zip(names, got, want):
+            if g is None and w is None:
+                continue
+            if g.dtype != w.dtype:
+                raise AssertionError(f"{where} {name}: dtype {g.dtype}, "
+                                     f"plain {w.dtype}")
+            if g.dtype == torch.bfloat16:
+                res = self.check(f"{where} {name}", g, w, "bfloat16")
+            else:
+                g, w = g.float(), w.float()
+                if g.shape != w.shape or not torch.isfinite(g).all():
+                    raise AssertionError(f"{where} {name}: shape "
+                                         f"{tuple(g.shape)} or non-finite")
+                kind = "sums" if name in ("da_log", "dd") else "grads"
+                tol = BWD_TOL[kind] * max(1.0, w.abs().max().item())
+                err = (g - w).abs().max().item()
+                res = {"max_abs_err": err, "err_over_tol": err / tol}
+                if not err <= tol:
+                    raise AssertionError(f"{where} {name}: max abs err "
+                                         f"{err} > {tol}")
+            worst[name] = max(worst.get(name, 0.0), res["err_over_tol"])
+            out["max_abs_err"] = max(out["max_abs_err"], res["max_abs_err"])
+            out["err_over_tol"] = max(out["err_over_tol"],
+                                      res["err_over_tol"])
+        return out
+
+    def b7_backward_timing(self, arch: str, dtype_name: str, args, dy,
+                           chunk: int, got, want) -> None:
+        """Time B7's backward at a training shape (no h0, no gradient of
+        h_final, as in training) and its head sum alone; the fp32 numbers
+        go to ``kernels_ssd_train``."""
+        from repro_torch.kernels import ref, ssd_scan
+        x, dt, a_log, bb, cc, d = args
+        b, s, h, p = x.shape
+        n = bb.shape[-1]
+        size = x.dtype.itemsize
+        res = {"kernel": "ssd_chunked_bwd", "arch": arch,
+               "dtype": dtype_name,
+               "shape": [list(x.shape), list(bb.shape)]}
+        res["ms"] = self.time_ms(
+            lambda: ssd_scan.ssd_chunked_bwd(*args, dy))
+        res["graph_ms"] = self.graph_ms(
+            lambda: ssd_scan.ssd_chunked_bwd(*args, dy))
+        res["plain_ms"] = self.time_ms(
+            lambda: ref.ssd_chunked_bwd_ref(*args, dy, chunk=chunk))
+        res["library_ms"] = None
+        # x, dy, b, c, dt, a_log, D read and dx, ddt, db, dc, d a_log, dD
+        # written once
+        nbytes = 3 * x.numel() * size + 4 * bb.numel() * size \
+            + 2 * dt.numel() * 4 + 4 * h * 4
+        res["bound_ms"], res["bound_by"] = self.bound(
+            nbytes, ssd_bwd_ops(b, s, h, p, n), dtype_name)
+        res["max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                                 for g, w in zip(got, want) if g is not None)
+        emit(res)
+        parts = self.randn(2, b, h, s, n, gen=self.bwd_gen)
+        hs = {"kernel": "ssd_bwd_head_sum", "arch": arch,
+              "dtype": dtype_name, "shape": [list(parts.shape)]}
+        pair = ssd_scan.ssd_bwd_head_sum(parts, x.dtype)
+        want = ref.ssd_bwd_head_sum_ref(parts, x.dtype)
+        hs.update(max(
+            (self.check("ssd_bwd_head_sum", g, w, dtype_name)
+             for g, w in zip(pair, want)),
+            key=lambda r: r["err_over_tol"]))
+        hs["ms"] = self.time_ms(
+            lambda: ssd_scan.ssd_bwd_head_sum(parts, x.dtype))
+        hs["graph_ms"] = self.graph_ms(
+            lambda: ssd_scan.ssd_bwd_head_sum(parts, x.dtype))
+        hs["plain_ms"] = self.time_ms(
+            lambda: ref.ssd_bwd_head_sum_ref(parts, x.dtype))
+        hs["library_ms"] = self.time_ms(lambda: parts.sum(2))
+        hs["bound_ms"], hs["bound_by"] = self.bound(
+            parts.numel() * 4 + 2 * b * s * n * size, parts.numel(),
+            dtype_name)
+        emit(hs)
+        if dtype_name == "float32":
+            self.kernels_ssd_train["ssd_chunked_bwd", arch] = res
+            self.kernels_ssd_train["ssd_bwd_head_sum", arch] = hs
+
+    def train_batch(self, cfg) -> dict:
+        """The numpy batch of a card-against-CPU training step: TRAIN_BATCH
+        sequences of TRAIN_SEQ tokens (``SyntheticLMDataset``); the vlm's
+        TRAIN_FRONT_BATCH of its patch embeddings and TRAIN_VLM_TEXT text
+        tokens, and the audio frontend's TRAIN_FRONT_BATCH of FRAMES
+        frames with a target a frame (``synthetic_batch``, the reference's
+        batch of each modality)."""
+        from repro_torch.configs.shapes import ShapeConfig
+        from repro_torch.data import SyntheticLMDataset, synthetic_batch
+        rng = np.random.RandomState(1)
+        if cfg.modality == "vlm":
+            shape = ShapeConfig("t", cfg.num_patches + TRAIN_VLM_TEXT,
+                                TRAIN_FRONT_BATCH, "train")
+        elif cfg.modality == "audio":
+            shape = ShapeConfig("t", FRAMES, TRAIN_FRONT_BATCH, "train")
+        else:
+            return SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ,
+                                      seed=0).batch(TRAIN_BATCH, rng)
+        return synthetic_batch(cfg, shape, rng)
+
+    def train_card_vs_cpu(self, arch: str):
+        """One ``train_step`` of ``arch`` at full width and 2 layers
+        (``TRAIN_SMALL``'s depth for the SSM models: mamba2 2 "S", zamba2
+        "SSSSSG"), card against CPU, on the same weights (drawn on the
+        card and copied) and the same batch (``train_batch``) at the
+        launcher's optimizer settings: loss, grad norm and lr within 1e-4
+        relative; every leaf's clipped gradient (the first moment over
+        1 - b1) within 1e-4 x the leaf's max |grad| (the whole paths'
+        tolerance); updated parameters within 1e-5 |p| + 0.02 lr where
+        the CPU's gradient clears 100 x that tolerance, else within Adam's
+        sign-flip bound 2 lr (1 + wd |p|) (ROADMAP C); launches: one
+        forward and one backward of each kernel a layer
+        (``train_launches``).  An MoE model's router calls are held
+        (``route_walk``); should a near tie change a route, it is
+        printed and the step's outputs are not compared."""
+        torch = self.torch
+        from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.models.model import init_params
         from repro_torch.optim import init_opt_state
         from repro_torch.training import train_step
         from repro_torch.tree import flatten_with_path, keystr
-        cfg = configs.get_config(TRAIN_ARCH).with_updates(num_layers=2)
+        self.free_memory()
+        cfg = configs.get_config(arch).with_updates(
+            **TRAIN_SMALL.get(arch, dict(num_layers=2)))
         tcfg = self.train_config(TRAIN_STEPS)
         params = {"cuda": init_params(
             cfg, torch.Generator(self.dev).manual_seed(0), self.dev)}
         params["cpu"] = _tree_to(params["cuda"], torch.device("cpu"))
-        batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, seed=0).batch(
-            TRAIN_BATCH, np.random.RandomState(1))
-        out = {}
+        batch = self.train_batch(cfg)
+        where = (f"{arch} {cfg.layer_pattern}, full width, "
+                 f"{ {k: list(v.shape) for k, v in batch.items()} }")
+        out, log = {}, []
         devs = {"cpu": torch.device("cpu"), "cuda": self.dev}
         for dev in ("cpu", "cuda"):
             p = params[dev]
             ops.reset_launch_counts()
-            new_p, new_o, m = train_step(
-                cfg, tcfg, p, init_opt_state(p),
-                {k: torch.from_numpy(v).to(devs[dev])
-                 for k, v in batch.items()})
+            with self.routes(log, dev):
+                new_p, new_o, m = train_step(
+                    cfg, tcfg, p, init_opt_state(p),
+                    {k: torch.from_numpy(v).to(devs[dev])
+                     for k, v in batch.items()})
             launched = ops.launch_counts()
             out[dev] = (new_p, new_o, {k: float(x) for k, x in m.items()})
         torch.cuda.synchronize()
         expected = {name: 0 for name in launched}
-        expected.update(flash_attention=2, flash_attention_bwd=2)
+        expected.update(train_launches(cfg, 1, False))
         if launched != expected:
-            raise AssertionError(f"2-layer card train_step launched "
+            raise AssertionError(f"{where} card train_step launched "
                                  f"{launched}, not {expected}")
+        if "M" in cfg.layer_pattern and self.route_walk(
+                f"{where} train_step", log, cfg.experts_per_token) is not None:
+            emit({"train_step_card_vs_cpu": where, "compared": False,
+                  "why": "a near tie changed an expert route"})
+            return
         (cp, co, cm), (gp, go, gm) = out["cpu"], out["cuda"]
         for key in ("loss", "ce_loss", "grad_norm", "lr"):
             if not abs(gm[key] - cm[key]) <= 1e-4 * abs(cm[key]):
-                raise AssertionError(f"train_step {key}: card {gm[key]}, "
-                                     f"cpu {cm[key]}")
+                raise AssertionError(f"{where} train_step {key}: card "
+                                     f"{gm[key]}, cpu {cm[key]}")
         b1, lr = tcfg.optimizer.b1, cm["lr"]
         wd = tcfg.optimizer.weight_decay
         before = {keystr(k): t for k, t in flatten_with_path(params["cpu"])}
@@ -3904,7 +4221,7 @@ class Smoke:
             p0 = before[key].abs()
             diff = (gnew[key] - newp).abs()
             if not (diff <= 2 * lr * (1 + wd * p0) + 1e-6).all():
-                raise AssertionError(f"train_step {key}: an updated "
+                raise AssertionError(f"{where} train_step {key}: an updated "
                                      f"parameter past 2 lr (1 + wd |p|)")
             sure = g_cpu.abs() > 100 * tol
             strict = 1e-5 * newp.abs() + 0.02 * lr
@@ -3914,16 +4231,18 @@ class Smoke:
             strong += int(sure.sum())
             total += sure.numel()
         if not (worst_g <= 1.0 and worst_p <= 1.0):
-            raise AssertionError(f"train_step card vs cpu: gradients at "
-                                 f"{worst_g} and strict parameters at "
-                                 f"{worst_p} of their tolerances")
-        emit({"train_step_card_vs_cpu": f"{TRAIN_ARCH} 2 layers, full "
-              f"width, {TRAIN_BATCH} x {TRAIN_SEQ}",
+            raise AssertionError(f"{where} train_step card vs cpu: "
+                                 f"gradients at {worst_g} and strict "
+                                 f"parameters at {worst_p} of their "
+                                 f"tolerances")
+        emit({"train_step_card_vs_cpu": where, "compared": True,
               "loss": [cm["loss"], gm["loss"]],
               "grad_norm": [cm["grad_norm"], gm["grad_norm"]],
               "grads_err_over_tol": worst_g,
               "strict_params_err_over_tol": worst_p,
               "strict_share": strong / total, "launches": launched})
+        del params, out
+        self.free_memory()
 
     def train_config(self, steps: int):
         """The launcher's optimizer settings (``launch.train.run``): the
@@ -3933,73 +4252,99 @@ class Smoke:
         return TrainConfig(optimizer=OptimizerConfig(
             learning_rate=TRAIN_LR, warmup_steps=20, total_steps=steps))
 
-    def train_full(self, remat: bool) -> dict:
-        """``launch.train.run`` on qwen3-0.6b at full width and depth (28
-        layers, fp32, tied 151936-token table) at the reference's defaults
-        (8 x 128 tokens, AdamW at lr 3e-3, warmup 20) for ``TRAIN_STEPS``
-        steps, with or without ``remat``: every loss finite, the ms a step
-        after the first, tokens/s, peak ``max_memory_allocated``, and the
-        launches held exactly: B3's backward 28 a step, B3 28 a step (56
-        under remat, which launches each block's forward again), nothing
-        else.  Returns the launches and the losses."""
+    def train_full(self, arch: str, remat: bool) -> dict:
+        """``launch.train.run`` on ``arch`` at full width and depth (fp32;
+        qwen3-0.6b 28 layers with its tied 151936-token table, mamba2-780m
+        48 "S", zamba2-1.2b 32 "S" and the shared block at 6 "G"
+        positions) at the reference's defaults (8 x 128 tokens, AdamW at
+        lr 3e-3, warmup 20) for ``TRAIN_STEPS`` steps, with or without
+        ``remat``: every loss finite, the ms a step after the first,
+        tokens/s, peak ``max_memory_allocated``, and the launches held
+        exactly (``train_launches``: each forward kernel once a layer a
+        step, twice under remat, which launches each block's forward
+        again; each backward kernel once; nothing else).  ``peak_gb`` is
+        the whole run's ``max_memory_allocated``, set-up included;
+        ``step_peaks_gb`` each step's apart, beside what the card held
+        before the run.  Returns the launches and the losses."""
         torch = self.torch
+        from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import train as launch_train
         self.free_memory()
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        history = []
-        launch_train.run(TRAIN_ARCH, False, TRAIN_STEPS, TRAIN_BATCH,
-                         TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
-                         log_every=TRAIN_STEPS, device=self.dev, seed=0,
-                         remat=remat, history=history)
+        history, step_peaks, before = [], [], [0]
+        step = launch_train.train_step
+
+        def peak_of(*args):
+            """One step, its peak allocation apart; the peak before it
+            (set-up, the steps before, what lies between) is kept in
+            ``before`` for the run's."""
+            before[0] = max(before[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = step(*args)
+            step_peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            return out
+
+        launch_train.train_step = peak_of
+        try:
+            launch_train.run(arch, False, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                             1, 1, TRAIN_LR, 1, None, log_every=TRAIN_STEPS,
+                             device=self.dev, seed=0, remat=remat,
+                             history=history)
+        finally:
+            launch_train.train_step = step
         torch.cuda.synchronize()
         launched = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        layers = PATH_KERNELS[TRAIN_ARCH]["prefill"]["flash_attention"]
+        peak = max(before[0], torch.cuda.max_memory_allocated())
         expected = {name: 0 for name in launched}
-        expected.update(
-            flash_attention=layers * TRAIN_STEPS * (2 if remat else 1),
-            flash_attention_bwd=layers * TRAIN_STEPS)
+        expected.update(train_launches(configs.get_config(arch), TRAIN_STEPS,
+                                       remat))
         if launched != expected:
-            raise AssertionError(f"train run (remat {remat}) launched "
-                                 f"{launched}, not {expected}")
+            raise AssertionError(f"{arch} train run (remat {remat}) "
+                                 f"launched {launched}, not {expected}")
         losses = [h["loss"] for h in history]
         if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
-            raise AssertionError(f"train run losses {losses}")
+            raise AssertionError(f"{arch} train run losses {losses}")
         steady = [h["seconds"] for h in history[1:]]
         ms = 1e3 * float(np.mean(steady))
-        emit({"train_run": f"{TRAIN_ARCH} full width and depth, "
+        emit({"train_run": f"{arch} full width and depth, "
               f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps",
               "remat": remat, "losses": losses,
               "grad_norms": [h["grad_norm"] for h in history],
               "first_step_ms": 1e3 * history[0]["seconds"],
               "ms_per_step": ms, "ms_per_step_min": 1e3 * min(steady),
               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
-              "peak_gb": peak / 1e9,
+              "peak_gb": peak / 1e9, "step_peaks_gb": step_peaks,
+              "held_at_start_gb": held / 1e9,
               "launches_per_step": {name: n / TRAIN_STEPS
                                     for name, n in launched.items() if n},
               "launches": launched})
         return {"launches": launched, "losses": losses}
 
-    def train_runs(self):
-        """The two full-depth runs (``train_full``); the same weights and
-        batches with and without remat give losses within 1e-4 relative
-        (remat recomputes the same kernels on the same inputs)."""
-        runs = {remat: self.train_full(remat) for remat in (False, True)}
+    def train_runs(self, arch: str):
+        """The two full-depth runs of ``arch`` (``train_full``); the same
+        weights and batches with and without remat give losses within
+        1e-4 relative (remat recomputes the same kernels on the same
+        inputs)."""
+        runs = {remat: self.train_full(arch, remat) for remat in (False, True)}
         a, b = runs[False]["losses"], runs[True]["losses"]
         worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
-        emit({"train_remat_loss_rel_diff": worst})
+        emit({"train_remat_loss_rel_diff": worst, "arch": arch})
         if not worst <= 1e-4:
-            raise AssertionError(f"losses with remat {b}, without {a}")
+            raise AssertionError(f"{arch} losses with remat {b}, without "
+                                 f"{a}")
         return {remat: run["launches"] for remat, run in runs.items()}
 
-    def train_profile(self):
-        """One full-depth training step (after a warm-up step) under
-        torch.profiler: device time by kernel, busy share, and the host
-        syncs of a step (``count_syncs``, outside the profiler); then one
-        step's two halves timed apart with CUDA events: ``loss_and_grads``
-        (forward and backward) and ``adamw_update``."""
+    def train_profile(self, arch: str):
+        """One full-depth training step of ``arch`` (after a warm-up step)
+        under torch.profiler: device time by kernel, busy share, and the
+        host syncs of a step (``count_syncs``, outside the profiler); then
+        one step's two halves timed apart with CUDA events:
+        ``loss_and_grads`` (forward and backward) and ``adamw_update``,
+        with the memory held before them (parameters and moments) and
+        each half's peak."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.data import ShardedLoader, SyntheticLMDataset
@@ -4008,7 +4353,7 @@ class Smoke:
         from repro_torch.training import train_step
         from repro_torch.training.train import loss_and_grads
         self.free_memory()
-        cfg = configs.get_config(TRAIN_ARCH)
+        cfg = configs.get_config(arch)
         tcfg = self.train_config(TRAIN_STEPS)
         box = {"params": init_params(
             cfg, torch.Generator(self.dev).manual_seed(0), self.dev)}
@@ -4023,28 +4368,36 @@ class Smoke:
 
         step()
         syncs = self.count_syncs(step)
-        self.profile_call(f"{TRAIN_ARCH} train step, {TRAIN_BATCH} x "
+        self.profile_call(f"{arch} train step, {TRAIN_BATCH} x "
                           f"{TRAIN_SEQ}", step, syncs)
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         batch = next(loader)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         events[0].record()
         _, _, grads = loss_and_grads(cfg, tcfg, box["params"], batch)
         events[1].record()
+        peak_grads = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         adamw_update(tcfg.optimizer, box["params"], grads, box["opt"])
         events[2].record()
         torch.cuda.synchronize()
-        emit({"train_step_split": f"{TRAIN_ARCH}, {TRAIN_BATCH} x "
-              f"{TRAIN_SEQ}",
+        emit({"train_step_split": f"{arch}, {TRAIN_BATCH} x {TRAIN_SEQ}",
               "loss_and_grads_ms": events[0].elapsed_time(events[1]),
-              "adamw_update_ms": events[1].elapsed_time(events[2])})
+              "adamw_update_ms": events[1].elapsed_time(events[2]),
+              "params_and_moments_gb": held / 1e9,
+              "peak_loss_and_grads_gb": peak_grads / 1e9,
+              "peak_adamw_update_gb":
+                  torch.cuda.max_memory_allocated() / 1e9})
         del box, grads
         self.free_memory()
 
     def grad_guard(self):
         """On the card a kernel without a backward refuses an input that
-        requires grad: B4 with such a q raises, naming ROADMAP A12; the
-        same call under ``no_grad`` runs."""
+        requires grad: B4 with such a q raises, naming its ROADMAP entry
+        (queue B's serving kernels); the same call under ``no_grad``
+        runs."""
         torch = self.torch
         from repro_torch.kernels import ops
         q = self.randn(4, 16, 128, gen=self.train_gen).requires_grad_(True)
@@ -4726,6 +5079,37 @@ def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
     def at(q: int) -> float:
         per_head = q * (q + 1) * p + 4 * q * n * p + p * n
         return b * (s // q) * (h * per_head + q * (q + 1) * n)
+    return min(at(1 << i) for i in range(s.bit_length())
+               if s % (1 << i) == 0)
+
+
+def train_launches(cfg, steps: int, remat: bool) -> dict:
+    """The launches of ``steps`` training steps of ``cfg``: B3 and its
+    backward in every attention layer ("A", "M", "G"), B7's two forward
+    launches and its two backward launches in every "S" layer; each
+    forward twice under remat (the block is recomputed), each backward
+    once."""
+    attn = sum(cfg.layer_pattern.count(c) for c in "AMG")
+    ssm = cfg.layer_pattern.count("S")
+    fwd = steps * (2 if remat else 1)
+    return {"flash_attention": attn * fwd,
+            "flash_attention_bwd": attn * steps,
+            "ssd_chunked": ssm * fwd, "ssd_chunk_scores": ssm * fwd,
+            "ssd_chunked_bwd": ssm * steps, "ssd_bwd_head_sum": ssm * steps}
+
+
+def ssd_bwd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
+    """Least operations of the chunked scan's gradient from its inputs and
+    dy, at the power-of-two chunk Q dividing S that needs fewest: per
+    (stream, head, chunk) the entry state recomputed (Q N P), dH b, dy
+    H_in, xbar dH and the state gradient's update (Q N P each), the causal
+    halves of dy . xbar and of A^T dy (Q(Q+1)/2 x P each), the per-step
+    dots and the decays (Q N + Q P + 2 P N); per (stream, chunk) the causal
+    halves of C B^T and of dG B and dG^T C, with dG summed over the heads
+    first (Q(Q+1)/2 x N each).  Two operations a multiply-add."""
+    def at(q: int) -> float:
+        per_head = 5 * q * n * p + q * (q + 1) * p + q * n + q * p + 2 * p * n
+        return 2 * b * (s // q) * (h * per_head + 3 * q * (q + 1) * n // 2)
     return min(at(1 << i) for i in range(s.bit_length())
                if s % (1 << i) == 0)
 

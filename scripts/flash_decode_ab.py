@@ -68,8 +68,13 @@ def child(root: Path, kernel: str) -> None:
     source, method = KERNELS[kernel]
     build.build([source])
     smoke = chip_smoke.Smoke(torch)
+    # B4 and B5 are timed at a model's shapes: the main path's qwen3-0.6b
+    extra = ()
+    if kernel == "flash_decode":
+        from repro_torch.configs import qwen3_0_6b
+        extra = (qwen3_0_6b.CONFIG,)
     for dtype in ("float32", "bfloat16"):
-        getattr(smoke, method)(dtype)
+        getattr(smoke, method)(dtype, *extra)
     if kernel == "fused_group_decode":
         smoke.tail_syncs()
 

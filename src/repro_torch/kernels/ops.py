@@ -9,10 +9,11 @@ takes the place of the reference's ``KernelType`` dispatch
 
 Gradients: on the card, prefill attention runs under autograd as
 ``flash_attention.FlashAttentionFn`` (B3 forward, then its backward
-kernel) whenever grad is enabled and an input requires it.  Every other
-kernel has no backward, so on the card it raises in that case rather
-than hand autograd an output with no history.  On the CPU the plain
-versions are differentiated by autograd as they are.
+kernel) and the SSD scan as ``ssd_scan.SsdFn`` (B7 forward, then its
+backward kernels) whenever grad is enabled and an input requires it.
+Every other kernel has no backward, so on the card it raises in that
+case rather than hand autograd an output with no history.  On the CPU
+the plain versions are differentiated by autograd as they are.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from repro_torch.kernels import (berrut_decode, berrut_matmul,
                                  ssd_scan)
 
 # The kernels of the coded serving rounds, batch and slot pool, and B3's
-# backward (training), by name.
+# and B7's backward (training), by name.
 KERNELS = {
     "berrut_apply": berrut_matmul.KERNEL,
     "berrut_encode_dispatch": berrut_matmul.DISPATCH_KERNEL,
@@ -37,6 +38,8 @@ KERNELS = {
     "pool_flash_decode": flash_decode.POOL_KERNEL,
     "ssd_chunked": ssd_scan.KERNEL,
     "ssd_chunk_scores": ssd_scan.SCORES_KERNEL,
+    "ssd_chunked_bwd": ssd_scan.BWD_KERNEL,
+    "ssd_bwd_head_sum": ssd_scan.HEAD_SUM_KERNEL,
 }
 
 
@@ -63,10 +66,11 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-# the ROADMAP item that would bring a backward kernel to each kernel that
-# has none
-_NO_BACKWARD = "A12: serving kernels, which no training path reaches"
-_B7_BACKWARD = "A12: B7's backward, for Mamba2 and zamba2 training"
+# the ROADMAP entry of each kernel that has no backward: queue B's serving
+# kernels, which no training path reaches, and B7's scores pass alone
+# (``ssd`` differentiates the whole scan)
+_NO_BACKWARD = "B: a serving kernel, which no training path reaches"
+_SCORES_ALONE = "B7: the scores pass alone; ops.ssd differentiates the scan"
 
 
 def _refuse_grad(name: str, item: str, *tensors) -> None:
@@ -178,10 +182,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     (B, S, N), a_log and d_skip (H,), optional h0 (B, H, P, N).  Returns
     (y in x's dtype, h_final fp32).  ``chunk`` is the plain version's
     chunk; the kernel tiles S its own way, which the chunked algebra
-    allows."""
+    allows.  On the card, under autograd when grad is enabled and an
+    input requires it (B7 forward and its backward kernels)."""
     if _on_card(x):
-        _refuse_grad("ssd_chunked", _B7_BACKWARD, x, dt, a_log, b, c,
-                     d_skip, h0)
+        if _needs_grad(x, dt, a_log, b, c, d_skip, h0):
+            return ssd_scan.SsdFn.apply(x, dt, a_log, b, c, d_skip, h0)
         return ssd_scan.ssd_chunked(x, dt, a_log, b, c, d_skip, h0=h0)
     return ref.ssd_chunked_ref(x, dt, a_log, b, c, d_skip, h0=h0, chunk=chunk)
 
@@ -190,7 +195,7 @@ def ssd_chunk_scores(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The SSD scan's scores pass: C B^T within each of the kernel's
     chunks, (B, S, N) -> (B, ceil(S / CHUNK), CHUNK, CHUNK) fp32."""
     if _on_card(b):
-        _refuse_grad("ssd_chunk_scores", _B7_BACKWARD, b, c)
+        _refuse_grad("ssd_chunk_scores", _SCORES_ALONE, b, c)
         return ssd_scan.ssd_chunk_scores(b, c)
     return ref.ssd_chunk_scores_ref(b, c, ssd_scan.CHUNK)
 

@@ -310,6 +310,124 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_chunked_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                        a_log: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, d_skip: torch.Tensor,
+                        dy: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                        dh_final: Optional[torch.Tensor] = None,
+                        chunk: int = 128):
+    """The gradient B7's backward kernel computes, written out: (dx, ddt,
+    da_log, db, dc, dd, dh0) of ``ssd_chunked_ref`` given the output
+    gradient ``dy`` (B, S, H, P) and an optional ``dh_final`` (B, H, P,
+    N); each in its input's dtype, dh0 None without h0.  Shapes and
+    ``chunk`` as ``ssd_chunked_ref``.
+
+    Per chunk, with A[t, tau] = (c_t . b_tau) exp(L_t - L_tau) (tau <= t)
+    and the state gradients dH_out walked over the chunks in reverse from
+    dh_final: dH_in = exp(L_Q) dH_out + sum_t exp(L_t) dy_t c_t^T;
+    d xbar_tau = sum_t A[t, tau] dy_t + exp(L_Q - L_tau) dH_out b_tau;
+    dc_t and db_tau from dG[t, tau] = exp(L_t - L_tau) (dy_t . xbar_tau)
+    summed over heads, plus exp(L_t) H_in^T dy_t and exp(L_Q - L_tau)
+    dH_out^T xbar_tau; d la_t summed from the terms whose decay spans
+    step t (the scores' pairs r >= t > c, the inter-chunk terms at and
+    after t, the state's inputs before t and exp(L_Q) <dH_out, H_in>),
+    then ddt += a d la, da_log = sum d la * la.
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} not divisible by chunk {q}")
+    nc = s // q
+    f32 = torch.float32
+    dtf = dt.to(f32)
+    a = -torch.exp(a_log.to(f32))
+    la = a[None, None, :] * dtf                             # (B,S,H)
+    xf, dyf = x.to(f32), dy.to(f32)
+    xb_c = (xf * dtf[..., None]).reshape(bsz, nc, q, h, p)
+    dy_c = dyf.reshape(bsz, nc, q, h, p)
+    b_c = b.to(f32).reshape(bsz, nc, q, n)
+    c_c = c.to(f32).reshape(bsz, nc, q, n)
+
+    lcum = torch.cumsum(la.reshape(bsz, nc, q, h), dim=2)   # (B,NC,Q,H)
+    ltot = lcum[:, :, -1]                                   # (B,NC,H)
+    e_t = torch.exp(lcum)                                   # exp(L_t)
+    w_tau = torch.exp(ltot[:, :, None, :] - lcum)           # exp(L_Q - L_tau)
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    gap = lcum[:, :, :, None, :] - lcum[:, :, None, :, :]   # (B,NC,Q,Q,H)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], gap,
+                                  NEG_INF))                 # 0 for tau > t
+    att = torch.einsum("bcqn,bctn->bcqt", c_c, b_c)[..., None] * decay
+
+    # each chunk's entry state, then the state gradients in reverse
+    s_chunk = torch.einsum("bcqn,bcqh,bcqhp->bchpn", b_c, w_tau, xb_c)
+    state = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+             if h0 is None else h0.to(f32))
+    h_ins = []
+    for ci in range(nc):
+        h_ins.append(state)
+        state = state * torch.exp(ltot[:, ci])[:, :, None, None] \
+            + s_chunk[:, ci]
+    h_in = torch.stack(h_ins, 1)                            # (B,NC,H,P,N)
+    k_c = torch.einsum("bcqh,bcqhp,bcqn->bchpn", e_t, dy_c, c_c)
+    dstate = (torch.zeros((bsz, h, p, n), dtype=f32, device=x.device)
+              if dh_final is None else dh_final.to(f32))
+    dh_outs = [None] * nc
+    for ci in reversed(range(nc)):
+        dh_outs[ci] = dstate
+        dstate = dstate * torch.exp(ltot[:, ci])[:, :, None, None] \
+            + k_c[:, ci]
+    dh_out = torch.stack(dh_outs, 1)                        # (B,NC,H,P,N)
+
+    d_att = torch.einsum("bcqhp,bcthp->bcqth", dy_c, xb_c)  # dy_t . xbar_tau
+    u = torch.einsum("bchpn,bctn->bcthp", dh_out, b_c)      # dH_out b_tau
+    dxb = torch.einsum("bcqth,bcqhp->bcthp", att, dy_c) \
+        + w_tau[..., None] * u
+    dxb = dxb.reshape(bsz, s, h, p)
+    dx = dxb * dtf[..., None] + dyf * d_skip.to(f32)[None, None, :, None]
+    ddt = (xf * dxb).sum(-1)
+    dd = (xf * dyf).sum((0, 1, 3))
+    dg = (decay * d_att).sum(-1)                            # over heads
+    dc = torch.einsum("bcqt,bctn->bcqn", dg, b_c) + torch.einsum(
+        "bcqh,bchpn,bcqhp->bcqn", e_t, h_in, dy_c)
+    db = torch.einsum("bcqt,bcqn->bctn", dg, c_c) + torch.einsum(
+        "bcth,bchpn,bcthp->bctn", w_tau, dh_out, xb_c)
+
+    # d la_t from the terms whose decay spans step t (exp(L_r - L_c)
+    # depends on la_t when c < t <= r): the inter-chunk terms at and after
+    # t, the state's, the state's inputs before t, and the scores' pairs
+    # r >= t > c.  The reverse cumulative sum of dL would add each decay's
+    # +/- pair apart, and under strong decay their cancellation loses the
+    # small terms.
+    inter = e_t * torch.einsum("bcqhp,bchpn,bcqn->bcqh", dy_c, h_in, c_c)
+    st = w_tau * (xb_c * u).sum(-1)
+    pm = att * d_att                                        # (B,NC,r,c,H)
+    left = torch.cat([torch.zeros_like(pm[:, :, :, :1]),
+                      torch.cumsum(pm, 3)[:, :, :, :-1]], 3)  # sum_{c < t}
+    quad = (left * tri[None, None, :, :, None]).sum(2)      # sum_{r >= t}
+    st_before = torch.cat([torch.zeros_like(st[:, :, :1]),
+                           torch.cumsum(st, 2)[:, :, :-1]], 2)
+    state = torch.exp(ltot) * (dh_out * h_in).sum((-1, -2))  # (B,NC,H)
+    dla = (inter.flip(2).cumsum(2).flip(2) + st_before + quad
+           + state[:, :, None]).reshape(bsz, s, h)
+    ddt = ddt + a * dla
+    da_log = (dla * la).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), da_log.to(a_log.dtype),
+            db.reshape(bsz, s, n).to(b.dtype),
+            dc.reshape(bsz, s, n).to(c.dtype), dd.to(d_skip.dtype),
+            None if h0 is None else dstate.to(h0.dtype))
+
+
+def ssd_bwd_head_sum_ref(parts: torch.Tensor, dtype: torch.dtype):
+    """The plain version of the SSD backward's head sum: (2, B, H, S, N)
+    fp32 per-head partials of db and dc -> (db, dc) in ``dtype``, the
+    heads added in order."""
+    total = parts[:, :, 0]
+    for h in range(1, parts.shape[2]):
+        total = total + parts[:, :, h]
+    return total[0].to(dtype), total[1].to(dtype)
+
+
 def ssd_chunk_scores_ref(b: torch.Tensor, c: torch.Tensor,
                          chunk: int) -> torch.Tensor:
     """C B^T within each chunk of ``chunk`` steps, shared by every head:

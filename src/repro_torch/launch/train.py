@@ -8,9 +8,9 @@
 
 One device: ``--data-par`` / ``--model-par`` above 1 need the device mesh
 of ROADMAP A9.  On the card attention trains through B3's forward and
-backward kernels; Mamba2's SSD scan (B7) has no backward kernel yet
-(ROADMAP A12), so models with "S" blocks train only on the CPU, where
-autograd differentiates the plain scan.
+backward kernels and Mamba2's SSD scan through B7's (every family,
+mamba2-780m and zamba2-1.2b included); on the CPU autograd
+differentiates the plain versions.
 """
 
 from __future__ import annotations
@@ -47,11 +47,6 @@ def run(arch: str, reduced: bool, steps: int, batch: int, seq: int,
     cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
     if remat:
         cfg = cfg.with_updates(remat=True)
-    if device.type == "cuda" and "S" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name} has Mamba2 blocks, whose SSD scan kernel (B7) has "
-            f"no backward on the card yet (ROADMAP A12); train it with "
-            f"--device cpu")
     tcfg = TrainConfig(
         optimizer=OptimizerConfig(learning_rate=lr, warmup_steps=20,
                                   total_steps=steps),

@@ -5,11 +5,11 @@ Gradients come from ``torch.autograd.grad`` over the parameter tree's
 leaves: each step differentiates fresh leaf views of the parameters, so
 the caller's tensors never carry autograd state.  On the card, attention
 runs forward and backward through B3's kernels
-(``kernels.flash_attention.FlashAttentionFn``); every other kernel has no
-backward and raises under grad (``kernels.ops``), which keeps Mamba2's
-SSD scan off the card's training path until ROADMAP A12.  Microbatches
-accumulate in fp32 and their metrics are averaged, as the reference's
-``jax.lax.scan`` does.
+(``kernels.flash_attention.FlashAttentionFn``) and Mamba2's SSD scan
+through B7's (``kernels.ssd_scan.SsdFn``); every other kernel is a
+serving kernel with no backward and raises under grad
+(``kernels.ops``).  Microbatches accumulate in fp32 and their metrics
+are averaged, as the reference's ``jax.lax.scan`` does.
 """
 
 from __future__ import annotations

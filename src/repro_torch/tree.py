@@ -23,22 +23,28 @@ def _is_namedtuple(node) -> bool:
 def flatten_with_path(tree) -> List[Tuple[tuple, object]]:
     """[(path, leaf)] in the reference's order."""
     out: list = []
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                walk(node[k], path + (("key", k),))
-        elif _is_namedtuple(node):
-            for name in node._fields:
-                walk(getattr(node, name), path + (("attr", name),))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                walk(v, path + (("idx", i),))
-        else:
-            out.append((path, node))
-
-    walk(tree, ())
+    _flatten(tree, (), out)
     return out
+
+
+# The walks are module functions, not closures that call themselves: such
+# a closure is a reference cycle (the function holds the cell that holds
+# it), and whatever it captured (the leaves, ``fn`` and what ``fn``
+# captured) would then outlive the call until Python's cycle collector
+# ran, holding a training step's old parameters, gradients and moments
+# on the card.
+def _flatten(node, path: tuple, out: list) -> None:
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _flatten(node[k], path + (("key", k),), out)
+    elif _is_namedtuple(node):
+        for name in node._fields:
+            _flatten(getattr(node, name), path + (("attr", name),), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _flatten(v, path + (("idx", i),), out)
+    else:
+        out.append((path, node))
 
 
 def leaves(tree) -> list:
@@ -57,22 +63,22 @@ def keystr(path: tuple) -> str:
 def map_with_path(fn: Callable, tree, *rest):
     """A tree of ``tree``'s structure whose leaf at each path is
     ``fn(path, leaf, *leaves of rest at that path)``."""
+    return _map(fn, tree, list(rest), ())
 
-    def walk(node, others, path):
-        if isinstance(node, dict):
-            return {k: walk(node[k], [o[k] for o in others],
-                            path + (("key", k),)) for k in node}
-        if _is_namedtuple(node):
-            return type(node)(*(
-                walk(getattr(node, name), [getattr(o, name) for o in others],
-                     path + (("attr", name),)) for name in node._fields))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(v, [o[i] for o in others],
-                                   path + (("idx", i),))
-                              for i, v in enumerate(node))
-        return fn(path, node, *others)
 
-    return walk(tree, list(rest), ())
+def _map(fn: Callable, node, others: list, path: tuple):
+    if isinstance(node, dict):
+        return {k: _map(fn, node[k], [o[k] for o in others],
+                        path + (("key", k),)) for k in node}
+    if _is_namedtuple(node):
+        return type(node)(*(
+            _map(fn, getattr(node, name), [getattr(o, name) for o in others],
+                 path + (("attr", name),)) for name in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(fn, v, [o[i] for o in others],
+                               path + (("idx", i),))
+                          for i, v in enumerate(node))
+    return fn(path, node, *others)
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -12,7 +12,8 @@ causal, sliding-window, prefix-LM, softcap and ``q_offset`` rules, GQA at
 masked scores.  Then the wiring the card uses, on the CPU:
 ``FlashAttentionFn`` with its two launches replaced by their plain
 versions, ``ops.attention``'s choice of it under grad, and the guard that
-makes every kernel without a backward raise under grad on the card.
+makes every kernel without a backward raise under grad on the card (the
+SSD scan's gradient is ``tests/test_torch_ssd_grad.py``'s).
 
 Tolerances: gradients within rtol 1e-5 and atol 1e-5 x max |grad| (fp32
 sums of up to 40 terms taken in another order, and the plain backward
@@ -217,7 +218,6 @@ GUARDED = {
         x[..., None], x[..., None], x[..., None], torch.ones(1, 2)),
     "pool_flash_decode": lambda x: ops.pool_decode_attention(
         x[..., None], x[..., None], x[..., None], torch.zeros(1)),
-    "ssd_chunked": lambda x: ops.ssd(x, x, x, x, x, x),
     "ssd_chunk_scores": lambda x: ops.ssd_chunk_scores(x, x),
 }
 
@@ -225,13 +225,14 @@ GUARDED = {
 @pytest.mark.parametrize("name", sorted(GUARDED))
 def test_kernels_without_backward_raise_under_grad_on_the_card(monkeypatch,
                                                                name):
-    """Every kernel entry but attention refuses, on the card, an input that
-    requires grad while grad is enabled, naming itself and the ROADMAP
-    item; under ``no_grad`` it goes on to its launch."""
+    """Every kernel entry but attention and the SSD scan refuses, on the
+    card, an input that requires grad while grad is enabled, naming itself
+    and its ROADMAP queue entry; under ``no_grad`` it goes on to its
+    launch."""
     monkeypatch.setattr(ops, "_on_card", lambda x: True)
     x = torch.ones(1, 2, 2).requires_grad_(True)
     with pytest.raises(RuntimeError, match=rf"{name} has no backward kernel "
-                                           r"on the card \(ROADMAP A12"):
+                                           r"on the card \(ROADMAP B"):
         GUARDED[name](x)
     with torch.no_grad(), pytest.raises(ValueError, match="one CUDA device"):
         GUARDED[name](x)            # past the guard: the launch's checks

@@ -201,7 +201,9 @@ def test_launch_counts_cover_the_four_kernels():
                                         "flash_attention",
                                         "flash_attention_bwd", "flash_decode",
                                         "pool_flash_decode", "ssd_chunked",
-                                        "ssd_chunk_scores"}
+                                        "ssd_chunk_scores",
+                                        "ssd_chunked_bwd",
+                                        "ssd_bwd_head_sum"}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
 

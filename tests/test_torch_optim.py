@@ -157,3 +157,29 @@ def test_init_opt_state_is_fp32_zeros_of_the_params_shape():
         assert m.shape == p.shape and m.dtype == torch.float32, path
         assert not m.any() and not v.any()
         assert m.data_ptr() != v.data_ptr()
+
+
+def test_an_update_leaves_no_cycle_holding_tensors():
+    """``adamw_update`` and the tree walks under it return every tensor
+    they touched to plain reference counting: nothing waits in a reference
+    cycle for Python's collector (on the card such cycles held a step's
+    old parameters, gradients and moments: tens of GB for zamba2-1.2b)."""
+    import gc
+    params = params_from_jax(_tree(5), device="cpu")
+    grads = params_from_jax(_tree(6), device="cpu")
+    state = tadamw.init_opt_state(params)
+    gc.collect()
+    flags = gc.get_debug()
+    gc.disable()
+    try:
+        for _ in range(2):
+            params, state, _ = tadamw.adamw_update(tadamw.OptimizerConfig(),
+                                                   params, grads, state)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        held = [x for x in gc.garbage if isinstance(x, torch.Tensor)]
+    finally:
+        gc.set_debug(flags)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []
