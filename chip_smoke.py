@@ -182,8 +182,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and zamba2-1.2b's training shapes (8 x 128; 48 heads of 64, state
    128; 64 heads of 64, state 64), over ``BWD_DRAWS`` draws of each
    variant (h0, a gradient of h_final, both, S = 1, 31, 33 and 2048,
-   strong decay), the worst share of ``BWD_TOL`` printed; in fp32 also
-   against autograd of the plain forward; timed at both shapes, the
+   strong decay) and at the domain's corners (``BWD_CORNERS``, and S = 0
+   against dh_final), the worst share of ``BWD_TOL`` printed; in fp32
+   also against autograd of the plain forward; two calls on the same inputs bitwise equal; the
+   kernel's stages, registers, spills and blocks an SM at both shapes;
+   timed at both shapes, with the device bytes each launch moves, the
    head sum beside ``torch.sum``;
 20. training mamba2-780m and zamba2-1.2b on the card: one ``train_step``
    card against CPU at full width and 2 layers (zamba2: 6, "SSSSSG")
@@ -457,6 +460,12 @@ TRAIN_SMALL = {"mamba2-780m": dict(num_layers=2),
 TRAIN_FAMILIES = (QWEN3_MOE, PALIGEMMA, HUBERT, "h2o-danube-1.8b")
 TRAIN_FRONT_BATCH, TRAIN_VLM_TEXT = 2, 32
 BWD_DRAWS = 5
+# B7's backward at the corners of the domain it takes, untimed, with h0 and
+# a gradient of h_final, BWD_DRAWS draws each: (P, N) with the most shared
+# memory (128, 128), the least (8, 16), and a P that is not a power of two
+# (40, 32); BWD_CORNER_SHAPE (B, S, H), S ending in a short chunk
+BWD_CORNERS = ((128, 128), (8, 16), (40, 32))
+BWD_CORNER_SHAPE = (2, 75, 3)
 # B7's backward against its plain version: an fp32 output within
 # BWD_TOL x max(1, max |plain|) (``sums``: d a_log and dD, each a sum over
 # every (stream, step)), a bf16 one (dx, db, dc) under ``check``'s bf16
@@ -4030,10 +4039,85 @@ class Smoke:
                       "draws": BWD_DRAWS, "err_over_tol": max(shares),
                       "err_over_tol_draws": shares})
                 if what == "train":
-                    self.b7_backward_timing(arch, dtype_name, args, dy,
-                                            chunk, got, want)
+                    self.b7_backward_repeat(where, args, dy, got)
+                    emit({"b7_backward_occupancy": arch,
+                          "dtype": dtype_name, "P": p, "N": n,
+                          **ssd_scan.bwd_info(p, n, dtype, self.dev)})
+                    res = self.b7_backward_timing(arch, dtype_name, args,
+                                                  dy, chunk, got, want)
+                    self.b7_backward_bytes(arch, args, res)
+        b, s, h = BWD_CORNER_SHAPE
+        chunk = ssd_chunk(128, s)
+        for p, n in BWD_CORNERS:
+            where = (f"ssd_chunked_bwd corner B={b} S={s} H={h} P={p} "
+                     f"N={n} h0 dh_final")
+            shares = []
+            for _ in range(BWD_DRAWS):
+                args = self.ssd_inputs(b, s, h, p, n, dtype, gen=gen)
+                dy = self.randn(b, s, h, p, dtype=dtype, gen=gen)
+                h0 = self.randn(b, h, p, n, gen=gen)
+                dh = self.randn(b, h, p, n, gen=gen)
+                got = ssd_scan.ssd_chunked_bwd(*args, dy, h0=h0, dh_final=dh)
+                want = ref.ssd_chunked_bwd_ref(*args, dy, h0=h0, dh_final=dh,
+                                               chunk=chunk)
+                shares.append(self.bwd_checks(where, dtype_name, got, want,
+                                              worst)["err_over_tol"])
+            emit({"variant": where, "dtype": dtype_name, "draws": BWD_DRAWS,
+                  "err_over_tol": max(shares), "err_over_tol_draws": shares,
+                  **ssd_scan.bwd_info(p, n, dtype, self.dev)})
+        # S = 0 (no chunk): dh0 is dh_final as it came, the sums are zero
+        args = self.ssd_inputs(b, 0, h, 64, 128, dtype, gen=gen)
+        dh = self.randn(b, h, 64, 128, gen=gen)
+        got = ssd_scan.ssd_chunked_bwd(
+            *args, self.randn(b, 0, h, 64, dtype=dtype, gen=gen),
+            h0=self.randn(b, h, 64, 128, gen=gen), dh_final=dh)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[6], dh) and not got[2].any()
+                and not got[5].any() and got[0].shape == (b, 0, h, 64)
+                and got[3].shape == (b, 0, 128)):
+            raise AssertionError("ssd_chunked_bwd at S = 0: dh0 is not "
+                                 "dh_final or a sum is not zero")
+        emit({"variant": f"ssd_chunked_bwd S=0 B={b} H={h} P=64 N=128",
+              "dtype": dtype_name, "dh0_is_dh_final": True})
         emit({"b7_backward_worst": dtype_name, "draws": BWD_DRAWS,
               "tol": BWD_TOL, "err_over_tol": worst})
+
+    def b7_backward_ab(self, dtype_name: str) -> None:
+        """B7's backward at both training shapes, checked against its plain
+        version and timed (``b7_backward_timing``), on inputs from a
+        generator of its own: what ``scripts/flash_decode_ab.py --kernel
+        ssd_chunked_bwd`` runs on each checkout."""
+        from repro_torch import configs
+        from repro_torch.kernels import ref, ssd_scan
+        from repro_torch.models.mamba2 import ssd_chunk
+        dtype = getattr(self.torch, dtype_name)
+        gen = self.torch.Generator(self.dev).manual_seed(12)
+        for arch in TRAIN_SSM:
+            cfg = configs.get_config(arch)
+            h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+            b, s = TRAIN_BATCH, TRAIN_SEQ
+            chunk = ssd_chunk(cfg.ssm_chunk, s)
+            args = self.ssd_inputs(b, s, h, p, n, dtype, gen=gen)
+            dy = self.randn(b, s, h, p, dtype=dtype, gen=gen)
+            got = ssd_scan.ssd_chunked_bwd(*args, dy)
+            want = ref.ssd_chunked_bwd_ref(*args, dy, chunk=chunk)
+            self.bwd_checks(f"ssd_chunked_bwd {arch} train", dtype_name, got,
+                            want, {})
+            self.b7_backward_timing(arch, dtype_name, args, dy, chunk, got,
+                                    want)
+
+    def b7_backward_repeat(self, where: str, args, dy, got) -> None:
+        """A second call of B7's backward on the inputs that gave ``got``
+        (no h0, no gradient of h_final) gives every output bitwise as the
+        first did (no atomics, one order of sums)."""
+        from repro_torch.kernels import ssd_scan
+        again = ssd_scan.ssd_chunked_bwd(*args, dy)
+        names = ("dx", "ddt", "da_log", "db", "dc", "dd", "dh0")
+        for name, g, w in zip(names, again, got):
+            if g is not None and not self.torch.equal(g, w):
+                raise AssertionError(f"{where} {name}: two calls on the "
+                                     f"same inputs differ")
+        emit({"b7_backward_repeat": where, "bitwise_equal": True})
 
     def bwd_checks(self, where: str, dtype_name: str, got, want,
                    worst: dict) -> dict:
@@ -4124,6 +4208,31 @@ class Smoke:
         if dtype_name == "float32":
             self.kernels_ssd_train["ssd_chunked_bwd", arch] = res
             self.kernels_ssd_train["ssd_bwd_head_sum", arch] = hs
+        return res
+
+    def b7_backward_bytes(self, arch: str, args, res: dict) -> None:
+        """The device-memory bytes of the backward's first launch at a
+        training shape (no h0), the scratches included, against its graph
+        time: x, dy, dt, b and c read once and dx and ddt written once; the
+        states scratch written and read back once, every chunk's entry
+        state but the first's (zero without h0); the db / dc partials
+        written once (the head sum reads them)."""
+        x, dt, _, bb, _, _ = args
+        b, s, h, p = x.shape
+        n = bb.shape[-1]
+        size = x.dtype.itemsize
+        chunks = -(-s // 32)
+        io = 3 * x.numel() * size + 2 * bb.numel() * size \
+            + 2 * dt.numel() * 4
+        states = 2 * b * h * (chunks - 1) * p * n * 4
+        partials = 2 * b * h * s * n * 4
+        total = io + states + partials
+        emit({"b7_backward_bytes": arch, "dtype": res["dtype"],
+              "inputs_outputs": io, "states_scratch": states,
+              "partials": partials, "total": total,
+              "graph_ms": res["graph_ms"],
+              "tb_per_s": total / (res["graph_ms"] * 1e-3) / 1e12,
+              "at_hbm_ms": total / HBM_BYTES_PER_S * 1e3})
 
     def train_batch(self, cfg) -> dict:
         """The numpy batch of a card-against-CPU training step: TRAIN_BATCH
@@ -4314,6 +4423,7 @@ class Smoke:
               "remat": remat, "losses": losses,
               "grad_norms": [h["grad_norm"] for h in history],
               "first_step_ms": 1e3 * history[0]["seconds"],
+              "steps_ms": [1e3 * h["seconds"] for h in history],
               "ms_per_step": ms, "ms_per_step_min": 1e3 * min(steady),
               "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
               "peak_gb": peak / 1e9, "step_peaks_gb": step_peaks,

@@ -14,11 +14,14 @@ shared by every head, then ``KERNEL``, the scan over the chunks of each
 The reference has no Pallas backward: it trains through XLA's autodiff of
 ``repro.kernels.ref.ssd_chunked_ref``, and ``ssd_chunked_bwd`` computes
 that gradient in two counted launches of ``csrc/ssd_scan_bwd.cu``:
-``BWD_KERNEL`` (per (stream, head): the chunks' entry states recomputed
-into a scratch, then the reverse walk) and ``HEAD_SUM_KERNEL`` (db and dc
-summed over the heads in order).  ``SsdFn`` puts the forward and the
-backward under autograd; ``ref.ssd_chunked_bwd_ref`` is the plain
-version.
+``BWD_KERNEL`` (per (stream, head), 8 warps on the tensor cores by
+3xTF32: the chunks' entry states recomputed into a scratch, then the
+reverse walk, each product tiled over every warp, the chunk's inputs
+staged by cp.async) and ``HEAD_SUM_KERNEL`` (db and dc summed over the
+heads in order).  ``bwd_info`` reads, without a launch, the stages,
+registers, spills and blocks an SM of the first launch's instantiation.
+``SsdFn`` puts the forward and the backward under autograd;
+``ref.ssd_chunked_bwd_ref`` is the plain version.
 """
 
 from __future__ import annotations
@@ -58,6 +61,11 @@ BWD_KERNEL = Kernel("ssd_scan_bwd.cu", "ssd_chunked_bwd_launch", [
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, S, H
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # P, N, dtype
 ])
+# what the backward runs at (P, N, dtype), read without a launch
+BWD_INFO = Kernel("ssd_scan_bwd.cu", "ssd_chunked_bwd_info", [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+BWD_INFO_KEYS = ("stages", "smem_bytes", "registers", "local_bytes",
+                 "blocks_per_sm", "max_threads")
 HEAD_SUM_KERNEL = Kernel("ssd_scan_bwd.cu", "ssd_bwd_head_sum_launch", [
     ctypes.c_void_p, ctypes.c_void_p,                    # db, dc partials
     ctypes.c_void_p, ctypes.c_void_p,                    # db, dc
@@ -197,9 +205,11 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """The gradient of ``ssd_chunked`` on the card, given the output
     gradient ``dy`` (B, S, H, P) in x's dtype and an optional
     ``dh_final`` (B, H, P, N): (dx, ddt, da_log, db, dc, dd, dh0), each in
-    its input's dtype (dh0 None without h0), summed in fp32.  The inputs
-    are those of the forward, read the same way; the chunks' entry states
-    are recomputed into a scratch that lives for this call only."""
+    its input's dtype (dh0 None without h0), summed in fp32 in a fixed
+    order (the same bits from run to run).  The inputs are those of the
+    forward, read the same way (rows the kernel cannot copy 16 bytes at a
+    time are copied first, as ``ssd_chunked`` does); the chunks' entry
+    states are recomputed into a scratch that lives for this call only."""
     device, code = _checked("ssd_chunked_bwd", x, dt, a_log, b, c, d_skip)
     bsz, s, h, p = x.shape
     n = b.shape[-1]
@@ -211,8 +221,8 @@ def ssd_chunked_bwd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     state = (bsz, h, p, n)
     h0f = _state("ssd_chunked_bwd", h0, state, device)
     dhf = _state("ssd_chunked_bwd", dh_final, state, device)
-    x, b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, b, c))
-    dy = dy.contiguous()
+    x, b, c = _rows(x), _rows(b), _rows(c)
+    dy = _rows(dy.contiguous())
     dtf = dt.to(torch.float32).contiguous()
     a32 = a_log.to(torch.float32).contiguous()
     d32 = d_skip.to(torch.float32).contiguous()
@@ -264,6 +274,25 @@ def ssd_bwd_head_sum(parts: torch.Tensor, dtype: torch.dtype):
     HEAD_SUM_KERNEL.launch(device, parts[0].data_ptr(), parts[1].data_ptr(),
                            db.data_ptr(), dc.data_ptr(), bsz, h, s, n, code)
     return db, dc
+
+
+def bwd_info(p: int, n: int, dtype: torch.dtype,
+             device: torch.device) -> dict:
+    """What ``ssd_chunked_bwd``'s first launch runs at head dim ``p``,
+    state ``n`` and ``dtype`` on ``device``, read from the built kernel and
+    the CUDA occupancy calculator without launching it: its shared-memory
+    stages and bytes, registers and local (spill) bytes a thread, and the
+    blocks an SM can hold."""
+    require_cuda("bwd_info", torch.empty(0, device=device))
+    code = dtype_code("bwd_info", dtype, (torch.float32, torch.bfloat16))
+    out = (ctypes.c_int * len(BWD_INFO_KEYS))()
+    fn = BWD_INFO._entry()
+    with torch.cuda.device(device):
+        err = fn(p, n, code, ctypes.addressof(out), None)
+    if err != 0:
+        raise RuntimeError(f"ssd_chunked_bwd_info failed with CUDA error "
+                           f"{err} at P={p} N={n} {dtype}")
+    return dict(zip(BWD_INFO_KEYS, out))
 
 
 class SsdFn(torch.autograd.Function):

@@ -23,7 +23,9 @@ a_log leaf, whose gradient is that sum.
 """
 
 import dataclasses
+import importlib.util
 import math
+from pathlib import Path
 
 import pytest
 
@@ -44,7 +46,8 @@ from repro.optim import init_opt_state as j_init_opt  # noqa: E402
 from repro.training import TrainConfig as JTrain  # noqa: E402
 from repro.training import train_step as j_train_step  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import flash_attention, ops, ref, ssd_scan  # noqa: E402
+from repro_torch.kernels import build, flash_attention, ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.mamba2 import ssd_chunk  # noqa: E402
 from repro_torch.optim import OptimizerConfig, init_opt_state  # noqa: E402
@@ -304,6 +307,57 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   torch.float32)
     assert {"ssd_chunked_bwd", "ssd_bwd_head_sum"} <= set(ops.KERNELS)
     assert ops.KERNELS["ssd_chunked_bwd"].source == "ssd_scan_bwd.cu"
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan.bwd_info(64, 128, torch.float32, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_backward_rows_are_copied_only_when_unaligned(dtype):
+    """The backward copies x, b, c and dy into shared memory 16 bytes at a
+    time, so its wrapper hands them over through ``_rows``: the Mamba2
+    block's strided views of one conv output (mamba2-780m's widths) go in
+    place, a view whose rows are not 16-byte aligned as an equal
+    contiguous copy."""
+    h, p, n = 48, 64, 128
+    xbc = torch.zeros(2, 8, h * p + 2 * n, dtype=dtype)
+    for view in (xbc[..., :h * p].unflatten(-1, (h, p)),
+                 xbc[..., h * p:h * p + n], xbc[..., h * p + n:]):
+        assert ssd_scan._rows(view) is view
+    odd = torch.arange(2 * 8 * 17, dtype=torch.float32).to(dtype).reshape(
+        2, 8, 17)[..., 1:]
+    copy = ssd_scan._rows(odd)
+    assert copy is not odd and copy.is_contiguous()
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, odd)
+
+
+def _variants_script():
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "ssd_bwd_variants.py")
+    spec = importlib.util.spec_from_file_location("ssd_bwd_variants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["base", "states_in_smem",
+                                     "no_partials", "neither"])
+def test_backward_variants_patch_the_kernel_once(variant):
+    """``scripts/ssd_bwd_variants.py`` builds its diagnostic variants by
+    replacing lines of ``csrc/ssd_scan_bwd.cu``: each line it replaces is
+    in the kernel's source exactly once, so a variant differs from the
+    kernel in those lines alone."""
+    script = _variants_script()
+    source = (build.CSRC_DIR / "ssd_scan_bwd.cu").read_text()
+    edits = script.VARIANTS[variant]
+    out = script.patched(source, edits)
+    assert (out == source) == (not edits)
+    for old, new in edits:
+        assert source.count(old) == 1 and new in out
+    # one line of the kernel changed by each edit
+    assert len(set(out.splitlines()) - set(source.splitlines())) == len(edits)
+    with pytest.raises(SystemExit, match="exactly once"):
+        script.patched(source, [("no such line", "")])
 
 
 def _flat(tree):
