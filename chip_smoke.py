@@ -159,14 +159,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    layers, card against CPU: paligemma's batch and pool whole paths
    (the pool's live caches too) and hubert's coded round and engine
    call, and both models' full-sequence entry points;
-17. B3's backward kernel (``flash_attention_bwd``, training) and the
-   forward's row log-sum-exp against their plain versions, and in fp32
-   against autograd of the plain forward, at qwen3-0.6b's training
-   shape (8 x 128 tokens, GQA 16/8 of 128, causal) and at 4 x 2048, both
-   dtypes, timed beside the backward of autograd through SDPA; every
-   rule, head dim and GQA ratio untimed (h2o-danube's window at D = 80,
-   paligemma's prefix-LM at D = 256 rep 8, softcap, q_offset, rows that
-   see no key); and a kernel without a backward (B4) refusing a q that
+17. B3's backward kernel (``flash_attention_bwd``, training: its Delta
+   launch ``flash_attention_bwd_delta``, then one launch of dk/dv and dq
+   blocks) and the forward's row log-sum-exp against their plain
+   versions, and in fp32 against autograd of the plain forward, at
+   qwen3-0.6b's training shape (8 x 128 tokens, GQA 16/8 of 128, causal)
+   and at 4 x 2048, both dtypes, timed beside the backward of autograd
+   through SDPA (the Delta launch beside ``torch.linalg.vecdot``), two
+   calls bitwise equal, each launch's device bytes beside its time;
+   ``bwd_info`` at every head dim (two stages or more, no spills,
+   asserted); every rule, head dim and GQA ratio untimed (h2o-danube's
+   window at D = 80, paligemma's prefix-LM at D = 256 rep 8, softcap,
+   q_offset, rows that see no key), the worst share of the tolerance
+   printed; and a kernel without a backward (B4) refusing a q that
    requires grad;
 18. training (ROADMAP A11) on qwen3-0.6b: one ``train_step`` at full
    width and 2 layers, card against CPU on the same weights and batch
@@ -216,9 +221,10 @@ B4 and B5's also ``paligemma-3b`` and B1, B2 and B3's ``hubert-xlarge``,
 their fp32 numbers at phase 16's shapes, B5's launches from paligemma's
 2-layer pool whole path and B3's also ``launches_engine``; B3's also
 ``launches_train`` and ``launches_train_remat``, its launches in phase
-18's two runs; B3's backward ``flash_attention_bwd`` its own entry, at
-the training shape, with its launches in those runs and its numbers at
-4 x 2048 under ``long``; B7's entries also ``launches_train``,
+18's two runs; B3's backward ``flash_attention_bwd`` and its Delta launch
+``flash_attention_bwd_delta`` their own entries, at the training shape,
+with their launches in those runs and their numbers at 4 x 2048 under
+``long``; B7's entries also ``launches_train``,
 ``launches_train_remat`` (mamba2's runs) and ``launches_train_zamba2``;
 B7's backward and its head sum their own entries, at mamba2's training
 shape, with their launches in phase 20's runs and their numbers at
@@ -270,6 +276,7 @@ REPLACES = {
     "ssd_chunk_scores": "src/repro/kernels/ssd_scan.py:75",
     # no Pallas backward: the gradient of the reference's plain attention
     "flash_attention_bwd": "src/repro/kernels/ref.py:112",
+    "flash_attention_bwd_delta": "src/repro/kernels/ref.py:112",
     # no Pallas backward: the gradient of the reference's chunked scan
     "ssd_chunked_bwd": "src/repro/kernels/ref.py:334",
     "ssd_bwd_head_sum": "src/repro/kernels/ref.py:334",
@@ -279,6 +286,8 @@ SOURCES["berrut_encode_dispatch"] = "src/repro_torch/csrc/berrut_apply.cu"
 SOURCES["pool_flash_decode"] = "src/repro_torch/csrc/flash_decode.cu"
 SOURCES["ssd_chunked"] = "src/repro_torch/csrc/ssd_scan.cu"
 SOURCES["ssd_chunk_scores"] = "src/repro_torch/csrc/ssd_scan.cu"
+SOURCES["flash_attention_bwd_delta"] = \
+    "src/repro_torch/csrc/flash_attention_bwd.cu"
 SOURCES["ssd_chunked_bwd"] = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 SOURCES["ssd_bwd_head_sum"] = "src/repro_torch/csrc/ssd_scan_bwd.cu"
 # The device function of each kernel in the built libraries, and the
@@ -294,6 +303,7 @@ FUNCTIONS = {
     "ssd_chunked": ("ssd_chunked_kernel", None),
     "ssd_chunk_scores": ("ssd_scores_kernel", None),
     "flash_attention_bwd": ("flash_attention_bwd_kernel", None),
+    "flash_attention_bwd_delta": ("flash_attention_bwd_delta_kernel", None),
     "ssd_chunked_bwd": ("ssd_bwd_kernel", None),
     "ssd_bwd_head_sum": ("ssd_bwd_head_sum_kernel", None),
 }
@@ -442,6 +452,11 @@ EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 3e-3
 LONG_SHAPE = (4, 2048)
+# B3's backward in turns against a parent checkout (``b3_backward_ab``):
+# besides the two timed shapes, h2o-danube-1.8b's D = 80 under a window of
+# 64 and paligemma-3b's D = 256 under its prefix-LM, each at AB_SHAPE
+# (2 sequences of 512 tokens)
+AB_SHAPE = (2, 512)
 # A12: mamba2-780m and zamba2-1.2b train on the card through B7's forward
 # and its backward (``ssd_chunked_bwd``, then ``ssd_bwd_head_sum``), which
 # the reference does not have either: it trains through XLA's autodiff of
@@ -803,7 +818,9 @@ class Smoke:
                 **(self.ssd_train_launches(name, trained)
                    if name.startswith("ssd_") else {}),
             })
-        entries.append(self.train_entry(trained[TRAIN_ARCH]))
+        entries += [self.train_entry(name, trained[TRAIN_ARCH])
+                    for name in ("flash_attention_bwd",
+                                 "flash_attention_bwd_delta")]
         entries += [self.ssd_train_entry(name, trained)
                     for name in ("ssd_chunked_bwd", "ssd_bwd_head_sum")]
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
@@ -852,12 +869,14 @@ class Smoke:
                     "bound_ms", "bound_by", "library_ms", "l2_copies")
                    if key in res}}
 
-    def train_entry(self, launches: dict) -> dict:
-        """The kernels line's entry of B3's backward: its fp32 check and
-        times at the training shape, its launches in the full-depth run
-        (and under remat), and the same numbers at ``LONG_SHAPE``."""
-        name = "flash_attention_bwd"
-        res = self.kernels_train["train"]
+    def train_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's entry of one of B3's backward launches
+        (``flash_attention_bwd``, or its Delta launch
+        ``flash_attention_bwd_delta``): its fp32 check and times at the
+        training shape, its launches in the full-depth run (and under
+        remat), and the same numbers at ``LONG_SHAPE``."""
+        at = "" if name == "flash_attention_bwd" else "delta_"
+        res = self.kernels_train[at + "train"]
         keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         return {
@@ -873,10 +892,12 @@ class Smoke:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "library": "backward of autograd through "
-                       "scaled_dot_product_attention",
+                       "scaled_dot_product_attention" if not at
+                       else "torch.linalg.vecdot of o and dO",
             "graph_ms": res["graph_ms"],
             "tensor_cores": self.tensor_cores[name],
-            "long": {key: self.kernels_train["long"][key] for key in keys}}
+            "long": {key: self.kernels_train[at + "long"][key]
+                     for key in keys}}
 
     def ssd_train_launches(self, name: str, trained: dict) -> dict:
         """B7's launches of ``name`` in the SSM models' full-depth training
@@ -3846,27 +3867,34 @@ class Smoke:
     # ------------------------------------------------- training (A11)
 
     def b3_backward(self, dtype_name: str):
-        """B3's backward kernel and the forward's row log-sum-exp against
-        their plain versions (``ref.attention_bwd_ref``, given the
-        kernel's own output and log-sum-exp, and ``ref.attention_lse_ref``;
-        in fp32 also autograd of the plain forward ``ref.attention_ref``),
-        at qwen3-0.6b's training shape (8 sequences of 128 tokens, GQA
-        16/8 of 128, causal) and at 4 x 2048, timed: the kernel (``ms``,
-        ``graph_ms``), its plain version, and, as a yardstick only, the
-        backward of autograd through SDPA with the same causal mask
-        (``library_ms``).  The bound counts 10 D flops a visible (row,
-        key) pair (S, dP, dq, dk and dv: five products) against q, k, v,
-        o, dO and the log-sum-exp read once and dq, dk, dv written once.
-        Then, untimed, every rule at every head dim (64, 80, 128, 256) and
-        GQA ratio 1, 2 and 8: h2o-danube's window at D = 80, paligemma's
-        prefix-LM at D = 256 rep 8, softcap, q_offset, and rows that see
-        no key (q_offset -5: their dq exactly 0, their log-sum-exp -inf,
-        as the plain version's)."""
+        """B3's backward (``flash_attention_bwd``: the Delta launch, then
+        the dk/dv and dq blocks in one launch) and the forward's row
+        log-sum-exp against their plain versions (``ref.attention_bwd_ref``
+        and ``ref.attention_delta_ref``, given the kernel's own output and
+        log-sum-exp, and ``ref.attention_lse_ref``; in fp32 also autograd
+        of the plain forward ``ref.attention_ref``), at qwen3-0.6b's
+        training shape (8 sequences of 128 tokens, GQA 16/8 of 128, causal)
+        and at 4 x 2048, timed: the kernel (``ms``, ``graph_ms``), its plain
+        version, and, as a yardstick only, the backward of autograd through
+        SDPA with the same causal mask (``library_ms``); the Delta launch
+        alone beside its plain version and ``torch.linalg.vecdot``.  The
+        bound counts 10 D flops a visible (row, key) pair (S, dP, dq, dk
+        and dv: five products) against q, k, v, o, dO and the log-sum-exp
+        read once and dq, dk, dv written once.  At both shapes two calls
+        must agree bitwise (``b3_backward_repeat``), and each launch's
+        device bytes are printed beside its time (``b3_backward_bytes``).
+        First, every head dim's ``bwd_info`` (at least two cp.async stages
+        and no spills, asserted).  Then, untimed, every rule at every head
+        dim (64, 80, 128, 256) and GQA ratio 1, 2 and 8: h2o-danube's
+        window at D = 80, paligemma's prefix-LM at D = 256 rep 8, softcap,
+        q_offset, and rows that see no key (q_offset -5: their dq exactly
+        0, their log-sum-exp -inf, as the plain version's)."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.kernels import flash_attention as fa, ref
         dtype = getattr(torch, dtype_name)
         gen = self.train_gen
+        self.b3_backward_occupancy(dtype_name)
         cfg = configs.get_config(TRAIN_ARCH)
         h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3882,6 +3910,7 @@ class Smoke:
             res.update(self.b3_backward_checks(where, dtype_name, q, k, v,
                                                do, {}))
             out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            self.b3_backward_repeat(where, dtype_name, q, k, v, out, lse, do)
             res["ms"] = self.time_ms(
                 lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
             res["graph_ms"] = self.graph_ms(
@@ -3900,8 +3929,12 @@ class Smoke:
                 + 4 * lse.numel(), 10 * hd * pairs * b * h, dtype_name)
             res["pairs"] = pairs
             emit(res)
+            delta = self.b3_delta_timing(key, dtype_name, out, do)
+            self.b3_backward_bytes(key, dtype_name, q, k, v, out, lse, do,
+                                   res, delta)
             if dtype_name == "float32":
                 self.kernels_train[key] = res
+                self.kernels_train["delta_" + key] = delta
             del so, qs, ks, vs
         # every rule, head dim and GQA ratio, untimed
         cases = []
@@ -3920,6 +3953,7 @@ class Smoke:
                    pali.num_kv_heads, pali.head_dim,
                    dict(prefix=pali.num_patches)),
                   (3, 77, h, kvh, hd, {})]
+        worst = 0.0
         for b, s, hh, kk, d, kw in cases:
             l_len = s + kw.get("q_offset", 0)
             q = self.randn(b, s, hh, d, dtype=dtype, gen=gen)
@@ -3930,11 +3964,171 @@ class Smoke:
             out = {"variant": f"{where} {kw}", "dtype": dtype_name}
             out.update(self.b3_backward_checks(where, dtype_name, q, k, v,
                                                do, kw))
+            worst = max(worst, out["err_over_tol"])
             emit(out)
+        emit({"b3_backward_worst": dtype_name, "variants": len(cases),
+              "err_over_tol": worst})
+
+    def b3_backward_occupancy(self, dtype_name: str) -> None:
+        """``bwd_info`` of B3's backward at every head dim: at least two
+        cp.async stages in the main launch and no spills in either launch,
+        asserted."""
+        from repro_torch.kernels import flash_attention as fa
+        dtype = getattr(self.torch, dtype_name)
+        for d in fa.HEAD_DIMS:
+            info = fa.bwd_info(d, dtype, self.dev)
+            emit({"b3_backward_occupancy": dtype_name, "D": d, **info})
+            if info["main"]["stages"] < 2 or any(
+                    launch["local_bytes"] for launch in info.values()):
+                raise AssertionError(f"flash_attention_bwd D={d} "
+                                     f"{dtype_name}: {info}: fewer than two "
+                                     f"stages, or spills")
+
+    def b3_backward_repeat(self, where: str, dtype_name: str, q, k, v, out,
+                           lse, do) -> None:
+        """Two calls of B3's backward on the same inputs give dq, dk and dv
+        bitwise equal (no atomics; every element summed in one order)."""
+        from repro_torch.kernels import flash_attention as fa
+        first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do)
+        for name, g, w in zip(("dq", "dk", "dv"), again, first):
+            if not self.torch.equal(g, w):
+                raise AssertionError(f"{where} {name} ({dtype_name}): two "
+                                     f"calls on the same inputs differ")
+        emit({"b3_backward_repeat": where, "dtype": dtype_name,
+              "bitwise_equal": True})
+
+    def b3_delta_timing(self, key: str, dtype_name: str, out, do) -> dict:
+        """The backward's Delta launch alone at a timed shape: checked
+        against ``ref.attention_delta_ref``, timed beside it and beside
+        ``torch.linalg.vecdot`` of o and dO (its yardstick); bound by o and
+        dO read and Delta written once."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa, ref
+        b, s, h, _ = out.shape
+        res = {"kernel": "flash_attention_bwd_delta", "dtype": dtype_name,
+               "shape": [list(out.shape)], "at": key}
+        res.update(self.check("flash_attention_bwd_delta",
+                              fa.flash_attention_bwd_delta(out, do),
+                              ref.attention_delta_ref(out, do), "float32"))
+        res["ms"] = self.time_ms(lambda: fa.flash_attention_bwd_delta(out, do))
+        res["graph_ms"] = self.graph_ms(
+            lambda: fa.flash_attention_bwd_delta(out, do))
+        res["plain_ms"] = self.time_ms(lambda: ref.attention_delta_ref(out, do))
+        res["library_ms"] = self.time_ms(lambda: torch.linalg.vecdot(out, do))
+        res["bound_ms"], res["bound_by"] = self.bound(
+            2 * out.numel() * out.dtype.itemsize + 4 * b * h * s,
+            2 * out.numel(), dtype_name)
+        emit(res)
+        return res
+
+    def b3_backward_bytes(self, key: str, dtype_name: str, q, k, v, out, lse,
+                          do, res: dict, delta: dict) -> None:
+        """Each launch of B3's backward at a timed shape, its device bytes
+        against its graph time.  Delta: o and dO read, Delta written once.
+        The main launch, timed alone on a Delta computed before: q, k, v,
+        dO, lse and Delta read once, dq, dk and dv written once
+        (``inputs_outputs``), and what its blocks copy into shared memory
+        (``staged``: each block's own rows once and its streamed tiles,
+        from ``b3_bwd_staged`` and ``bwd_info``'s tiles; mostly L2 hits)."""
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa
+        b, s, h, d = q.shape
+        l, kvh = k.shape[1], k.shape[2]
+        size = q.dtype.itemsize
+        tiles = fa.bwd_info(d, q.dtype, self.dev)["main"]
+        dl = fa.flash_attention_bwd_delta(out, do)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        code = 0 if q.dtype == torch.float32 else 1
+
+        def main():
+            fa.BWD_KERNEL.launch(
+                self.dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dl.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, s, l, h, kvh, d, 1, -1, 0,
+                0.0, 0, 1.0 / d ** 0.5, code)
+
+        main_ms = self.graph_ms(main)
+        io = (2 * q.numel() + 2 * k.numel()) * size + 8 * b * h * s \
+            + (q.numel() + 2 * k.numel()) * size
+        staged = b3_bwd_staged(b, s, l, h, kvh, d, size, tiles["rows"],
+                               tiles["tile"])
+        delta_bytes = 2 * out.numel() * size + 4 * b * h * s
+        emit({"b3_backward_bytes": key, "dtype": dtype_name,
+              "delta": {"bytes": delta_bytes, "graph_ms": delta["graph_ms"],
+                        "tb_per_s": delta_bytes / (delta["graph_ms"] * 1e-3)
+                        / 1e12},
+              "main": {"inputs_outputs": io, "staged": staged,
+                       "graph_ms": main_ms,
+                       "tb_per_s": io / (main_ms * 1e-3) / 1e12,
+                       "staged_tb_per_s": sum(staged.values())
+                       / (main_ms * 1e-3) / 1e12},
+              "both_graph_ms": res["graph_ms"]})
+
+    def b3_backward_ab(self, dtype_name: str) -> None:
+        """B3's backward checked against its plain version and timed at the
+        two timed shapes and, at AB_SHAPE, under h2o-danube-1.8b's D = 80
+        (window 64) and paligemma-3b's D = 256 (prefix-LM), on inputs from
+        a generator of its own: what ``scripts/flash_decode_ab.py --kernel
+        flash_attention_bwd`` runs on each checkout.  It calls only what
+        every checkout since B3's backward has (``flash_attention`` with
+        its log-sum-exp, ``flash_attention_bwd``,
+        ``ref.attention_bwd_ref``)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import flash_attention as fa, ref
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(self.dev).manual_seed(14)
+        qwen = configs.get_config(TRAIN_ARCH)
+        h2o = configs.get_config(D80_ARCH)
+        pali = configs.get_config(PALIGEMMA)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for variant, cfg, (b, s), rule in (
+                ("train", qwen, (TRAIN_BATCH, TRAIN_SEQ), {}),
+                ("long", qwen, LONG_SHAPE, {}),
+                (f"{D80_ARCH} window", h2o, AB_SHAPE, dict(window=64)),
+                (f"{PALIGEMMA} prefix", pali, AB_SHAPE,
+                 dict(prefix=pali.num_patches))):
+            h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            q = self.randn(b, s, h, hd, dtype=dtype, gen=gen)
+            k = self.randn(b, s, kvh, hd, dtype=dtype, gen=gen)
+            v = self.randn(b, s, kvh, hd, dtype=dtype, gen=gen)
+            do = self.randn(b, s, h, hd, dtype=dtype, gen=gen)
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **rule)
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, **rule)
+            want = ref.attention_bwd_ref(q, k, v, out, lse, do, **rule)
+            where = f"flash_attention_bwd {variant} B={b} S={s} D={hd}"
+            res = {"kernel": "flash_attention_bwd", "variant": variant,
+                   "dtype": dtype_name,
+                   "shape": [list(q.shape), list(k.shape)], "rule": rule}
+            res.update(max((self.check(f"{where} {name}", g, w, dtype_name)
+                            for name, g, w in zip(("dq", "dk", "dv"), got,
+                                                  want)),
+                           key=lambda r: r["err_over_tol"]))
+            del got, want
+            res["ms"] = self.time_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **rule))
+            res["graph_ms"] = self.graph_ms(
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **rule))
+            res["library_ms"] = None
+            if not rule:
+                qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                so = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+                dos = do.transpose(1, 2)
+                res["library_ms"] = self.time_ms(lambda: torch.autograd.grad(
+                    so, (qs, ks, vs), dos, retain_graph=True))
+                del so, qs, ks, vs
+            pairs = visible_pairs(s, causal=True, window=rule.get("window"),
+                                  prefix=rule.get("prefix", 0))
+            res["bound_ms"], res["bound_by"] = self.bound(
+                4 * (q.numel() + k.numel()) * dtype.itemsize
+                + 4 * lse.numel(), 10 * hd * pairs * b * h, dtype_name)
+            emit(res)
 
     def b3_backward_checks(self, where: str, dtype_name: str, q, k, v, do,
                            rule: dict) -> dict:
-        """dq, dk, dv and the log-sum-exp of B3 against their plain
+        """dq, dk, dv, Delta and the log-sum-exp of B3 against their plain
         versions under ``rule`` (and, in fp32 with every row seeing a key,
         against autograd of the plain forward), each with ``check``'s
         tolerance; a row that sees no key must have a -inf log-sum-exp and
@@ -3951,7 +4145,10 @@ class Smoke:
                                  f"rows differ from the plain version's")
         seen = ~blind
         results = [self.check(f"{where} lse {rule}", lse[seen],
-                              want_lse[seen], "float32")]
+                              want_lse[seen], "float32"),
+                   self.check(f"{where} delta {rule}",
+                              fa.flash_attention_bwd_delta(out, do),
+                              ref.attention_delta_ref(out, do), "float32")]
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, **rule)
         want = ref.attention_bwd_ref(q, k, v, out, lse, do, **rule)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -4407,9 +4604,12 @@ class Smoke:
         torch.cuda.synchronize()
         launched = ops.launch_counts()
         peak = max(before[0], torch.cuda.max_memory_allocated())
+        # the kernels this checkout counts (``scripts/flash_decode_ab.py
+        # --train`` runs older checkouts through this method too)
         expected = {name: 0 for name in launched}
-        expected.update(train_launches(configs.get_config(arch), TRAIN_STEPS,
-                                       remat))
+        expected.update({name: n for name, n in train_launches(
+            configs.get_config(arch), TRAIN_STEPS, remat).items()
+            if name in launched})
         if launched != expected:
             raise AssertionError(f"{arch} train run (remat {remat}) "
                                  f"launched {launched}, not {expected}")
@@ -5178,6 +5378,28 @@ def visible_pairs(s: int, *, causal: bool, window, prefix: int) -> int:
     return total
 
 
+def b3_bwd_staged(b: int, s: int, l: int, h: int, kv: int, d: int,
+                  size: int, rows: int, tile: int) -> dict:
+    """Bytes the blocks of B3's backward main launch copy into shared
+    memory under the causal rule (no window, prefix or offset), walked as
+    the kernel walks: each block's own ``rows`` rows of two operands once
+    (and, for a dq block, their lse and Delta), then its streamed tiles of
+    ``tile`` rows of two operands (and, for a dk/dv block, their lse and
+    Delta).  {"dkv": ..., "dq": ...}."""
+    row = d * size
+    dkv = dq = 0
+    for k0 in range(0, l, rows):
+        first_tile = min(k0, s) // tile
+        n_t = -(-s // tile) - first_tile if s > k0 else 0
+        dkv += 2 * rows * row + (h // kv) * n_t * (2 * tile * row
+                                                   + 2 * tile * 4)
+    for r0 in range(0, s, rows):
+        seen = min(r0 + rows, s)
+        dq += 2 * rows * row + 2 * rows * 4 \
+            + min(-(-l // tile), -(-seen // tile)) * 2 * tile * row
+    return {"dkv": dkv * b * kv, "dq": dq * b * h}
+
+
 def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
     """Least operations of the chunked scan, at the power-of-two chunk Q
     dividing S that needs fewest: per (stream, head, chunk) the causal
@@ -5198,12 +5420,13 @@ def train_launches(cfg, steps: int, remat: bool) -> dict:
     backward in every attention layer ("A", "M", "G"), B7's two forward
     launches and its two backward launches in every "S" layer; each
     forward twice under remat (the block is recomputed), each backward
-    once."""
+    once (B3's backward is two launches: Delta, then dq, dk and dv)."""
     attn = sum(cfg.layer_pattern.count(c) for c in "AMG")
     ssm = cfg.layer_pattern.count("S")
     fwd = steps * (2 if remat else 1)
     return {"flash_attention": attn * fwd,
             "flash_attention_bwd": attn * steps,
+            "flash_attention_bwd_delta": attn * steps,
             "ssd_chunked": ssm * fwd, "ssd_chunk_scores": ssm * fwd,
             "ssd_chunked_bwd": ssm * steps, "ssd_bwd_head_sum": ssm * steps}
 

@@ -5,7 +5,9 @@ checkout's decode kernels at every split count.
     python3 scripts/flash_decode_ab.py OLD_ROOT NEW_ROOT
     python3 scripts/flash_decode_ab.py --kernel fused_group_decode OLD_ROOT NEW_ROOT
     python3 scripts/flash_decode_ab.py --kernel ssd_chunked_bwd OLD_ROOT NEW_ROOT
+    python3 scripts/flash_decode_ab.py --kernel flash_attention_bwd OLD_ROOT NEW_ROOT
     python3 scripts/flash_decode_ab.py --train OLD_ROOT NEW_ROOT
+    python3 scripts/flash_decode_ab.py --kernel flash_attention_bwd --train OLD_ROOT NEW_ROOT
     python3 scripts/flash_decode_ab.py --sweep
     python3 scripts/flash_decode_ab.py --mma-rate
 
@@ -29,13 +31,20 @@ yardstick (``Smoke.group_decode_kernels``), then the host syncs of one
 E=1 round's tail (``Smoke.tail_syncs``).  ``--kernel ssd_chunked_bwd``:
 B7's backward and its head sum at mamba2-780m's and zamba2-1.2b's 8 x 128
 training shapes (``Smoke.b7_backward_ab``: no operand rotation, the
-kernel's own scratches dwarf the L2).  It prints every measurement as
+kernel's own scratches dwarf the L2).  ``--kernel flash_attention_bwd``:
+B3's backward at qwen3-0.6b's 8 x 128 training shape and at 4 x 2048,
+and at 2 x 512 under h2o-danube-1.8b's D = 80 (window 64) and
+paligemma-3b's D = 256 (prefix-LM) (``Smoke.b3_backward_ab``, the
+operands not rotated: at the small shapes they stay in the L2 in
+training too).  It prints every measurement as
 a JSON line, then a table of each side's times, and the card's name and
 power limit.  It needs one CUDA card and exits 1 without one.
 
 ``--train`` instead runs each checkout's training of the models that go
-through B7's backward, mamba2-780m and zamba2-1.2b, at full width and
-depth, without and with remat, through ``Smoke.train_full`` (its
+through the ``--kernel`` named (``flash_attention_bwd``: qwen3-0.6b;
+``ssd_chunked_bwd``: mamba2-780m and zamba2-1.2b; otherwise all three),
+at full width and depth, without and with remat, through
+``Smoke.train_full`` (its
 ``launch.train.run`` at 8 x 128 tokens, ``TRAIN_STEPS`` steps, the
 launches held to ``train_launches``), after building all of the
 checkout's kernels.  It prints each run's line, then a table of each
@@ -52,11 +61,11 @@ card's own reduction kernel takes for the bytes B4 reads), and the B5
 call with every stream dead (the launches and the blocks' fixed cost).
 
 ``--mma-rate`` measures the yardstick of the port's tensor-core kernels
-(B3, its backward, B7, its backward), which run on mma.sync m16n8k8 tf32:
-the rate that instruction sustains on this card, from a loop of 1, 2, 4
-or 8 independent accumulators a warp in 4, 8 or 16 warps a block, four
-blocks an SM (``MMA_RATE_SOURCE``, built with the kernels' nvcc flags into
-``build/kernels/``).
+(B3, its backward, B7, its backward), which run on mma.sync m16n8k8 tf32
+in fp32 and m16n8k16 bf16 in bf16: the rate each instruction sustains on
+this card, from a loop of 1, 2, 4 or 8 independent accumulators a warp in
+4, 8 or 16 warps a block, four blocks an SM (``MMA_RATE_SOURCE``, built
+with the kernels' nvcc flags into ``build/kernels/``).
 """
 
 from __future__ import annotations
@@ -77,7 +86,12 @@ import chip_smoke  # noqa: E402  (imports no torch and no repro_torch)
 KERNELS = {"flash_decode": ("flash_decode.cu", "decode_kernels"),
            "fused_group_decode": ("fused_group_decode.cu",
                                   "group_decode_kernels"),
-           "ssd_chunked_bwd": ("ssd_scan_bwd.cu", "b7_backward_ab")}
+           "ssd_chunked_bwd": ("ssd_scan_bwd.cu", "b7_backward_ab"),
+           "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                   "b3_backward_ab")}
+# --train: the models that train through each --kernel's kernel
+TRAIN_MODELS = {"flash_attention_bwd": (chip_smoke.TRAIN_ARCH,),
+                "ssd_chunked_bwd": chip_smoke.TRAIN_SSM}
 
 
 def child(root: Path, kernel: str, train: bool) -> None:
@@ -91,7 +105,9 @@ def child(root: Path, kernel: str, train: bool) -> None:
     if train:
         build.build_all()
         smoke = chip_smoke.Smoke(torch)
-        for arch in chip_smoke.TRAIN_SSM:
+        archs = TRAIN_MODELS.get(kernel, (chip_smoke.TRAIN_ARCH,)
+                                 + chip_smoke.TRAIN_SSM)
+        for arch in archs:
             for remat in (False, True):
                 smoke.train_full(arch, remat)
         return
@@ -113,8 +129,8 @@ MMA_RATE_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <cstdint>
 // chains independent accumulators a warp, each through `iters` mma.sync
-// m16n8k8 tf32 in turn
-template <int kChains>
+// in turn: m16n8k8 tf32 (kBf16 false) or m16n8k16 bf16
+template <int kChains, bool kBf16>
 __global__ void mma_loop(float* out, int iters) {
   float c[kChains][4] = {};
   const uint32_t a0 = threadIdx.x, a1 = a0 + 1, a2 = a0 + 2, a3 = a0 + 3;
@@ -122,20 +138,36 @@ __global__ void mma_loop(float* out, int iters) {
   for (int i = 0; i < iters; ++i) {
 #pragma unroll
     for (int j = 0; j < kChains; ++j) {
-      asm volatile(
-          "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-          : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
-          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      if (kBf16) {
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      } else {
+        asm volatile(
+            "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+            : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
     }
   }
   float s = 0.f;
   for (int j = 0; j < kChains; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
 }
+template <bool kBf16>
+void launch(int chains, int warps, int blocks, float* out, int iters) {
+  if (chains == 1) mma_loop<1, kBf16><<<blocks, warps * 32>>>(out, iters);
+  if (chains == 2) mma_loop<2, kBf16><<<blocks, warps * 32>>>(out, iters);
+  if (chains == 4) mma_loop<4, kBf16><<<blocks, warps * 32>>>(out, iters);
+  if (chains == 8) mma_loop<8, kBf16><<<blocks, warps * 32>>>(out, iters);
+}
 // ms of one launch of `blocks` blocks of `warps` warps (after one warm-up),
-// or -1 on a CUDA error
-extern "C" float mma_rate_ms(int chains, int warps, int blocks, int iters) {
+// or -1 on a CUDA error; bf16 != 0 times m16n8k16 bf16
+extern "C" float mma_rate_ms(int chains, int warps, int blocks, int iters,
+                             int bf16) {
   float* out = nullptr;
   if (cudaMalloc(&out, sizeof(float) * blocks * warps * 32) != cudaSuccess) {
     return -1.f;
@@ -146,10 +178,11 @@ extern "C" float mma_rate_ms(int chains, int warps, int blocks, int iters) {
   float ms = -1.f;
   for (int rep = 0; rep < 2; ++rep) {
     cudaEventRecord(e0);
-    if (chains == 1) mma_loop<1><<<blocks, warps * 32>>>(out, iters);
-    if (chains == 2) mma_loop<2><<<blocks, warps * 32>>>(out, iters);
-    if (chains == 4) mma_loop<4><<<blocks, warps * 32>>>(out, iters);
-    if (chains == 8) mma_loop<8><<<blocks, warps * 32>>>(out, iters);
+    if (bf16) {
+      launch<true>(chains, warps, blocks, out, iters);
+    } else {
+      launch<false>(chains, warps, blocks, out, iters);
+    }
     cudaEventRecord(e1);
     cudaEventSynchronize(e1);
     cudaEventElapsedTime(&ms, e0, e1);
@@ -164,8 +197,8 @@ extern "C" float mma_rate_ms(int chains, int warps, int blocks, int iters) {
 
 
 def mma_rate() -> None:
-    """mma.sync m16n8k8 tf32 TFLOP/s on this card at each (chains, warps
-    a block), four blocks an SM."""
+    """mma.sync m16n8k8 tf32 and m16n8k16 bf16 TFLOP/s on this card at
+    each (chains, warps a block), four blocks an SM."""
     sys.path.insert(0, str(REPO / "src"))
     import ctypes
     import torch
@@ -180,20 +213,24 @@ def mma_rate() -> None:
                     str(src)], check=True, capture_output=True, text=True,
                    timeout=600)
     fn = ctypes.CDLL(str(lib)).mma_rate_ms
-    fn.argtypes = [ctypes.c_int] * 4
+    fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_float
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks, iters = 4 * sms, 4096
-    for chains in (1, 2, 4, 8):
-        for warps in (4, 8, 16):
-            ms = fn(chains, warps, blocks, iters)
-            if ms <= 0:
-                raise SystemExit("flash_decode_ab.py: mma_rate launch failed")
-            mmas = blocks * warps * iters * chains
-            chip_smoke.emit({
-                "mma_rate": "m16n8k8 tf32", "chains": chains,
-                "warps_a_block": warps, "blocks": blocks, "ms": ms,
-                "tflops": mmas * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12})
+    for bf16, name, depth in ((0, "m16n8k8 tf32", 8),
+                              (1, "m16n8k16 bf16", 16)):
+        for chains in (1, 2, 4, 8):
+            for warps in (4, 8, 16):
+                ms = fn(chains, warps, blocks, iters, bf16)
+                if ms <= 0:
+                    raise SystemExit("flash_decode_ab.py: mma_rate launch "
+                                     "failed")
+                mmas = blocks * warps * iters * chains
+                chip_smoke.emit({
+                    "mma_rate": name, "chains": chains,
+                    "warps_a_block": warps, "blocks": blocks, "ms": ms,
+                    "tflops": mmas * 2 * 16 * 8 * depth / (ms * 1e-3)
+                    / 1e12})
 
 
 SWEEP_STREAMS = (8, 16, 20, 24, 32, 44, 72, 96)

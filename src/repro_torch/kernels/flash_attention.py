@@ -1,5 +1,6 @@
 """CUDA online-softmax prefill attention (``csrc/flash_attention.cu``) and
-its backward (``csrc/flash_attention_bwd.cu``).
+its backward (``csrc/flash_attention_bwd.cu``: a Delta launch, then one
+launch of dk/dv and dq blocks side by side).
 
 The forward replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``: causal, sliding-window,
@@ -32,8 +33,7 @@ KERNEL = Kernel("flash_attention.cu", "flash_attention_launch", [
 ])
 BWD_KERNEL = Kernel("flash_attention_bwd.cu", "flash_attention_bwd_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # o, dO, lse
-    ctypes.c_void_p,                                     # delta scratch
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dO, lse, delta
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # dq, dk, dv
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, S, L
     ctypes.c_int, ctypes.c_int, ctypes.c_int,            # H, KV, D
@@ -41,6 +41,22 @@ BWD_KERNEL = Kernel("flash_attention_bwd.cu", "flash_attention_bwd_launch", [
     ctypes.c_float, ctypes.c_int, ctypes.c_float,        # softcap, q_offset, scale
     ctypes.c_int,                                        # dtype
 ])
+DELTA_KERNEL = Kernel("flash_attention_bwd.cu",
+                      "flash_attention_bwd_delta_launch", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # o, dO, delta
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # B, S, H
+    ctypes.c_int, ctypes.c_int,                          # D, dtype
+])
+BWD_INFO = Kernel("flash_attention_bwd.cu", "flash_attention_bwd_info", [
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])        # D, dtype, out
+# flash_attention_bwd_info's numbers of each launch, in its order
+BWD_INFO_KEYS = {
+    "main": ("stages", "smem_bytes", "registers", "local_bytes",
+             "blocks_per_sm", "threads", "rows", "tile", "split_d",
+             "split_n"),
+    "delta": ("stages", "smem_bytes", "registers", "local_bytes",
+              "blocks_per_sm", "threads"),
+}
 HEAD_DIMS = (64, 80, 128, 256)
 
 
@@ -97,6 +113,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+def flash_attention_bwd_delta(o: torch.Tensor,
+                              do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * o) of the forward's output ``o`` and the output
+    gradient ``do`` (B, S, H, D) on the card: (B, H, S) fp32, the first of
+    the backward's two launches (``ref.attention_delta_ref`` is its plain
+    version)."""
+    device = require_cuda("flash_attention_bwd_delta", o, do)
+    code = dtype_code("flash_attention_bwd_delta", o.dtype,
+                      (torch.float32, torch.bfloat16))
+    if o.dim() != 4 or do.shape != o.shape or do.dtype != o.dtype:
+        raise ValueError(f"flash_attention_bwd_delta needs o and do of one "
+                         f"(B, S, H, D) shape and dtype, got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    b, s, h, d = o.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_delta takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    o, do = (_aligned(t.contiguous()) for t in (o, do))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=device)
+    if delta.numel():
+        DELTA_KERNEL.launch(device, o.data_ptr(), do.data_ptr(),
+                            delta.data_ptr(), b, s, h, d, code)
+    return delta
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -105,7 +147,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of ``flash_attention`` on the card: (dq, dk, dv) in
     q's, k's and v's dtype (accumulated in fp32), from the forward's
     output ``o``, its log-sum-exp ``lse`` and the output gradient ``do``;
-    the same visibility rules as the forward."""
+    the same visibility rules as the forward.  Two launches: Delta
+    (``flash_attention_bwd_delta``), then one grid of dk/dv blocks (a
+    block of keys of one kv-head, over its q-heads' rows) and dq blocks
+    (a block of rows over their keys), which run side by side and write
+    every element once: no atomics, and a call is bitwise deterministic.
+    ``bwd_info`` says what each launch runs at a head dim and dtype."""
     device, code = _checked("flash_attention_bwd", q, k, v, window)
     b, s, h, d = q.shape
     l, kv = k.shape[1], k.shape[2]
@@ -118,19 +165,44 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"float32 lse, got {tuple(lse.shape)} {lse.dtype}")
     require_cuda("flash_attention_bwd", q, o, do, lse)
     q, k, v, do = (_aligned(t.contiguous()) for t in (q, k, v, do))
-    o, lse = o.contiguous(), lse.contiguous()
+    lse = lse.contiguous()
     if not (q.numel() and l):      # no key anywhere: no gradient
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = flash_attention_bwd_delta(o, do)
     # the kernel writes every row of dq, dk and dv
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=device)
     BWD_KERNEL.launch(device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                      delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), b, s, l, h, kv, d, int(causal),
+                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, l,
+                      h, kv, d, int(causal),
                       -1 if window is None else window, prefix, softcap,
                       q_offset, 1.0 / d ** 0.5, code)
     return dq, dk, dv
+
+
+def bwd_info(d: int, dtype: torch.dtype, device: torch.device) -> dict:
+    """What ``flash_attention_bwd``'s two launches run at head dim ``d``
+    and ``dtype`` on ``device``, read from the built kernels and the CUDA
+    occupancy calculator without launching them: {"main": its cp.async
+    stages, shared bytes, registers and local (spill) bytes a thread,
+    blocks an SM, threads a block, a block's own rows, the streamed tile's
+    rows, the warps splitting D and the tile; "delta": the same first
+    six}."""
+    require_cuda("bwd_info", torch.empty(0, device=device))
+    code = dtype_code("bwd_info", dtype, (torch.float32, torch.bfloat16))
+    if d not in HEAD_DIMS:
+        raise ValueError(f"bwd_info takes head_dim in {HEAD_DIMS}, got {d}")
+    sizes = [len(keys) for keys in BWD_INFO_KEYS.values()]
+    out = (ctypes.c_int * sum(sizes))()
+    fn = BWD_INFO._entry()
+    with torch.cuda.device(device):
+        err = fn(d, code, ctypes.addressof(out), None)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_info failed with CUDA error "
+                           f"{err} at D={d} {dtype}")
+    values = list(out)
+    return {"main": dict(zip(BWD_INFO_KEYS["main"], values[:sizes[0]])),
+            "delta": dict(zip(BWD_INFO_KEYS["delta"], values[sizes[0]:]))}
 
 
 class FlashAttentionFn(torch.autograd.Function):

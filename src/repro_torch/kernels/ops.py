@@ -34,6 +34,7 @@ KERNELS = {
     "fused_group_decode": berrut_decode.KERNEL,
     "flash_attention": flash_attention.KERNEL,
     "flash_attention_bwd": flash_attention.BWD_KERNEL,
+    "flash_attention_bwd_delta": flash_attention.DELTA_KERNEL,
     "flash_decode": flash_decode.KERNEL,
     "pool_flash_decode": flash_decode.POOL_KERNEL,
     "ssd_chunked": ssd_scan.KERNEL,

@@ -148,8 +148,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(allowed, torch.exp(c - lse_g), 0.0)
     dof = do.to(torch.float32).reshape(b, s, kv, rep, d)
     dp = torch.einsum("bsgrd,blgd->bgrsl", dof, v.to(torch.float32))
-    delta = (dof * o.to(torch.float32).reshape(b, s, kv, rep, d)).sum(-1)
-    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    delta = attention_delta_ref(o, do).reshape(b, kv, rep, s)
+    ds = p * (dp - delta[..., None])
     if softcap > 0.0:
         ds = ds * (1.0 - (c / softcap) ** 2)
     scale = 1.0 / d ** 0.5
@@ -159,6 +159,14 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.einsum("bgrsl,bsgrd->blgd", p, dof)
     return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Delta = rowsum(dO * o), the first launch of B3's backward written
+    out: (B, H, S) fp32 from the forward's output ``o`` and the output
+    gradient ``do`` (B, S, H, D)."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(-1).permute(
+        0, 2, 1)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

@@ -134,6 +134,58 @@ def test_rows_that_see_no_key():
     _close(got[2], want[2])
 
 
+@pytest.mark.parametrize("heads", HEADS, ids=lambda t: f"{t[0]}-{t[1]}")
+@pytest.mark.parametrize("rule", RULES, ids=lambda r: str(r) or "causal")
+def test_delta_matches_reference(rule, heads):
+    """``ref.attention_delta_ref`` (the plain version of the backward's
+    first launch) on the reference's output: each row's rowsum(dO * o)
+    equals sum_j P_ij dP_ij built from the reference's masked softmax and
+    dO v^T, and each kv-head's rows add up to sum_j dv_j . v_j with dv
+    from ``jax.grad`` of the reference's ``attention_ref``."""
+    h, kv = heads
+    q, k, v, do = _inputs(31 + h, 2, 16, h, kv, 64, rule.get("q_offset", 0))
+    b, s, _, d = q.shape
+    out = jref.attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **rule)
+    got = ref.attention_delta_ref(torch.from_numpy(np.array(out)),
+                                  torch.from_numpy(do))
+    assert got.shape == (b, h, s) and got.dtype == torch.float32
+    qg = (jnp.asarray(q) / jnp.sqrt(d).astype(jnp.float32)).reshape(
+        b, s, kv, h // kv, d)
+    scores = jnp.einsum("bsgrd,blgd->bgrsl", qg, jnp.asarray(k))
+    cap = rule.get("softcap", 0.0)
+    if cap:
+        scores = cap * jnp.tanh(scores / cap)
+    bias = jref._mask_bias(s, k.shape[1], causal=rule.get("causal", True),
+                           window=rule.get("window"),
+                           prefix=rule.get("prefix", 0),
+                           q_offset=rule.get("q_offset", 0))
+    probs = jax.nn.softmax(jnp.where(bias == 0.0, scores, -jnp.inf), -1)
+    dp = jnp.einsum("bsgrd,blgd->bgrsl",
+                    jnp.asarray(do).reshape(b, s, kv, h // kv, d),
+                    jnp.asarray(v))
+    want = np.asarray((probs * dp).sum(-1)).reshape(b, h, s)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    _, _, dv = _reference_grads(q, k, v, do, rule)
+    per_group = np.einsum("blgd,blgd->bg", np.asarray(dv), v)
+    np.testing.assert_allclose(got.numpy().reshape(b, kv, -1).sum(-1),
+                               per_group, rtol=1e-4, atol=1e-4)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    """The Delta launch, the backward and ``bwd_info`` run on the card
+    only: CPU tensors are refused before any build (``ops`` takes the
+    plain versions for them)."""
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(5, 1, 8, 4, 2, 64))
+    lse = ref.attention_lse_ref(q, k)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention.flash_attention_bwd_delta(q, do)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention.flash_attention_bwd(q, k, v, q, lse, do)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_attention.bwd_info(64, torch.float32, torch.device("cpu"))
+
+
 def _plain_launches(monkeypatch):
     """Replace B3's two launches by their plain versions, counting calls."""
     calls = {"forward": 0, "backward": 0}

@@ -199,7 +199,9 @@ def test_launch_counts_cover_the_four_kernels():
                                         "berrut_encode_dispatch",
                                         "fused_group_decode",
                                         "flash_attention",
-                                        "flash_attention_bwd", "flash_decode",
+                                        "flash_attention_bwd",
+                                        "flash_attention_bwd_delta",
+                                        "flash_decode",
                                         "pool_flash_decode", "ssd_chunked",
                                         "ssd_chunk_scores",
                                         "ssd_chunked_bwd",
