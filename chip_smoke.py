@@ -205,7 +205,36 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    each family not trained on the card before: qwen3-moe-30b-a3b
    (router routes held, ``route_walk``), paligemma-3b (2 x 256 patches
    and 32 text tokens), hubert-xlarge (2 x 500 frames, frame targets)
-   and h2o-danube-1.8b (head_dim 80), under phase 18's rules.
+   and h2o-danube-1.8b (head_dim 80), under phase 18's rules;
+22. the serving mesh (ROADMAP A9.1; these run after phase 10): B3 and
+   B5 at phase 24's model-2 shapes (80 streams of 128 tokens, a 256-slot
+   ring), fp32, at a rank's heads (GQA 8/4 of 128) and the whole
+   model's (16/8), timed;
+23. qwen3-0.6b at full width and depth, fp32, through the mesh code on
+   one rank over NCCL: ``launch.multihost --mode serve`` at its defaults
+   with ``--s 3`` (K=7 S=3 E=0, 8 slots of 128-token prompts, 3 decode
+   calls) against the same pool with no mesh, and the batch E=1 round
+   (2 groups of K=4 S=1, 128-token prompts, 3 decode steps on fixed
+   next tokens, a straggler and a sigma-10 attacker) on a one-rank
+   (data, model) mesh against no mesh: tokens, logits and verdicts
+   bitwise equal.  A one-rank mesh has no group (an axis of size 1 gets
+   none), so this phase runs no collective: it checks the stream padding
+   and ``local_shard``'s pass-through, not the mesh's collectives;
+24. the same multihost serve on (worker, model) = (1, 2), (2, 1) and
+   (2, 2), as 2-4 processes sharing the card over gloo (NCCL refuses
+   two ranks on a device; only the collectives pass through the host),
+   and phase 23's batch round at model 2: every rank's tokens the same
+   and held to phase 23's up to the first near tie, each rank's decoded
+   logits of those calls (its vocabulary block at W = 2) and the batch
+   round's logits within the CPU tests' fp32 tolerance (rtol 1e-5, atol
+   1e-4), and the batch round's verdicts equal; per-rank launches held to the one-rank
+   tables (B6/B1, B2 once a call, B3 28 a prefill, B5/B4 28 a decode, at
+   the local heads) and printed with each call's collective bytes by op
+   and its wall time (gloo over the host);
+25. h2o-danube-1.8b at full width and 2 layers, fp32, at model 2 (two
+   processes over gloo): the batch round and the slot pool against the
+   one-rank card path with no mesh: phase 24's rules, and each rank's
+   caches its block of the one-rank caches' kv-heads.
 
 Each phase prints its wall time.
 
@@ -228,7 +257,10 @@ with their launches in those runs and their numbers at 4 x 2048 under
 ``launches_train_remat`` (mamba2's runs) and ``launches_train_zamba2``;
 B7's backward and its head sum their own entries, at mamba2's training
 shape, with their launches in phase 20's runs and their numbers at
-zamba2's under ``zamba2-1.2b``);
+zamba2's under ``zamba2-1.2b``); B1, B6, B2, B3, B4 and B5's entries
+also ``model_par_2``: their launches on each rank of phase 24's (worker
+1, model 2) multihost run and batch round, and B3 and B5's fp32 numbers
+of phase 22 at a rank's heads and the whole model's);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -405,6 +437,19 @@ RUNS = [("qwen3-0.6b", "batch", 0), ("qwen3-0.6b", "batch", E),
 # head_dim 80 (h2o-danube-1.8b): the key of B3, B4 and B5's entries in
 # the kernels line that holds their timings at its E=1 shapes, and the
 # h2o run whose launches each reports
+# The serving mesh (phases 22-25): qwen3-0.6b's batch E=1 round (2 groups
+# of K=4, S=1, E=1: 22 streams of 128-token prompts, 3 decode steps on
+# fixed next tokens, a straggler and a sigma-10 attacker) and
+# ``multihost --mode serve`` at its defaults with --s 3 (K=7 S=3 E=0: 10
+# streams x 8 slots) for 3 decode calls, fp32; the (worker, model) meshes
+# of its gloo runs, 2-4 processes sharing the card
+MESH_GROUPS, MESH_PROMPT, MESH_STEPS, MESH_S = 2, 128, 3, 3
+MESH_SEED, MESH_STRAGGLER, MESH_ATTACKER = 12, 3, 5
+MESH_RUNS = ((1, 2), (2, 1), (2, 2))
+MESH_TOL = (1e-5, 1e-4)        # rtol, atol: the CPU tests' fp32 logits rule
+MESH_TIMEOUT_S = 600
+MP2_KERNELS = ("berrut_apply", "berrut_encode_dispatch", "fused_group_decode",
+               "flash_attention", "flash_decode", "pool_flash_decode")
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -519,6 +564,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_child(int(sys.argv[2]), Path(sys.argv[3]))
     Smoke(torch).run()
     return 0
 
@@ -556,6 +603,9 @@ class Smoke:
         # ({(kernel, arch): fp32 entry}), from a generator of their own
         self.kernels_ssd_train = {}
         self.bwd_gen = torch.Generator(self.dev).manual_seed(10)
+        # B3 and B5 at phase (b)'s model-2 shapes: {"local" | "whole":
+        # {name: fp32 entry}}
+        self.kernels_mp2 = {}
 
     # ------------------------------------------------------------ helpers
 
@@ -754,6 +804,17 @@ class Smoke:
         self.phase("qwen3-0.6b whole worker-major pool path",
                    self.whole_pool_path, "qwen3-0.6b", True)
         self.phase("worker tail over one-rank NCCL", self.nccl_tail)
+        self.free_memory()
+        self.phase("qwen3-0.6b model-axis kernels", self.model_axis_kernels)
+        one_rank = self.phase("qwen3-0.6b serving mesh, one rank over NCCL",
+                              self.mesh_one_rank)
+        mesh_launches = self.phase(
+            "qwen3-0.6b model axis, ranks sharing the card", self.mesh_ranks,
+            one_rank)
+        del one_rank
+        self.phase(f"{D80_ARCH} model axis, 2 layers, card against one rank",
+                   self.mesh_h2o)
+        self.free_memory()
         self.phase("qwen3-0.6b whole scheduler path",
                    self.whole_scheduler_path)
         self.phase("qwen3-0.6b whole EngineExecutor path",
@@ -817,6 +878,8 @@ class Smoke:
                    if name == "flash_attention" else {}),
                 **(self.ssd_train_launches(name, trained)
                    if name.startswith("ssd_") else {}),
+                **({"model_par_2": self.mp2_entry(name, mesh_launches)}
+                   if name in MP2_KERNELS else {}),
             })
         entries += [self.train_entry(name, trained[TRAIN_ARCH])
                     for name in ("flash_attention_bwd",
@@ -5363,6 +5426,574 @@ class Smoke:
         finally:
             dist.destroy_process_group()
             store.unlink(missing_ok=True)
+
+    # ------------------------------------------------- the serving mesh
+
+    def mesh_inputs(self, cfg) -> dict:
+        """The batch E=1 round's inputs on the card, drawn from
+        ``MESH_SEED``: MESH_GROUPS groups of K prompts of MESH_PROMPT
+        tokens, MESH_STEPS fixed next tokens, one straggler, a sigma-10
+        attacker and its (G, N+1, V) noise."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        n1 = CodingConfig(k=K, s=S, e=E).num_workers
+        gen = torch.Generator(self.dev).manual_seed(MESH_SEED)
+        rows = MESH_GROUPS * K
+        mask = torch.ones(n1, device=self.dev)
+        mask[MESH_STRAGGLER] = 0.0
+        byz = torch.zeros(n1, device=self.dev)
+        byz[MESH_ATTACKER] = 1.0
+        return {"tokens": torch.randint(0, cfg.vocab_size,
+                                        (rows, MESH_PROMPT), generator=gen,
+                                        device=self.dev),
+                "steps": torch.randint(0, cfg.vocab_size,
+                                       (MESH_STEPS, rows, 1), generator=gen,
+                                       device=self.dev),
+                "mask": mask, "byz": byz,
+                "noise": torch.randn((MESH_GROUPS, n1, cfg.vocab_size),
+                                     generator=gen, device=self.dev)}
+
+    def mesh_children(self, jobs: list, tag: str) -> list:
+        """Start one process per rank of every job in ``jobs`` (each a
+        dict with "world"; the processes share cuda:0 over gloo), one job
+        after another, each rank's output to its log beside its results.
+        A rank that fails, or a job that outlives MESH_TIMEOUT_S, fails
+        the phase at once (every rank of the job is killed).  Returns
+        each job's per-rank results."""
+        out = []
+        for j, job in enumerate(jobs):
+            work = ROOT / "build" / "mesh" / f"{tag}{j}"
+            if work.exists():
+                for old in work.iterdir():
+                    old.unlink()
+            work.mkdir(parents=True, exist_ok=True)
+            (work / "job.json").write_text(json.dumps(job))
+            logs = [work / f"rank{r}.log" for r in range(job["world"])]
+            procs = []
+            try:
+                for r, log in enumerate(logs):
+                    with open(log, "w") as f:
+                        procs.append(subprocess.Popen(
+                            [sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--mesh-rank", str(r), str(work)], stdout=f,
+                            stderr=subprocess.STDOUT))
+                deadline = time.monotonic() + MESH_TIMEOUT_S
+                while any(p.poll() is None for p in procs):
+                    failed = [r for r, p in enumerate(procs)
+                              if p.poll() not in (None, 0)]
+                    if failed or time.monotonic() > deadline:
+                        r = failed[0] if failed else 0
+                        raise AssertionError(
+                            f"{tag} job {j} rank {r} "
+                            f"{'failed' if failed else 'timed out'}:\n"
+                            f"{logs[r].read_text()[-4000:]}")
+                    time.sleep(0.2)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for r, p in enumerate(procs):
+                if p.returncode != 0:
+                    raise AssertionError(f"{tag} job {j} rank {r} failed:\n"
+                                         f"{logs[r].read_text()[-4000:]}")
+            out.append([self.torch.load(work / f"rank{r}.pt",
+                                        weights_only=False)
+                        for r in range(job["world"])])
+        return out
+
+    def mesh_one_rank(self) -> dict:
+        """Phase (a): qwen3-0.6b at full width and depth, fp32, through
+        the mesh code on one rank over NCCL: ``multihost --mode serve`` at
+        its defaults with ``--s 3`` (K=7 S=3 E=0, 8 slots of 128-token
+        prompts, MESH_STEPS decode calls) against the same pool served
+        with no mesh, and the batch E=1 round (``mesh_rounds``) on a
+        one-rank (data, model) mesh against no mesh: tokens, logits and
+        verdicts bitwise equal.  The one-rank mesh builds no group, so no
+        collective runs here: the phase checks the padding and
+        ``local_shard``'s pass-through.  Returns the no-mesh outputs (and
+        each multihost call's decoded logits), which phase (b) is held
+        to."""
+        torch = self.torch
+        import torch.distributed as dist
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch import multihost, shardings
+        from repro_torch.launch import worker_mesh as wm
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
+        from repro_torch.models import partitioning
+        from repro_torch.models.model import init_params
+        from repro_torch.serving.continuous import ContinuousLLMExecutor
+        store = ROOT / "build" / "mesh-store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        decoded = []
+        real = wm.sample_tokens
+
+        def sample(dec, *args, **kw):
+            decoded.append(dec.float().cpu())
+            return real(dec, *args, **kw)
+
+        wm.sample_tokens = sample
+        try:
+            res = multihost.main(mesh_multihost_argv(store, 1, 0, 1))
+        finally:
+            wm.sample_tokens = real
+            store.unlink(missing_ok=True)
+        pool_logits, decoded = decoded, []
+        # the same pool with no mesh at all
+        cfg = configs.get_config("qwen3-0.6b").with_updates(
+            param_dtype="float32", activation_dtype="float32")
+        coding = CodingConfig(k=MH_K, s=MESH_S, e=0)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        ex = ContinuousLLMExecutor(
+            cfg, coding, params, pool_groups=MH_SLOTS, max_len=MH_WIDTH,
+            wshard=WorkerShardConfig(gather_width=coding.num_workers))
+        state = ex.init_state()
+        prompts = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (MH_SLOTS * MH_K, MH_PROMPT))
+        admit = np.ones((MH_SLOTS,), np.float32)
+        full = np.ones((coding.num_workers,), np.float32)
+        wm.sample_tokens = sample
+        try:
+            toks, state, _ = ex.prefill(state, prompts, admit, full)
+            plain = [toks]
+            for _ in range(MESH_STEPS):
+                toks, state, _ = ex.decode(state, toks.reshape(-1, 1), admit,
+                                           full)
+                plain.append(toks)
+        finally:
+            wm.sample_tokens = real
+        del ex, state
+        if not np.array_equal(np.stack(plain), res["tokens"]) or any(
+                not torch.equal(a, b) for a, b in zip(decoded, pool_logits)):
+            raise AssertionError("one-rank multihost serve differs from the "
+                                 "pool with no mesh")
+        emit({"mesh_one_rank": "multihost serve qwen3-0.6b fp32 K=7 S=3 "
+              "W=1 M=1 (NCCL)", "tokens_equal": True, "logits_equal": True,
+              "calls": len(decoded), "prefill_ms": res["call_ms"]["prefill"],
+              "decode_ms": res["call_ms"]["decode"]})
+        # the batch E=1 round, with no mesh and on a one-rank mesh
+        inputs = self.mesh_inputs(cfg)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+            MESH_SEED), self.dev)
+        plain = mesh_rounds(cfg, params, inputs)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_host_mesh()
+            with partitioning.mesh_context(mesh):
+                local = shardings.local_shard(
+                    params, shardings.serving_param_specs(mesh, cfg, params),
+                    mesh)
+                meshed = mesh_rounds(cfg, local, inputs)
+        finally:
+            dist.destroy_process_group()
+            store.unlink(missing_ok=True)
+        for i, ((lp, vp), (lm, vm)) in enumerate(zip(plain["batch"],
+                                                     meshed["batch"])):
+            if not (torch.equal(lp, lm) and torch.equal(vp, vm)):
+                raise AssertionError(f"batch call {i}: the one-rank mesh "
+                                     "differs from no mesh")
+            if not vp[:, MESH_ATTACKER].all():
+                raise AssertionError(f"batch call {i}: attacker not located")
+        emit({"mesh_one_rank": "batch E=1 round qwen3-0.6b fp32 on a "
+              "(data 1, model 1) mesh (NCCL)", "calls": len(plain["batch"]),
+              "logits_equal": True, "verdicts_equal": True})
+        del params, local
+        self.free_memory()
+        return {"tokens": res["tokens"], "pool_logits": pool_logits,
+                "batch": plain["batch"], "inputs": inputs}
+
+    def mesh_ranks(self, one_rank: dict) -> dict:
+        """Phase (b): ``multihost --mode serve`` (phase (a)'s settings) on
+        each (worker, model) of MESH_RUNS, as 2-4 processes sharing cuda:0
+        over gloo, and phase (a)'s batch E=1 round at model 2 after the
+        (1, 2) run: every rank's tokens the same, held to phase (a)'s up
+        to the first near tie (``near_tie_rows``), each rank's decoded
+        logits of those calls (at W = 2 its worker's vocabulary block)
+        within MESH_TOL of phase (a)'s, the batch round's logits within
+        MESH_TOL and its verdicts equal;
+        per-rank launches held to the one-rank tables and printed with
+        each call's collective bytes by op and its wall time (gloo over
+        the host).  Returns the (1, 2) run's per-rank launches."""
+        torch = self.torch
+        inputs_path = ROOT / "build" / "mesh" / "inputs.pt"
+        inputs_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in one_rank["inputs"].items()},
+                   inputs_path)
+        jobs = [{"kind": "multihost", "world": w * m, "model": m,
+                 "batch": (w, m) == (1, 2), "inputs": str(inputs_path)}
+                for w, m in MESH_RUNS]
+        runs = self.mesh_children(jobs, "qwen3-")
+        want_pool = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS,
+                                           pool=True, worker_major=True)
+        want_batch = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS,
+                                            pool=False)
+        shown = ("berrut_apply", "berrut_encode_dispatch",
+                 "fused_group_decode", "flash_attention", "flash_decode",
+                 "pool_flash_decode")
+        out = {}
+        for (w, m), ranks in zip(MESH_RUNS, runs):
+            where = f"multihost serve qwen3-0.6b fp32 W={w} M={m} (gloo)"
+            for r, res in enumerate(ranks):
+                if not np.array_equal(res["tokens"], ranks[0]["tokens"]):
+                    raise AssertionError(f"{where}: rank {r}'s tokens differ")
+                if res["launches"] != want_pool:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != {want_pool}")
+            held = near_tie_rows(where, ranks[0]["tokens"],
+                                 one_rank["tokens"], one_rank["pool_logits"])
+            want = one_rank["pool_logits"]
+            vloc = want[0].shape[-1] // w
+            pool_worst = 0.0
+            for r, res in enumerate(ranks):
+                if len(res["pool_logits"]) != len(want):
+                    raise AssertionError(
+                        f"{where} rank {r}: {len(res['pool_logits'])} "
+                        f"decoded calls, one rank had {len(want)}")
+                # rank r is worker r // m's; at W > 1 it decodes that
+                # worker's block of the vocabulary.  A call's logits are
+                # held while its inputs equal phase (a)'s: up to and
+                # including the call of the first near tie
+                block = slice((r // m) * vloc, (r // m + 1) * vloc)
+                for i in range(min(held + 1, len(want))):
+                    pool_worst = max(pool_worst, logits_share(
+                        f"{where} rank {r} call {i}", res["pool_logits"][i],
+                        want[i][:, block]))
+            ms = ranks[0]["call_ms"]
+            emit({"mesh_run": where, "ranks": w * m,
+                  "tokens_held_calls": held,
+                  "pool_logits_worst_err_over_tol": pool_worst,
+                  "launches_per_rank": [{k: res["launches"][k]
+                                         for k in shown} for res in ranks],
+                  "collective_bytes_per_call": ranks[0]["call_bytes"],
+                  "prefill_ms_gloo_over_host": ms["prefill"][0],
+                  "decode_ms_gloo_over_host": ms["decode"]})
+            out[w, m] = [res["launches"] for res in ranks]
+            if (w, m) != (1, 2):
+                continue
+            where = "batch E=1 round qwen3-0.6b fp32 model 2 (gloo)"
+            worst = 0.0
+            for r, res in enumerate(ranks):
+                if res["batch_launches"] != want_batch:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['batch_launches']} != "
+                                         f"{want_batch}")
+                worst = max(worst, hold_calls(
+                    f"{where} rank {r}", res["batch"], one_rank["batch"]))
+            emit({"mesh_run": where, "worst_err_over_tol": worst,
+                  "launches_per_rank": [{k: res["batch_launches"][k]
+                                         for k in shown} for res in ranks],
+                  "collective_bytes_per_call": ranks[0]["batch_bytes"],
+                  "call_ms_gloo_over_host": ranks[0]["batch_ms"]})
+            out["batch"] = [res["batch_launches"] for res in ranks]
+        return out
+
+    def mesh_h2o(self):
+        """Phase (c): h2o-danube-1.8b at full width and 2 layers, fp32,
+        at model 2 (two processes sharing cuda:0 over gloo): the batch
+        E=1 round and the slot pool (``mesh_rounds``) against the same on
+        one rank on the card with no mesh: logits within MESH_TOL, tokens
+        up to near ties, verdicts equal, each rank's caches its block of
+        the one-rank caches' kv-heads (MESH_TOL), launches per rank."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.models.model import init_params
+        cfg = mesh_h2o_config(configs)
+        inputs = self.mesh_inputs(cfg)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+            MESH_SEED), self.dev)
+        plain = mesh_rounds(cfg, params, inputs, pool=True)
+        del params
+        path = ROOT / "build" / "mesh" / "inputs-h2o.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in inputs.items()}, path)
+        ranks = self.mesh_children([{"kind": "h2o", "world": 2, "model": 2,
+                                     "inputs": str(path)}], "h2o-")[0]
+        where = f"{D80_ARCH} 2 layers model 2 (gloo)"
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            for kind in ("batch", "pool"):
+                worst = max(worst, hold_calls(f"{where} {kind} rank {r}",
+                                              res[kind], plain[kind]))
+                for i, (mine, whole) in enumerate(zip(res[kind + "_caches"],
+                                                      plain[kind
+                                                            + "_caches"])):
+                    for name, leaf in whole.items():
+                        kv = leaf.shape[3] // 2
+                        blk = leaf[:, :, :, r * kv:(r + 1) * kv]
+                        if not torch.allclose(mine[name], blk,
+                                              rtol=MESH_TOL[0],
+                                              atol=MESH_TOL[1]):
+                            raise AssertionError(
+                                f"{where} {kind} rank {r}: run {i} cache "
+                                f"{name} is not its kv-head block")
+            want = {"flash_attention": cfg.num_layers,
+                    "flash_decode": cfg.num_layers * MESH_STEPS,
+                    "pool_flash_decode": cfg.num_layers * MESH_STEPS}
+            got = {k: res["batch_launches"][k] + res["pool_launches"][k]
+                   for k in want}
+            want["flash_attention"] *= 2            # batch and pool prefill
+            if got != want:
+                raise AssertionError(f"{where} rank {r}: launches {got} != "
+                                     f"{want}")
+        emit({"mesh_run": where, "worst_err_over_tol": worst,
+              "caches": "kv-head blocks", "launches_per_rank": [
+                  {kind: res[kind + "_launches"] for kind in ("batch",
+                                                              "pool")}
+                  for res in ranks],
+              "collective_bytes_per_call": ranks[0]["batch_bytes"]})
+
+    def model_axis_kernels(self):
+        """B3 and B5 at the shapes of phase (b)'s model-2 multihost run
+        (80 streams of 128-token prompts; the pool decode over a 256-slot
+        ring at per-stream depths with dead streams), fp32, at a rank's
+        heads (GQA 8/4 of 128) and at the whole model's (16/8), checked
+        and timed as at every other shape (``kernels_mp2``); the key
+        splits ``plan_splits`` picks from a rank's kv-heads and the
+        whole model's at phases 23-24's decode shapes (the batch round's
+        22 streams over a 133-slot ring, the pool's 80 over 256)."""
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import flash_decode
+        gen = self.torch.Generator(self.dev).manual_seed(14)
+        whole = configs.get_config("qwen3-0.6b")
+        streams = MH_SLOTS * (MH_K + MESH_S)
+        sms = self.torch.cuda.get_device_properties(
+            self.dev).multi_processor_count
+        batch = MESH_GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        for b, width in ((batch, MESH_PROMPT + MESH_STEPS + 2),
+                         (streams, MH_WIDTH)):
+            for kvh in (whole.num_kv_heads // 2, whole.num_kv_heads):
+                emit({"variant": "model axis decode plan", "streams": b,
+                      "width": width, "kv_heads": kvh, "blocks": b * kvh,
+                      "splits": flash_decode.plan_splits(b, kvh, width,
+                                                         sms)})
+        for key, cfg in (("local", whole.with_updates(
+                num_heads=whole.num_heads // 2,
+                num_kv_heads=whole.num_kv_heads // 2)),
+                ("whole", whole)):
+            table = self.kernels_mp2.setdefault(key, {})
+            self.prefill_kernel("float32", cfg, table=table, gen=gen,
+                                streams=streams, prompt=MH_PROMPT)
+            self.decode_kernels("float32", cfg, table=table, gen=gen,
+                                streams=streams, prompt=MH_PROMPT,
+                                width=MH_WIDTH,
+                                which=("pool_flash_decode",))
+
+    def mp2_entry(self, name: str, mesh_launches: dict) -> dict:
+        """The kernels line's ``model_par_2`` numbers of ``name``: its
+        launches on each rank of phase (b)'s (worker 1, model 2) multihost
+        run and batch round, and for B3 and B5 their fp32 check and times
+        at that run's shapes, a rank's heads beside the whole model's."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        out = {"launches_multihost_per_rank": [
+                   r[name] for r in mesh_launches[1, 2]],
+               "launches_batch_per_rank": [r[name]
+                                           for r in mesh_launches["batch"]]}
+        for key, table in self.kernels_mp2.items():
+            if name in table:
+                out[key + "_heads"] = {k: table[name][k] for k in keys}
+        return out
+
+
+def mesh_multihost_argv(store, world: int, rank: int, model: int,
+                        backend: str = "nccl") -> list:
+    """``multihost --mode serve`` at its defaults with ``--s 3``, fp32 and
+    MESH_STEPS decode calls, on ``world`` processes with a ``model``-way
+    model axis."""
+    return ["--mode", "serve", "--coordinator", f"file://{store}",
+            "--num-processes", str(world), "--process-id", str(rank),
+            "--s", str(MESH_S), "--dtype", "float32", "--steps",
+            str(MESH_STEPS), "--model-par", str(model), "--backend",
+            backend]
+
+
+def mesh_h2o_config(configs):
+    return configs.get_config(D80_ARCH).with_updates(
+        num_layers=2, param_dtype="float32", activation_dtype="float32")
+
+
+def mesh_rounds(cfg, params, inputs: dict, pool: bool = False) -> dict:
+    """The batch E=1 round: ``coded_prefill`` and MESH_STEPS
+    ``coded_decode_step``s on ``inputs``' fixed next tokens; with ``pool``
+    also the slot pool's worker-major prefill (every slot admitted) and
+    MESH_STEPS decode rounds on the same tokens, and both runs' caches.
+    On the active mesh, if any.  Returns each call's (logits, located) on
+    the host, each run's launches, and on a mesh each call's collective
+    bytes by axis and op and its wall time (ms, ending in a sync)."""
+    import torch
+    from repro_torch.core.berrut import CodingConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.worker_mesh import WorkerShardConfig
+    from repro_torch.models import partitioning
+    from repro_torch.serving import coded_serving as cs
+    coding = CodingConfig(k=K, s=S, e=E)
+    mesh = partitioning.active_mesh()
+    dev = inputs["tokens"].device
+    max_len = MESH_PROMPT + MESH_STEPS + 2
+    kw = dict(straggler_mask=inputs["mask"], byz_mask=inputs["byz"],
+              byz_noise=inputs["noise"], byz_sigma=10.0, with_report=True)
+    out = {}
+
+    def run(kind, first, step):
+        calls, nbytes, ms = [], [], []
+        ops.reset_launch_counts()
+        if mesh is not None:
+            mesh.reset_bytes()
+        state = None
+        for i in range(1 + MESH_STEPS):
+            t0 = time.perf_counter()
+            logits, state, rep = (first() if i == 0 else
+                                  step(state, inputs["steps"][i - 1]))
+            calls.append((logits.float().cpu(), rep[0].cpu()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if mesh is not None:
+                nbytes.append({axis: group.collective_bytes() for axis, group
+                               in mesh.groups.items()})
+                mesh.reset_bytes()
+        out[kind] = calls
+        out[kind + "_launches"] = ops.launch_counts()
+        out[kind + "_bytes"], out[kind + "_ms"] = nbytes, ms
+        out[kind + "_caches"] = [{name: leaf.float().cpu()
+                                  for name, leaf in cache.items()}
+                                 for cache in state.caches] if pool else None
+
+    run("batch", lambda: cs.coded_prefill(
+        cfg, coding, params, {"tokens": inputs["tokens"]}, max_len, **kw),
+        lambda st, t: cs.coded_decode_step(cfg, coding, params, st, t, **kw))
+    if pool:
+        ws = WorkerShardConfig(gather_width=coding.num_workers)
+        groups = inputs["tokens"].shape[0] // K
+        state = cs.init_pool_state(cfg, coding, groups, max_len, dev,
+                                   wshard=ws)
+        fresh = cs.init_caches(cfg, cs.pool_streams(coding, groups, ws),
+                               max_len, getattr(torch, cfg.param_dtype), dev)
+        ones = np.ones((groups,), np.float32)
+        pkw = dict(kw, wshard=ws)
+        run("pool", lambda: cs.coded_pool_prefill(
+            cfg, coding, params, state, {"tokens": inputs["tokens"]}, ones,
+            fresh, **pkw), lambda st, t: cs.coded_pool_decode_step(
+                cfg, coding, params, st, t, ones, **pkw))
+    return out
+
+
+def hold_calls(where: str, got: list, want: list) -> float:
+    """Each call's (logits, located) against ``want``'s: logits within
+    MESH_TOL (rtol, atol: the CPU tests' fp32 rule), greedy tokens equal
+    but for near ties, verdicts equal.  Returns the worst share of the
+    tolerance."""
+    import torch
+    worst = 0.0
+    for i, ((lg, vg), (lw, vw)) in enumerate(zip(got, want)):
+        worst = max(worst, logits_share(f"{where} call {i}", lg, lw))
+        near_tie_rows(f"{where} call {i}", lg.argmax(-1).numpy()[None],
+                      lw.argmax(-1).numpy()[None], [lw])
+        if not torch.equal(vg, vw):
+            raise AssertionError(f"{where} call {i}: verdicts differ")
+    return worst
+
+
+def logits_share(where: str, got, want) -> float:
+    """The worst share of MESH_TOL (rtol, atol: the CPU tests' fp32 rule)
+    by which ``got``'s logits miss ``want``'s; raises above 1."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{where}: logits {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    tol = MESH_TOL[1] + MESH_TOL[0] * want.abs()
+    share = ((got - want).abs() / tol).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"{where}: logits {share} x their tolerance")
+    return share
+
+
+def near_tie_rows(where: str, got, want, logits: list) -> int:
+    """Compare token rows call by call (``got``, ``want``: (calls,
+    rows)) up to the first call where any differs; there every row that
+    differs must be a near tie of ``logits[call]`` (its top two within
+    the tolerance of each other), and nothing later is compared (the
+    inputs differ from then on).  Returns the calls held equal."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        rows = np.flatnonzero(np.asarray(g) != np.asarray(w))
+        if not rows.size:
+            continue
+        for row in rows:
+            top = logits[i][row].topk(2).values
+            gap = (top[0] - top[1]).item()
+            tol = 2 * (MESH_TOL[1] + MESH_TOL[0] * top[0].abs().item())
+            if not gap <= tol:
+                raise AssertionError(f"{where}: call {i} row {row} token "
+                                     f"differs, top-2 gap {gap} > {tol}")
+            emit({"near_tie": where, "call": i, "row": int(row),
+                  "gap": gap})
+        return i
+    return len(got)
+
+
+def mesh_child(rank: int, work: Path) -> int:
+    """One rank of a ``Smoke.mesh_children`` job on cuda:0 over gloo."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multihost, shardings
+    from repro_torch.launch import worker_mesh as wm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import partitioning
+    from repro_torch.models.model import init_params
+    job = json.loads((work / "job.json").read_text())
+    world, model = job["world"], job["model"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    out = {}
+    if job["kind"] == "multihost":
+        # each call's decoded logits, as the decode tail leaves them to
+        # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
+        decoded = []
+        real = wm._decode_rows
+
+        def decode_rows(*args, **kw):
+            dec = real(*args, **kw)
+            decoded.append(dec.float().cpu())
+            return dec
+
+        ops.reset_launch_counts()
+        wm._decode_rows = decode_rows
+        try:
+            res = multihost.main(mesh_multihost_argv(
+                work / "store", world, rank, model, backend="gloo"))
+        finally:
+            wm._decode_rows = real
+        out.update(tokens=res["tokens"], pool_logits=decoded,
+                   call_ms=res["call_ms"],
+                   call_bytes=res["call_bytes"],
+                   launches=ops.launch_counts())
+        cfg = configs.get_config("qwen3-0.6b").with_updates(
+            param_dtype="float32", activation_dtype="float32")
+    else:
+        cfg = mesh_h2o_config(configs)
+    if job.get("batch") or job["kind"] == "h2o":
+        inputs = {k: v.to(dev) for k, v in torch.load(job["inputs"]).items()}
+        dist.init_process_group("gloo", init_method=f"file://{work}/store2",
+                                world_size=world, rank=rank)
+        try:
+            mesh = make_host_mesh(model=model)
+            params = init_params(cfg, torch.Generator(dev).manual_seed(
+                MESH_SEED), dev)
+            with partitioning.mesh_context(mesh):
+                params = shardings.local_shard(
+                    params, shardings.serving_param_specs(mesh, cfg, params),
+                    mesh)
+                out.update(mesh_rounds(cfg, params, inputs,
+                                       pool=job["kind"] == "h2o"))
+        finally:
+            dist.destroy_process_group()
+    torch.save(out, work / f"rank{rank}.pt")
+    return 0
 
 
 def visible_pairs(s: int, *, causal: bool, window, prefix: int) -> int:

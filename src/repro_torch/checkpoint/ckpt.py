@@ -59,10 +59,11 @@ def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
 def load(path: str, like, shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors): each
     leaf on its ``like`` leaf's device, in the dtype the file holds.
-    ``shardings`` must be None until ROADMAP A9 brings a device mesh."""
+    ``shardings`` must be None until the training mesh (ROADMAP A9.2)
+    brings sharded restores."""
     if shardings is not None:
         raise NotImplementedError("sharded restores are not ported yet "
-                                  "(ROADMAP A9)")
+                                  "(ROADMAP A9.2)")
     if not path.endswith(".npz"):
         path = path + ".npz"
     leaves = []

@@ -5,7 +5,8 @@ source and stages each onto the device ahead of use: ``prefetch`` batches
 are in flight, so the next batch's copy is queued while the current step
 runs.  On a CUDA device the host batch is pinned and copied without
 blocking the host.  The reference also splits a batch over a device
-mesh; the port's loader takes no mesh until ROADMAP A9 brings one.
+mesh; the port's loader takes no mesh until the training mesh (ROADMAP
+A9.2) brings one.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ class ShardedLoader:
         if mesh is not None:
             raise NotImplementedError(
                 "ShardedLoader over a device mesh is not ported yet "
-                "(ROADMAP A9)")
+                "(ROADMAP A9.2)")
         self.source = source
         self.prefetch = max(1, prefetch)
         self.device = resolve_device(device)

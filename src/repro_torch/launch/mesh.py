@@ -1,30 +1,51 @@
-"""The serving worker group (port of ``repro.launch.mesh``'s
-``make_worker_mesh``).
+"""Device meshes over ``torch.distributed`` ranks (port of
+``repro.launch.mesh``).
 
-One process per coded-worker rank: rank r of W owns the contiguous
-block r of the worker-major coded streams (DESIGN.md §13), so a
-straggling or Byzantine worker is an actual process and the decode tail
-gathers only survivor shards.  The reference's training meshes, its
-production serving mesh (16 workers x 16-way tensor parallel) and the
-"model" and "pod" axes are not ported.
+A mesh is one process per rank, laid out row-major over the reference's
+axis names and order (``models.partitioning.Mesh``), with a process
+group per axis.  ``torch.distributed`` is initialised by the caller (as
+``launch.multihost.initialize`` does), and its world size must equal
+the product of the mesh's axes.  The subgroups take the default group's
+backend: NCCL with one card a rank, or gloo, which carries CUDA tensors
+too, so several ranks can share one card.
 """
 
 from __future__ import annotations
 
-import torch.distributed as dist
-
-from repro_torch.models.partitioning import WorkerGroup
+from repro_torch.models.partitioning import Mesh, build_mesh
 
 
-def make_worker_mesh(workers: int) -> WorkerGroup:
-    """The "worker" axis over the default process group, which must hold
-    exactly ``workers`` processes (``torch.distributed`` is initialised by
-    the caller, as ``launch.multihost.initialize`` does)."""
-    if not dist.is_initialized():
-        raise RuntimeError("initialise torch.distributed before building a "
-                           "worker group")
-    have = dist.get_world_size()
-    if have != workers:
-        raise ValueError(f"worker group of {workers} ranks needs as many "
-                         f"processes, the process group has {have}")
-    return WorkerGroup()
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 = 256 ranks per pod; 2x16x16 = 512 ranks multi-pod."""
+    if multi_pod:
+        return build_mesh(("pod", "data", "model"), (2, 16, 16))
+    return build_mesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, worker: int = 1) -> Mesh:
+    """A small mesh (tests, examples).  ``worker > 1`` prepends the
+    serving "worker" axis (coded streams are worker-major over it,
+    DESIGN.md §13); ``worker == 1`` keeps the 2-axis ("data", "model")
+    mesh of the training paths."""
+    if worker == 1:
+        return build_mesh(("data", "model"), (data, model))
+    return build_mesh(("worker", "data", "model"), (worker, data, model))
+
+
+def make_worker_mesh(workers: int, model: int = 1) -> Mesh:
+    """Serving mesh: one rank per coded worker (x an optional model
+    axis).  Each rank along "worker" owns a contiguous block of the N+1
+    coded streams (worker-major layout), so a straggling or Byzantine
+    worker is an actual process and the decode tail gathers only
+    survivor shards; the ranks along "model" split its heads, MLP and
+    vocabulary."""
+    return build_mesh(("worker", "model"), (workers, model))
+
+
+def make_production_serving_mesh(*, workers: int = 16, model: int = 16,
+                                 multi_pod: bool = False) -> Mesh:
+    """256-rank serving pod: 16 coded workers x 16-way tensor parallel.
+    Multi-pod adds a leading "pod" axis (data-parallel pool replicas)."""
+    if multi_pod:
+        return build_mesh(("pod", "worker", "model"), (2, workers, model))
+    return build_mesh(("worker", "model"), (workers, model))

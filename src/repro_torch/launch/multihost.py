@@ -1,23 +1,30 @@
-"""Multi-process worker-sharded serving launch (port of the serving half
-of ``repro.launch.multihost``).
+"""Multi-process coded serving on a (worker, model) mesh (port of the
+serving half of ``repro.launch.multihost``).
 
-One process per rank of the "worker" group: rank r of W owns the
-contiguous block r of the worker-major coded streams (DESIGN.md §13),
-serves the slot pool's rounds on them and keeps their caches; the decode
-tail gathers only survivor shards (``launch.worker_mesh``).  W is the
-process group's world size.  Every process runs the same program on the
-same prompts and gets the same token ids back.
+One process per mesh rank, laid out row-major over ("worker", "model"):
+the ranks along "worker" each own a contiguous block of the worker-major
+coded streams (DESIGN.md §13), serve the slot pool's rounds on them and
+keep their caches; the ranks along "model" (``--model-par``) split each
+stream's heads, MLP and vocabulary (tensor parallelism), so one coded
+worker spans several devices.  The decode tail gathers only survivor
+shards (``launch.worker_mesh``).  The worker axis is the world size over
+``--model-par``.  Every process runs the same program on the same
+prompts and gets the same token ids back.  The reference fixes the mesh
+at 16 workers x 16-way tensor parallel
+(``make_production_serving_mesh``); here it follows the process count.
 
-  # W processes, one per rank (NCCL on the card, one card each):
-  python -m repro_torch.launch.multihost --mode serve \\
-      --coordinator HOST:PORT --num-processes W --process-id R
+  # W*M processes, one per rank (NCCL on the card, one card each):
+  python -m repro_torch.launch.multihost --mode serve --model-par M \\
+      --coordinator HOST:PORT --num-processes W*M --process-id R
   # on the CPU, gloo over a file store:
   PYTHONPATH=src python -m repro_torch.launch.multihost --mode serve \\
       --device cpu --reduced --coordinator file:///tmp/store \\
-      --num-processes 2 --process-id 0 --steps 2
+      --num-processes 2 --process-id 0 --model-par 2 --steps 2
 
-``--mode train`` and ``--multi-pod`` (the reference's training loop, and
-its "pod" and "model" axes) are not ported yet and are refused.
+``--backend gloo`` runs the ranks over gloo on the card too, so that
+several of them can share one card (NCCL refuses two ranks on a
+device).  ``--mode train`` and ``--multi-pod`` (the reference's training
+loop, and its "pod" axis) are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -33,10 +40,10 @@ from repro_torch import configs, resolve_device
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               device: torch.device) -> None:
-    """Join the process group: NCCL for a CUDA device, gloo for the CPU.
-    ``coordinator`` is ``host:port`` (a TCP store that rank 0 serves) or
-    a ``file://`` store path."""
+               device: torch.device, backend: Optional[str] = None) -> None:
+    """Join the process group: ``backend``, by default NCCL for a CUDA
+    device and gloo for the CPU.  ``coordinator`` is ``host:port`` (a
+    TCP store that rank 0 serves) or a ``file://`` store path."""
     if coordinator.startswith("file://"):
         init_method = coordinator
     else:
@@ -44,23 +51,53 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
-        backend="nccl" if device.type == "cuda" else "gloo",
+        backend=backend or ("nccl" if device.type == "cuda" else "gloo"),
         init_method=init_method, world_size=num_processes, rank=process_id)
 
 
-def host_worker_ranks(group) -> list:
-    """The worker-group ranks whose coded streams live in this process:
-    its own rank (one rank per process), or the one-rank path's rank 0
-    off any group."""
-    return [0] if group is None else [group.rank]
+def _gather_rows(mesh, x, axes) -> torch.Tensor:
+    """``x``'s leading axis all-gathered over ``axes`` (inner first, so
+    the rows come in the mesh's row-major order)."""
+    x = torch.as_tensor(x)
+    for axis in reversed(axes):
+        group = mesh.group(axis)
+        if group is not None:
+            x = group.all_gather(x, 0)
+    return x
+
+
+def global_batch_from_host_shard(mesh, host_batch: dict) -> dict:
+    """The global batch from every process's rows: each array's leading
+    axis all-gathered over the mesh's batch axes ("pod", "data"), in
+    rank order.  With one process a batch comes back unchanged."""
+    return {k: _gather_rows(mesh, v, ("pod", "data"))
+            for k, v in host_batch.items()}
+
+
+def host_worker_ranks(mesh) -> list:
+    """The "worker"-axis ranks whose coded streams live in this process:
+    its own coordinate (one rank per process), or 0 on a mesh without a
+    worker axis (the whole pool)."""
+    return [mesh.coord("worker")]
+
+
+def global_pool_from_host_shard(mesh, host_pool: dict) -> dict:
+    """The global worker-major pool arrays from every process's rows:
+    each process holds the rows (the flat coded-stream axis first) of
+    its own worker rank, and the leading axis is all-gathered over the
+    "worker" axis.  Without one an array comes back unchanged."""
+    return {k: _gather_rows(mesh, v, ("worker",))
+            for k, v in host_pool.items()}
 
 
 def serve_main(args) -> dict:
-    """Worker-sharded coded serving pool (``--mode serve``): prefill every
-    slot, then ``--steps`` decode rounds, all workers answering.  Returns
-    the (steps + 1, P*K) token ids and each call's wall time (ms, ending
-    in the call's host sync)."""
+    """Coded serving pool on a (worker, model) mesh (``--mode serve``):
+    prefill every slot, then ``--steps`` decode rounds, all workers
+    answering.  Returns the (steps + 1, P*K) token ids, each call's wall
+    time (ms, ending in the call's host sync), and the collective bytes
+    by op of the whole run and of each call."""
     from repro_torch.core.berrut import CodingConfig
+    from repro_torch.launch import shardings
     from repro_torch.launch.mesh import make_worker_mesh
     from repro_torch.launch.serve import refuse_frontends
     from repro_torch.launch.worker_mesh import WorkerShardConfig
@@ -70,24 +107,38 @@ def serve_main(args) -> dict:
 
     device = resolve_device(args.device)
     coding = CodingConfig(k=args.k, s=args.s, e=args.e)
-    group = make_worker_mesh(dist.get_world_size())
-    if coding.num_workers % group.size:
+    world = dist.get_world_size()
+    if world % args.model_par:
+        raise ValueError(f"{world} processes do not split into a "
+                         f"{args.model_par}-way model axis")
+    mesh = make_worker_mesh(world // args.model_par, args.model_par)
+    wsize = mesh.size("worker")
+    if coding.num_workers % wsize:
         raise ValueError(
             f"N+1={coding.num_workers} coded streams do not shard over "
-            f"the {group.size}-way worker group (choose K, S, E so the "
-            f"stream count is a multiple of {group.size})")
+            f"the {wsize}-way worker axis (choose K, S, E so the "
+            f"stream count is a multiple of {wsize})")
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     refuse_frontends(cfg)
-    cfg = cfg.with_updates(param_dtype="bfloat16",
-                           activation_dtype="bfloat16")
-    ranks = host_worker_ranks(group)
-    print(f"process {group.rank}: worker ranks {ranks} (streams/rank "
-          f"{coding.num_workers // group.size} of {coding.num_workers}) on "
-          f"{device}", flush=True)
-    with partitioning.worker_group_context(group):
+    cfg = cfg.with_updates(param_dtype=args.dtype,
+                           activation_dtype=args.dtype)
+    ranks = host_worker_ranks(mesh)
+    print(f"process {mesh.rank}: worker ranks {ranks} (streams/rank "
+          f"{coding.num_workers // wsize} of {coding.num_workers}), model "
+          f"rank {mesh.coord('model')} of {mesh.size('model')} on {device}",
+          flush=True)
+    call_bytes = {"prefill": [], "decode": []}
+
+    def count(kind):
+        call_bytes[kind].append(mesh.collective_bytes())
+        mesh.reset_bytes()
+
+    with partitioning.mesh_context(mesh):
         params = init_params(cfg, torch.Generator(device).manual_seed(0),
                              device)
+        params = shardings.local_shard(
+            params, shardings.serving_param_specs(mesh, cfg, params), mesh)
         ex = ContinuousLLMExecutor(
             cfg, coding, params, pool_groups=args.pool_groups,
             max_len=args.max_len,
@@ -99,21 +150,28 @@ def serve_main(args) -> dict:
                               (g * coding.k, args.max_len // 2))
         admit = np.ones((g,), np.float32)
         full = np.ones((coding.num_workers,), np.float32)
+        mesh.reset_bytes()
         tokens, state, _ = ex.prefill(state, prompts, admit, full)
+        count("prefill")
         out = [tokens]
         for i in range(args.steps):
             tokens, state, _ = ex.decode(
                 state, tokens.reshape(-1, 1), admit, full)
+            count("decode")
             out.append(tokens)
-            if group.rank == 0 and i % 10 == 0:
+            if mesh.rank == 0 and i % 10 == 0:
                 print(f"decode step {i}: tokens {tokens[:4]}...", flush=True)
-    if group.rank == 0:
+    if mesh.rank == 0:
         print(f"prefill {ex.call_ms['prefill'][0]:.2f} ms; {args.steps} "
               f"decode calls, mean "
               f"{np.mean(ex.call_ms['decode']) if args.steps else 0:.2f} "
               f"ms (wall clock)", flush=True)
+    total = {}
+    for per_call in call_bytes["prefill"] + call_bytes["decode"]:
+        for op, b in per_call.items():
+            total[op] = total.get(op, 0.0) + b
     return {"tokens": np.stack(out), "call_ms": ex.call_ms,
-            "collective_bytes": group.collective_bytes()}
+            "collective_bytes": total, "call_bytes": call_bytes}
 
 
 def main(argv: Optional[list] = None) -> dict:
@@ -134,6 +192,15 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--e", type=int, default=0)
     ap.add_argument("--pool-groups", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="ranks of the model axis (tensor parallelism); "
+                         "the worker axis takes the rest of the processes")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="parameter and activation dtype")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="default nccl on the card, gloo on the cpu; gloo "
+                         "lets several ranks share one card")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device; default cuda (cpu runs gloo and "
@@ -141,17 +208,19 @@ def main(argv: Optional[list] = None) -> dict:
     args = ap.parse_args(argv)
     if args.mode == "train":
         ap.error("--mode train is not ported yet: it trains on the "
-                 "production mesh (ROADMAP A9's model and pod axes); one "
-                 "device trains through repro_torch.launch.train")
+                 "production mesh (FSDP over the data and pod axes, the "
+                 "model axis with its backward: ROADMAP A9.2); one device "
+                 "trains through repro_torch.launch.train")
     if args.multi_pod:
-        ap.error("--multi-pod is not ported yet (the A9 model and pod "
-                 "axes)")
+        ap.error("--multi-pod is not ported yet (the pod axis, ROADMAP "
+                 "A9.2)")
     device = resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", args.process_id
                               % torch.cuda.device_count())
     args.device = str(device)
-    initialize(args.coordinator, args.num_processes, args.process_id, device)
+    initialize(args.coordinator, args.num_processes, args.process_id, device,
+               args.backend)
     try:
         return serve_main(args)
     finally:

@@ -1,0 +1,127 @@
+"""Logical axes to per-rank blocks (port of ``repro.launch.shardings``).
+
+Each function returns specs where the reference returns
+``NamedSharding``s: a spec is a tuple with one entry a dimension, None
+(whole), a mesh axis name or a tuple of them (the entries of the
+reference's ``PartitionSpec``).  ``local_shard`` takes the place of
+``jax.device_put``: it slices a whole tree to this rank's block of each
+leaf.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.models import partitioning
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import cache_axes, logical_axes
+from repro_torch.models.transformer import check_model_axis
+
+
+def tree_shardings(mesh, axes_tree, shapes_tree,
+                   rules: Optional[dict] = None):
+    """Map a logical-axes tree and the matching tree of tensors (or
+    shapes) to specs."""
+    return partitioning.param_sharding(mesh, axes_tree, shapes_tree, rules)
+
+
+def batch_sharding(mesh, ndim: int,
+                   batch_size: Optional[int] = None) -> tuple:
+    """Shard the leading (batch) axis over ("worker", "pod", "data").
+
+    Falls back to the largest divisible suffix of the axes (dropping
+    "worker" first, then "pod") and to replication for batch=1, as the
+    reference does: pjit rejects shardings that do not divide.
+    """
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    axes = tuple(a for a in ("worker", "pod", "data") if a in sizes)
+    if batch_size is not None:
+        while axes and batch_size % math.prod(sizes[a] for a in axes):
+            axes = axes[1:]
+    if not axes:
+        return (None,) * ndim
+    return (axes if len(axes) > 1 else axes[0],) + (None,) * (ndim - 1)
+
+
+def batch_tree_shardings(mesh, tree):
+    """``batch_sharding`` of every tensor (or shape) of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: batch_tree_shardings(mesh, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [batch_tree_shardings(mesh, v) for v in tree]
+    shape = tuple(getattr(tree, "shape", tree))
+    return batch_sharding(mesh, len(shape), shape[0])
+
+
+def replicated(mesh) -> tuple:
+    """The whole value on every rank (``PartitionSpec()``)."""
+    return ()
+
+
+def cache_rules(mesh, cfg: ModelConfig) -> Optional[dict]:
+    """KV-cache sharding policy: heads over "model" when divisible, else
+    cache length over "model" (flash-decode cache split)."""
+    model = dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
+    if cfg.num_kv_heads and cfg.num_kv_heads % model == 0:
+        return None                     # default: kv_heads -> model
+    rules = dict(partitioning.DEFAULT_RULES)
+    rules["kv_heads"] = None
+    rules["kv_seq"] = "model"
+    return rules
+
+
+def cache_shardings(mesh, cfg: ModelConfig, caches,
+                    rules: Optional[dict] = None):
+    """Specs of the per-run serving caches (``models.model.cache_axes``)."""
+    return tree_shardings(mesh, cache_axes(cfg), caches,
+                          rules or cache_rules(mesh, cfg))
+
+
+def serving_param_specs(mesh, cfg: ModelConfig, params) -> dict:
+    """The serving forward's parameter specs: ``logical_axes`` on
+    ``mesh`` with the weights whole over the data and pod axes (the
+    reference's FSDP gather of weights belongs to the training mesh,
+    ROADMAP A9.2), so only the model axis splits them.  Raises for a
+    configuration the model axis does not run (``check_model_axis``)."""
+    check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape))
+                     .get("model", 1))
+    rules = dict(partitioning.DEFAULT_RULES, fsdp=None)
+    return tree_shardings(mesh, logical_axes(cfg), params, rules)
+
+
+def _block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``: along a dimension
+    sharded over axes (a, b, ...) the block index is the rank's
+    coordinates over them, row-major, as a ``NamedSharding`` places
+    them."""
+    out = x
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else entry
+        n, idx = 1, 0
+        for a in axes:
+            n, idx = n * mesh.size(a), idx * mesh.size(a) + mesh.coord(a)
+        if n == 1:
+            continue
+        if x.shape[dim] % n:
+            raise ValueError(f"cannot split dimension {dim} of "
+                             f"{tuple(x.shape)} over {axes}")
+        step = x.shape[dim] // n
+        out = out.narrow(dim, idx * step, step)
+    # a copy of the block alone, so the whole leaf can be freed
+    return x if out is x else out.clone(memory_format=torch.contiguous_format)
+
+
+def local_shard(tree, specs, mesh):
+    """This rank's block of each leaf of ``tree`` (dicts and lists of
+    tensors) under the matching tree of ``specs``: the port's
+    ``device_put``.  A whole leaf is passed through, a split one copied."""
+    if isinstance(tree, dict):
+        return {k: local_shard(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [local_shard(v, s, mesh) for v, s in zip(tree, specs)]
+    return _block(tree, specs, mesh)

@@ -7,7 +7,7 @@
       --reduced --steps 20                      # the plain path
 
 One device: ``--data-par`` / ``--model-par`` above 1 need the device mesh
-of ROADMAP A9.  On the card attention trains through B3's forward and
+of ROADMAP A9.2.  On the card attention trains through B3's forward and
 backward kernels and Mamba2's SSD scan through B7's (every family,
 mamba2-780m and zamba2-1.2b included); on the CPU autograd
 differentiates the plain versions.
@@ -42,7 +42,7 @@ def run(arch: str, reduced: bool, steps: int, batch: int, seq: int,
     if data_par > 1 or model_par > 1:
         raise NotImplementedError(
             f"--data-par {data_par} --model-par {model_par}: training over "
-            f"a device mesh is not ported yet (ROADMAP A9)")
+            f"a device mesh is not ported yet (ROADMAP A9.2)")
     device = resolve_device(device)
     cfg = configs.get_reduced(arch) if reduced else configs.get_config(arch)
     if remat:

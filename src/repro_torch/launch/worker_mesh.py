@@ -2,8 +2,13 @@
 ``repro.launch.worker_mesh``, DESIGN.md §13).
 
 ApproxIFER's premise is that the N+1 coded queries of a group run on
-distinct workers; here a worker is a rank of the active worker group
-(``models.partitioning``), one ``torch.distributed`` process each.
+distinct workers; here a worker is a rank of the active mesh's "worker"
+axis (``models.partitioning``), one ``torch.distributed`` process each,
+or, on a (worker, model) mesh, a row of processes that splits the
+model's heads, MLP and vocabulary over its "model" axis: the logits
+reach the tail whole, gathered over the model axis inside the model
+(``models.layers.unembed``), and the collectives below run on the
+worker axis's subgroup.
 Coded streams are laid out worker-major: the flat stream axis is
 ``(N+1, G)`` flattened, so rank r of W owns the contiguous streams of
 workers ``[r*nl, (r+1)*nl)``, nl = (N+1)/W, and holds only those: it

@@ -7,7 +7,9 @@ of ``attention_decode``: one position shared by every stream (a Python
 int), or per-stream positions (a (B,) int tensor on the device, the
 slot-pool decode).  JAX returns fresh caches; the port writes
 the caller's cache buffers in place, where the reference's serving
-executors donate them.
+executors donate them.  Head counts come from the parameters and caches
+(a model-axis rank holds its block of the q- and kv-heads), and the
+output projection's partial sums are all-reduced over the model axis.
 """
 
 from __future__ import annotations
@@ -17,10 +19,23 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, partitioning
 from repro_torch.models.config import ModelConfig
 
 INT8_KV_SCALE = 32.0   # static symmetric scale of int8 KV caches
+
+
+def attention_axes(cfg: ModelConfig) -> dict:
+    ax = {
+        "wq": ("fsdp", "heads", "head_dim"),
+        "wk": ("fsdp", "kv_heads", "head_dim"),
+        "wv": ("fsdp", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "fsdp"),
+    }
+    if cfg.qk_norm:
+        ax["q_norm"] = ("head_dim",)
+        ax["k_norm"] = ("head_dim",)
+    return ax
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype,
@@ -46,9 +61,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         *x.shape[:-1], w.shape[1], w.shape[2])
 
 
-def _out_project(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("...hk,hkd->...d") as one product over the flattened heads."""
-    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+def _out_project(cfg: ModelConfig, o: torch.Tensor,
+                 wo: torch.Tensor) -> torch.Tensor:
+    """einsum("...hk,hkd->...d") as one product over the flattened heads;
+    with a model-axis rank's block of the heads (``wo``'s leading axis
+    short of ``cfg.num_heads``) a partial sum, all-reduced over the
+    axis."""
+    out = o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    if wo.shape[0] == cfg.num_heads:
+        return out
+    return partitioning.model_group().all_reduce(out)
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -76,7 +98,7 @@ def attention_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                     positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence attention (forward and training): no cache."""
     q, k, v = _qkv(cfg, p, x, positions)
-    return _out_project(_attend(cfg, q, k, v), p["wo"])
+    return _out_project(cfg, _attend(cfg, q, k, v), p["wo"])
 
 
 # --------------------------------------------------------------- KV caching
@@ -96,13 +118,24 @@ def quantize_kv(x: torch.Tensor, store_dtype) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device, layers_in_run: int) -> dict:
-    """Zeroed (layers, B, W, KV, D) caches of one run of layers."""
+                  device, layers_in_run: int,
+                  kv_heads: Optional[int] = None) -> dict:
+    """Zeroed (layers, B, W, KV, D) caches of one run of layers; KV is
+    ``kv_heads``, a model-axis rank's block of them (default all)."""
     w = cache_width(cfg, max_len)
-    shape = (layers_in_run, batch, w, cfg.num_kv_heads, cfg.head_dim)
+    shape = (layers_in_run, batch, w, kv_heads or cfg.num_kv_heads,
+             cfg.head_dim)
     store = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
     return {"k": torch.zeros(shape, dtype=store, device=device),
             "v": torch.zeros(shape, dtype=store, device=device)}
+
+
+def kv_cache_axes() -> dict:
+    # "kv_seq" is separately mappable: where kv_heads does not divide the
+    # model axis the reference's launcher shards the cache length instead
+    # (``launch.shardings.cache_rules``; the port refuses that case, A9.4)
+    return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
 
 
 def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -124,7 +157,7 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
     else:
         cache["k"][:, :s] = kq
         cache["v"][:, :s] = vq
-    return _out_project(out, p["wo"]), cache
+    return _out_project(cfg, out, p["wo"]), cache
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
@@ -149,7 +182,7 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
                                         live,
                                         softcap=cfg.attn_logit_softcap,
                                         kv_scale=kv_scale)
-        return _out_project(out, p["wo"])[:, None], cache
+        return _out_project(cfg, out, p["wo"])[:, None], cache
     if not isinstance(pos, int):
         raise TypeError(f"pos must be an int or a (B,) tensor, got "
                         f"{type(pos).__name__}")
@@ -164,4 +197,4 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
                                softcap=cfg.attn_logit_softcap,
                                kv_scale=kv_scale)
-    return _out_project(out, p["wo"])[:, None], cache
+    return _out_project(cfg, out, p["wo"])[:, None], cache

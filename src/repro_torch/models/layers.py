@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 
 
@@ -32,6 +33,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
 
 
 # ---------------------------------------------------------------- norms
+
+def norm_axes(cfg: ModelConfig) -> dict:
+    ax = {"scale": ("d_model",)}
+    if cfg.norm_type == "layernorm":
+        ax["bias"] = ("d_model",)
+    return ax
+
 
 def init_norm(cfg: ModelConfig, dtype, device) -> dict:
     p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
@@ -98,6 +106,15 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
 
 # ---------------------------------------------------------------- embeddings
 
+def embeddings_axes(cfg: ModelConfig) -> dict:
+    ax = {"embed": ("vocab", "fsdp")}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("fsdp", "vocab")
+    if cfg.modality in ("audio", "vlm") and cfg.frontend_dim:
+        ax["frontend_proj"] = ("fsdp", "d_model")
+    return ax
+
+
 def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype,
                     device) -> dict:
     # unit-RMS after the sqrt(d) input scaling; keeps tied-unembed logits
@@ -115,8 +132,21 @@ def init_embeddings(cfg: ModelConfig, gen: torch.Generator, dtype,
 
 def embed_tokens(cfg: ModelConfig, p: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    e = p["embed"][tokens]
-    return (e * math.sqrt(cfg.d_model)).to(e.dtype)
+    """Token embeddings.  A model-axis rank holding its block of the
+    vocabulary's rows looks up the tokens in its block, gives zeros for
+    the others and all-reduces over the axis: each sum is one row and
+    zeros, so the result is the whole table's bit for bit."""
+    table = p["embed"]
+    if table.shape[0] == cfg.vocab_size:
+        e = table[tokens]
+        return (e * math.sqrt(cfg.d_model)).to(e.dtype)
+    group = partitioning.model_group()
+    local = tokens - group.rank * table.shape[0]
+    inside = (local >= 0) & (local < table.shape[0])
+    e = table[local.clamp(0, table.shape[0] - 1)]
+    e = (e * math.sqrt(cfg.d_model)).to(e.dtype)
+    return group.all_reduce(torch.where(inside[..., None], e,
+                                        torch.zeros_like(e)))
 
 
 def project_frontend(cfg: ModelConfig, p: dict,
@@ -127,6 +157,10 @@ def project_frontend(cfg: ModelConfig, p: dict,
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["lm_head"]
+    """Logits over the vocabulary; a model-axis rank's block of it is
+    all-gathered over the axis (the coded tail reads whole rows, with
+    unit stride)."""
+    out = x @ (p["embed"].T if cfg.tie_embeddings else p["lm_head"])
+    if out.shape[-1] == cfg.vocab_size:
+        return out
+    return partitioning.model_group().all_gather(out, -1).contiguous()

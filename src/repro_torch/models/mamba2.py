@@ -20,6 +20,15 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 
+def mamba2_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": ("fsdp", "ffn"), "conv_w": ("conv", "ffn"),
+        "conv_b": ("ffn",), "a_log": (None,), "d_skip": (None,),
+        "dt_bias": (None,), "gate_norm": ("ffn",),
+        "out_proj": ("ffn", "fsdp"),
+    }
+
+
 def init_mamba2(cfg: ModelConfig, gen: torch.Generator, dtype,
                 device) -> dict:
     d, din, n, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -95,6 +104,11 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: torch.Tensor):
 def mamba2_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD (forward and training): no state returned."""
     return mamba2_forward(cfg, p, x)[0]
+
+
+def ssm_cache_axes() -> dict:
+    return {"conv": ("batch", "conv", "ffn"),
+            "state": ("batch", "ffn", None, "state")}
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device,

@@ -10,8 +10,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, partitioning
 from repro_torch.models.config import ModelConfig
+
+
+def mlp_axes(cfg: ModelConfig) -> dict:
+    if cfg.mlp_activation == "gelu":
+        return {"w_in": ("fsdp", "ffn"), "w_out": ("ffn", "fsdp")}
+    return {"w_gate": ("fsdp", "ffn"), "w_in": ("fsdp", "ffn"),
+            "w_out": ("ffn", "fsdp")}
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
@@ -33,4 +40,8 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(x @ p["w_gate"], approximate="tanh") * (x @ p["w_in"])
     else:                                 # SwiGLU
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
-    return h @ p["w_out"]
+    out = h @ p["w_out"]
+    if p["w_out"].shape[0] == cfg.d_ff:
+        return out
+    # a model-axis rank's block of the hidden units: a partial sum
+    return partitioning.model_group().all_reduce(out)

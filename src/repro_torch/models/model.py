@@ -27,6 +27,15 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def logical_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of every parameter, in ``init_params``' tree."""
+    return {
+        "embeddings": layers.embeddings_axes(cfg),
+        "blocks": transformer.blocks_axes(cfg),
+        "final_norm": layers.norm_axes(cfg),
+    }
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters with the reference's structure, shapes and
@@ -129,6 +138,10 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device) -> list:
     return transformer.init_run_caches(cfg, batch, max_len, dtype, device)
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    return transformer.run_cache_axes(cfg)
 
 
 def prefill(cfg: ModelConfig, params: dict, inputs: dict, caches: list

@@ -31,6 +31,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serving.sampling import top_k_stable
 
 
+def moe_axes(cfg: ModelConfig) -> dict:
+    return {
+        "router": ("fsdp", None),
+        "w_gate": ("experts", "fsdp", "expert_ffn"),
+        "w_in": ("experts", "fsdp", "expert_ffn"),
+        "w_out": ("experts", "expert_ffn", "fsdp"),
+    }
+
+
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     out_scale = 1.0 / (2 * cfg.num_layers) ** 0.5

@@ -22,7 +22,8 @@ from typing import List, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models import attention, layers, mamba2, mlp, moe
+from repro_torch.models import (attention, layers, mamba2, mlp, moe,
+                                partitioning)
 from repro_torch.models.config import ModelConfig
 
 
@@ -56,6 +57,23 @@ def check_ported(cfg: ModelConfig) -> None:
             f"ported (norms {NORMS}, MLPs {MLPS})")
 
 
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """Raise unless ``cfg`` runs on a ``model``-way model axis: the dense
+    text decoders, with kv-heads that the axis divides."""
+    if model == 1:
+        return
+    if set(cfg.layer_pattern) != {"A"} or cfg.modality != "text":
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {model} runs the dense text "
+            f"decoders only; the model and expert axes of Mamba2, zamba2, "
+            f"the MoE layer and the frontends are ROADMAP A9.3")
+    if cfg.num_kv_heads % model:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.num_kv_heads} kv-heads do not divide a "
+            f"{model}-way model axis; the reference then shards the cache "
+            f"length instead (launch.shardings.cache_rules), ROADMAP A9.4")
+
+
 def _layer_views(tree, count: int) -> list:
     """All ``count`` layers of a stacked parameter or cache tree, as
     views from one ``unbind`` a leaf (a cache is written in place through
@@ -81,6 +99,37 @@ def _copy_into(stacked, tree, i: int) -> None:
             _copy_into(stacked[k], v, i)
     else:
         stacked[i].copy_(tree)
+
+
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    if kind == "S":
+        return {"norm": layers.norm_axes(cfg),
+                "ssm": mamba2.mamba2_axes(cfg)}
+    ax = {"norm1": layers.norm_axes(cfg),
+          "attn": attention.attention_axes(cfg),
+          "norm2": layers.norm_axes(cfg)}
+    ax["moe" if kind == "M" else "mlp"] = (
+        moe.moe_axes(cfg) if kind == "M" else mlp.mlp_axes(cfg))
+    return ax
+
+
+def blocks_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``init_blocks``' tree: each run's block axes
+    behind its stacked leading "layers" axis."""
+    out: dict = {"runs": [
+        {} if kind == "G" else
+        _map(lambda t: ("layers",) + t, _block_axes(cfg, kind))
+        for kind, _ in pattern_runs(cfg.layer_pattern)]}
+    if "G" in cfg.layer_pattern:
+        out["shared"] = _block_axes(cfg, "A")
+    return out
+
+
+def run_cache_axes(cfg: ModelConfig) -> list:
+    return [_map(lambda t: ("layers",) + t,
+                 mamba2.ssm_cache_axes() if kind == "S"
+                 else attention.kv_cache_axes())
+            for kind, _ in pattern_runs(cfg.layer_pattern)]
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator, dtype,
@@ -131,11 +180,16 @@ def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device) -> list:
     """One cache dict per run, stacked on the run's layer axis: a ring
     KV cache for "A", "M" and each "G" position, the conv window and
-    fp32 state for "S"."""
+    fp32 state for "S".  On the active mesh's model axis a rank's KV
+    caches hold its block of the kv-heads."""
     check_ported(cfg)
+    model = partitioning.axis_size("model")
+    check_model_axis(cfg, model)
+    kv_heads = cfg.num_kv_heads // model if cfg.num_kv_heads else None
     return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count)
             if kind == "S" else
-            attention.init_kv_cache(cfg, batch, max_len, dtype, device, count)
+            attention.init_kv_cache(cfg, batch, max_len, dtype, device, count,
+                                    kv_heads)
             for kind, count in pattern_runs(cfg.layer_pattern)]
 
 

@@ -10,8 +10,14 @@ N+1 coded streams per group, laid out group-major (stream
 (stream ``n*G + g``) and each rank of the active worker group holds,
 encodes, runs and caches only its own contiguous block of them; the
 round's tail is the survivor-only decode of ``launch.worker_mesh``.
-Without a worker group every rank runs the whole round.  The port pads
-no streams: the reference pads only on a mesh, to its batch axes.
+On an active mesh (``models.partitioning.mesh_context``) the batch
+steps pad the group-major streams to the product of its worker, pod and
+data axes (``num_padded_streams``: padding streams repeat stream 0), a
+rank of the "data" axis runs and caches its block of them, and the
+blocks are all-gathered before the locate-and-decode tail, which drops
+the padding first (``_real_streams``).  The "model" axis splits each
+stream's heads, MLP and vocabulary inside the model (``models``).  Off
+any mesh every rank runs the whole round, unpadded.
 
 Re-planning stays data, not Python branches: the straggler mask, the
 operating point's ``live_mask`` and ``locate_quorum`` are tensors or
@@ -38,7 +44,7 @@ from repro_torch.core.error_locator import gather_vote_values, locate_groups
 from repro_torch.kernels import ops
 from repro_torch.launch import worker_mesh
 from repro_torch.launch.worker_mesh import WorkerShardConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, embed_inputs, init_caches,
                                       prefill)
@@ -55,17 +61,48 @@ class CodedServingState:
     pos: int                       # next cache position to write
 
 
+def num_padded_streams(coding: CodingConfig, groups: int) -> int:
+    """Coded streams padded to the active mesh's batch-axes product
+    (``partitioning.padded_batch``): every rank holds an even share."""
+    return partitioning.padded_batch(groups * coding.num_workers)
+
+
+def _check_batch_axes(wshard: Optional[WorkerShardConfig],
+                      pool: bool = False) -> None:
+    """Raise for a mesh whose batch axes this step does not split: the
+    "pod" axis (ROADMAP A9.2), the "data" axis under worker-major
+    streams or in the slot pool, and a "worker" axis above 1 without
+    ``wshard`` (it splits worker-major streams only)."""
+    if partitioning.axis_size("pod") > 1:
+        raise NotImplementedError("serving on a pod axis is not ported "
+                                  "(ROADMAP A9.2, --multi-pod)")
+    if partitioning.axis_size("data") > 1 and (wshard is not None or pool):
+        raise NotImplementedError(
+            "the data axis splits the batch steps' group-major streams; "
+            "worker-major streams and the slot pool shard over the worker "
+            "axis only (ROADMAP A9.2)")
+    if partitioning.axis_size("worker") > 1 and wshard is None:
+        raise ValueError("a worker axis above 1 shards worker-major "
+                         "streams: pass wshard")
+
+
 def _code_streams(coding: CodingConfig, x: torch.Tensor,
                   wshard: Optional[WorkerShardConfig] = None
                   ) -> torch.Tensor:
-    """(G, K, ...) -> (G*(N+1), ...) group-major coded streams through the
-    Berrut encode contraction (kernel-dispatched).
+    """(G, K, ...) -> this rank's coded streams through the Berrut encode
+    contraction (kernel-dispatched): group-major (stream ``g*(N+1) +
+    n``), padded to ``num_padded_streams`` with repeats of stream 0, and
+    on a data axis the rank's block of them.
 
     With ``wshard`` the rows are worker-major, ``n*G + g``, and a rank of
     the worker group encodes only its workers' streams: its rows of the
     encode matrix through ``ops.berrut_encode_dispatch`` give exactly its
-    contiguous block of the full output, by the same arithmetic."""
+    contiguous block of the full output, by the same arithmetic.
+    Worker-major streams are never padded: the worker axis divides N+1
+    (``worker_mesh.validate_layout``), and the data and pod axes are
+    refused with them (``_check_batch_axes``)."""
     g = x.shape[0]
+    real = g * coding.num_workers
     # rounded to x's dtype first, as the reference rounds its weights
     w = berrut.encode_matrix(coding, device=x.device).to(x.dtype)
     flat = x.reshape(g, coding.k, -1)
@@ -74,7 +111,26 @@ def _code_streams(coding: CodingConfig, x: torch.Tensor,
         coded = ops.berrut_encode_dispatch(w[lo:lo + nl], flat)  # (nl*G, F)
         return coded.reshape(nl * g, *x.shape[2:])
     coded = ops.berrut_apply(w, flat)                     # (G, N+1, F)
-    return coded.reshape(g * coding.num_workers, *x.shape[2:])
+    coded = coded.reshape(real, *x.shape[2:])
+    pad = num_padded_streams(coding, g) - real
+    if pad:
+        coded = torch.cat([coded, coded[:1].expand(pad, *coded.shape[1:])])
+    data = partitioning.axis_size("data")
+    if data == 1:
+        return coded
+    n = coded.shape[0] // data
+    r = partitioning.active_mesh().coord("data")
+    return coded[r * n:(r + 1) * n]
+
+
+def _real_streams(coding: CodingConfig, coded_logits: torch.Tensor,
+                  groups: int) -> torch.Tensor:
+    """The round's whole (G*(N+1), V) coded logits: the data axis's
+    blocks all-gathered, then the padding streams dropped."""
+    if partitioning.axis_size("data") > 1:
+        coded_logits = partitioning.active_mesh().group("data").all_gather(
+            coded_logits, 0)
+    return coded_logits[: groups * coding.num_workers]
 
 
 def locate(coding: CodingConfig, coded_logits: torch.Tensor,
@@ -266,6 +322,7 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     with ``with_report`` also the locator's (located, votes).  With
     ``wshard`` the state holds this rank's worker-major streams only.
     """
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (G*K, S, d)
     gk, s, d = x.shape
@@ -275,6 +332,8 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                          cache_dtype or coded.dtype, coded.device)
     coded_logits, caches = prefill(cfg, params, {"embeddings": coded},
                                    caches)
+    if wshard is None:
+        coded_logits = _real_streams(coding, coded_logits, g)
     out, report = _round_tail(coding, coded_logits, None, straggler_mask,
                               byz_mask, byz_noise, byz_sigma, with_report,
                               sample, generator, locate_quorum, wshard)
@@ -305,6 +364,7 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     with ``sample``, and the new state); with ``with_report`` also the
     locator's (located, votes).
     """
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (G*K,1,d)
     gk, _, d = x.shape
@@ -312,6 +372,8 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     coded = _code_streams(coding, x.reshape(g, coding.k, 1, d), wshard)
     coded_logits, caches = decode_step(cfg, params, state.caches,
                                        {"embeddings": coded}, state.pos)
+    if wshard is None:
+        coded_logits = _real_streams(coding, coded_logits, g)
     out, report = _round_tail(coding, coded_logits, None, straggler_mask,
                               byz_mask, byz_noise, byz_sigma, with_report,
                               sample, generator, locate_quorum, wshard)
@@ -354,6 +416,7 @@ def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
     caches on ``device`` and zeroed slot positions."""
     if pool_groups < 1:
         raise ValueError(f"need pool_groups >= 1, got {pool_groups}")
+    _check_batch_axes(wshard, pool=True)
     dtype = cache_dtype or getattr(torch, cfg.param_dtype)
     caches = init_caches(cfg, pool_streams(coding, pool_groups, wshard),
                          max_len, dtype, device)
@@ -442,6 +505,7 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     (located, votes).  With ``wshard`` the pool and ``fresh`` hold this
     rank's worker-major streams only (``pool_streams``).
     """
+    _check_batch_axes(wshard, pool=True)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (P*K, S, d)
     gk, s, d = x.shape
@@ -490,6 +554,7 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
     ``sample``, and the new state); with ``with_report`` also the
     active-masked (located, votes).  ``state`` is consumed.
     """
+    _check_batch_axes(wshard, pool=True)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (P*K,1,d)
     gk, _, d = x.shape
