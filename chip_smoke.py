@@ -234,7 +234,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 25. h2o-danube-1.8b at full width and 2 layers, fp32, at model 2 (two
    processes over gloo): the batch round and the slot pool against the
    one-rank card path with no mesh: phase 24's rules, and each rank's
-   caches its block of the one-rank caches' kv-heads.
+   caches its block of the one-rank caches' kv-heads;
+26. the cache-length split (ROADMAP A9.4): B4 and B5's block form
+   (``return_lse``, B5's ``slot0``) at qwen3-0.6b's full-width shapes
+   (GQA 16/8 of 128) on a 256-slot ring cut into 16 blocks of 16 slots,
+   B4 at the batch round's 22 streams (blocks past its depth see no key),
+   B5 at the multihost run's 18 streams at per-stream depths with dead
+   streams, fp32 and bf16: each block's output and lse against the plain
+   block form, the 16 blocks merged against the kernel over the whole
+   ring (TOL_F32 / the bf16 rule), keyless rows (0, -inf), dead streams
+   zero; the first block timed beside its bound, its plain version and
+   SDPA on the same block;
+27. qwen3-0.6b at full width and depth, fp32, on a 16-way model axis (8
+   kv-heads: each rank holds 16 of the 256 ring slots of every kv-head),
+   16 gloo processes sharing the card: phase 23's batch E=1 round over a
+   256-slot ring and ``launch.multihost --mode serve --model-par 16
+   --pool-groups 2 --steps 2`` (K=7 S=2 E=0), each against the same with
+   no mesh on the card under phase 24's rules; each rank's batch caches
+   its ring block of the no-mesh caches; per-rank launches (B3 28 a
+   prefill, B4/B5 28 a decode, B1/B6 and B2 once a call); collective
+   bytes by op equal to the analytic count (``model_axis_bytes``); each
+   call's wall time (gloo over the host) and the card's peak memory.
 
 Each phase prints its wall time.
 
@@ -260,7 +280,9 @@ shape, with their launches in phase 20's runs and their numbers at
 zamba2's under ``zamba2-1.2b``); B1, B6, B2, B3, B4 and B5's entries
 also ``model_par_2``: their launches on each rank of phase 24's (worker
 1, model 2) multihost run and batch round, and B3 and B5's fp32 numbers
-of phase 22 at a rank's heads and the whole model's);
+of phase 22 at a rank's heads and the whole model's; and
+``model_par_16``: their launches on each rank of phase 27's runs, and B4
+and B5's fp32 block-form numbers of phase 26 on one 16-slot block);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -450,6 +472,13 @@ MESH_TOL = (1e-5, 1e-4)        # rtol, atol: the CPU tests' fp32 logits rule
 MESH_TIMEOUT_S = 600
 MP2_KERNELS = ("berrut_apply", "berrut_encode_dispatch", "fused_group_decode",
                "flash_attention", "flash_decode", "pool_flash_decode")
+# The cache-length split (phases 26-27): qwen3-0.6b's 8 kv-heads on a
+# 16-way model axis, each rank a gloo process on cuda:0 holding 16 of a
+# MH_WIDTH-slot ring's slots.  Phase 23's batch E=1 round over a
+# MH_WIDTH-slot ring (16 divides it; at its own max_len of 133 every rank
+# would keep the whole ring), and the multihost serve at its defaults
+# (K=7 S=2 E=0) over MP16_SLOTS group slots for MP16_STEPS decode calls
+MP16, MP16_SLOTS, MP16_STEPS = 16, 2, 2
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -606,6 +635,11 @@ class Smoke:
         # B3 and B5 at phase (b)'s model-2 shapes: {"local" | "whole":
         # {name: fp32 entry}}
         self.kernels_mp2 = {}
+        # B4 and B5's block form on one of 16 ring blocks (phase 26):
+        # {name: fp32 entry}; the most device memory in use while a job of
+        # ``mesh_children`` ran (bytes, every process on the card)
+        self.kernels_mp16 = {}
+        self.mesh_peak = 0
 
     # ------------------------------------------------------------ helpers
 
@@ -815,6 +849,12 @@ class Smoke:
         self.phase(f"{D80_ARCH} model axis, 2 layers, card against one rank",
                    self.mesh_h2o)
         self.free_memory()
+        self.phase("qwen3-0.6b block form over 16 ring blocks",
+                   self.block_form_kernels)
+        mp16_launches = self.phase(
+            "qwen3-0.6b model axis 16, ring blocks, ranks sharing the card",
+            self.mesh_ring16)
+        self.free_memory()
         self.phase("qwen3-0.6b whole scheduler path",
                    self.whole_scheduler_path)
         self.phase("qwen3-0.6b whole EngineExecutor path",
@@ -878,7 +918,8 @@ class Smoke:
                    if name == "flash_attention" else {}),
                 **(self.ssd_train_launches(name, trained)
                    if name.startswith("ssd_") else {}),
-                **({"model_par_2": self.mp2_entry(name, mesh_launches)}
+                **({"model_par_2": self.mp2_entry(name, mesh_launches),
+                    "model_par_16": self.mp16_entry(name, mp16_launches)}
                    if name in MP2_KERNELS else {}),
             })
         entries += [self.train_entry(name, trained[TRAIN_ARCH])
@@ -5479,6 +5520,8 @@ class Smoke:
                             stderr=subprocess.STDOUT))
                 deadline = time.monotonic() + MESH_TIMEOUT_S
                 while any(p.poll() is None for p in procs):
+                    free, total = self.torch.cuda.mem_get_info(self.dev)
+                    self.mesh_peak = max(self.mesh_peak, total - free)
                     failed = [r for r, p in enumerate(procs)
                               if p.poll() not in (None, 0)]
                     if failed or time.monotonic() > deadline:
@@ -5517,14 +5560,11 @@ class Smoke:
         torch = self.torch
         import torch.distributed as dist
         from repro_torch import configs
-        from repro_torch.core.berrut import CodingConfig
         from repro_torch.launch import multihost, shardings
         from repro_torch.launch import worker_mesh as wm
         from repro_torch.launch.mesh import make_host_mesh
-        from repro_torch.launch.worker_mesh import WorkerShardConfig
         from repro_torch.models import partitioning
         from repro_torch.models.model import init_params
-        from repro_torch.serving.continuous import ContinuousLLMExecutor
         store = ROOT / "build" / "mesh-store"
         store.parent.mkdir(parents=True, exist_ok=True)
         store.unlink(missing_ok=True)
@@ -5541,33 +5581,12 @@ class Smoke:
         finally:
             wm.sample_tokens = real
             store.unlink(missing_ok=True)
-        pool_logits, decoded = decoded, []
+        pool_logits = decoded
         # the same pool with no mesh at all
         cfg = configs.get_config("qwen3-0.6b").with_updates(
             param_dtype="float32", activation_dtype="float32")
-        coding = CodingConfig(k=MH_K, s=MESH_S, e=0)
-        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
-                             self.dev)
-        ex = ContinuousLLMExecutor(
-            cfg, coding, params, pool_groups=MH_SLOTS, max_len=MH_WIDTH,
-            wshard=WorkerShardConfig(gather_width=coding.num_workers))
-        state = ex.init_state()
-        prompts = np.random.RandomState(0).randint(
-            0, cfg.vocab_size, (MH_SLOTS * MH_K, MH_PROMPT))
-        admit = np.ones((MH_SLOTS,), np.float32)
-        full = np.ones((coding.num_workers,), np.float32)
-        wm.sample_tokens = sample
-        try:
-            toks, state, _ = ex.prefill(state, prompts, admit, full)
-            plain = [toks]
-            for _ in range(MESH_STEPS):
-                toks, state, _ = ex.decode(state, toks.reshape(-1, 1), admit,
-                                           full)
-                plain.append(toks)
-        finally:
-            wm.sample_tokens = real
-        del ex, state
-        if not np.array_equal(np.stack(plain), res["tokens"]) or any(
+        plain, decoded = self.plain_pool(cfg, MESH_S, MH_SLOTS, MESH_STEPS)
+        if not np.array_equal(plain, res["tokens"]) or any(
                 not torch.equal(a, b) for a, b in zip(decoded, pool_logits)):
             raise AssertionError("one-rank multihost serve differs from the "
                                  "pool with no mesh")
@@ -5606,6 +5625,51 @@ class Smoke:
         self.free_memory()
         return {"tokens": res["tokens"], "pool_logits": pool_logits,
                 "batch": plain["batch"], "inputs": inputs}
+
+    def plain_pool(self, cfg, s: int, slots: int, steps: int):
+        """The multihost serve's pool with no mesh: ``ContinuousLLMExecutor``
+        on multihost's seed-0 weights and prompts (K=MH_K, S=``s``, E=0,
+        ``slots`` group slots of MH_PROMPT-token prompts over a
+        MH_WIDTH-slot ring, all admitted, all workers answering) for
+        ``steps`` decode calls.  Returns (tokens (steps + 1, slots * K),
+        each call's decoded logits on the host)."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.launch import worker_mesh as wm
+        from repro_torch.launch.worker_mesh import WorkerShardConfig
+        from repro_torch.models.model import init_params
+        from repro_torch.serving.continuous import ContinuousLLMExecutor
+        coding = CodingConfig(k=MH_K, s=s, e=0)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        ex = ContinuousLLMExecutor(
+            cfg, coding, params, pool_groups=slots, max_len=MH_WIDTH,
+            wshard=WorkerShardConfig(gather_width=coding.num_workers))
+        state = ex.init_state()
+        prompts = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (slots * MH_K, MH_PROMPT))
+        admit = np.ones((slots,), np.float32)
+        full = np.ones((coding.num_workers,), np.float32)
+        decoded = []
+        real = wm.sample_tokens
+
+        def sample(dec, *args, **kw):
+            decoded.append(dec.float().cpu())
+            return real(dec, *args, **kw)
+
+        wm.sample_tokens = sample
+        try:
+            toks, state, _ = ex.prefill(state, prompts, admit, full)
+            plain = [toks]
+            for _ in range(steps):
+                toks, state, _ = ex.decode(state, toks.reshape(-1, 1), admit,
+                                           full)
+                plain.append(toks)
+        finally:
+            wm.sample_tokens = real
+        del ex, state, params
+        self.free_memory()
+        return np.stack(plain), decoded
 
     def mesh_ranks(self, one_rank: dict) -> dict:
         """Phase (b): ``multihost --mode serve`` (phase (a)'s settings) on
@@ -5800,17 +5864,332 @@ class Smoke:
                 out[key + "_heads"] = {k: table[name][k] for k in keys}
         return out
 
+    # --------------------------------------- the cache-length split
+
+    def check_lse(self, what: str, got, want) -> dict:
+        """A block form's (B, H) lse against its plain version's: -inf at
+        the same rows, the finite ones under the fp32 rule (both sum fp32
+        terms of the same inputs)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isneginf(got), torch.isneginf(want)):
+            raise AssertionError(f"{what}: lse -inf at other rows")
+        ok = torch.isfinite(want)
+        if not ok.any():                 # a block no row sees a key of
+            return {"max_abs_err": 0.0, "err_over_tol": 0.0}
+        return self.check(what, got[ok], want[ok], "float32")
+
+    def block_form_kernels(self):
+        """Phase 26: B4 and B5's block form (``return_lse``, and B5's
+        ``slot0``) at qwen3-0.6b's full-width shapes (GQA 16/8 of 128) on
+        a MH_WIDTH-slot ring cut into MP16 blocks of 16 slots, and into 2
+        blocks of 128, where ``plan_splits`` gives 2 or more key splits
+        (the lse of the combine kernel): B4 at the batch round's 22
+        streams at its last decode position (blocks past it see no key),
+        B5 at the multihost run's 18 streams at per-stream depths with
+        dead streams, fp32 and bf16.  Each block's output and lse against
+        the plain block form; the blocks merged (``ref.merge_blocks_ref``)
+        against the kernel over the whole ring (TOL_F32 / the bf16 rule);
+        keyless rows (lse -inf, exact zeros) and dead streams (zeros
+        after the merge); the first 16-slot block, where every live
+        stream sees keys, timed beside its bound by bytes, its plain
+        version and SDPA on the same block (``kernels_mp16``)."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import flash_decode, ops, ref
+        cfg = configs.get_config("qwen3-0.6b")
+        h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        n = MH_WIDTH // MP16
+        gen = torch.Generator(self.dev).manual_seed(16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        batch = MESH_GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        pool = MP16_SLOTS * CodingConfig(k=MH_K, s=MH_S, e=0).num_workers
+        for b in (batch, pool):
+            for blocks in (MP16, 2):
+                splits = flash_decode.plan_splits(b, kvh, MH_WIDTH // blocks,
+                                                  sms)
+                emit({"variant": "block form decode plan", "streams": b,
+                      "block": MH_WIDTH // blocks, "kv_heads": kvh,
+                      "blocks": b * kvh, "splits": splits})
+                if blocks == 2 and splits < 2:
+                    raise AssertionError(
+                        f"{b} streams over {MH_WIDTH // blocks}-slot blocks "
+                        f"plan {splits} split: the combine kernel's lse goes "
+                        "unchecked")
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            size = dtype.itemsize
+            for name, b in (("flash_decode", batch),
+                            ("pool_flash_decode", pool)):
+                q = self.randn(b, h, hd, dtype=dtype, gen=gen)
+                kc = self.randn(b, MH_WIDTH, kvh, hd, dtype=dtype, gen=gen)
+                vc = self.randn(b, MH_WIDTH, kvh, hd, dtype=dtype, gen=gen)
+                if name == "flash_decode":
+                    pos = MESH_PROMPT + MESH_STEPS - 1
+                    mask = (torch.arange(MH_WIDTH, device=self.dev)
+                            <= pos).to(torch.uint8)[None].expand(b, MH_WIDTH)
+                    live = torch.ones(b, dtype=torch.uint8, device=self.dev)
+                    depth = torch.full((b,), pos + 1, device=self.dev)
+
+                    def call(fn, qq, k, v, lo):
+                        return fn(qq, k, v, mask[:, lo:lo + k.shape[1]],
+                                  return_lse=True)
+
+                    kernel, plain = ops.decode_attention, \
+                        ref.decode_attention_ref
+                    whole = ops.decode_attention(q, kc, vc, mask)
+                    extra = n                      # the mask row
+                else:
+                    pos, live = self.pool_positions(b, MH_WIDTH, gen,
+                                                    MH_PROMPT)
+                    depth = pos + 1
+
+                    def call(fn, qq, k, v, lo):
+                        return fn(qq, k, v, pos, live, slot0=lo,
+                                  return_lse=True)
+
+                    kernel, plain = ops.pool_decode_attention, \
+                        ref.pool_decode_attention_ref
+                    whole = ops.pool_decode_attention(q, kc, vc, pos, live)
+                    extra = 5 * b                  # pos and live
+                for blocks in (MP16, 2):
+                    width = MH_WIDTH // blocks
+                    seen = [torch.clamp(depth - r * width, 0, width) * live
+                            for r in range(blocks)]
+                    outs, lses, worst = [], [], 0.0
+                    for r in range(blocks):
+                        lo = r * width
+                        kb = kc[:, lo:lo + width].contiguous()
+                        vb = vc[:, lo:lo + width].contiguous()
+                        o, lse = call(kernel, q, kb, vb, lo)
+                        po, plse = call(plain, q, kb, vb, lo)
+                        where = f"{name} block {r} of {blocks} ({dtype_name})"
+                        worst = max(worst, self.check(where, o, po, "float32")
+                                    ["err_over_tol"])
+                        worst = max(worst, self.check_lse(
+                            where + " lse", lse, plse)["err_over_tol"])
+                        keyless = seen[r] == 0
+                        if not (torch.isneginf(lse[keyless]).all()
+                                and torch.equal(o[keyless],
+                                                torch.zeros_like(o[keyless]))):
+                            raise AssertionError(f"{where}: a row that sees "
+                                                 "no key is not (0, -inf)")
+                        outs.append(o)
+                        lses.append(lse)
+                    merged = ref.merge_blocks_ref(torch.stack(outs),
+                                                  torch.stack(lses))
+                    self.dead_rows_zero(f"{name} merged blocks", merged, live)
+                    res = self.check(f"{name} {blocks} blocks merged",
+                                     merged, whole, dtype_name)
+                    emit({"variant": f"{name} block form, {blocks} blocks of "
+                          f"{width} slots merged against the whole ring",
+                          "dtype": dtype_name, "streams": b,
+                          "splits": flash_decode.plan_splits(b, kvh, width,
+                                                             sms),
+                          "keyless_blocks": sum(int((c == 0).all().item())
+                                                for c in seen),
+                          "keyless_rows": sum(int((c == 0).sum().item())
+                                              for c in seen),
+                          "blocks_worst_err_over_tol": worst, **res})
+                # the first 16-slot block, in rotation past the L2
+                copies = self.rotation(lambda: (
+                    self.randn(b, n, kvh, hd, dtype=dtype, gen=gen),
+                    self.randn(b, n, kvh, hd, dtype=dtype, gen=gen)))
+                turn = itertools.cycle(copies).__next__
+                kb, vb = copies[0]
+                seen0 = torch.clamp(depth, 0, n) * live
+                allowed = (torch.arange(n, device=self.dev)[None, :]
+                           < seen0[:, None])[:, None, None, :]
+                n_read = int(seen0.sum().item())
+                self.record(
+                    name, dtype_name, [list(q.shape), list(kb.shape)],
+                    call(kernel, q, kb, vb, 0)[0], call(plain, q, kb, vb, 0)[0],
+                    lambda: call(kernel, q, *turn(), 0),
+                    lambda: call(plain, q, *turn(), 0),
+                    lambda: sdpa(q[:, :, None], *(c.transpose(1, 2)
+                                                  for c in turn()),
+                                 attn_mask=allowed, enable_gqa=True),
+                    q.numel() * size + 2 * n_read * kvh * hd * size + extra
+                    + q.numel() * 4 + b * h * 4,
+                    4 * hd * n_read * h,
+                    extra={"l2_copies": len(copies), "block": n},
+                    table=self.kernels_mp16)
+
+    def mesh_ring16(self) -> dict:
+        """Phase 27: qwen3-0.6b at full width and depth, fp32, on a (worker,
+        model) = (1, MP16) mesh, MP16 gloo processes sharing cuda:0, each
+        holding 16 of the MH_WIDTH ring slots of every kv-head: the batch
+        E=1 round (``mesh_rounds`` over a MH_WIDTH-slot ring) and
+        ``multihost --mode serve --model-par 16`` (``mesh_multihost_argv``),
+        each against the same with no mesh on the card under phase 24's
+        rules: tokens up to the first near tie, logits within MESH_TOL,
+        verdicts equal; each rank's batch caches its ring block of the
+        no-mesh caches; per-rank launches held to the one-rank tables;
+        collective bytes by op equal to ``model_axis_bytes``; each call's
+        wall time (gloo over the host) and the card's peak memory printed.
+        Returns the per-rank launches of both runs."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_params
+        cfg = configs.get_config("qwen3-0.6b").with_updates(
+            param_dtype="float32", activation_dtype="float32")
+        tokens, pool_logits = self.plain_pool(cfg, MH_S, MP16_SLOTS,
+                                              MP16_STEPS)
+        inputs = self.mesh_inputs(cfg)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+            MESH_SEED), self.dev)
+        plain = mesh_rounds(cfg, params, inputs, max_len=MH_WIDTH,
+                            caches=True)
+        del params
+        self.free_memory()
+        path = ROOT / "build" / "mesh" / "inputs-ring16.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in inputs.items()}, path)
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        ranks = self.mesh_children([{
+            "kind": "ring16", "world": MP16, "model": MP16, "batch": True,
+            "max_len": MH_WIDTH, "inputs": str(path)}], "ring16-")[0]
+        wall = time.perf_counter() - t0
+        shown = MP2_KERNELS
+        n = MH_WIDTH // MP16
+        # the multihost serve
+        where = f"multihost serve qwen3-0.6b fp32 W=1 M={MP16} (gloo)"
+        want = self.expected_launches("qwen3-0.6b", 1, MP16_STEPS, pool=True,
+                                      worker_major=True)
+        for r, res in enumerate(ranks):
+            if not np.array_equal(res["tokens"], ranks[0]["tokens"]):
+                raise AssertionError(f"{where}: rank {r}'s tokens differ")
+            if res["launches"] != want:
+                raise AssertionError(f"{where} rank {r}: launches "
+                                     f"{res['launches']} != {want}")
+        held = near_tie_rows(where, ranks[0]["tokens"], tokens, pool_logits)
+        pool_worst = 0.0
+        for r, res in enumerate(ranks):
+            if len(res["pool_logits"]) != len(pool_logits):
+                raise AssertionError(f"{where} rank {r}: "
+                                     f"{len(res['pool_logits'])} decoded "
+                                     f"calls, no mesh had {len(pool_logits)}")
+            for i in range(min(held + 1, len(pool_logits))):
+                pool_worst = max(pool_worst, logits_share(
+                    f"{where} rank {r} call {i}", res["pool_logits"][i],
+                    pool_logits[i]))
+        coding = CodingConfig(k=MH_K, s=MH_S, e=0)
+        streams = MP16_SLOTS * coding.num_workers
+        for kind, calls in ranks[0]["call_bytes"].items():
+            for i, got in enumerate(calls):
+                bytes_equal(f"{where} {kind} call {i}", got, model_axis_bytes(
+                    cfg, MP16, MP16_SLOTS * MH_K, streams,
+                    MH_PROMPT if kind == "prefill" else 1,
+                    kind == "decode"))
+        ms = ranks[0]["call_ms"]
+        emit({"mesh_run": where, "ranks": MP16,
+              "tokens_held_calls": held,
+              "pool_logits_worst_err_over_tol": pool_worst,
+              "launches_per_rank": [{k: res["launches"][k] for k in shown}
+                                    for res in ranks],
+              "collective_bytes_per_call": ranks[0]["call_bytes"],
+              "bytes_equal_analytic": True,
+              "prefill_ms_gloo_over_host": ms["prefill"][0],
+              "decode_ms_gloo_over_host": ms["decode"]})
+        # the batch E=1 round
+        where = f"batch E=1 round qwen3-0.6b fp32 model {MP16} (gloo)"
+        want = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS, pool=False)
+        worst, cache_worst = 0.0, 0.0
+        for r, res in enumerate(ranks):
+            if res["batch_launches"] != want:
+                raise AssertionError(f"{where} rank {r}: launches "
+                                     f"{res['batch_launches']} != {want}")
+            worst = max(worst, hold_calls(f"{where} rank {r}", res["batch"],
+                                          plain["batch"]))
+            for i, (mine, whole) in enumerate(zip(res["batch_caches"],
+                                                  plain["batch_caches"])):
+                for name, leaf in whole.items():
+                    blk = leaf[:, :, r * n:(r + 1) * n]
+                    cache_worst = max(cache_worst, logits_share(
+                        f"{where} rank {r} run {i} cache {name} (its ring "
+                        f"block)", mine[name], blk))
+        batch = MESH_GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        for i, got in enumerate(ranks[0]["batch_bytes"]):
+            bytes_equal(f"{where} call {i}", got["model"], model_axis_bytes(
+                cfg, MP16, MESH_GROUPS * K, batch,
+                MESH_PROMPT if i == 0 else 1, i > 0))
+        emit({"mesh_run": where, "worst_err_over_tol": worst,
+              "caches": f"ring blocks of {n} slots",
+              "caches_worst_err_over_tol": cache_worst,
+              "launches_per_rank": [{k: res["batch_launches"][k]
+                                     for k in shown} for res in ranks],
+              "collective_bytes_per_call": [c["model"]
+                                            for c in ranks[0]["batch_bytes"]],
+              "bytes_equal_analytic": True,
+              "call_ms_gloo_over_host": ranks[0]["batch_ms"]})
+        emit({"mesh_ring16": f"{MP16} gloo ranks on one card",
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9,
+              "rank_max_reserved_gb": [res["max_reserved"] / 1e9
+                                       for res in ranks]})
+        return {"multihost": [res["launches"] for res in ranks],
+                "batch": [res["batch_launches"] for res in ranks]}
+
+    def mp16_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's ``model_par_16`` numbers of ``name``: its
+        launches on each rank of phase 27's multihost run and batch round,
+        and for B4 and B5 their fp32 block form's check and times on one
+        of the 16-slot ring blocks (phase 26)."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "l2_copies")
+        out = {"launches_multihost_per_rank": [r[name]
+                                               for r in launches["multihost"]],
+               "launches_batch_per_rank": [r[name]
+                                           for r in launches["batch"]]}
+        if name in self.kernels_mp16:
+            out["block_of_16_slots"] = {k: self.kernels_mp16[name][k]
+                                        for k in keys}
+        return out
+
 
 def mesh_multihost_argv(store, world: int, rank: int, model: int,
-                        backend: str = "nccl") -> list:
-    """``multihost --mode serve`` at its defaults with ``--s 3``, fp32 and
-    MESH_STEPS decode calls, on ``world`` processes with a ``model``-way
+                        backend: str = "nccl", s: int = MESH_S,
+                        steps: int = MESH_STEPS,
+                        slots: int = MH_SLOTS) -> list:
+    """``multihost --mode serve`` at its defaults with ``--s``, fp32,
+    ``slots`` group slots and ``steps`` decode calls (phases 23-24: S=3,
+    MESH_STEPS, MH_SLOTS), on ``world`` processes with a ``model``-way
     model axis."""
     return ["--mode", "serve", "--coordinator", f"file://{store}",
             "--num-processes", str(world), "--process-id", str(rank),
-            "--s", str(MESH_S), "--dtype", "float32", "--steps",
-            str(MESH_STEPS), "--model-par", str(model), "--backend",
-            backend]
+            "--s", str(s), "--dtype", "float32", "--steps", str(steps),
+            "--pool-groups", str(slots), "--model-par", str(model),
+            "--backend", backend]
+
+
+def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
+                     decode: bool) -> dict:
+    """Per-rank bytes of one serving call of a dense decoder on an
+    ``m``-way model axis that splits its q-heads, MLP and vocabulary and
+    the ring of its caches (not its kv-heads), fp32, under the ring
+    accounting of ``partitioning.WorkerGroup``: the embedding's
+    all-reduce of (rows, seq, d), two all-reduces of (streams, seq, d) a
+    layer and the logits' all-gather of (streams, V); in a decode call
+    also per layer the q-heads' all-gather (streams, H, D), the lse's
+    all-gather (m, streams, H) and the merge's reduce-scatter of
+    (streams, H / m, D)."""
+    frac = (m - 1) / m
+    d, h, hd, layers = cfg.d_model, cfg.num_heads, cfg.head_dim, \
+        cfg.num_layers
+    out = {"all-reduce": 2 * frac * 4 * (rows * seq * d
+                                         + 2 * layers * streams * seq * d),
+           "all-gather": frac * 4 * streams * cfg.vocab_size}
+    if decode:
+        out["all-gather"] += layers * frac * 4 * (streams * h * hd
+                                                  + m * streams * h)
+        out["reduce-scatter"] = layers * (m - 1) * 4 * streams * (h // m) \
+            * hd
+    out["total"] = sum(out.values())
+    return out
 
 
 def mesh_h2o_config(configs):
@@ -5818,14 +6197,17 @@ def mesh_h2o_config(configs):
         num_layers=2, param_dtype="float32", activation_dtype="float32")
 
 
-def mesh_rounds(cfg, params, inputs: dict, pool: bool = False) -> dict:
-    """The batch E=1 round: ``coded_prefill`` and MESH_STEPS
-    ``coded_decode_step``s on ``inputs``' fixed next tokens; with ``pool``
-    also the slot pool's worker-major prefill (every slot admitted) and
-    MESH_STEPS decode rounds on the same tokens, and both runs' caches.
-    On the active mesh, if any.  Returns each call's (logits, located) on
-    the host, each run's launches, and on a mesh each call's collective
-    bytes by axis and op and its wall time (ms, ending in a sync)."""
+def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
+                max_len: int = MESH_PROMPT + MESH_STEPS + 2,
+                caches: bool = False) -> dict:
+    """The batch E=1 round over a ``max_len`` ring: ``coded_prefill`` and
+    MESH_STEPS ``coded_decode_step``s on ``inputs``' fixed next tokens;
+    with ``pool`` also the slot pool's worker-major prefill (every slot
+    admitted) and MESH_STEPS decode rounds on the same tokens, and both
+    runs' caches (with ``caches``, the batch round's).  On the active
+    mesh, if any.  Returns each call's (logits, located) on the host, each
+    run's launches, and on a mesh each call's collective bytes by axis and
+    op and its wall time (ms, ending in a sync)."""
     import torch
     from repro_torch.core.berrut import CodingConfig
     from repro_torch.kernels import ops
@@ -5835,7 +6217,6 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False) -> dict:
     coding = CodingConfig(k=K, s=S, e=E)
     mesh = partitioning.active_mesh()
     dev = inputs["tokens"].device
-    max_len = MESH_PROMPT + MESH_STEPS + 2
     kw = dict(straggler_mask=inputs["mask"], byz_mask=inputs["byz"],
               byz_noise=inputs["noise"], byz_sigma=10.0, with_report=True)
     out = {}
@@ -5861,7 +6242,8 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False) -> dict:
         out[kind + "_bytes"], out[kind + "_ms"] = nbytes, ms
         out[kind + "_caches"] = [{name: leaf.float().cpu()
                                   for name, leaf in cache.items()}
-                                 for cache in state.caches] if pool else None
+                                 for cache in state.caches] \
+            if pool or caches else None
 
     run("batch", lambda: cs.coded_prefill(
         cfg, coding, params, {"tokens": inputs["tokens"]}, max_len, **kw),
@@ -5896,6 +6278,18 @@ def hold_calls(where: str, got: list, want: list) -> float:
         if not torch.equal(vg, vw):
             raise AssertionError(f"{where} call {i}: verdicts differ")
     return worst
+
+
+def bytes_equal(where: str, got: dict, want: dict) -> None:
+    """A call's collective bytes by op equal to the analytic count (to a
+    millionth: the counts are sums of floats)."""
+    ops = sorted(op for op in set(got) | set(want)
+                 if got.get(op, 0.0) or want.get(op, 0.0))
+    for op in ops:
+        if not math.isclose(got.get(op, 0.0), want.get(op, 0.0),
+                            rel_tol=1e-6):
+            raise AssertionError(f"{where}: {op} bytes {got.get(op)} != "
+                                 f"{want.get(op)} (analytic)")
 
 
 def logits_share(where: str, got, want) -> float:
@@ -5950,7 +6344,7 @@ def mesh_child(rank: int, work: Path) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = {}
-    if job["kind"] == "multihost":
+    if job["kind"] in ("multihost", "ring16"):
         # each call's decoded logits, as the decode tail leaves them to
         # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
         decoded = []
@@ -5961,11 +6355,15 @@ def mesh_child(rank: int, work: Path) -> int:
             decoded.append(dec.float().cpu())
             return dec
 
+        argv = (mesh_multihost_argv(work / "store", world, rank, model,
+                                    backend="gloo")
+                if job["kind"] == "multihost" else mesh_multihost_argv(
+                    work / "store", world, rank, model, backend="gloo",
+                    s=MH_S, steps=MP16_STEPS, slots=MP16_SLOTS))
         ops.reset_launch_counts()
         wm._decode_rows = decode_rows
         try:
-            res = multihost.main(mesh_multihost_argv(
-                work / "store", world, rank, model, backend="gloo"))
+            res = multihost.main(argv)
         finally:
             wm._decode_rows = real
         out.update(tokens=res["tokens"], pool_logits=decoded,
@@ -5974,6 +6372,7 @@ def mesh_child(rank: int, work: Path) -> int:
                    launches=ops.launch_counts())
         cfg = configs.get_config("qwen3-0.6b").with_updates(
             param_dtype="float32", activation_dtype="float32")
+        torch.cuda.empty_cache()         # the whole weights, now freed
     else:
         cfg = mesh_h2o_config(configs)
     if job.get("batch") or job["kind"] == "h2o":
@@ -5988,10 +6387,13 @@ def mesh_child(rank: int, work: Path) -> int:
                 params = shardings.local_shard(
                     params, shardings.serving_param_specs(mesh, cfg, params),
                     mesh)
-                out.update(mesh_rounds(cfg, params, inputs,
-                                       pool=job["kind"] == "h2o"))
+                out.update(mesh_rounds(
+                    cfg, params, inputs, pool=job["kind"] == "h2o",
+                    max_len=job.get("max_len", MESH_PROMPT + MESH_STEPS + 2),
+                    caches=job["kind"] == "ring16"))
         finally:
             dist.destroy_process_group()
+    out["max_reserved"] = torch.cuda.max_memory_reserved(dev)
     torch.save(out, work / f"rank{rank}.pt")
     return 0
 

@@ -16,6 +16,18 @@
 // reads and masks every tile.  A dead stream reads no cache and writes
 // exact zeros.
 //
+// Block form (both entry points): with lse != nullptr the call writes,
+// beside an fp32 output, each (stream, q-head) row's log-sum-exp of its
+// valid scores (lse, (B, H) fp32; -inf for a row that sees no key), so
+// that the partial results of the blocks of one ring can be merged
+// outside the kernel.  A model-axis rank whose cache holds a block of the
+// ring slots (kv_seq split over "model", where the axis does not divide
+// the kv-heads) calls it on its block: the mask entry point with the
+// block's mask, the pool one with slot0, the ring slot of the block's
+// first slot, so that slot j of it is valid when slot0 + j <= pos[b]
+// (nkeys = clamp(pos[b] - slot0 + 1, 0, W)).  lse == nullptr and
+// slot0 = 0 are the whole-ring call, unchanged.
+//
 // In both, the rep = H / KV q-heads of a kv-head share one pass over its
 // cache; int8 caches are dequantised in registers by kv_scale
 // (device-memory traffic stays at the int8 byte count); logit softcap is
@@ -175,24 +187,47 @@ __device__ __forceinline__ void merge_factors(float m_a, float m_b,
 
 // Where a key's validity comes from: a (B, W) uint8 mask with row stride
 // mask_stride (0 broadcasts one row), or, with kPool, the stream's ring
-// position pos[b] and live byte (live == nullptr: every stream is live).
+// position pos[b] and live byte (live == nullptr: every stream is live),
+// the cache holding the ring slots from slot0 on.
 struct Validity {
   const uint8_t* mask;
   long long mask_stride;
   const int* pos;
   const uint8_t* live;
+  int slot0;
 };
+
+// The output row of a (stream, head): in T, or with lse (the block form)
+// in fp32 beside the row's log-sum-exp (-inf when it saw no key).
+template <typename T>
+__device__ __forceinline__ void store_row(void* out, float* lse,
+                                          long long row, int dim, int d,
+                                          float a_all, float l_all,
+                                          float m_all) {
+  const float o = a_all / fmaxf(l_all, 1e-30f);
+  if (lse == nullptr) {
+    store_from_f32(static_cast<T*>(out) + row * dim + d, o);
+    return;
+  }
+  static_cast<float*>(out)[row * dim + d] = o;
+  if (d == 0) {
+    lse[row] = m_all <= kNegInf ? -__int_as_float(0x7f800000)  // -inf
+                                : m_all + logf(l_all);
+  }
+}
 
 // T: type of q and out; C: type of the caches (T, or int8 with kv_scale);
 // R: q-head rows handled per pass over the cache; kPool: validity from
 // (pos, live) instead of the mask.  Grid (KV, B, S).  ws == nullptr
-// (S = 1): write out; else write this split's (m, l, acc) to ws.
+// (S = 1): write out (and lse, when asked for); else write this split's
+// (m, l, acc) to ws.
 template <typename T, typename C, int D, int R, bool kPool>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
                     const C* __restrict__ vc, Validity valid,
-                    T* __restrict__ out, float* __restrict__ ws, int width,
-                    int heads, int kv_heads, float softcap, float scale,
+                    void* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ ws, int width, int heads,
+                    int kv_heads, float softcap, float scale,
                     float kv_scale) {
   using G = Geo<C, D>;
   constexpr bool kInt8 = std::is_same<C, int8_t>::value;
@@ -205,7 +240,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
   int nkeys = width;
   if (kPool) {
     const bool alive = valid.live == nullptr || valid.live[b] != 0;
-    nkeys = alive ? max(0, min(valid.pos[b], width - 1) + 1) : 0;
+    nkeys = alive ? min(max(valid.pos[b] - valid.slot0 + 1, 0), width) : 0;
   }
   const int lo = static_cast<int>(static_cast<long long>(split) * nkeys /
                                   splits);
@@ -419,8 +454,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
       }
       if (kInt8) a_all /= kv_scale;      // values of the integer caches
       if (ws == nullptr) {
-        store_from_f32(out + (head0 + r) * D + d,
-                       a_all / fmaxf(l_all, 1e-30f));
+        store_row<T>(out, lse, head0 + r, D, d, a_all, l_all, m_all);
       } else {
         const long long slot = (head0 + r) * splits + split;
         ws_acc[slot * D + d] = a_all;    // exact 0 for a split with no key
@@ -437,8 +471,9 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ kc,
 // Merge the S splits of every (stream, head) row: grid (H, B), D threads.
 template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ ws,
-                                            T* __restrict__ out, int heads,
-                                            int splits, int dim) {
+                                            void* __restrict__ out,
+                                            float* __restrict__ lse,
+                                            int heads, int splits, int dim) {
   const long long row = static_cast<long long>(blockIdx.y) * heads +
                         blockIdx.x;
   const float* acc = ws + row * splits * dim;
@@ -457,16 +492,16 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ ws,
         a_all += acc[s * dim + d] * f;
       }
     }
-    store_from_f32(out + row * dim + d, a_all / fmaxf(l_all, 1e-30f));
+    store_row<T>(out, lse, row, dim, d, a_all, l_all, m_all);
   }
 }
 
 template <typename T, typename C, int D, int R, bool kPool>
 cudaError_t launch_kernel(const void* q, const void* k, const void* v,
-                          Validity valid, void* out, float* ws, int batch,
-                          int width, int heads, int kv_heads, int splits,
-                          float softcap, float scale, float kv_scale,
-                          cudaStream_t s) {
+                          Validity valid, void* out, float* lse, float* ws,
+                          int batch, int width, int heads, int kv_heads,
+                          int splits, float softcap, float scale,
+                          float kv_scale, cudaStream_t s) {
   auto kernel = flash_decode_kernel<T, C, D, R, kPool>;
   // set before every launch: the attribute is per device, and the current
   // device may change
@@ -480,55 +515,61 @@ cudaError_t launch_kernel(const void* q, const void* k, const void* v,
   const dim3 grid(kv_heads, batch, splits);
   kernel<<<grid, kThreads, kSmem, s>>>(
       static_cast<const T*>(q), static_cast<const C*>(k),
-      static_cast<const C*>(v), valid, static_cast<T*>(out), ws, width,
-      heads, kv_heads, softcap, scale, kv_scale);
+      static_cast<const C*>(v), valid, out, lse, ws, width, heads, kv_heads,
+      softcap, scale, kv_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || ws == nullptr) return err;
   flash_decode_combine_kernel<T><<<dim3(heads, batch), D, 0, s>>>(
-      ws, static_cast<T*>(out), heads, splits, D);
+      ws, out, lse, heads, splits, D);
   return cudaGetLastError();
 }
 
 template <typename T, typename C, int D, bool kPool>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
-                        Validity valid, void* out, float* ws, int batch,
-                        int width, int heads, int kv_heads, int splits,
-                        float softcap, float scale, float kv_scale,
-                        cudaStream_t s) {
+                        Validity valid, void* out, float* lse, float* ws,
+                        int batch, int width, int heads, int kv_heads,
+                        int splits, float softcap, float scale,
+                        float kv_scale, cudaStream_t s) {
   constexpr int kBig = Geo<C, D>::kRowsBig;
   if (heads / kv_heads <= 2 || kBig == 2) {
-    return launch_kernel<T, C, D, 2, kPool>(q, k, v, valid, out, ws, batch,
-                                            width, heads, kv_heads, splits,
-                                            softcap, scale, kv_scale, s);
+    return launch_kernel<T, C, D, 2, kPool>(q, k, v, valid, out, lse, ws,
+                                            batch, width, heads, kv_heads,
+                                            splits, softcap, scale, kv_scale,
+                                            s);
   }
-  return launch_kernel<T, C, D, kBig, kPool>(q, k, v, valid, out, ws, batch,
-                                             width, heads, kv_heads, splits,
-                                             softcap, scale, kv_scale, s);
+  return launch_kernel<T, C, D, kBig, kPool>(q, k, v, valid, out, lse, ws,
+                                             batch, width, heads, kv_heads,
+                                             splits, softcap, scale,
+                                             kv_scale, s);
 }
 
 template <typename T, typename C, bool kPool>
 cudaError_t launch_dims(const void* q, const void* k, const void* v,
-                        Validity valid, void* out, float* ws, int batch,
-                        int width, int heads, int kv_heads, int head_dim,
-                        int splits, float softcap, float scale,
+                        Validity valid, void* out, float* lse, float* ws,
+                        int batch, int width, int heads, int kv_heads,
+                        int head_dim, int splits, float softcap, float scale,
                         float kv_scale, cudaStream_t s) {
   switch (head_dim) {
     case 64:
-      return launch_rows<T, C, 64, kPool>(q, k, v, valid, out, ws, batch,
-                                          width, heads, kv_heads, splits,
-                                          softcap, scale, kv_scale, s);
+      return launch_rows<T, C, 64, kPool>(q, k, v, valid, out, lse, ws,
+                                          batch, width, heads, kv_heads,
+                                          splits, softcap, scale, kv_scale,
+                                          s);
     case 80:
-      return launch_rows<T, C, 80, kPool>(q, k, v, valid, out, ws, batch,
-                                          width, heads, kv_heads, splits,
-                                          softcap, scale, kv_scale, s);
+      return launch_rows<T, C, 80, kPool>(q, k, v, valid, out, lse, ws,
+                                          batch, width, heads, kv_heads,
+                                          splits, softcap, scale, kv_scale,
+                                          s);
     case 128:
-      return launch_rows<T, C, 128, kPool>(q, k, v, valid, out, ws, batch,
-                                           width, heads, kv_heads, splits,
-                                           softcap, scale, kv_scale, s);
+      return launch_rows<T, C, 128, kPool>(q, k, v, valid, out, lse, ws,
+                                           batch, width, heads, kv_heads,
+                                           splits, softcap, scale, kv_scale,
+                                           s);
     case 256:
-      return launch_rows<T, C, 256, kPool>(q, k, v, valid, out, ws, batch,
-                                           width, heads, kv_heads, splits,
-                                           softcap, scale, kv_scale, s);
+      return launch_rows<T, C, 256, kPool>(q, k, v, valid, out, lse, ws,
+                                           batch, width, heads, kv_heads,
+                                           splits, softcap, scale, kv_scale,
+                                           s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -536,36 +577,36 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v,
 
 template <bool kPool>
 cudaError_t launch_types(const void* q, const void* k, const void* v,
-                         Validity valid, void* out, int batch, int width,
-                         int heads, int kv_heads, int head_dim, float softcap,
-                         float scale, float kv_scale, int dtype,
-                         int cache_dtype, int splits, void* workspace,
-                         cudaStream_t s) {
+                         Validity valid, void* out, float* lse, int batch,
+                         int width, int heads, int kv_heads, int head_dim,
+                         float softcap, float scale, float kv_scale,
+                         int dtype, int cache_dtype, int splits,
+                         void* workspace, cudaStream_t s) {
   if (splits < 1 || (splits > 1) != (workspace != nullptr)) {
     return cudaErrorInvalidValue;
   }
   float* ws = static_cast<float*>(workspace);
   if (dtype == 0 && cache_dtype == 0) {
-    return launch_dims<float, float, kPool>(q, k, v, valid, out, ws, batch,
-                                            width, heads, kv_heads, head_dim,
-                                            splits, softcap, scale, kv_scale,
-                                            s);
+    return launch_dims<float, float, kPool>(q, k, v, valid, out, lse, ws,
+                                            batch, width, heads, kv_heads,
+                                            head_dim, splits, softcap, scale,
+                                            kv_scale, s);
   }
   if (dtype == 1 && cache_dtype == 1) {
     return launch_dims<__nv_bfloat16, __nv_bfloat16, kPool>(
-        q, k, v, valid, out, ws, batch, width, heads, kv_heads, head_dim,
-        splits, softcap, scale, kv_scale, s);
+        q, k, v, valid, out, lse, ws, batch, width, heads, kv_heads,
+        head_dim, splits, softcap, scale, kv_scale, s);
   }
   if (dtype == 0 && cache_dtype == 2) {
-    return launch_dims<float, int8_t, kPool>(q, k, v, valid, out, ws, batch,
-                                             width, heads, kv_heads,
+    return launch_dims<float, int8_t, kPool>(q, k, v, valid, out, lse, ws,
+                                             batch, width, heads, kv_heads,
                                              head_dim, splits, softcap, scale,
                                              kv_scale, s);
   }
   if (dtype == 1 && cache_dtype == 2) {
     return launch_dims<__nv_bfloat16, int8_t, kPool>(
-        q, k, v, valid, out, ws, batch, width, heads, kv_heads, head_dim,
-        splits, softcap, scale, kv_scale, s);
+        q, k, v, valid, out, lse, ws, batch, width, heads, kv_heads,
+        head_dim, splits, softcap, scale, kv_scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -575,8 +616,10 @@ cudaError_t launch_types(const void* q, const void* k, const void* v,
 // dtype (q and out): 0 = float32, 1 = bfloat16.  cache_dtype: the same
 // code as dtype, or 2 = int8 dequantised by kv_scale.  splits: S >= 1
 // key splits per (stream, kv-head); with S > 1, workspace is fp32 scratch
-// of B * H * S * (D + 2) floats (any contents), else null.  Both entry
-// points return cudaGetLastError() after their launches (0 on success).
+// of B * H * S * (D + 2) floats (any contents), else null.  lse: null, or
+// the block form's (B, H) fp32 log-sum-exps, and then out is fp32 whatever
+// dtype says.  Both entry points return cudaGetLastError() after their
+// launches (0 on success).
 
 // mask is uint8 (B, W) with row stride mask_stride (0 broadcasts one row).
 extern "C" int flash_decode_launch(const void* q, const void* k,
@@ -586,30 +629,32 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    int kv_heads, int head_dim, float softcap,
                                    float scale, float kv_scale, int dtype,
                                    int cache_dtype, int splits,
-                                   void* workspace, void* stream) {
+                                   void* workspace, void* lse, void* stream) {
   const Validity valid{static_cast<const uint8_t*>(mask), mask_stride,
-                       nullptr, nullptr};
+                       nullptr, nullptr, 0};
   return static_cast<int>(launch_types<false>(
-      q, k, v, valid, out, batch, width, heads, kv_heads, head_dim, softcap,
-      scale, kv_scale, dtype, cache_dtype, splits, workspace,
-      static_cast<cudaStream_t>(stream)));
+      q, k, v, valid, out, static_cast<float*>(lse), batch, width, heads,
+      kv_heads, head_dim, softcap, scale, kv_scale, dtype, cache_dtype,
+      splits, workspace, static_cast<cudaStream_t>(stream)));
 }
 
 // pos is int32 (B,), the ring position of each stream's newest key; live
-// is uint8 (B,) or null (every stream live).
+// is uint8 (B,) or null (every stream live); slot0 is the ring slot of the
+// cache's first slot (0 for a whole ring).
 extern "C" int pool_flash_decode_launch(const void* q, const void* k,
                                         const void* v, const void* pos,
-                                        const void* live, void* out,
-                                        int batch, int width, int heads,
-                                        int kv_heads, int head_dim,
-                                        float softcap, float scale,
-                                        float kv_scale, int dtype,
-                                        int cache_dtype, int splits,
-                                        void* workspace, void* stream) {
+                                        const void* live, int slot0,
+                                        void* out, int batch, int width,
+                                        int heads, int kv_heads,
+                                        int head_dim, float softcap,
+                                        float scale, float kv_scale,
+                                        int dtype, int cache_dtype,
+                                        int splits, void* workspace,
+                                        void* lse, void* stream) {
   const Validity valid{nullptr, 0, static_cast<const int*>(pos),
-                       static_cast<const uint8_t*>(live)};
+                       static_cast<const uint8_t*>(live), slot0};
   return static_cast<int>(launch_types<true>(
-      q, k, v, valid, out, batch, width, heads, kv_heads, head_dim, softcap,
-      scale, kv_scale, dtype, cache_dtype, splits, workspace,
-      static_cast<cudaStream_t>(stream)));
+      q, k, v, valid, out, static_cast<float*>(lse), batch, width, heads,
+      kv_heads, head_dim, softcap, scale, kv_scale, dtype, cache_dtype,
+      splits, workspace, static_cast<cudaStream_t>(stream)));
 }

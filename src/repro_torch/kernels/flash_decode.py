@@ -20,6 +20,14 @@ merges their partial softmaxes from an fp32 workspace that the wrapper
 allocates.  The split count depends on the shapes and the card's SM
 count only, never on ``pos`` or the mask, so a call needs no host sync
 and can be captured in a CUDA graph.
+
+``return_lse=True`` is the block form, for a cache that holds one block
+of a ring's slots (a model-axis rank's, where the axis does not divide
+the kv-heads): the kernel then writes an fp32 output and each (stream,
+q-head) row's log-sum-exp, and the pool wrapper's ``slot0`` names the
+ring slot of the block's first slot.  The blocks' results are merged
+outside the kernel (``ref.merge_blocks_ref``,
+``models.partitioning.ModelGroup.merge_ring_blocks``).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ _SHAPE_ARGS = [
     ctypes.c_float, ctypes.c_float, ctypes.c_float,      # softcap, scale, kv_scale
     ctypes.c_int, ctypes.c_int,                          # dtype, cache dtype
     ctypes.c_int, ctypes.c_void_p,                       # splits, workspace
+    ctypes.c_void_p,                                     # lse (or null)
 ]
 KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
@@ -45,7 +54,8 @@ KERNEL = Kernel("flash_decode.cu", "flash_decode_launch", [
 ])
 POOL_KERNEL = Kernel("flash_decode.cu", "pool_flash_decode_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # q, k, v
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # pos, live, out
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # pos, live, slot0
+    ctypes.c_void_p,                                     # out
     *_SHAPE_ARGS,
 ])
 HEAD_DIMS = (64, 80, 128, 256)
@@ -120,13 +130,24 @@ def _check(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     return code, cache_code, k_cache, v_cache
 
 
+def _outputs(q: torch.Tensor, return_lse: bool):
+    """(out, lse) of a call: out in q's dtype, or with the block form fp32
+    beside a (B, H) fp32 lse; lse None without it."""
+    if not return_lse:
+        return torch.empty_like(q), None
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:2], dtype=torch.float32, device=q.device))
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
-                 softcap: float = 0.0, kv_scale: float = 0.0) -> torch.Tensor:
+                 softcap: float = 0.0, kv_scale: float = 0.0,
+                 return_lse: bool = False):
     """q: (B, H, D); caches: (B, W, KV, D); kv_mask: (B, W) -> (B, H, D).
 
     ``kv_scale > 0`` marks int8 caches quantised as round(x * kv_scale).
     A mask whose rows are one broadcast row (stride 0) is read as is.
+    ``return_lse``: the block form, (out fp32, lse (B, H) fp32).
     """
     device = require_cuda("flash_decode", q, k_cache, v_cache, kv_mask)
     code, cache_code, k_cache, v_cache = _check(
@@ -139,22 +160,22 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if mask.stride(1) != 1 or (mask.stride(0) != 0 and mask.stride(0) != w):
         mask = mask.contiguous()
     q = q.contiguous()
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, return_lse)
     if out.numel() and w:
         splits, ws, ws_ptr = _split_args(q, kv, w)
         KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
                       v_cache.data_ptr(), mask.data_ptr(), mask.stride(0),
                       out.data_ptr(), b, w, h, kv, d, softcap,
                       1.0 / d ** 0.5, kv_scale, code, cache_code, splits,
-                      ws_ptr)
-    return out
+                      ws_ptr, 0 if lse is None else lse.data_ptr())
+    return out if lse is None else (out, lse)
 
 
 def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, pos: torch.Tensor,
                       live: Optional[torch.Tensor] = None, *,
-                      softcap: float = 0.0,
-                      kv_scale: float = 0.0) -> torch.Tensor:
+                      softcap: float = 0.0, kv_scale: float = 0.0,
+                      slot0: int = 0, return_lse: bool = False):
     """q: (B, H, D); caches: (B, W, KV, D); pos: (B,) integer ring
     positions on the card; live: optional (B,) mask (None: all live)
     -> (B, H, D).
@@ -162,6 +183,8 @@ def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Stream b attends over ring slots kvpos <= pos[b] (and < W); a stream
     with live[b] == 0 gives exact zeros.  ``pos`` and ``live`` stay on the
     card: the kernel reads them, so no host sync is needed.
+    ``return_lse``: the block form over ring slots [slot0, slot0 + W),
+    (out fp32, lse (B, H) fp32).
     """
     tensors = (q, k_cache, v_cache, pos) + (() if live is None else (live,))
     device = require_cuda("pool_flash_decode", *tensors)
@@ -183,12 +206,13 @@ def pool_flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         live = live.contiguous()
         live_ptr = live.data_ptr()
     q = q.contiguous()
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, return_lse)
     if out.numel() and w:
         splits, ws, ws_ptr = _split_args(q, kv, w)
         POOL_KERNEL.launch(device, q.data_ptr(), k_cache.data_ptr(),
                            v_cache.data_ptr(), pos.data_ptr(), live_ptr,
-                           out.data_ptr(), b, w, h, kv, d, softcap,
+                           slot0, out.data_ptr(), b, w, h, kv, d, softcap,
                            1.0 / d ** 0.5, kv_scale, code, cache_code,
-                           splits, ws_ptr)
-    return out
+                           splits, ws_ptr,
+                           0 if lse is None else lse.data_ptr())
+    return out if lse is None else (out, lse)

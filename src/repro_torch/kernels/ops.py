@@ -142,38 +142,44 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
-                     softcap: float = 0.0,
-                     kv_scale: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, kv_scale: float = 0.0,
+                     return_lse: bool = False):
     """Decode attention over a (B, W, KV, D) ring cache with a (B, W)
     mask.  kv_scale > 0 marks int8 caches quantised as round(x*scale):
-    the kernel dequantises in registers, the plain path up front."""
+    the kernel dequantises in registers, the plain path up front.
+    ``return_lse``: the block form over one block of a ring's slots,
+    (out fp32, lse (B, H) fp32)."""
     if _on_card(q):
         _refuse_grad("flash_decode", _NO_BACKWARD, q, k_cache, v_cache)
         return flash_decode.flash_decode(q, k_cache, v_cache, kv_mask,
-                                         softcap=softcap, kv_scale=kv_scale)
+                                         softcap=softcap, kv_scale=kv_scale,
+                                         return_lse=return_lse)
     if kv_scale > 0.0:
         k_cache = k_cache.to(torch.float32) / kv_scale
         v_cache = v_cache.to(torch.float32) / kv_scale
     return ref.decode_attention_ref(q, k_cache.to(q.dtype),
                                     v_cache.to(q.dtype), kv_mask,
-                                    softcap=softcap)
+                                    softcap=softcap, return_lse=return_lse)
 
 
 def pool_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, pos: torch.Tensor,
                           live: Optional[torch.Tensor] = None, *,
-                          softcap: float = 0.0,
-                          kv_scale: float = 0.0) -> torch.Tensor:
+                          softcap: float = 0.0, kv_scale: float = 0.0,
+                          slot0: int = 0, return_lse: bool = False):
     """Slot-pool decode attention: per-stream (B,) ring positions and an
     optional (B,) live mask instead of a (B, W) mask.  A stream that sees
-    no key (live 0) gives exact zeros on both paths."""
+    no key (live 0) gives exact zeros on both paths.  ``return_lse``: the
+    block form over ring slots [slot0, slot0 + W), (out fp32, lse (B, H)
+    fp32)."""
     if _on_card(q):
         _refuse_grad("pool_flash_decode", _NO_BACKWARD, q, k_cache, v_cache)
         return flash_decode.pool_flash_decode(
             q, k_cache, v_cache, pos, live, softcap=softcap,
-            kv_scale=kv_scale)
+            kv_scale=kv_scale, slot0=slot0, return_lse=return_lse)
     return ref.pool_decode_attention_ref(q, k_cache, v_cache, pos, live,
-                                         softcap=softcap, kv_scale=kv_scale)
+                                         softcap=softcap, kv_scale=kv_scale,
+                                         slot0=slot0, return_lse=return_lse)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

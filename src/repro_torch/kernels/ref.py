@@ -169,12 +169,39 @@ def attention_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
         0, 2, 1)
 
 
+def _guarded_softmax_v(scores: torch.Tensor, ok: torch.Tensor,
+                       vf: torch.Tensor):
+    """(out, lse) fp32 of each (stream, kv-head, rep) row's softmax over
+    its valid keys applied to ``vf``, by the kernels' guarded rule: a row
+    that sees no key gives exact zeros (the normaliser stays 0 and the
+    output is 0 / max(0, 1e-30)) and lse = -inf.
+
+    scores: (B, KV, rep, W) fp32; ok: broadcastable to it; vf: (B, W, KV,
+    D) fp32.  out: (B, KV, rep, D); lse: (B, KV, rep), natural log."""
+    scores = torch.where(ok, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    m_safe = torch.where(m <= NEG_INF, 0.0, m)
+    p = torch.where(ok, torch.exp(scores - m_safe), 0.0)
+    denom = p.sum(-1, keepdim=True)
+    out = torch.einsum("bgrw,bwgd->bgrd", p, vf) / denom.clamp_min(1e-30)
+    lse = torch.where(denom > 0, m_safe + torch.log(denom),
+                      float("-inf"))[..., 0]
+    return out, lse
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0, return_lse: bool = False):
     """Single-token decode attention against a (ring-buffer) KV cache.
 
     q: (B, H, D); caches: (B, W, KV, D); kv_mask: (B, W) validity.
+
+    ``return_lse`` gives the block form, for a cache that holds one block
+    of a ring's slots (a model-axis rank's, ``kv_seq`` split): (out fp32,
+    lse (B, H) fp32), each row's log-sum-exp of its valid scores, so that
+    ``merge_blocks_ref`` can join the blocks; a row that sees no key in the
+    block gives zeros and lse = -inf.  Without it a row that sees no key
+    gives the uniform softmax, as the reference's plain version does.
     """
     b, h, d = q.shape
     kv = k_cache.shape[2]
@@ -184,6 +211,11 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.einsum("bgrd,bwgd->bgrw", qg, k_cache.to(torch.float32))
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
+    if return_lse:
+        out, lse = _guarded_softmax_v(
+            scores, kv_mask.bool()[:, None, None, :],
+            v_cache.to(torch.float32))
+        return out.reshape(b, h, d), lse.reshape(b, h)
     scores = torch.where(kv_mask.bool()[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrw,bwgd->bgrd", probs, v_cache.to(torch.float32))
@@ -193,8 +225,8 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def pool_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                               v_cache: torch.Tensor, pos: torch.Tensor,
                               live: Optional[torch.Tensor] = None, *,
-                              softcap: float = 0.0,
-                              kv_scale: float = 0.0) -> torch.Tensor:
+                              softcap: float = 0.0, kv_scale: float = 0.0,
+                              slot0: int = 0, return_lse: bool = False):
     """Slot-pool decode attention: per-stream ring positions instead of a
     (B, W) mask.
 
@@ -204,6 +236,11 @@ def pool_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     0 / max(0, 1e-30)).  ``kv_scale > 0`` dequantises int8 caches in fp32.
 
     q: (B, H, D); caches: (B, W, KV, D); pos: (B,) int; live: (B,).
+
+    ``return_lse`` gives the block form: the caches hold the W ring slots
+    from ``slot0`` on (a model-axis rank's block), slot j of them valid
+    when slot0 + j <= pos[b]; returns (out fp32, lse (B, H) fp32, -inf
+    where a row sees no key of the block).
     """
     b, h, d = q.shape
     w, kv = k_cache.shape[1], k_cache.shape[2]
@@ -215,17 +252,34 @@ def pool_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.einsum("bgrd,bwgd->bgrw", qg, kf)
     if softcap > 0.0:
         scores = softcap * torch.tanh(scores / softcap)
-    ok = torch.arange(w, device=q.device)[None, :] <= pos[:, None]
+    ok = torch.arange(slot0, slot0 + w, device=q.device)[None, :] \
+        <= pos[:, None]
     if live is not None:
         ok = ok & (live > 0)[:, None]
-    ok = ok[:, None, None, :]                                # (B,1,1,W)
-    scores = torch.where(ok, scores, NEG_INF)
-    m = scores.amax(-1, keepdim=True)
-    m_safe = torch.where(m <= NEG_INF, 0.0, m)
-    p = torch.where(ok, torch.exp(scores - m_safe), 0.0)
-    out = torch.einsum("bgrw,bwgd->bgrd", p, vf)
-    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out, lse = _guarded_softmax_v(scores, ok[:, None, None, :], vf)
+    if return_lse:
+        return out.reshape(b, h, d), lse.reshape(b, h)
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def merge_weights_ref(lses: torch.Tensor) -> torch.Tensor:
+    """Each block's share of a row's softmax: lses (M, ...) fp32 log-sum-
+    exps of M blocks of one ring -> (M, ...) weights e^(lse_r - m) /
+    sum_r e^(lse_r - m), m the row's largest; 0 on every block of a row
+    that sees no key in any (lse -inf everywhere), never NaN."""
+    lses = lses.to(torch.float32)
+    m = lses.amax(0)
+    w = torch.exp(lses - torch.where(m == float("-inf"), 0.0, m))
+    return w / w.sum(0).clamp_min(1e-30)
+
+
+def merge_blocks_ref(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Join the block form's outputs over the M blocks of a ring: outs
+    (M, B, H, D), lses (M, B, H) -> (B, H, D) fp32,
+    o = sum_r e^(lse_r - m) o_r / sum_r e^(lse_r - m).  A row with lse
+    -inf on every block gives exact zeros."""
+    return (merge_weights_ref(lses)[..., None]
+            * outs.to(torch.float32)).sum(0)
 
 
 # ---------------------------------------------------------------- Mamba2 SSD

@@ -75,7 +75,13 @@ def cache_rules(mesh, cfg: ModelConfig) -> Optional[dict]:
 
 def cache_shardings(mesh, cfg: ModelConfig, caches,
                     rules: Optional[dict] = None):
-    """Specs of the per-run serving caches (``models.model.cache_axes``)."""
+    """Specs of the per-run serving caches (``models.model.cache_axes``)
+    under ``cache_rules``: ``local_shard`` of the one-rank caches under
+    them holds the values that ``models.model.init_caches`` allocates on
+    each rank (a block of the kv-heads, of the ring slots, or the whole
+    cache).  A block of the ring slots comes out a plain dict, which the
+    attention refuses: its layout is the type ``attention.RingBlock``,
+    which a spec does not carry, so wrap it in one."""
     return tree_shardings(mesh, cache_axes(cfg), caches,
                           rules or cache_rules(mesh, cfg))
 

@@ -10,6 +10,16 @@ the caller's cache buffers in place, where the reference's serving
 executors donate them.  Head counts come from the parameters and caches
 (a model-axis rank holds its block of the q- and kv-heads), and the
 output projection's partial sums are all-reduced over the model axis.
+
+Where the model axis does not divide the kv-heads, the reference keeps
+them whole on every rank and splits the cache length over the axis
+instead (``launch.shardings.cache_rules``): a rank's cache is then a
+``RingBlock`` of the ring's slots, or, where the axis does not divide
+the ring width either, the whole ring (``resolve_spec`` replicates it).
+A rank computes k and v for every kv-head and attends with its own
+q-heads in prefill; in decode it gathers every rank's q-heads, runs the
+block form of B4/B5 over its slots and the ranks merge their partial
+softmaxes (``partitioning.ModelGroup.merge_ring_blocks``).
 """
 
 from __future__ import annotations
@@ -86,8 +96,30 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return q, k, v
 
 
+def _q_block(cfg: ModelConfig, q_heads: int, kv_heads: int) -> bool:
+    """Whether a model-axis rank holds a block of the q-heads against
+    every kv-head (the axis divides the q-heads, not the kv-heads)."""
+    return q_heads < cfg.num_heads and kv_heads == cfg.num_kv_heads
+
+
+def _kv_of_q_block(cfg: ModelConfig, q_heads: int, k, v):
+    """The kv-heads a model-axis rank's block of ``q_heads`` q-heads
+    reads, from k and v (B, L, KV, D) of every kv-head: one kv-head
+    gathered a q-head, so B3 runs at rep 1 whether or not the block starts
+    and ends on a kv-head boundary."""
+    rep = cfg.num_heads // cfg.num_kv_heads
+    h0 = partitioning.model_group().rank * q_heads
+    idx = torch.tensor([(h0 + i) // rep for i in range(q_heads)],
+                       device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _attend(cfg: ModelConfig, q, k, v) -> torch.Tensor:
-    """The sequence's attention under the config's visibility rules."""
+    """The sequence's attention under the config's visibility rules; a
+    rank's block of the q-heads against every kv-head reads the kv-heads
+    of its q-heads."""
+    if _q_block(cfg, q.shape[2], k.shape[2]):
+        k, v = _kv_of_q_block(cfg, q.shape[2], k, v)
     return ops.attention(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window,
         prefix=cfg.num_patches if cfg.prefix_lm else 0,
@@ -117,23 +149,60 @@ def quantize_kv(x: torch.Tensor, store_dtype) -> torch.Tensor:
     return x.to(store_dtype)
 
 
+class RingBlock(dict):
+    """A run's {"k", "v"} caches that hold a model-axis rank's block of
+    the ring slots: rank r of M holds slots [r W / M, (r + 1) W / M) of a
+    W-slot ring, for every kv-head (the reference's cache-length split,
+    ``kv_seq`` over "model").  A plain dict holds the whole ring."""
+
+
+def _ring_block(cfg: ModelConfig, cache: dict) -> Tuple[int, int]:
+    """(ring slot of the cache's first slot, ring width): (0, W) for a
+    whole ring, (r W / M, W) for a ``RingBlock`` of W / M slots.  Raises
+    for a plain dict that the cache rules would have split (every
+    kv-head of a ring whose width the model axis divides, where it does
+    not divide the kv-heads): the layout is in the type alone, and such
+    a dict would be read as a whole ring."""
+    w, kv = cache["k"].shape[1:3]
+    if isinstance(cache, RingBlock):
+        group = partitioning.model_group()
+        return group.rank * w, group.size * w
+    model = partitioning.axis_size("model")
+    if model > 1 and kv == cfg.num_kv_heads and kv % model \
+            and w % model == 0:
+        raise ValueError(
+            f"a cache of every kv-head over {w} ring slots on a {model}-way "
+            f"model axis must be an attention.RingBlock of its rank's slots "
+            f"(the cache rules split its length); got a {type(cache).__name__}")
+    return 0, w
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                  device, layers_in_run: int,
-                  kv_heads: Optional[int] = None) -> dict:
-    """Zeroed (layers, B, W, KV, D) caches of one run of layers; KV is
-    ``kv_heads``, a model-axis rank's block of them (default all)."""
+                  device, layers_in_run: int, model: int = 1) -> dict:
+    """Zeroed (layers, B, W, KV, D) caches of one run of layers, laid out
+    on a ``model``-way model axis as the reference's cache rules and
+    ``resolve_spec`` lay out the whole cache: a rank's block of the
+    kv-heads where the axis divides them, else a ``RingBlock`` of W /
+    ``model`` ring slots where it divides the ring width, else the whole
+    ring."""
     w = cache_width(cfg, max_len)
-    shape = (layers_in_run, batch, w, kv_heads or cfg.num_kv_heads,
-             cfg.head_dim)
+    kv = cfg.num_kv_heads
+    split = model > 1 and kv % model != 0 and w % model == 0
+    if kv % model == 0:
+        kv //= model
+    elif split:
+        w //= model
+    shape = (layers_in_run, batch, w, kv, cfg.head_dim)
     store = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
-    return {"k": torch.zeros(shape, dtype=store, device=device),
-            "v": torch.zeros(shape, dtype=store, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=store, device=device),
+             "v": torch.zeros(shape, dtype=store, device=device)}
+    return RingBlock(cache) if split else cache
 
 
 def kv_cache_axes() -> dict:
     # "kv_seq" is separately mappable: where kv_heads does not divide the
     # model axis the reference's launcher shards the cache length instead
-    # (``launch.shardings.cache_rules``; the port refuses that case, A9.4)
+    # (``launch.shardings.cache_rules``, ``RingBlock``)
     return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
             "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
 
@@ -143,14 +212,23 @@ def attention_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       ) -> Tuple[torch.Tensor, dict]:
     """Prefill: full attention AND populate the layer's (ring) KV cache,
     written in place.  With s >= W only the last W keys are kept, at ring
-    slot pos % W."""
+    slot pos % W; a ``RingBlock`` keeps those whose slot lies in its
+    block."""
     q, k, v = _qkv(cfg, p, x, positions)
     out = _attend(cfg, q, k, v)
     w = cache["k"].shape[1]
     s = k.shape[1]
     kq = quantize_kv(k, cache["k"].dtype)
     vq = quantize_kv(v, cache["v"].dtype)
-    if s >= w:
+    slot0, ring = _ring_block(cfg, cache)
+    if isinstance(cache, RingBlock):
+        pos = torch.arange(max(0, s - ring), s)
+        slot = pos % ring - slot0
+        keep = (slot >= 0) & (slot < w)
+        pos, slot = pos[keep].to(k.device), slot[keep].to(k.device)
+        cache["k"][:, slot] = kq[:, pos]
+        cache["v"][:, slot] = vq[:, pos]
+    elif s >= w:
         slots = torch.arange(s - w, s, device=k.device) % w
         cache["k"][:, slots] = kq[:, s - w:]
         cache["v"][:, slots] = vq[:, s - w:]
@@ -169,32 +247,69 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos,
     new KV at slot pos % W in place and attends over the slots at depth
     <= pos.  The per-stream branch hands the positions, and the optional
     (B,) ``live`` mask, to ``ops.pool_decode_attention`` without reading
-    them on the host; ``live`` is ignored with a shared position."""
+    them on the host; ``live`` is ignored with a shared position.
+
+    A ``RingBlock`` takes the new key only on the rank that holds slot
+    pos % W (in the pool a masked write by each stream's position), and
+    attends with every rank's q-heads over its block (the block form);
+    the ranks then merge their partial softmaxes.  A rank with a block
+    of the q-heads and the whole ring of every kv-head attends with
+    every rank's q-heads and keeps its own."""
     w = cache["k"].shape[1]
+    slot0, ring = _ring_block(cfg, cache)
+    split = isinstance(cache, RingBlock)
     kv_scale = INT8_KV_SCALE if cache["k"].dtype == torch.int8 else 0.0
     if isinstance(pos, torch.Tensor):
         q, k, v = _qkv(cfg, p, x, pos[:, None])
         rows = torch.arange(x.shape[0], device=x.device)
-        slot = torch.remainder(pos, w).long()
-        cache["k"][rows, slot] = quantize_kv(k[:, 0], cache["k"].dtype)
-        cache["v"][rows, slot] = quantize_kv(v[:, 0], cache["v"].dtype)
-        out = ops.pool_decode_attention(q[:, 0], cache["k"], cache["v"], pos,
-                                        live,
-                                        softcap=cfg.attn_logit_softcap,
-                                        kv_scale=kv_scale)
-        return _out_project(cfg, out, p["wo"])[:, None], cache
-    if not isinstance(pos, int):
-        raise TypeError(f"pos must be an int or a (B,) tensor, got "
-                        f"{type(pos).__name__}")
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(cfg, p, x, positions)
-    slot = pos % w
-    cache["k"][:, slot] = quantize_kv(k[:, 0], cache["k"].dtype)
-    cache["v"][:, slot] = quantize_kv(v[:, 0], cache["v"].dtype)
-    # one (1, W) row broadcast over the batch (stride 0, never copied)
-    valid = (torch.arange(w, device=x.device) <= pos).to(torch.uint8)
-    valid = valid[None, :].expand(x.shape[0], w)
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
-                               softcap=cfg.attn_logit_softcap,
-                               kv_scale=kv_scale)
+        slot = torch.remainder(pos, ring).long() - slot0
+        new_k = quantize_kv(k[:, 0], cache["k"].dtype)
+        new_v = quantize_kv(v[:, 0], cache["v"].dtype)
+        if split:
+            # the streams whose slot lies in another rank's block rewrite
+            # what they read here
+            mine = ((slot >= 0) & (slot < w))[:, None, None]
+            slot = slot.clamp(0, w - 1)
+            new_k = torch.where(mine, new_k, cache["k"][rows, slot])
+            new_v = torch.where(mine, new_v, cache["v"][rows, slot])
+        cache["k"][rows, slot] = new_k
+        cache["v"][rows, slot] = new_v
+
+        def attend(qa, **kw):
+            return ops.pool_decode_attention(
+                qa, cache["k"], cache["v"], pos, live,
+                softcap=cfg.attn_logit_softcap, kv_scale=kv_scale,
+                slot0=slot0, **kw)
+    else:
+        if not isinstance(pos, int):
+            raise TypeError(f"pos must be an int or a (B,) tensor, got "
+                            f"{type(pos).__name__}")
+        positions = torch.full((1,), pos, dtype=torch.int32,
+                               device=x.device)
+        q, k, v = _qkv(cfg, p, x, positions)
+        slot = pos % ring - slot0
+        if 0 <= slot < w:
+            cache["k"][:, slot] = quantize_kv(k[:, 0], cache["k"].dtype)
+            cache["v"][:, slot] = quantize_kv(v[:, 0], cache["v"].dtype)
+        # one (1, W) row broadcast over the batch (stride 0, never copied)
+        valid = (torch.arange(slot0, slot0 + w, device=x.device)
+                 <= pos).to(torch.uint8)
+        valid = valid[None, :].expand(x.shape[0], w)
+
+        def attend(qa, **kw):
+            return ops.decode_attention(
+                qa, cache["k"], cache["v"], valid,
+                softcap=cfg.attn_logit_softcap, kv_scale=kv_scale, **kw)
+    q = q[:, 0]
+    q_heads = q.shape[1]
+    gather = _q_block(cfg, q_heads, cache["k"].shape[2])
+    if not (split or gather):
+        return _out_project(cfg, attend(q), p["wo"])[:, None], cache
+    group = partitioning.model_group()
+    qa = group.all_gather(q, 1) if gather else q
+    if split:
+        out, lse = attend(qa, return_lse=True)
+        out = group.merge_ring_blocks(out, lse, gather).to(q.dtype)
+    else:
+        out = attend(qa).narrow(1, group.rank * q_heads, q_heads)
     return _out_project(cfg, out, p["wo"])[:, None], cache

@@ -28,6 +28,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import ref
+
 # Default logical -> physical rules of the production meshes (DESIGN.md
 # §7), the reference's word for word.  Entries may be a single mesh
 # axis, a tuple of axes, or None (replicated).  "batch"/"fsdp" pick up
@@ -170,6 +172,26 @@ class ModelGroup(WorkerGroup):
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         self._refuse_grad(x)
         return super().all_reduce(x)
+
+    def merge_ring_blocks(self, out: torch.Tensor, lse: torch.Tensor,
+                          scatter: bool) -> torch.Tensor:
+        """Join the decode attention of the ranks' blocks of one ring (the
+        cache length split over this axis): ``out`` (B, H, D) fp32 and
+        ``lse`` (B, H) fp32, the block form over this rank's slots for
+        every q-head, -> sum_r w_r out_r with ``ref.merge_weights_ref``'s
+        weights (each rank's share of a row's softmax), fp32.  The lses
+        are all-gathered and the weighted outputs summed over the axis:
+        with ``scatter`` by a reduce-scatter over the heads, of which rank
+        r keeps the r-th block of H / M (its q-heads), else by an
+        all-reduce (q-heads whole on every rank).  A row that sees no key
+        on any rank gives exact zeros."""
+        b, h, d = out.shape
+        self._refuse_grad(out)
+        w = ref.merge_weights_ref(self.all_gather(lse[None], 0))[self.rank]
+        part = (out * w[..., None]).reshape(b, h * d)
+        if scatter:
+            return self.reduce_scatter(part).reshape(b, h // self.size, d)
+        return self.all_reduce(part).reshape(b, h, d)
 
 
 class Mesh:

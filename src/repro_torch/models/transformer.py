@@ -59,7 +59,7 @@ def check_ported(cfg: ModelConfig) -> None:
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
     """Raise unless ``cfg`` runs on a ``model``-way model axis: the dense
-    text decoders, with kv-heads that the axis divides."""
+    text decoders."""
     if model == 1:
         return
     if set(cfg.layer_pattern) != {"A"} or cfg.modality != "text":
@@ -67,11 +67,6 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
             f"{cfg.name}: a model axis of {model} runs the dense text "
             f"decoders only; the model and expert axes of Mamba2, zamba2, "
             f"the MoE layer and the frontends are ROADMAP A9.3")
-    if cfg.num_kv_heads % model:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_kv_heads} kv-heads do not divide a "
-            f"{model}-way model axis; the reference then shards the cache "
-            f"length instead (launch.shardings.cache_rules), ROADMAP A9.4")
 
 
 def _layer_views(tree, count: int) -> list:
@@ -82,8 +77,10 @@ def _layer_views(tree, count: int) -> list:
     the whole stacked leaf for every layer and add them up, which at full
     depth is most of a training step's elementwise time."""
     if isinstance(tree, dict):
+        # a layer's caches keep the run's layout (``attention.RingBlock``)
         per = {k: _layer_views(v, count) for k, v in tree.items()}
-        return [{k: per[k][i] for k in per} for i in range(count)]
+        return [type(tree)({k: per[k][i] for k in per})
+                for i in range(count)]
     return tree.unbind(0)
 
 
@@ -181,15 +178,17 @@ def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """One cache dict per run, stacked on the run's layer axis: a ring
     KV cache for "A", "M" and each "G" position, the conv window and
     fp32 state for "S".  On the active mesh's model axis a rank's KV
-    caches hold its block of the kv-heads."""
+    caches follow the reference's cache rules: its block of the kv-heads
+    where the axis divides them, else its block of the ring slots where
+    the axis divides the ring width, else the whole ring
+    (``attention.init_kv_cache``)."""
     check_ported(cfg)
     model = partitioning.axis_size("model")
     check_model_axis(cfg, model)
-    kv_heads = cfg.num_kv_heads // model if cfg.num_kv_heads else None
     return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count)
             if kind == "S" else
             attention.init_kv_cache(cfg, batch, max_len, dtype, device, count,
-                                    kv_heads)
+                                    model)
             for kind, count in pattern_runs(cfg.layer_pattern)]
 
 

@@ -34,7 +34,10 @@ draw for draw, so a seed gives the same event trace in both.  With
 and the token ids come back the same on every rank, so every rank runs
 the same host loop on the same data.  On a (worker, model) mesh the
 parameters are a rank's blocks (``launch.shardings.local_shard``) and
-each pool cache holds its block of the kv-heads.  With ``controller=`` a
+each pool cache holds its block of the kv-heads, or where the model axis
+does not divide them its block of the ring slots
+(``models.attention.RingBlock``); the prefill's fresh caches take the
+same layout, so admission copies whole streams.  With ``controller=`` a
 ``RedundancyController`` retunes (N, E, wait_for) between rounds: the
 executor is built at the controller's maximum operating point and a
 narrower point dispatches to a prefix of its streams, the rest held out

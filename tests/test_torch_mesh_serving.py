@@ -21,9 +21,9 @@ converted weights: the batch round
 K=2 S=2 E=1 over 2 groups, one straggler, a sigma-10 attacker; on the
 data axis K=4 S=1 E=0 over one group, so that 5 streams are padded to
 6) and, off the data axis, the slot pool's worker-major prefill and two
-decode rounds.  Model 4 needs kv-heads that 4 divides: there both
-reduced configs take 4 kv-heads (qwen3 8 q-heads, h2o its 8), the
-reference's too.  Every run is held against the reference's
+decode rounds.  At model 4 both reduced configs take 4 kv-heads (qwen3
+8 q-heads, h2o its 8), the reference's too, so that the caches split by
+kv-heads (the ring split is ``tests/test_torch_cache_split.py``'s).  Every run is held against the reference's
 single-device steps (the batch round) and against the port's one-rank
 path (both): logits within ``LOGITS_TOL`` (the port's serving tests'
 fp32 tolerance), greedy tokens equal except where the reference's top
@@ -324,19 +324,18 @@ def test_model_axis_refusals():
             tmodel.init_caches(tconfigs.get_reduced("mamba2-780m"), 4, 8,
                                torch.float32, "cpu")
     # 2 kv-heads on a 4-way model axis: the reference's cache-length
-    # split, not ported
+    # split, which runs (tests/test_torch_cache_split.py): no refusal
     tc = tconfigs.get_reduced("qwen3-0.6b")
     assert jshardings.cache_rules(_layout(("data", "model"), (1, 4)),
                                   jconfigs.get_reduced("qwen3-0.6b"))
-    with pytest.raises(NotImplementedError, match="A9.4"):
-        check_model_axis(tc, 4)
+    check_model_axis(tc, 4)
     with tpart.mesh_context(tpart.Mesh(("data", "model"), (1, 4))):
-        with pytest.raises(NotImplementedError, match="A9.4"):
-            tmodel.init_caches(tc, 4, 8, torch.float32, "cpu")
-    params = {"embeddings": {"embed": torch.zeros(512, 256)}}
-    with pytest.raises(NotImplementedError, match="A9.4"):
-        tshardings.serving_param_specs(
-            tpart.Mesh(("worker", "model"), (1, 4)), tc, params)
+        caches = tmodel.init_caches(tc, 4, 8, torch.float32, "cpu")
+    assert caches[0]["k"].shape == (tc.num_layers, 4, 2, 2, tc.head_dim)
+    params = tmodel.init_params(tc, torch.Generator().manual_seed(0), "cpu")
+    assert tshardings.serving_param_specs(
+        tpart.Mesh(("worker", "model"), (1, 4)), tc,
+        params)["embeddings"]["embed"] == ("model", None)
     # the pool and worker-major streams shard over the worker axis only
     coding = TCoding(k=2, s=2, e=1)
     with tpart.mesh_context(tpart.Mesh(("data", "model"), (2, 1))):
