@@ -254,7 +254,27 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    its ring block of the no-mesh caches; per-rank launches (B3 28 a
    prefill, B4/B5 28 a decode, B1/B6 and B2 once a call); collective
    bytes by op equal to the analytic count (``model_axis_bytes``); each
-   call's wall time (gloo over the host) and the card's peak memory.
+   call's wall time (gloo over the host) and the card's peak memory;
+28. the training mesh (ROADMAP A9.2): B3 and its backward (the Delta
+   launch, then dq, dk and dv) at a model-2 rank's training heads
+   (qwen3-0.6b's 8/4 of 128, 8 x 128 tokens, fp32) against their plain
+   versions, timed beside the bound, the plain version and SDPA (its
+   backward); then qwen3-0.6b at full width and depth, fp32, 2 steps of
+   ``launch.train.run`` at the launcher's 8 x 128 tokens on (data,
+   model) = (1, 2), (2, 1) and (2, 2), gloo processes sharing the card,
+   each held to one rank's 2 steps on the same batches: losses and grad
+   norms within 1e-4 relative and equal on every rank; after the first
+   step each rank's blocks of the gradient (the first moment) within
+   1e-4 x the leaf's max |grad| and of the parameters under Adam's
+   first-step rule; per-rank launches (B3, its backward and Delta 28 a
+   step); each group's bytes a step equal to ``train_axis_bytes``; the
+   second step's wall time (gloo over the host) and the card's peak
+   memory;
+29. ``launch.multihost --mode train --model-par 2`` (bf16, remat) at
+   ``--batch 8 --seq 128 --steps 2`` as 2 gloo processes against one
+   process of the same command: losses within MH_TRAIN_LOSS_TOL, B3 56
+   and its backward 28 a step a rank, bytes equal to
+   ``train_axis_bytes``.
 
 Each phase prints its wall time.
 
@@ -282,7 +302,10 @@ also ``model_par_2``: their launches on each rank of phase 24's (worker
 1, model 2) multihost run and batch round, and B3 and B5's fp32 numbers
 of phase 22 at a rank's heads and the whole model's; and
 ``model_par_16``: their launches on each rank of phase 27's runs, and B4
-and B5's fp32 block-form numbers of phase 26 on one 16-slot block);
+and B5's fp32 block-form numbers of phase 26 on one 16-slot block; B3's,
+its backward's and its Delta launch's also ``train_mesh``: their fp32
+numbers of phase 28 at a model-2 rank's training heads and their
+launches on each rank of phases 28 and 29's runs);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -526,6 +549,20 @@ EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 3e-3
 LONG_SHAPE = (4, 2048)
+# The training mesh (phases 28-29): TRAIN_ARCH at full width and depth,
+# fp32, TRAIN_MESH_STEPS steps of ``launch.train.run`` at the launcher's
+# TRAIN_BATCH x TRAIN_SEQ on each (data, model) of TRAIN_MESH_RUNS, gloo
+# processes sharing cuda:0, held to one rank's steps; then ``multihost
+# --mode train --model-par 2`` (bf16, remat) at MH_TRAIN_ARGS against one
+# process of the same command.  Its losses may differ by bf16 rounding:
+# the model axis sums bf16 partial products that one rank's GEMMs sum in
+# fp32 (on the CPU tests' reduced model, 4.8e-4 of a loss near 12.6)
+TRAIN_MESH_RUNS = ((1, 2), (2, 1), (2, 2))
+TRAIN_MESH_STEPS = 2
+MH_TRAIN_ARGS = ["--mode", "train", "--batch", str(TRAIN_BATCH), "--seq",
+                 str(TRAIN_SEQ), "--steps", str(TRAIN_MESH_STEPS),
+                 "--backend", "gloo"]
+MH_TRAIN_LOSS_TOL = 2e-2
 # B3's backward in turns against a parent checkout (``b3_backward_ab``):
 # besides the two timed shapes, h2o-danube-1.8b's D = 80 under a window of
 # 64 and paligemma-3b's D = 256 under its prefix-LM, each at AB_SHAPE
@@ -640,6 +677,9 @@ class Smoke:
         # ``mesh_children`` ran (bytes, every process on the card)
         self.kernels_mp16 = {}
         self.mesh_peak = 0
+        # B3 and its backward at a model-2 rank's training heads (phase
+        # 28): {name: fp32 entry}
+        self.kernels_train_mesh = {}
 
     # ------------------------------------------------------------ helpers
 
@@ -886,6 +926,14 @@ class Smoke:
         for arch in TRAIN_FAMILIES:
             self.phase(f"{arch} training, 2 layers, card against CPU",
                        self.train_card_vs_cpu, arch)
+        self.phase(f"{TRAIN_ARCH} model-2 training heads kernels",
+                   self.train_mesh_kernels)
+        mesh_trained = self.phase(
+            f"{TRAIN_ARCH} training mesh, ranks sharing the card",
+            self.train_mesh)
+        mesh_trained["multihost"] = self.phase(
+            f"{TRAIN_ARCH} multihost --mode train --model-par 2",
+            self.train_mesh_multihost)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -914,7 +962,8 @@ class Smoke:
                 **(self.scheme_entry(scheme_launches)
                    if name == "flash_attention" else {}),
                 **({"launches_train": trained[TRAIN_ARCH][False][name],
-                    "launches_train_remat": trained[TRAIN_ARCH][True][name]}
+                    "launches_train_remat": trained[TRAIN_ARCH][True][name],
+                    "train_mesh": self.train_mesh_entry(name, mesh_trained)}
                    if name == "flash_attention" else {}),
                 **(self.ssd_train_launches(name, trained)
                    if name.startswith("ssd_") else {}),
@@ -922,7 +971,8 @@ class Smoke:
                     "model_par_16": self.mp16_entry(name, mp16_launches)}
                    if name in MP2_KERNELS else {}),
             })
-        entries += [self.train_entry(name, trained[TRAIN_ARCH])
+        entries += [dict(self.train_entry(name, trained[TRAIN_ARCH]),
+                         train_mesh=self.train_mesh_entry(name, mesh_trained))
                     for name in ("flash_attention_bwd",
                                  "flash_attention_bwd_delta")]
         entries += [self.ssd_train_entry(name, trained)
@@ -6151,6 +6201,266 @@ class Smoke:
         return out
 
 
+    # ------------------------------------------------ the training mesh
+
+    def train_mesh_kernels(self):
+        """Phase 28's kernels: B3 and its backward at a model-2 rank's
+        training heads (TRAIN_ARCH's 16/8 heads halved: GQA 8/4 of 128,
+        TRAIN_BATCH x TRAIN_SEQ causal), fp32: the forward against
+        ``ref.attention_ref`` (SDPA its library call), the backward against
+        ``ref.attention_bwd_ref`` and autograd of the plain forward
+        (``b3_backward_checks``; SDPA's backward its library call), the
+        Delta launch alone (``b3_delta_timing``), each timed beside its
+        plain version and bound as phase 17 bounds them."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import flash_attention as fa, ops, ref
+        cfg = configs.get_config(TRAIN_ARCH)
+        b, s = TRAIN_BATCH, TRAIN_SEQ
+        h, kvh, hd = cfg.num_heads // 2, cfg.num_kv_heads // 2, cfg.head_dim
+        gen = torch.Generator(self.dev).manual_seed(16)
+        q = self.randn(b, s, h, hd, gen=gen)
+        k = self.randn(b, s, kvh, hd, gen=gen)
+        v = self.randn(b, s, kvh, hd, gen=gen)
+        do = self.randn(b, s, h, hd, gen=gen)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        pairs = visible_pairs(s, causal=True, window=None, prefix=0)
+        shape = [list(q.shape), list(k.shape)]
+        self.record("flash_attention", "float32", shape,
+                    ops.attention(q, k, v), ref.attention_ref(q, k, v),
+                    lambda: ops.attention(q, k, v),
+                    lambda: ref.attention_ref(q, k, v),
+                    lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), is_causal=True,
+                                 enable_gqa=True),
+                    (2 * q.numel() + 2 * k.numel()) * 4, 4 * hd * pairs * b * h,
+                    extra={"at": "model-2 rank's training heads",
+                           "pairs": pairs},
+                    table=self.kernels_train_mesh)
+        where = f"flash_attention_bwd B={b} S={s} H={h} KV={kvh} D={hd}"
+        res = {"kernel": "flash_attention_bwd", "dtype": "float32",
+               "shape": shape, "at": "model-2 rank's training heads"}
+        res.update(self.b3_backward_checks(where, "float32", q, k, v, do, {}))
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        res["ms"] = self.time_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
+        res["graph_ms"] = self.graph_ms(
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do))
+        res["plain_ms"] = self.time_ms(
+            lambda: ref.attention_bwd_ref(q, k, v, out, lse, do))
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        so = sdpa(qs, ks, vs, is_causal=True, enable_gqa=True)
+        dos = do.transpose(1, 2)
+        res["library_ms"] = self.time_ms(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), dos, retain_graph=True))
+        res["bound_ms"], res["bound_by"] = self.bound(
+            4 * (q.numel() + k.numel()) * 4 + 4 * lse.numel(),
+            10 * hd * pairs * b * h, "float32")
+        emit(res)
+        self.kernels_train_mesh["flash_attention_bwd"] = res
+        self.kernels_train_mesh["flash_attention_bwd_delta"] = \
+            self.b3_delta_timing("train_mesh", "float32", out, do)
+        del so, qs, ks, vs
+
+    def train_mesh(self) -> dict:
+        """Phase 28: TRAIN_ARCH at full width and depth, fp32,
+        TRAIN_MESH_STEPS steps of ``launch.train.run`` (the launcher's
+        TRAIN_BATCH x TRAIN_SEQ, lr TRAIN_LR) with no mesh in this process,
+        its first step's parameters and first moments written to
+        ``build/mesh/train-ref.pt``; then the same run on each (data,
+        model) of TRAIN_MESH_RUNS as gloo processes sharing the card
+        (``mesh_child``), each holding its blocks to that file after its
+        first step (``hold_train_blocks``).  Here: every rank's losses and
+        grad norms within 1e-4 relative of one rank's and equal to rank
+        0's, its launches ``train_launches``' (B3, its backward and Delta
+        28 a step), each group's bytes a step ``train_axis_bytes``'.
+        Returns each mesh's per-rank launches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as launch_train
+        from repro_torch.tree import flatten_with_path, keystr
+        cfg = configs.get_config(TRAIN_ARCH)
+        b1 = self.train_config(TRAIN_MESH_STEPS).optimizer.b1
+        self.free_memory()
+        ref_path = ROOT / "build" / "mesh" / "train-ref.pt"
+        ref_path.parent.mkdir(parents=True, exist_ok=True)
+        step = launch_train.train_step
+        first = {}
+
+        def keep_first(*args, **kw):
+            out = step(*args, **kw)
+            if not first:
+                first["params"] = {keystr(p): t.detach().cpu() for p, t in
+                                   flatten_with_path(out[0])}
+                first["mu"] = {keystr(p): t.detach().cpu() for p, t in
+                               flatten_with_path(out[1].mu)}
+            return out
+
+        history = []
+        ops.reset_launch_counts()
+        launch_train.train_step = keep_first
+        try:
+            launch_train.run(TRAIN_ARCH, False, TRAIN_MESH_STEPS, TRAIN_BATCH,
+                             TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
+                             log_every=TRAIN_MESH_STEPS, device=self.dev,
+                             seed=0, history=history)
+        finally:
+            launch_train.train_step = step
+        one_launches = ops.launch_counts()
+        first["gmax"] = {key: (mu / (1 - b1)).abs().max().item()
+                         for key, mu in first["mu"].items()}
+        torch.save(first, ref_path)
+        del first
+        self.free_memory()
+        want_launches = {name: 0 for name in one_launches}
+        want_launches.update(train_launches(cfg, TRAIN_MESH_STEPS, False))
+        if one_launches != want_launches:
+            raise AssertionError(f"one-rank training launched {one_launches}"
+                                 f", not {want_launches}")
+        out = {}
+        for d, m in TRAIN_MESH_RUNS:
+            where = (f"{TRAIN_ARCH} training fp32 (data {d}, model {m}) "
+                     f"(gloo)")
+            self.mesh_peak = 0
+            t0 = time.perf_counter()
+            ranks = self.mesh_children(
+                [{"kind": "train", "world": d * m, "data": d, "model": m,
+                  "ref": str(ref_path)}], f"train{d}{m}-")[0]
+            wall = time.perf_counter() - t0
+            for r, res in enumerate(ranks):
+                for i, (got, want) in enumerate(zip(res["history"], history)):
+                    for key in ("loss", "grad_norm", "lr"):
+                        if got[key] != ranks[0]["history"][i][key] or not \
+                                abs(got[key] - want[key]) <= \
+                                1e-4 * abs(want[key]):
+                            raise AssertionError(
+                                f"{where} rank {r} step {i} {key}: "
+                                f"{got[key]}, one rank {want[key]}")
+                if res["launches"] != want_launches:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != "
+                                         f"{want_launches}")
+                want_bytes = train_axis_bytes(cfg, d, m, TRAIN_BATCH,
+                                              TRAIN_SEQ, 4, False)
+                for i, got in enumerate(res["step_bytes"]):
+                    bytes_equal(f"{where} rank {r} step {i}",
+                                {k: v for k, v in got.items() if v},
+                                want_bytes)
+            held = max((res["held"] for res in ranks),
+                       key=lambda h: max(h["grads_err_over_tol"],
+                                         h["strict_params_err_over_tol"]))
+            emit({"train_mesh_run": where, "ranks": d * m,
+                  "steps": TRAIN_MESH_STEPS,
+                  "losses": [h["loss"] for h in ranks[0]["history"]],
+                  "losses_one_rank": [h["loss"] for h in history],
+                  "grad_norms": [h["grad_norm"]
+                                 for h in ranks[0]["history"]],
+                  "grad_norms_one_rank": [h["grad_norm"] for h in history],
+                  "worst_rank_after_step_0": held,
+                  "bytes_per_step_per_rank": ranks[0]["step_bytes"][0],
+                  "bytes_equal_analytic": True,
+                  "launches_per_rank": [{k: v for k, v in res["launches"]
+                                         .items() if v} for res in ranks],
+                  "step_ms_gloo_over_host": [1e3 * h["seconds"] for h in
+                                             ranks[0]["history"]],
+                  "one_rank_step_ms": [1e3 * h["seconds"] for h in history],
+                  "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
+                                             for res in ranks],
+                  "card_peak_gb": self.mesh_peak / 1e9,
+                  "children_wall_s": wall})
+            out[d, m] = [res["launches"] for res in ranks]
+        ref_path.unlink()
+        return out
+
+    def train_mesh_multihost(self) -> list:
+        """Phase 29: ``multihost --mode train --model-par 2`` (bf16 with
+        remat, MH_TRAIN_ARGS) as 2 gloo processes sharing the card, against
+        one process of the same command in this one: losses within
+        MH_TRAIN_LOSS_TOL of its and equal on both ranks, launches
+        ``train_launches``' under remat (B3 56 a step, its backward and
+        Delta 28), each group's bytes a step ``train_axis_bytes``'.
+        Returns the per-rank launches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import ops
+        from repro_torch.launch import multihost
+        cfg = configs.get_config(TRAIN_ARCH)
+        self.free_memory()
+        store = ROOT / "build" / "mesh" / "mh-train-store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        ops.reset_launch_counts()
+        one = multihost.main(MH_TRAIN_ARGS + [
+            "--coordinator", f"file://{store}", "--num-processes", "1",
+            "--process-id", "0"])
+        one_launches = ops.launch_counts()
+        store.unlink(missing_ok=True)
+        self.free_memory()
+        want_launches = {name: 0 for name in one_launches}
+        want_launches.update(train_launches(cfg, TRAIN_MESH_STEPS, True))
+        self.mesh_peak = 0
+        ranks = self.mesh_children([{"kind": "multihost_train", "world": 2,
+                                     "model": 2}], "mh-train-")[0]
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            if res["losses"] != ranks[0]["losses"]:
+                raise AssertionError(f"multihost train rank {r}: losses "
+                                     f"{res['losses']} != rank 0's")
+            for got, want in zip(res["losses"], one["losses"]):
+                worst = max(worst, abs(got - want))
+            for launches in (res["launches"], one_launches):
+                if launches != want_launches:
+                    raise AssertionError(f"multihost train rank {r}: "
+                                         f"launches {launches} != "
+                                         f"{want_launches}")
+            for i, got in enumerate(res["step_bytes"]):
+                bytes_equal(f"multihost train rank {r} step {i}",
+                            {k: v for k, v in got.items() if v},
+                            train_axis_bytes(cfg, 1, 2, TRAIN_BATCH,
+                                             TRAIN_SEQ, 2, True))
+        if not worst <= MH_TRAIN_LOSS_TOL:
+            raise AssertionError(f"multihost train model 2 losses "
+                                 f"{ranks[0]['losses']}, one process "
+                                 f"{one['losses']}")
+        emit({"train_mesh_run": f"multihost --mode train {TRAIN_ARCH} bf16 "
+              f"remat model 2 (gloo)", "args": MH_TRAIN_ARGS,
+              "losses": ranks[0]["losses"], "losses_one_process":
+              one["losses"], "worst_loss_diff": worst,
+              "loss_tol": MH_TRAIN_LOSS_TOL,
+              "bytes_per_step_per_rank": ranks[0]["step_bytes"][0],
+              "launches_per_rank": [{k: v for k, v in res["launches"].items()
+                                     if v} for res in ranks],
+              "step_ms_gloo_over_host": ranks[0]["step_ms"],
+              "one_process_step_ms": one["step_ms"],
+              "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
+                                         for res in ranks],
+              "card_peak_gb": self.mesh_peak / 1e9})
+        return [res["launches"] for res in ranks]
+
+    def train_mesh_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's ``train_mesh`` of B3, its backward or its
+        Delta launch: its fp32 numbers at a model-2 rank's training heads
+        (phase 28) and its launches on each rank of phases 28 and 29's
+        runs."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        res = self.kernels_train_mesh[name]
+        return {**{key: res[key] for key in keys},
+                "library": {"flash_attention": "scaled_dot_product_attention",
+                            "flash_attention_bwd": "backward of autograd "
+                            "through scaled_dot_product_attention",
+                            "flash_attention_bwd_delta":
+                            "torch.linalg.vecdot of o and dO"}[name],
+                "launches_per_rank": {
+                    f"data {d} model {m}, {TRAIN_MESH_STEPS} steps":
+                    [r[name] for r in launches[d, m]]
+                    for d, m in TRAIN_MESH_RUNS},
+                "launches_per_rank_multihost_remat": [
+                    r[name] for r in launches["multihost"]]}
+
+
 def mesh_multihost_argv(store, world: int, rank: int, model: int,
                         backend: str = "nccl", s: int = MESH_S,
                         steps: int = MESH_STEPS,
@@ -6190,6 +6500,94 @@ def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
             * hd
     out["total"] = sum(out.values())
     return out
+
+
+def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
+                     remat: bool) -> dict:
+    """Per-rank bytes of one training step of a dense decoder whose
+    kv-heads the model axis divides, on a (data ``d``, model ``m``) mesh,
+    parameters and activations of ``size`` bytes, under the ring
+    accounting of ``partitioning.WorkerGroup``, by group.  "fsdp": each
+    weight's model-local whole B gathered (B (d-1)/d), its gradient
+    reduce-scattered (B / d (d-1): the same), every norm's gradient
+    all-reduced (2 B (d-1)/d), and the loss with 4 metrics (fp32).
+    "model", a step's (rows / d) x seq tokens: the embedding's all-reduce,
+    two a layer (attention and MLP out), the logits' all-gather; in the
+    backward two a layer (x into the heads and into the MLP), q_norm's and
+    k_norm's gradients a layer, and x into the vocabulary's product; under
+    remat one more a layer, the attention's, as the block's forward is
+    recomputed: torch's checkpoint stops recomputing once it has the
+    tensors the backward saved, before the MLP's closing all-reduce.
+    "world": the squared gradient norm (fp32)."""
+    dm, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim, cfg.d_ff)
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    if kv % m or cfg.layer_pattern != "A" * layers:
+        raise ValueError("train_axis_bytes counts dense decoders whose "
+                         "kv-heads the model axis divides")
+    split = vocab * dm + layers * (2 * dm * h * hd + 2 * dm * kv * hd
+                                   + 3 * dm * ff)
+    norms = layers * (2 * dm + (2 * hd if cfg.qk_norm else 0)) + dm
+    out = {}
+    if d > 1:
+        out["fsdp"] = 2 * (d - 1) / d * ((split / m + norms) * size + 5 * 4)
+    if m > 1:
+        frac = (m - 1) / m
+        act = rows // d * seq * dm * size
+        ar = act * (2 + 4 * layers + (layers if remat else 0))
+        if cfg.qk_norm:
+            ar += 2 * layers * hd * size
+        out["model"] = 2 * frac * ar + frac * rows // d * seq * vocab * size
+    if d * m > 1:
+        out["world"] = 2 * 4 * (d * m - 1) / (d * m)
+    return out
+
+
+def hold_train_blocks(where: str, params0, params1, mu1, specs, mesh, ref,
+                      tcfg) -> dict:
+    """This rank's blocks after a training step against one rank's whole
+    leaves (``ref``: "params", "mu", "gmax" by key): the gradient (the
+    first moment over 1 - b1) within 1e-4 x the leaf's max |grad|; the
+    parameters under Adam's first-step rule, within 1e-5 |p| + 0.02 lr
+    where one rank's gradient clears 100 x that tolerance, else within 2 lr
+    (1 + wd |p|) (``params0``: this rank's blocks before the step).
+    Returns the worst shares of the tolerances."""
+    import torch
+    from repro_torch.launch.shardings import local_shard
+    from repro_torch.models.partitioning import spec_leaves
+    from repro_torch.optim import learning_rate
+    from repro_torch.tree import flatten_with_path, keystr, leaves
+    opt = tcfg.optimizer
+    lr = float(learning_rate(opt, torch.ones((), dtype=torch.int32)))
+    worst_g = worst_p = 0.0
+    strong = total = 0
+    for (path, p1), p0, mu, spec in zip(
+            flatten_with_path(params1), leaves(params0), leaves(mu1),
+            spec_leaves(specs, params1)):
+        key = keystr(path)
+        dev = p1.device
+        want_p = local_shard(ref["params"][key], spec, mesh).to(dev)
+        g_ref = local_shard(ref["mu"][key], spec, mesh).to(dev) / (1 - opt.b1)
+        tol = 1e-4 * max(ref["gmax"][key], 1e-30)
+        worst_g = max(worst_g, ((mu / (1 - opt.b1) - g_ref).abs().max()
+                                / tol).item())
+        diff = (p1 - want_p).abs()
+        if not (diff <= 2 * lr * (1 + opt.weight_decay * p0.abs())
+                + 1e-6).all():
+            raise AssertionError(f"{where} {key}: an updated parameter past "
+                                 f"2 lr (1 + wd |p|)")
+        sure = g_ref.abs() > 100 * tol
+        if sure.any():
+            strict = 1e-5 * want_p.abs() + 0.02 * lr
+            worst_p = max(worst_p, (diff[sure] / strict[sure]).max().item())
+        strong += int(sure.sum())
+        total += sure.numel()
+    if not (worst_g <= 1.0 and worst_p <= 1.0):
+        raise AssertionError(f"{where}: gradients at {worst_g} and strict "
+                             f"parameters at {worst_p} of their tolerances")
+    return {"grads_err_over_tol": worst_g,
+            "strict_params_err_over_tol": worst_p,
+            "strict_share": strong / max(total, 1)}
 
 
 def mesh_h2o_config(configs):
@@ -6344,7 +6742,16 @@ def mesh_child(rank: int, work: Path) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     out = {}
-    if job["kind"] in ("multihost", "ring16"):
+    if job["kind"] == "train":
+        out.update(mesh_train_child(rank, work, job, dev))
+    elif job["kind"] == "multihost_train":
+        ops.reset_launch_counts()
+        res = multihost.main(MH_TRAIN_ARGS + [
+            "--coordinator", f"file://{work}/store", "--num-processes",
+            str(world), "--process-id", str(rank), "--model-par",
+            str(model)])
+        out.update(res, launches=ops.launch_counts())
+    elif job["kind"] in ("multihost", "ring16"):
         # each call's decoded logits, as the decode tail leaves them to
         # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
         decoded = []
@@ -6394,8 +6801,52 @@ def mesh_child(rank: int, work: Path) -> int:
         finally:
             dist.destroy_process_group()
     out["max_reserved"] = torch.cuda.max_memory_reserved(dev)
+    out["max_allocated"] = torch.cuda.max_memory_allocated(dev)
     torch.save(out, work / f"rank{rank}.pt")
     return 0
+
+
+def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
+    """One rank of phase 28: ``launch.train.run`` of TRAIN_ARCH on the
+    job's (data, model) mesh over gloo, TRAIN_MESH_STEPS steps; each
+    step's collective bytes by group, and after the first this rank's
+    blocks held to one rank's (``hold_train_blocks``).  Returns the
+    history, the launches, the bytes and the holding's worst shares."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import partitioning
+    ref = torch.load(job["ref"], mmap=True, weights_only=True)
+    step = launch_train.train_step
+    out = {"step_bytes": []}
+
+    def hold(cfg, tcfg, params, opt, batch, specs=None):
+        mesh = partitioning.active_mesh()
+        mesh.reset_bytes()
+        new = step(cfg, tcfg, params, opt, batch, specs)
+        out["step_bytes"].append(mesh.axis_bytes())
+        if "held" not in out:
+            out["held"] = hold_train_blocks(
+                f"training rank {rank}", params, new[0], new[1].mu, specs,
+                mesh, ref, tcfg)
+        return new
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            world_size=job["world"], rank=rank)
+    ops.reset_launch_counts()
+    history = []
+    launch_train.train_step = hold
+    try:
+        launch_train.run(TRAIN_ARCH, False, TRAIN_MESH_STEPS, TRAIN_BATCH,
+                         TRAIN_SEQ, job["data"], job["model"], TRAIN_LR, 1,
+                         None, log_every=TRAIN_MESH_STEPS, device=dev,
+                         seed=0, history=history)
+    finally:
+        launch_train.train_step = step
+        dist.destroy_process_group()
+    out.update(history=history, launches=ops.launch_counts())
+    return out
 
 
 def visible_pairs(s: int, *, causal: bool, window, prefix: int) -> int:

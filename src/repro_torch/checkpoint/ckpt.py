@@ -8,6 +8,11 @@ files.  A bf16 leaf is written as its raw 2-byte values, which numpy
 stores as ``|V2`` void, as the reference's writes are.  The reference's
 ``load`` hands such an entry back as ``|V2`` unconverted; the port's
 reads it back as bf16 when the ``like`` leaf is bf16.
+
+On a mesh (``models.partitioning``) ``save`` takes a tree of this rank's
+blocks with their specs, gathers each leaf whole and writes once, on
+rank 0, so that the file is the one-rank file; ``load`` takes specs to
+hand back this rank's blocks (``launch.shardings.local_shard``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.tree import flatten_with_path, keystr, unflatten_like
 
@@ -34,14 +40,38 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def save(path: str, tree, metadata: Optional[dict] = None) -> None:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = {keystr(p): _to_numpy(leaf) for p, leaf in
-              flatten_with_path(tree)}
-    np.savez(path, **arrays)
-    if metadata is not None:
-        with open(path + ".meta.json", "w") as f:
-            json.dump(metadata, f, indent=2, default=str)
+def _mesh():
+    from repro_torch.models import partitioning
+    mesh = partitioning.active_mesh()
+    if mesh is None:
+        raise RuntimeError("a sharded save or load needs the mesh of its "
+                           "specs active (partitioning.mesh_context)")
+    return mesh
+
+
+def save(path: str, tree, metadata: Optional[dict] = None,
+         shardings=None) -> None:
+    """Write ``tree`` to ``path`` (``.npz``).  With ``shardings`` (the
+    specs of ``tree``'s blocks on the active mesh) every rank of the mesh
+    must call it: each leaf is gathered whole, rank 0 writes, and every
+    rank returns once the file is there."""
+    items = flatten_with_path(tree)
+    mesh = None
+    if shardings is not None:
+        from repro_torch.launch.shardings import gather_leaf
+        from repro_torch.models.partitioning import spec_leaves
+        mesh = _mesh()
+        items = [(p, _to_numpy(gather_leaf(leaf, spec, mesh)))
+                 for (p, leaf), spec in zip(items,
+                                            spec_leaves(shardings, tree))]
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **{keystr(p): _to_numpy(leaf) for p, leaf in items})
+        if metadata is not None:
+            with open(path + ".meta.json", "w") as f:
+                json.dump(metadata, f, indent=2, default=str)
+    if mesh is not None and mesh.group("world") is not None:
+        torch.distributed.barrier(mesh.group("world").group)
 
 
 def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
@@ -57,13 +87,17 @@ def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
 
 
 def load(path: str, like, shardings=None):
-    """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf on its ``like`` leaf's device, in the dtype the file holds.
-    ``shardings`` must be None until the training mesh (ROADMAP A9.2)
-    brings sharded restores."""
+    """Restore into the structure of ``like`` (a tree of tensors of the
+    whole leaves' shapes): each leaf on its ``like`` leaf's device, in
+    the dtype the file holds.  With ``shardings`` (specs on the active
+    mesh) each leaf comes back as this rank's block of it, one leaf
+    whole at a time."""
+    mesh = None
     if shardings is not None:
-        raise NotImplementedError("sharded restores are not ported yet "
-                                  "(ROADMAP A9.2)")
+        from repro_torch.launch.shardings import local_shard
+        from repro_torch.models.partitioning import spec_leaves
+        mesh = _mesh()
+        specs = spec_leaves(shardings, like)
     if not path.endswith(".npz"):
         path = path + ".npz"
     leaves = []
@@ -76,7 +110,9 @@ def load(path: str, like, shardings=None):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != "
                                  f"{tuple(leaf.shape)}")
-            leaves.append(_to_tensor(arr, leaf))
+            t = _to_tensor(arr, leaf)
+            leaves.append(t if mesh is None
+                          else local_shard(t, specs[len(leaves)], mesh))
     return unflatten_like(like, leaves)
 
 

@@ -32,6 +32,18 @@ def make_host_mesh(data: int = 1, model: int = 1, worker: int = 1) -> Mesh:
     return build_mesh(("worker", "data", "model"), (worker, data, model))
 
 
+def make_train_mesh(data: int = 1, model: int = 1, *,
+                    multi_pod: bool = False) -> Mesh:
+    """The training mesh over the world: ("data", "model"), or with
+    ``multi_pod`` ("pod", "data", "model") with a pod axis of 2, the
+    production mesh's axes at any size.  The batch axes ("pod", "data")
+    shard the batch's rows and, jointly, each weight's "fsdp"
+    dimension; "model" splits heads, MLP and vocabulary."""
+    if multi_pod:
+        return build_mesh(("pod", "data", "model"), (2, data, model))
+    return build_mesh(("data", "model"), (data, model))
+
+
 def make_worker_mesh(workers: int, model: int = 1) -> Mesh:
     """Serving mesh: one rank per coded worker (x an optional model
     axis).  Each rank along "worker" owns a contiguous block of the N+1

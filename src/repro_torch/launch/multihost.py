@@ -1,35 +1,55 @@
-"""Multi-process coded serving on a (worker, model) mesh (port of the
-serving half of ``repro.launch.multihost``).
+"""Multi-process training and coded serving over ``torch.distributed``
+ranks (port of ``repro.launch.multihost``), one process a mesh rank.
 
-One process per mesh rank, laid out row-major over ("worker", "model"):
-the ranks along "worker" each own a contiguous block of the worker-major
-coded streams (DESIGN.md §13), serve the slot pool's rounds on them and
-keep their caches; the ranks along "model" (``--model-par``) split each
-stream's heads, MLP and vocabulary (tensor parallelism), so one coded
-worker spans several devices.  The decode tail gathers only survivor
-shards (``launch.worker_mesh``).  The worker axis is the world size over
-``--model-par``.  Every process runs the same program on the same
-prompts and gets the same token ids back.  The reference fixes the mesh
-at 16 workers x 16-way tensor parallel
+``--mode train`` (the default, as in the reference) trains on the
+training mesh ("data", "model"), or ("pod", "data", "model") with
+``--multi-pod`` (a pod axis of 2): bf16 with remat, the reference's
+``TrainConfig()``, FSDP over the batch axes and ``--model-par`` ranks of
+tensor parallelism (``launch.train``'s step, ``training.train``).  The
+data axis takes the rest of the processes.  Two departures from the
+reference:
+- Seeding.  Each rank draws its rows of the batch from a
+  ``RandomState`` seeded by its batch-axes coordinate
+  (``Mesh.fsdp_index``), not by its process id: ranks that share a data
+  coordinate but differ on the model axis must see the same tokens,
+  which the reference's one process a host gives for free.
+- Batch and length.  ``--batch`` (global, default 256) and ``--seq``
+  (default 4096) are the reference's constants, made flags: a card
+  cannot hold 256 x 4096 tokens at full width (the logits alone would
+  be hundreds of GB).
+
+``--mode serve`` runs the coded serving pool on a (worker, model) mesh:
+the ranks along "worker" each own a contiguous block of the
+worker-major coded streams (DESIGN.md §13), serve the slot pool's
+rounds on them and keep their caches; the ranks along "model"
+(``--model-par``) split each stream's heads, MLP and vocabulary (tensor
+parallelism), so one coded worker spans several devices.  The decode
+tail gathers only survivor shards (``launch.worker_mesh``).  The worker
+axis is the world size over ``--model-par``.  Every process runs the
+same program on the same prompts and gets the same token ids back.  The
+reference fixes the mesh at 16 workers x 16-way tensor parallel
 (``make_production_serving_mesh``); here it follows the process count.
+``--multi-pod`` in serve mode (the pod axis in serving) is refused
+(ROADMAP A9.5).
 
-  # W*M processes, one per rank (NCCL on the card, one card each):
+  # one process a rank (NCCL on the card, one card each):
   python -m repro_torch.launch.multihost --mode serve --model-par M \\
       --coordinator HOST:PORT --num-processes W*M --process-id R
   # on the CPU, gloo over a file store:
-  PYTHONPATH=src python -m repro_torch.launch.multihost --mode serve \\
+  PYTHONPATH=src python -m repro_torch.launch.multihost --mode train \\
       --device cpu --reduced --coordinator file:///tmp/store \\
-      --num-processes 2 --process-id 0 --model-par 2 --steps 2
+      --num-processes 2 --process-id 0 --model-par 2 --steps 2 \\
+      --batch 8 --seq 32
 
 ``--backend gloo`` runs the ranks over gloo on the card too, so that
 several of them can share one card (NCCL refuses two ranks on a
-device).  ``--mode train`` and ``--multi-pod`` (the reference's training
-loop, and its "pod" axis) are not ported yet and are refused.
+device).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Optional
 
 import numpy as np
@@ -174,6 +194,67 @@ def serve_main(args) -> dict:
             "collective_bytes": total, "call_bytes": call_bytes}
 
 
+def train_main(args) -> dict:
+    """Training on the ("pod",) "data", "model" mesh (``--mode train``):
+    ``--steps`` steps of the reference's ``TrainConfig()`` on a global
+    batch of ``--batch`` x ``--seq`` synthetic tokens, each rank drawing
+    its rows (the module docstring).  Returns each step's loss, wall ms
+    (ending in a host sync) and collective bytes by group."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.launch.train import sharded_state
+    from repro_torch.models import partitioning
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import (check_batch_axes,
+                                                check_model_axis)
+    from repro_torch.training import TrainConfig, train_step
+
+    device = resolve_device(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    cfg = cfg.with_updates(param_dtype=args.dtype,
+                           activation_dtype=args.dtype, remat=True)
+    world = dist.get_world_size()
+    pods = 2 if args.multi_pod else 1
+    if world % (pods * args.model_par):
+        raise ValueError(f"{world} processes do not split into {pods} pods "
+                         f"x a {args.model_par}-way model axis")
+    data = world // (pods * args.model_par)
+    check_model_axis(cfg, args.model_par)
+    check_batch_axes(cfg, pods * data)
+    mesh = make_train_mesh(data, args.model_par, multi_pod=args.multi_pod)
+    rows = mesh.fsdp_size()
+    if args.batch % rows:
+        raise ValueError(f"a batch of {args.batch} does not split over "
+                         f"{rows} ranks of the batch axes")
+    print(f"process {mesh.rank}: data rank {mesh.fsdp_index()} of {rows}, "
+          f"model rank {mesh.coord('model')} of {mesh.size('model')} on "
+          f"{device}", flush=True)
+    tcfg = TrainConfig()
+    out = {"losses": [], "step_ms": [], "step_bytes": []}
+    with partitioning.mesh_context(mesh):
+        params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                             device)
+        params, opt, specs = sharded_state(cfg, params, mesh)
+        ds = SyntheticLMDataset(cfg.vocab_size, seq_len=args.seq, seed=0)
+        rng = np.random.RandomState(mesh.fsdp_index())
+        for i in range(args.steps):
+            local = ds.batch(args.batch // rows, rng)
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in local.items()}
+            mesh.reset_bytes()
+            t0 = time.perf_counter()
+            params, opt, metrics = train_step(cfg, tcfg, params, opt, batch,
+                                              specs)
+            loss = float(metrics["loss"])              # syncs the device
+            out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["step_bytes"].append(mesh.axis_bytes())
+            out["losses"].append(loss)
+            if mesh.rank == 0 and i % 10 == 0:
+                print(f"step {i}: loss {loss:.4f}", flush=True)
+    return out
+
+
 def main(argv: Optional[list] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--coordinator", required=True,
@@ -185,6 +266,12 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--mode", choices=("train", "serve"), default="train")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
+    # train-mode batch: the reference's constants, as flags
+    ap.add_argument("--batch", type=int, default=256,
+                    help="global batch of train mode (rows over every rank "
+                         "of the batch axes)")
+    ap.add_argument("--seq", type=int, default=4096,
+                    help="tokens a row in train mode")
     # serve-mode coding and pool knobs (the reference's defaults; K=7
     # S=2 E=0 is 9 coded streams)
     ap.add_argument("--k", type=int, default=7)
@@ -194,7 +281,8 @@ def main(argv: Optional[list] = None) -> dict:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--model-par", type=int, default=1,
                     help="ranks of the model axis (tensor parallelism); "
-                         "the worker axis takes the rest of the processes")
+                         "the worker axis (serve) or the data axis (train) "
+                         "takes the rest of the processes")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"),
                     help="parameter and activation dtype")
@@ -206,14 +294,9 @@ def main(argv: Optional[list] = None) -> dict:
                     help="torch device; default cuda (cpu runs gloo and "
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.mode == "train":
-        ap.error("--mode train is not ported yet: it trains on the "
-                 "production mesh (FSDP over the data and pod axes, the "
-                 "model axis with its backward: ROADMAP A9.2); one device "
-                 "trains through repro_torch.launch.train")
-    if args.multi_pod:
-        ap.error("--multi-pod is not ported yet (the pod axis, ROADMAP "
-                 "A9.2)")
+    if args.multi_pod and args.mode == "serve":
+        ap.error("--multi-pod in serve mode is not ported yet (the pod "
+                 "axis in serving, ROADMAP A9.5)")
     device = resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", args.process_id
@@ -222,7 +305,7 @@ def main(argv: Optional[list] = None) -> dict:
     initialize(args.coordinator, args.num_processes, args.process_id, device,
                args.backend)
     try:
-        return serve_main(args)
+        return (train_main if args.mode == "train" else serve_main)(args)
     finally:
         dist.destroy_process_group()
 

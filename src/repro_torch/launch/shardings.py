@@ -18,7 +18,8 @@ import torch
 from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import cache_axes, logical_axes
-from repro_torch.models.transformer import check_model_axis
+from repro_torch.models.transformer import check_batch_axes, check_model_axis
+from repro_torch.optim import opt_state_axes
 
 
 def tree_shardings(mesh, axes_tree, shapes_tree,
@@ -89,13 +90,61 @@ def cache_shardings(mesh, cfg: ModelConfig, caches,
 def serving_param_specs(mesh, cfg: ModelConfig, params) -> dict:
     """The serving forward's parameter specs: ``logical_axes`` on
     ``mesh`` with the weights whole over the data and pod axes (the
-    reference's FSDP gather of weights belongs to the training mesh,
-    ROADMAP A9.2), so only the model axis splits them.  Raises for a
-    configuration the model axis does not run (``check_model_axis``)."""
+    reference's FSDP gather of weights belongs to the training step,
+    ``train_param_specs``), so only the model axis splits them.  Raises
+    for a configuration the model axis does not run
+    (``check_model_axis``)."""
     check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape))
                      .get("model", 1))
     rules = dict(partitioning.DEFAULT_RULES, fsdp=None)
     return tree_shardings(mesh, logical_axes(cfg), params, rules)
+
+
+def _check_train(mesh, cfg: ModelConfig) -> None:
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    check_model_axis(cfg, sizes.get("model", 1))
+    check_batch_axes(cfg, math.prod(sizes.get(a, 1)
+                                    for a in partitioning.BATCH_AXES))
+
+
+def train_param_specs(mesh, cfg: ModelConfig, params) -> dict:
+    """The training step's parameter specs: ``logical_axes`` on ``mesh``
+    under ``DEFAULT_RULES``, "fsdp" on, as the reference's launcher
+    shards them: the model axis splits heads, MLP and vocabulary, and the
+    batch axes ("pod", "data") jointly split each weight's "fsdp"
+    dimension where they divide it.  Raises for a configuration the
+    mesh does not train (``check_model_axis``, ``check_batch_axes``)."""
+    _check_train(mesh, cfg)
+    return tree_shardings(mesh, logical_axes(cfg), params)
+
+
+def train_opt_specs(mesh, cfg: ModelConfig, opt_state):
+    """The optimizer state's specs (``optim.opt_state_axes``): each
+    moment the specs of its parameter, the step counter whole."""
+    _check_train(mesh, cfg)
+    return tree_shardings(mesh, opt_state_axes(logical_axes(cfg)),
+                          opt_state)
+
+
+@torch.no_grad()
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole leaf from this rank's block ``x`` under ``spec``: each
+    split dimension all-gathered over its group (the batch axes' over the
+    "fsdp" group).  Every rank of the mesh must call it."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if set(axes) <= set(partitioning.BATCH_AXES):
+            name = "fsdp"
+        elif len(axes) == 1:
+            name = axes[0]
+        else:
+            raise ValueError(f"spec {spec}: no group gathers {axes}")
+        group = mesh.group(name)
+        if group is not None:
+            x = group.all_gather(x, dim)
+    return x
 
 
 def _block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -123,11 +172,15 @@ def _block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 
 def local_shard(tree, specs, mesh):
-    """This rank's block of each leaf of ``tree`` (dicts and lists of
-    tensors) under the matching tree of ``specs``: the port's
-    ``device_put``.  A whole leaf is passed through, a split one copied."""
+    """This rank's block of each leaf of ``tree`` (dicts, lists and
+    NamedTuples such as ``optim.OptState`` of tensors) under the matching
+    tree of ``specs``: the port's ``device_put``.  A whole leaf is passed
+    through, a split one copied."""
     if isinstance(tree, dict):
         return {k: local_shard(v, specs[k], mesh) for k, v in tree.items()}
     if isinstance(tree, list):
         return [local_shard(v, s, mesh) for v, s in zip(tree, specs)]
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(local_shard(v, s, mesh)
+                            for v, s in zip(tree, specs)))
     return _block(tree, specs, mesh)

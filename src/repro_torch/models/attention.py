@@ -85,12 +85,26 @@ def _out_project(cfg: ModelConfig, o: torch.Tensor,
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
          positions: torch.Tensor):
+    """q, k and v with RoPE (and qk-norm).  On a model-axis rank's block
+    of the q-heads, ``x`` and each leaf that the rank holds whole but
+    uses for its heads only (q_norm, k_norm, and wk / wv where the axis
+    does not divide the kv-heads) enter through ``ModelGroup.enter``, so
+    that their gradients are summed over the axis."""
+    wk, wv = p["wk"], p["wv"]
+    q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
+    if p["wq"].shape[1] < cfg.num_heads:
+        group = partitioning.model_group()
+        x = group.enter(x)
+        if wk.shape[1] == cfg.num_kv_heads:
+            wk, wv = group.enter(wk), group.enter(wv)
+        if cfg.qk_norm:
+            q_norm, k_norm = group.enter(q_norm), group.enter(k_norm)
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    k = _project(x, wk)
+    v = _project(x, wv)
     if cfg.qk_norm:
-        q = layers.rms_norm_head(q, p["q_norm"], cfg.norm_eps)
-        k = layers.rms_norm_head(k, p["k_norm"], cfg.norm_eps)
+        q = layers.rms_norm_head(q, q_norm, cfg.norm_eps)
+        k = layers.rms_norm_head(k, k_norm, cfg.norm_eps)
     q = layers.apply_rope(cfg, q, positions)
     k = layers.apply_rope(cfg, k, positions)
     return q, k, v

@@ -159,8 +159,10 @@ def project_frontend(cfg: ModelConfig, p: dict,
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """Logits over the vocabulary; a model-axis rank's block of it is
     all-gathered over the axis (the coded tail reads whole rows, with
-    unit stride)."""
-    out = x @ (p["embed"].T if cfg.tie_embeddings else p["lm_head"])
-    if out.shape[-1] == cfg.vocab_size:
-        return out
-    return partitioning.model_group().all_gather(out, -1).contiguous()
+    unit stride), ``x`` entering the block's product through
+    ``ModelGroup.enter`` (its gradient summed over the axis)."""
+    w = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    if w.shape[-1] == cfg.vocab_size:
+        return x @ w
+    group = partitioning.model_group()
+    return group.all_gather(group.enter(x) @ w, -1).contiguous()

@@ -34,6 +34,13 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:
 
 
 def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MLP; on a model-axis rank's block of the hidden units ``x``
+    enters the block through ``ModelGroup.enter`` (its gradient is
+    summed over the axis) and the output is a partial sum, all-reduced
+    over it."""
+    local = p["w_out"].shape[0] < cfg.d_ff
+    if local:
+        x = partitioning.model_group().enter(x)
     if cfg.mlp_activation == "gelu":
         h = F.gelu(x @ p["w_in"], approximate="tanh")
     elif cfg.mlp_activation == "geglu":
@@ -41,7 +48,4 @@ def mlp_block(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:                                 # SwiGLU
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_in"])
     out = h @ p["w_out"]
-    if p["w_out"].shape[0] == cfg.d_ff:
-        return out
-    # a model-axis rank's block of the hidden units: a partial sum
-    return partitioning.model_group().all_reduce(out)
+    return partitioning.model_group().all_reduce(out) if local else out

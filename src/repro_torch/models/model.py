@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, partitioning, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -104,7 +104,14 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
     ``targets`` in a causal batch, targets[t] is the token after the
     position whose logits are used: logits at -(T+1) .. -2.
     ``loss_mask`` weighs the positions.  Returns (total, metrics) as the
-    reference does."""
+    reference does.
+
+    With the batch split over the active mesh's batch axes
+    (``partitioning.fsdp_group``) the losses are this rank's shares,
+    which sum over the group to the reference's over the whole batch:
+    the local mean over the group's size (equal shards), or with a
+    ``loss_mask`` the local masked sum over the mask summed over the
+    group."""
     logits, aux = forward(cfg, params, batch)
     logits = logits.to(torch.float32)
     if cfg.causal:
@@ -122,11 +129,17 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
     logp = torch.log_softmax(logits, -1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     mask = batch.get("loss_mask")
+    group = partitioning.fsdp_group()
     if mask is None:
         loss = nll.mean()
+        if group is not None:
+            loss = loss / group.size
     else:
         mask = mask.to(torch.float32)
-        loss = (nll * mask).sum() / (mask.sum() + 1e-6)
+        denom = mask.sum()
+        if group is not None:
+            denom = group.all_reduce(denom)
+        loss = (nll * mask).sum() / (denom + 1e-6)
     total = loss + aux_weight * (aux["load_balance_loss"]
                                  + 0.1 * aux["router_z_loss"])
     return total, {"ce_loss": loss,

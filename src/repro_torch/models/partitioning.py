@@ -9,11 +9,16 @@ a grid of ``torch.distributed`` ranks laid out row-major over named axes
 logical axes to mesh axes by the same rules, ``launch.shardings``
 slices a whole parameter tree to this rank's block, and the model code
 issues the collectives itself where a leaf is sharded (the "model" axis:
-``ModelGroup``).  ``mesh_context`` makes a mesh the active one;
-``active_group()`` returns its "worker" group, the serving code's choice
-between the worker-sharded tail and the one-rank path.  ``WorkerGroup``
-wraps one axis's collectives and counts the bytes each moves, by op, as
-the reference's ``hlo_analysis.collective_bytes`` counts them in the
+``ModelGroup``, whose collectives carry their backward: Megatron's
+conjugate pairs).  A training mesh also has an "fsdp" group, the ranks
+that share every coordinate but the batch axes ("pod", "data"), over
+which a step gathers the FSDP-sharded weights and reduces their
+gradients, and a "world" group for the global gradient norm.
+``mesh_context`` makes a mesh the active one; ``active_group()``
+returns its "worker" group, the serving code's choice between the
+worker-sharded tail and the one-rank path.  ``WorkerGroup`` wraps one
+group's collectives and counts the bytes each moves, by op, as the
+reference's ``hlo_analysis.collective_bytes`` counts them in the
 compiled program.
 """
 
@@ -29,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ref
+from repro_torch.tree import flatten_with_path
 
 # Default logical -> physical rules of the production meshes (DESIGN.md
 # §7), the reference's word for word.  Entries may be a single mesh
@@ -127,19 +133,28 @@ class WorkerGroup:
         self._count("all-gather", out, (self.size - 1) / self.size)
         return out.movedim(0, dim % x.dim())
 
-    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+    def reduce_scatter(self, x: torch.Tensor, dim: int = -1
+                       ) -> torch.Tensor:
         """The sum over ranks of ``x``, of which rank r keeps the r-th of
-        W equal blocks of the last axis."""
+        W equal blocks of axis ``dim`` (the last by default)."""
         w = self.size
-        v = x.shape[-1]
+        dim %= x.dim()
+        v = x.shape[dim]
         if v % w:
-            raise ValueError(f"cannot scatter a last axis of {v} over "
-                             f"{w} ranks")
-        blocks = x.unflatten(-1, (w, v // w)).movedim(-2, 0).contiguous()
-        out = torch.empty(blocks.shape[1:], dtype=x.dtype, device=x.device)
-        _REDUCE_SCATTER(out, blocks.flatten(0, 1), group=self.group)
+            raise ValueError(f"cannot scatter an axis of {v} over {w} "
+                             f"ranks")
+        if dim == x.dim() - 1:
+            blocks = x.unflatten(-1, (w, v // w)).movedim(-2, 0)
+            blocks = blocks.contiguous().flatten(0, 1)
+        else:
+            blocks = x.movedim(dim, 0).contiguous()
+        out = torch.empty((blocks.shape[0] // w,) + blocks.shape[1:],
+                          dtype=x.dtype, device=x.device)
+        _REDUCE_SCATTER(out, blocks, group=self.group)
         self._count("reduce-scatter", out, w - 1)
-        return out
+        if dim == x.dim() - 1:
+            return out.reshape(x.shape[:-1] + (v // w,))
+        return out.movedim(0, dim)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over ranks of ``x`` (a new tensor)."""
@@ -149,29 +164,67 @@ class WorkerGroup:
         return out
 
 
-class ModelGroup(WorkerGroup):
-    """The "model" axis (tensor parallelism): rank r holds the r-th block
-    of every parameter whose spec names the axis, and the forward sums
-    partial products (``all_reduce``) and joins vocabulary blocks
-    (``all_gather``) over it.  These collectives have no backward yet:
-    under grad they raise on every device, as the serving kernels do on
-    the card (training on a model axis is ROADMAP A9.2)."""
+class _AllReduce(torch.autograd.Function):
+    """Sum over the group; the gradient passes through unchanged (each
+    rank's loss reads the whole sum)."""
 
     @staticmethod
-    def _refuse_grad(x: torch.Tensor) -> None:
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise RuntimeError(
-                "a model-axis collective has no backward: run the "
-                "tensor-parallel forward under torch.no_grad() (training "
-                "on the model axis is ROADMAP A9.2)")
+    def forward(ctx, x, group):
+        return WorkerGroup.all_reduce(group, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Enter(torch.autograd.Function):
+    """The identity; the gradient is summed over the group (each rank's
+    gradient of a replicated input is its part's share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return WorkerGroup.all_reduce(ctx.group, grad), None
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's block joined along ``dim``; the gradient keeps this
+    rank's slice (every rank reads the same whole from the same loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n, ctx.rank = dim % x.dim(), x.shape[dim], group.rank
+        return WorkerGroup.all_gather(group, x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+class ModelGroup(WorkerGroup):
+    """The "model" axis (tensor parallelism): rank r holds the r-th block
+    of every parameter whose spec names the axis.  The forward sums
+    partial products (``all_reduce``), joins vocabulary blocks
+    (``all_gather``) and marks where a replicated activation or leaf
+    enters a rank's block of the work (``enter``).  These three carry
+    their backward, Megatron's conjugate pairs: ``all_reduce`` passes the
+    gradient through, ``enter`` all-reduces it, ``all_gather`` keeps this
+    rank's slice.  Every rank of the axis computes the same loss, so the
+    gradient it keeps of a block is the whole gradient of that block."""
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        self._refuse_grad(x)
-        return super().all_gather(x, dim)
+        return _AllGather.apply(x, self, dim)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        self._refuse_grad(x)
-        return super().all_reduce(x)
+        return _AllReduce.apply(x, self)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, whose gradient is all-reduced over the axis."""
+        return _Enter.apply(x, self)
 
     def merge_ring_blocks(self, out: torch.Tensor, lse: torch.Tensor,
                           scatter: bool) -> torch.Tensor:
@@ -186,7 +239,10 @@ class ModelGroup(WorkerGroup):
         all-reduce (q-heads whole on every rank).  A row that sees no key
         on any rank gives exact zeros."""
         b, h, d = out.shape
-        self._refuse_grad(out)
+        if torch.is_grad_enabled() and out.requires_grad:
+            raise RuntimeError("merge_ring_blocks has no backward: it "
+                               "joins the decode attention of the ranks' "
+                               "ring blocks, which only serving runs")
         w = ref.merge_weights_ref(self.all_gather(lse[None], 0))[self.rank]
         part = (out * w[..., None]).reshape(b, h * d)
         if scatter:
@@ -194,14 +250,21 @@ class ModelGroup(WorkerGroup):
         return self.all_reduce(part).reshape(b, h, d)
 
 
+# The batch axes: the reference's "fsdp" rule shards weights over them
+# jointly, row-major (``DEFAULT_RULES``).
+BATCH_AXES = ("pod", "data")
+
+
 class Mesh:
     """Ranks laid out row-major over named axes, as ``jax.make_mesh``
     lays out devices: rank = sum of coordinate x stride, the last axis
     fastest.  ``groups`` holds this rank's process group of each axis
     above size 1 (a ``WorkerGroup``; the "model" axis's a
-    ``ModelGroup``).  Without groups a mesh is only a layout, which is
-    all ``resolve_spec`` and ``padded_batch`` read (``axis_names`` and
-    ``shape``, as the reference reads ``mesh.devices.shape``)."""
+    ``ModelGroup``), and under "fsdp" and "world" the groups of the
+    batch axes jointly and of every rank, above size 1.  Without groups
+    a mesh is only a layout, which is all ``resolve_spec`` and
+    ``padded_batch`` read (``axis_names`` and ``shape``, as the
+    reference reads ``mesh.devices.shape``)."""
 
     def __init__(self, axis_names: Sequence[str], shape: Sequence[int],
                  rank: int = 0,
@@ -227,8 +290,28 @@ class Mesh:
         return self.coords.get(axis, 0)
 
     def group(self, axis: str) -> Optional[WorkerGroup]:
-        """This rank's group of ``axis``: None at size 1."""
+        """This rank's group of ``axis`` ("fsdp" and "world" too): None
+        at size 1."""
         return self.groups.get(axis)
+
+    def fsdp_size(self) -> int:
+        """The ranks of an FSDP group: the product of the batch axes."""
+        return math.prod(self.size(a) for a in BATCH_AXES)
+
+    def fsdp_index(self) -> int:
+        """This rank's place in its FSDP group: its batch-axes
+        coordinates read row-major, the block of an "fsdp"-sharded leaf
+        (and of the batch's rows) that it holds."""
+        idx = 0
+        for a in BATCH_AXES:
+            idx = idx * self.size(a) + self.coord(a)
+        return idx
+
+    def axis_bytes(self) -> Dict[str, float]:
+        """{group: bytes} each group ("model", "fsdp", "world", ...) moved
+        so far."""
+        return {name: sum(group.bytes.values())
+                for name, group in self.groups.items()}
 
     def collective_bytes(self) -> Dict[str, float]:
         """{op: bytes} every axis's group moved so far, plus "total"."""
@@ -249,17 +332,22 @@ def axis_ranks(axis_names: Sequence[str], shape: Sequence[int],
                axis: str) -> list:
     """The rank lists of ``axis``'s groups (every other coordinate fixed),
     in the order of those coordinates; each list in ``axis`` order."""
-    i = list(axis_names).index(axis)
-    strides = [math.prod(shape[j + 1:]) for j in range(len(shape))]
-    others = [j for j in range(len(shape)) if j != i]
-    groups = []
-    for idx in range(math.prod(shape[j] for j in others)):
-        base, rest = 0, idx
-        for j in reversed(others):
-            base += (rest % shape[j]) * strides[j]
-            rest //= shape[j]
-        groups.append([base + c * strides[i] for c in range(shape[i])])
-    return sorted(groups)
+    return axes_ranks(axis_names, shape, [axis])
+
+
+def axes_ranks(axis_names: Sequence[str], shape: Sequence[int],
+               axes: Sequence[str]) -> list:
+    """The rank lists of the groups over ``axes`` jointly (every other
+    coordinate fixed), each in rank order, which is ``axes`` read
+    row-major in the mesh's order."""
+    others = [a for a in axis_names if a not in axes]
+    groups: dict = {}
+    for rank in range(math.prod(shape)):
+        coords, rest = {}, rank
+        for name, n in reversed(list(zip(axis_names, shape))):
+            coords[name], rest = rest % n, rest // n
+        groups.setdefault(tuple(coords[a] for a in others), []).append(rank)
+    return sorted(groups.values())
 
 
 def build_mesh(axis_names: Sequence[str], shape: Sequence[int]) -> Mesh:
@@ -267,7 +355,8 @@ def build_mesh(axis_names: Sequence[str], shape: Sequence[int]) -> Mesh:
     the product of ``shape``.  Every rank builds every axis's groups in
     the same order (``new_group`` is collective) on the default group's
     backend; an axis that spans the whole world uses the default group,
-    an axis of size 1 gets none."""
+    an axis of size 1 gets none.  The "fsdp" group (the batch axes
+    jointly) and the "world" group follow, where above one rank."""
     if not dist.is_initialized():
         raise RuntimeError("initialise torch.distributed before building a "
                            "mesh (init_process_group)")
@@ -278,14 +367,18 @@ def build_mesh(axis_names: Sequence[str], shape: Sequence[int]) -> Mesh:
             f"{math.prod(shape)} processes, the process group has {world}")
     rank = dist.get_rank()
     groups = {}
-    for axis, n in zip(axis_names, shape):
+    batch = [a for a in BATCH_AXES if a in axis_names]
+    fsdp = math.prod(n for a, n in zip(axis_names, shape) if a in batch)
+    for axis, n in list(zip(axis_names, shape)) + [("fsdp", fsdp),
+                                                    ("world", world)]:
         if n == 1:
             continue
         kind = ModelGroup if axis == "model" else WorkerGroup
         if n == world:
             groups[axis] = kind()
             continue
-        for ranks in axis_ranks(axis_names, shape, axis):
+        for ranks in axes_ranks(axis_names, shape,
+                                batch if axis == "fsdp" else [axis]):
             pg = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = kind(pg)
@@ -331,6 +424,13 @@ def active_group() -> Optional[WorkerGroup]:
 def axis_size(axis: str) -> int:
     """The active mesh's size of ``axis`` (1 off any mesh)."""
     return 1 if _CTX.mesh is None else _CTX.mesh.size(axis)
+
+
+def fsdp_group() -> Optional[WorkerGroup]:
+    """The active mesh's FSDP group (the batch axes jointly), or None off
+    any mesh and at one rank: a training step's loss is this rank's share
+    of the loss summed over it."""
+    return None if _CTX.mesh is None else _CTX.mesh.group("fsdp")
 
 
 def model_group() -> ModelGroup:
@@ -397,7 +497,33 @@ def _map_axes(fn, axes_tree, tree):
         return fn(axes_tree, tree)
     if isinstance(axes_tree, dict):
         return {k: _map_axes(fn, v, tree[k]) for k, v in axes_tree.items()}
+    if hasattr(axes_tree, "_fields"):              # e.g. optim.OptState
+        return type(axes_tree)(*(_map_axes(fn, a, t)
+                                 for a, t in zip(axes_tree, tree)))
     return [_map_axes(fn, a, t) for a, t in zip(axes_tree, tree)]
+
+
+def spec_leaves(specs, tree) -> list:
+    """The spec of every leaf of ``tree`` (a tree of the structure of
+    ``specs``, whose leaves are spec tuples), in ``tree.leaves`` order."""
+    out = []
+    for path, _ in flatten_with_path(tree):
+        spec = specs
+        for kind, key in path:
+            spec = getattr(spec, key) if kind == "attr" else spec[key]
+        out.append(spec)
+    return out
+
+
+def fsdp_dim(spec: tuple) -> Optional[int]:
+    """The dimension of a leaf that ``spec`` shards over the batch axes
+    (the reference's "fsdp" rule: every batch axis of the mesh jointly,
+    so the FSDP group's rank order is its block order), or None."""
+    for dim, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        if set(axes) & set(BATCH_AXES):
+            return dim
+    return None
 
 
 def param_sharding(mesh, logical_axes_tree, params_shapes,

@@ -69,6 +69,21 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
             f"the MoE layer and the frontends are ROADMAP A9.3")
 
 
+def check_batch_axes(cfg: ModelConfig, batch: int) -> None:
+    """Raise unless ``cfg`` trains with its batch split ``batch`` ways
+    over the batch axes ("pod", "data"), where each rank's loss is a
+    share of the reference's over the whole batch: every family but the
+    MoE layer.  The MoE's load-balance loss is a product of means over
+    all the batch's tokens, and its dispatch groups and their capacity
+    follow the token count, so a split batch couples rows across ranks
+    in both."""
+    if batch > 1 and "M" in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: training an MoE layer with the batch split "
+            f"{batch} ways (its load-balance loss and expert capacity "
+            f"couple the rows of the whole batch) is ROADMAP A9.3")
+
+
 def _layer_views(tree, count: int) -> list:
     """All ``count`` layers of a stacked parameter or cache tree, as
     views from one ``unbind`` a leaf (a cache is written in place through
@@ -227,12 +242,24 @@ AUX = ("load_balance_loss", "router_z_loss", "dropped_fraction")
 
 def _maybe_remat(cfg: ModelConfig, fn):
     """``fn`` checkpointed (recomputed in the backward pass) when
-    ``cfg.remat``, as ``jax.checkpoint`` in the reference."""
+    ``cfg.remat``, as ``jax.checkpoint`` in the reference.  On a model
+    axis the recomputed forward issues its collectives again; every rank
+    recomputes in the same order, so they pair up, at twice the forward's
+    model-axis bytes."""
     if not cfg.remat:
         return fn
 
     def remat(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        # the backward recomputes on the autograd engine's thread (a
+        # CUDA device's own thread), where no mesh context is active:
+        # recompute under the forward's mesh
+        mesh = partitioning.active_mesh()
+
+        def run(*inner):
+            with partitioning.mesh_context(mesh):
+                return fn(*inner)
+
+        return torch.utils.checkpoint.checkpoint(run, *args,
                                                  use_reentrant=False)
 
     return remat

@@ -3,7 +3,8 @@
 from repro_torch.optim.adamw import (OptimizerConfig, OptState,
                                      adamw_update, clip_by_global_norm,
                                      global_norm, init_opt_state,
-                                     learning_rate)
+                                     learning_rate, opt_state_axes)
 
 __all__ = ["OptimizerConfig", "OptState", "adamw_update", "init_opt_state",
-           "learning_rate", "global_norm", "clip_by_global_norm"]
+           "learning_rate", "global_norm", "clip_by_global_norm",
+           "opt_state_axes"]

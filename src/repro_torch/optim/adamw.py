@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.models import partitioning
 from repro_torch.tree import leaves, map_with_path, tree_map
 
 
@@ -38,6 +39,12 @@ class OptState(NamedTuple):
     step: torch.Tensor             # () int32
     mu: dict                       # first moment  (fp32)
     nu: dict                       # second moment (fp32)
+
+
+def opt_state_axes(param_axes) -> OptState:
+    """The optimizer state's logical axes: each moment those of its
+    parameter (so a launcher shards it alike), the step counter none."""
+    return OptState(step=(), mu=param_axes, nu=param_axes)
 
 
 def init_opt_state(params) -> OptState:
@@ -63,10 +70,32 @@ def learning_rate(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.learning_rate * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.to(torch.float32)))
-         for x in leaves(tree)]).sum())
+def global_norm(tree, specs=None) -> torch.Tensor:
+    """The l2 norm over every leaf.  Given ``specs`` (the tree's specs
+    on the active mesh, ``models.partitioning``), ``tree`` holds this
+    rank's blocks: each leaf's squares are summed over its block, a leaf
+    whole over a mesh axis counts only at coordinate 0 of that axis, and
+    the sum is all-reduced over the world, so the norm is the whole
+    tree's on every rank."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    mesh = partitioning.active_mesh() if specs is not None else None
+    if mesh is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    mine = []
+    for s, spec in zip(sq, partitioning.spec_leaves(specs, tree)):
+        named = set()
+        for entry in spec:
+            named.update((entry,) if isinstance(entry, str)
+                         else entry or ())
+        if all(mesh.coord(a) == 0 for a in mesh.axis_names
+               if a not in named):
+            mine.append(s)
+    total = (torch.stack(mine).sum() if mine
+             else torch.zeros((), dtype=torch.float32, device=sq[0].device))
+    world = mesh.group("world")
+    if world is not None:
+        total = world.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -88,17 +117,20 @@ def _is_decayed(path) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState):
+def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState,
+                 specs=None):
     """One AdamW step.  Returns (new_params, new_state, {"lr",
     "grad_norm"}); the bias corrections are fp32, and each updated
-    parameter is cast back to its leaf's dtype.
+    parameter is cast back to its leaf's dtype.  On a mesh, ``specs``
+    (the parameters') makes the clipping norm the whole tree's
+    (``global_norm``); the update itself is elementwise, on blocks.
 
     The reference's formulas, leaf by leaf: each leaf's clipped gradient
     lives only while its leaf is updated, and the new moments and the
     update are built in place on fresh tensors, so an update makes about
     13 passes over a leaf rather than 17 and never holds a clipped copy
     of the whole gradient tree."""
-    grad_norm = global_norm(grads)
+    grad_norm = global_norm(grads, specs)
     scale = torch.clamp(cfg.grad_clip_norm / (grad_norm + 1e-9), max=1.0)
     step = state.step + 1
     lr = learning_rate(cfg, step)

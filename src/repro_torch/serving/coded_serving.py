@@ -70,17 +70,17 @@ def num_padded_streams(coding: CodingConfig, groups: int) -> int:
 def _check_batch_axes(wshard: Optional[WorkerShardConfig],
                       pool: bool = False) -> None:
     """Raise for a mesh whose batch axes this step does not split: the
-    "pod" axis (ROADMAP A9.2), the "data" axis under worker-major
+    "pod" axis (ROADMAP A9.5), the "data" axis under worker-major
     streams or in the slot pool, and a "worker" axis above 1 without
     ``wshard`` (it splits worker-major streams only)."""
     if partitioning.axis_size("pod") > 1:
         raise NotImplementedError("serving on a pod axis is not ported "
-                                  "(ROADMAP A9.2, --multi-pod)")
+                                  "(ROADMAP A9.5, --multi-pod)")
     if partitioning.axis_size("data") > 1 and (wshard is not None or pool):
         raise NotImplementedError(
             "the data axis splits the batch steps' group-major streams; "
             "worker-major streams and the slot pool shard over the worker "
-            "axis only (ROADMAP A9.2)")
+            "axis only (ROADMAP A9.5)")
     if partitioning.axis_size("worker") > 1 and wshard is None:
         raise ValueError("a worker axis above 1 shards worker-major "
                          "streams: pass wshard")

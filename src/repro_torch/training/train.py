@@ -10,6 +10,19 @@ through B7's (``kernels.ssd_scan.SsdFn``); every other kernel is a
 serving kernel with no backward and raises under grad
 (``kernels.ops``).  Microbatches accumulate in fp32 and their metrics
 are averaged, as the reference's ``jax.lax.scan`` does.
+
+On a mesh (``partitioning.mesh_context`` and the parameters' specs,
+``launch.shardings.train_param_specs``) a rank holds its blocks of the
+parameters and moments and its rows of the batch.  A step all-gathers
+every leaf that the batch axes shard over the FSDP group (the ranks
+that share its other coordinates), so that the model code sees its
+model-axis blocks alone and keeps its shape-driven choice of local
+against whole leaves; differentiates that tree; then reduce-scatters
+each such leaf's gradient over the FSDP group and all-reduces the
+others' over it.  Each rank's loss is its share of the loss over the
+whole batch (``models.model.lm_loss``), so the sums are the whole
+batch's gradients, and the loss and metrics come out the same on every
+rank.  The whole tree is gathered once a step.
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import lm_loss
 from repro_torch.optim import OptimizerConfig, OptState, adamw_update
@@ -54,8 +68,19 @@ def _value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, params,
 
 
 def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
-                   batch: dict):
-    """Grad through the model, with microbatch accumulation if asked."""
+                   batch: dict, specs=None):
+    """Grad through the model, with microbatch accumulation if asked.
+    With ``specs`` (on the active mesh, see the module docstring)
+    ``params`` are this rank's blocks and ``batch`` its rows; the
+    gradients come back as blocks of the whole batch's, and the loss and
+    metrics as the whole batch's."""
+    if specs is not None:
+        return _mesh_loss_and_grads(cfg, tcfg, params, batch, specs)
+    return _local_loss_and_grads(cfg, tcfg, params, batch)
+
+
+def _local_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
+                          batch: dict):
     if tcfg.microbatches <= 1:
         return _value_and_grad(cfg, tcfg, params, batch)
 
@@ -77,12 +102,55 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
     return acc_l * inv, metrics, grads
 
 
+def _mesh_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
+                         batch: dict, specs):
+    mesh = partitioning.active_mesh()
+    if mesh is None:
+        raise RuntimeError("a step over parameter blocks (specs given) "
+                           "needs their mesh active "
+                           "(partitioning.mesh_context)")
+    group = mesh.group("fsdp")
+    if group is not None and tcfg.microbatches > 1 and \
+            "loss_mask" in batch:
+        raise NotImplementedError(
+            "a loss_mask with microbatches on a split batch: the "
+            "reference's microbatch i is rows i of the whole batch, whose "
+            "mask sum no rank holds")
+    dims = [partitioning.fsdp_dim(spec)
+            for spec in partitioning.spec_leaves(specs, params)]
+    local = leaves(params)
+    if group is not None:
+        with torch.no_grad():
+            local = [x if d is None else group.all_gather(x, d)
+                     for x, d in zip(local, dims)]
+    loss, metrics, grads = _local_loss_and_grads(
+        cfg, tcfg, unflatten_like(params, local), batch)
+    del local
+    if group is None:
+        return loss, metrics, grads
+    with torch.no_grad():
+        grads = unflatten_like(params, [
+            group.all_reduce(g) if d is None else group.reduce_scatter(g, d)
+            for g, d in zip(leaves(grads), dims)])
+        # the ranks' shares summed (the MoE statistics are zeros: no MoE
+        # layer trains on a split batch, ``train_param_specs`` refuses it)
+        names = sorted(metrics)
+        total = group.all_reduce(torch.stack(
+            [loss.to(torch.float32)]
+            + [metrics[k].to(torch.float32) for k in names]))
+        metrics = {k: total[i + 1] for i, k in enumerate(names)}
+    return total[0], metrics, grads
+
+
 def train_step(cfg: ModelConfig, tcfg: TrainConfig, params,
-               opt_state: OptState, batch: dict):
-    """One optimizer step.  Returns (params, opt_state, metrics)."""
-    loss, metrics, grads = loss_and_grads(cfg, tcfg, params, batch)
+               opt_state: OptState, batch: dict, specs=None):
+    """One optimizer step.  Returns (params, opt_state, metrics).  On a
+    mesh ``specs`` are the parameters' (and the moments'), ``params`` and
+    ``opt_state`` this rank's blocks and ``batch`` its rows (the module
+    docstring)."""
+    loss, metrics, grads = loss_and_grads(cfg, tcfg, params, batch, specs)
     params, opt_state, opt_metrics = adamw_update(
-        tcfg.optimizer, params, grads, opt_state)
+        tcfg.optimizer, params, grads, opt_state, specs)
     metrics = dict(metrics)
     metrics.update(opt_metrics)
     metrics["loss"] = loss

@@ -32,8 +32,9 @@ explained by their exact tally (``_torch_parity.near_tie_walk``), each
 rank's caches equal (``STATE_TOL``) to its block of the one-rank
 caches (its kv-heads, and on the data axis its streams), and the model
 and data axes' collective bytes by op equal to the analytic count.  The
-ranks also check the refusals that need a process group: a world size
-unequal to the mesh's product, and a model-axis collective under grad.
+ranks also check what needs a process group: a world size unequal to
+the mesh's product is refused, and a model-axis collective runs under
+grad (its gradient passed through).
 """
 
 import os
@@ -542,10 +543,14 @@ try:
 except ValueError:
     out["refused_world"] = np.int32(1)
 mesh = make_host_mesh(data=D, model=M, worker=W)
-try:
-    mesh.group("model").all_reduce(torch.ones(3, requires_grad=True))
-except RuntimeError as err:
-    out["refused_grad"] = np.int32("A9.2" in str(err))
+# a model-axis collective under grad runs: the sum forward, the gradient
+# passed through unchanged
+ones = torch.ones(3, requires_grad=True)
+summed = mesh.group("model").all_reduce(ones)
+summed.sum().backward()
+out["grad_runs"] = np.int32(
+    torch.equal(summed.detach(), torch.full((3,), float(M)))
+    and torch.equal(ones.grad, torch.ones(3)))
 # host-shard assembly: each rank's two rows hold its rank
 from repro_torch.launch import multihost
 rows = {"x": torch.full((2, 3), float(rank))}
@@ -775,7 +780,7 @@ def test_mesh_batch_round_matches_reference_and_one_rank(name, arch,
     jc, tc = cases[arch, wide][:2]
     key = f"{arch}:{int(wide)}/batch"
     for out in ranks:
-        assert out["refused_world"] == 1 and out["refused_grad"] == 1
+        assert out["refused_world"] == 1 and out["grad_runs"] == 1
         assert tuple(out[f"{arch}:{int(wide)}/wq_shape"]) == (
             tc.num_layers, tc.d_model, tc.num_heads // shape[2],
             tc.head_dim)

@@ -28,6 +28,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs import shapes as tshapes  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.models.partitioning import Mesh  # noqa: E402
 from repro_torch.models.convert import (opt_state_from_jax,  # noqa: E402
                                         params_from_jax)
 from repro_torch.optim import init_opt_state  # noqa: E402
@@ -169,7 +170,9 @@ def test_classification_and_modality_batches_equal_the_reference():
 
 def test_loader_order_and_prefetch():
     """The port's loader hands out the reference loader's batches in the
-    same order, as CPU tensors, with ``prefetch`` batches drawn ahead."""
+    same order, as CPU tensors, with ``prefetch`` batches drawn ahead;
+    given a mesh, a rank's rows of them (its block over the batch axes,
+    ``tests/test_torch_train_mesh.py``)."""
     drawn = []
 
     def counted(stream):
@@ -190,8 +193,11 @@ def test_loader_order_and_prefetch():
         np.testing.assert_array_equal(got["tokens"].numpy(),
                                       np.asarray(want["tokens"]))
     assert len(drawn) == 7
-    with pytest.raises(NotImplementedError, match="A9"):
-        ShardedLoader(ds.stream(4), mesh=object(), device="cpu")
+    mesh = Mesh(("data", "model"), (2, 2), rank=3)   # data rank 1
+    rows = ShardedLoader(ds.stream(4), mesh=mesh, device="cpu")
+    want = next(jloader.ShardedLoader(ds.stream(4), mesh=None))
+    np.testing.assert_array_equal(next(rows)["tokens"].numpy(),
+                                  np.asarray(want["tokens"])[2:])
 
 
 def test_shapes_match_the_reference():

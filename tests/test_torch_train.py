@@ -31,6 +31,9 @@ asserted above ``MARGIN`` (printed with ``-s``), as in
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -63,6 +66,7 @@ from repro_torch.training import TrainConfig, train_step  # noqa: E402
 from repro_torch.training.train import loss_and_grads  # noqa: E402
 from repro_torch.tree import flatten_with_path, keystr  # noqa: E402
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen3-0.6b", "qwen3-moe-30b-a3b", "mamba2-780m", "paligemma-3b"]
 OPT = dict(learning_rate=3e-3, warmup_steps=2, total_steps=10)
 METRIC_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -291,17 +295,40 @@ def test_launcher_writes_a_checkpoint_the_reference_reads(tmp_path, capsys):
         assert val.shape == _jflat(like)[key].shape and np.isfinite(val).all()
 
 
-def test_launcher_refusals(capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tlaunch.run("qwen3-0.6b", True, 1, 2, 16, 2, 1, 3e-3, 1, None,
-                    device="cpu")
-    # model parallelism too, for a Mamba2 arch as for any other
+def test_launcher_refusals(capsys, tmp_path):
+    """What the launchers refuse, and what they run: ``--data-par 2`` as
+    two gloo processes, ``multihost --mode train`` on one.  The model
+    axis of a Mamba2 arch is refused (ROADMAP A9.3) before any process
+    group is asked for; a mesh without its processes is refused."""
     for arch in ("mamba2-780m", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9.3"):
             tlaunch.run(arch, True, 1, 2, 16, 1, 2, 3e-3, 1, None,
                         device="cpu")
-    with pytest.raises(SystemExit):
-        multihost.main(["--coordinator", "file:///nowhere",
-                        "--num-processes", "1", "--process-id", "0",
-                        "--mode", "train", "--device", "cpu"])
-    assert "ROADMAP A9" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="process group"):
+        tlaunch.run("qwen3-0.6b", True, 1, 2, 16, 2, 1, 3e-3, 1, None,
+                    device="cpu")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.path.join(REPO, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+           "--device", "cpu", "--data-par", "2", "--steps", "2", "--batch",
+           "4", "--seq", "16", "--coordinator", f"file://{tmp_path}/store",
+           "--process-id"]
+    procs = [subprocess.Popen(cmd + [str(r)], env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], logs
+    assert "step     0  loss" in logs[0] and "step     1  loss" in logs[0]
+    assert "loss" not in logs[1]                 # rank 0 alone reports
+    res = multihost.main(["--coordinator", f"file://{tmp_path}/store1",
+                          "--num-processes", "1", "--process-id", "0",
+                          "--mode", "train", "--device", "cpu", "--reduced",
+                          "--steps", "2", "--batch", "2", "--seq", "16"])
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert "step 0: loss" in capsys.readouterr().out

@@ -698,10 +698,16 @@ def test_multihost_serve_on_gloo(tmp_path):
     assert "2 decode calls" in logs[0]
 
 
-def test_multihost_refuses_what_is_not_ported():
+def test_multihost_refuses_what_is_not_ported(tmp_path, capsys):
+    """``--multi-pod`` in serve mode is refused (the pod axis in serving,
+    ROADMAP A9.5); ``--mode train`` runs, here on one process."""
     from repro_torch.launch import multihost
-    base = ["--coordinator", "file:///nowhere", "--num-processes", "1",
-            "--process-id", "0", "--device", "cpu"]
-    for extra in (["--mode", "train"], ["--mode", "serve", "--multi-pod"]):
-        with pytest.raises(SystemExit):
-            multihost.main(base + extra)
+    base = ["--coordinator", f"file://{tmp_path}/store", "--num-processes",
+            "1", "--process-id", "0", "--device", "cpu"]
+    with pytest.raises(SystemExit):
+        multihost.main(base + ["--mode", "serve", "--multi-pod"])
+    assert "A9.5" in capsys.readouterr().err
+    res = multihost.main(base + ["--mode", "train", "--reduced", "--steps",
+                                 "2", "--batch", "2", "--seq", "16"])
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert "step 0: loss" in capsys.readouterr().out
