@@ -245,8 +245,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ring (TOL_F32 / the bf16 rule), keyless rows (0, -inf), dead streams
    zero; the first block timed beside its bound, its plain version and
    SDPA on the same block;
-27. qwen3-0.6b at full width and depth, fp32, on a 16-way model axis (8
-   kv-heads: each rank holds 16 of the 256 ring slots of every kv-head),
+27. qwen3-0.6b at full width and MP16_LAYERS (4) of its 28 layers, fp32,
+   on a 16-way model axis (8 kv-heads: each rank holds 16 of the 256
+   ring slots of every kv-head),
    16 gloo processes sharing the card: phase 23's batch E=1 round over a
    256-slot ring and ``launch.multihost --mode serve --model-par 16
    --pool-groups 2 --steps 2`` (K=7 S=2 E=0), each against the same with
@@ -274,7 +275,19 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``--batch 8 --seq 128 --steps 2`` as 2 gloo processes against one
    process of the same command: losses within MH_TRAIN_LOSS_TOL, B3 56
    and its backward 28 a step a rank, bytes equal to
-   ``train_axis_bytes``.
+   ``train_axis_bytes``;
+30. the pod and data axes in serving (ROADMAP A9.5), qwen3-0.6b at full
+   width and depth, fp32, gloo processes sharing the card: (a)
+   ``launch.multihost --mode serve --multi-pod`` at its defaults (K=7
+   S=2 E=0, 8 slots: 72 streams, 2 decode calls) on (pod, worker, model)
+   = (2, 1, 1) and (2, 3, 1), against the same pool with no mesh; (b)
+   phase 23's batch E=1 round and the worker-major slot pool on (data 2,
+   model 2); (c) the worker-major batch E=1 round at K=4 S=2 (24 streams)
+   on (pod 2, worker 2); each against the same with no mesh under phase
+   24's rules, each rank's caches its block of the no-mesh caches (its
+   streams in the reference's "batch" order, worker outermost, and its
+   kv-heads), per-rank launches held and printed, each call's bytes by
+   group and op equal to ``batch_axes_bytes``, the card's peak memory.
 
 Each phase prints its wall time.
 
@@ -302,7 +315,8 @@ also ``model_par_2``: their launches on each rank of phase 24's (worker
 1, model 2) multihost run and batch round, and B3 and B5's fp32 numbers
 of phase 22 at a rank's heads and the whole model's; and
 ``model_par_16``: their launches on each rank of phase 27's runs, and B4
-and B5's fp32 block-form numbers of phase 26 on one 16-slot block; B3's,
+and B5's fp32 block-form numbers of phase 26 on one 16-slot block; and
+``batch_axes``: their launches on each rank of every phase-30 run; B3's,
 its backward's and its Delta launch's also ``train_mesh``: their fp32
 numbers of phase 28 at a model-2 rank's training heads and their
 launches on each rank of phases 28 and 29's runs);
@@ -502,6 +516,21 @@ MP2_KERNELS = ("berrut_apply", "berrut_encode_dispatch", "fused_group_decode",
 # would keep the whole ring), and the multihost serve at its defaults
 # (K=7 S=2 E=0) over MP16_SLOTS group slots for MP16_STEPS decode calls
 MP16, MP16_SLOTS, MP16_STEPS = 16, 2, 2
+# phase 27 runs qwen3-0.6b at full width and MP16_LAYERS of its 28
+# layers, to keep the whole run inside its limit
+MP16_LAYERS = 4
+# The batch axes in serving (phase 30): qwen3-0.6b at full width and
+# depth, fp32, gloo processes sharing cuda:0.  (a) ``multihost --mode
+# serve --multi-pod`` at its defaults (K=7 S=2 E=0 over MH_SLOTS slots:
+# 72 streams) for BA_STEPS decode calls on each (pod, worker, model) of
+# BA_MULTIHOST; (b) phase 23's batch E=1 round and the worker-major slot
+# pool (``mesh_rounds(pool=True)``) on (data, model) = BA_DATA_MESH;
+# (c) the worker-major batch E=1 round at BA_WM's (K, S, E) (12 streams a
+# group, 24 in all) on (pod 2, worker BA_WM_WORKERS)
+BA_MULTIHOST = ((2, 1, 1), (2, 3, 1))
+BA_STEPS = 2
+BA_DATA_MESH = (2, 2)
+BA_WM, BA_WM_WORKERS = (4, 2, 1), 2
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -934,6 +963,10 @@ class Smoke:
         mesh_trained["multihost"] = self.phase(
             f"{TRAIN_ARCH} multihost --mode train --model-par 2",
             self.train_mesh_multihost)
+        self.free_memory()
+        batch_axes = self.phase(
+            "qwen3-0.6b pod and data axes in serving, ranks sharing the card",
+            self.batch_axes)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -968,7 +1001,9 @@ class Smoke:
                 **(self.ssd_train_launches(name, trained)
                    if name.startswith("ssd_") else {}),
                 **({"model_par_2": self.mp2_entry(name, mesh_launches),
-                    "model_par_16": self.mp16_entry(name, mp16_launches)}
+                    "model_par_16": self.mp16_entry(name, mp16_launches),
+                    "batch_axes": {run: [r[name] for r in ranks]
+                                   for run, ranks in batch_axes.items()}}
                    if name in MP2_KERNELS else {}),
             })
         entries += [dict(self.train_entry(name, trained[TRAIN_ARCH]),
@@ -2729,15 +2764,18 @@ class Smoke:
             emit(out)
 
     def expected_launches(self, arch: str, prefills: int, decodes: int,
-                          pool: bool, worker_major: bool = False) -> dict:
+                          pool: bool, worker_major: bool = False,
+                          layers: int = 0) -> dict:
         """Launches of every kernel over ``prefills`` prefill and
         ``decodes`` decode calls of ``arch``: one encode (B6 when worker-
         major, else B1) and one tail per call, and each call's kernels of
-        ``PATH_KERNELS`` (which must agree with the config's pattern)."""
+        ``PATH_KERNELS`` (which must agree with the config's pattern), or
+        of a dense decoder cut to ``layers``."""
         from repro_torch import configs
         from repro_torch.kernels import ops
-        table = PATH_KERNELS[arch]
-        if table != pattern_kernels(configs.get_config(arch)):
+        table = per_call(layers, 0) if layers else PATH_KERNELS[arch]
+        if not layers and \
+                table != pattern_kernels(configs.get_config(arch)):
             raise AssertionError(f"{arch}: PATH_KERNELS {table} is not its "
                                  "layer pattern's")
         out = {name: 0 for name in ops.KERNELS}
@@ -5520,16 +5558,17 @@ class Smoke:
 
     # ------------------------------------------------- the serving mesh
 
-    def mesh_inputs(self, cfg) -> dict:
+    def mesh_inputs(self, cfg, coding_args=(K, S, E)) -> dict:
         """The batch E=1 round's inputs on the card, drawn from
         ``MESH_SEED``: MESH_GROUPS groups of K prompts of MESH_PROMPT
         tokens, MESH_STEPS fixed next tokens, one straggler, a sigma-10
-        attacker and its (G, N+1, V) noise."""
+        attacker and its (G, N+1, V) noise, at ``coding_args`` (K, S,
+        E)."""
         torch = self.torch
         from repro_torch.core.berrut import CodingConfig
-        n1 = CodingConfig(k=K, s=S, e=E).num_workers
+        n1 = CodingConfig(*coding_args).num_workers
         gen = torch.Generator(self.dev).manual_seed(MESH_SEED)
-        rows = MESH_GROUPS * K
+        rows = MESH_GROUPS * coding_args[0]
         mask = torch.ones(n1, device=self.dev)
         mask[MESH_STRAGGLER] = 0.0
         byz = torch.zeros(n1, device=self.dev)
@@ -5544,55 +5583,59 @@ class Smoke:
                 "noise": torch.randn((MESH_GROUPS, n1, cfg.vocab_size),
                                      generator=gen, device=self.dev)}
 
-    def mesh_children(self, jobs: list, tag: str) -> list:
+    def mesh_children(self, jobs: list, tag: str,
+                      together: bool = False) -> list:
         """Start one process per rank of every job in ``jobs`` (each a
         dict with "world"; the processes share cuda:0 over gloo), one job
-        after another, each rank's output to its log beside its results.
-        A rank that fails, or a job that outlives MESH_TIMEOUT_S, fails
-        the phase at once (every rank of the job is killed).  Returns
-        each job's per-rank results."""
+        after another or with ``together`` all at once, each rank's
+        output to its log beside its results.  A rank that fails, or a
+        batch of jobs that outlives MESH_TIMEOUT_S, fails the phase at
+        once (every rank of the batch is killed).  Returns each job's
+        per-rank results."""
         out = []
-        for j, job in enumerate(jobs):
-            work = ROOT / "build" / "mesh" / f"{tag}{j}"
-            if work.exists():
-                for old in work.iterdir():
-                    old.unlink()
-            work.mkdir(parents=True, exist_ok=True)
-            (work / "job.json").write_text(json.dumps(job))
-            logs = [work / f"rank{r}.log" for r in range(job["world"])]
-            procs = []
+        for batch in ([list(enumerate(jobs))] if together
+                      else [[jj] for jj in enumerate(jobs)]):
+            works, procs = [], []
             try:
-                for r, log in enumerate(logs):
-                    with open(log, "w") as f:
-                        procs.append(subprocess.Popen(
-                            [sys.executable, str(ROOT / "chip_smoke.py"),
-                             "--mesh-rank", str(r), str(work)], stdout=f,
-                            stderr=subprocess.STDOUT))
+                for j, job in batch:
+                    work = ROOT / "build" / "mesh" / f"{tag}{j}"
+                    if work.exists():
+                        for old in work.iterdir():
+                            old.unlink()
+                    work.mkdir(parents=True, exist_ok=True)
+                    (work / "job.json").write_text(json.dumps(job))
+                    works.append((j, work, job["world"]))
+                    for r in range(job["world"]):
+                        with open(work / f"rank{r}.log", "w") as f:
+                            procs.append((j, r, work / f"rank{r}.log",
+                                          subprocess.Popen(
+                                [sys.executable, str(ROOT / "chip_smoke.py"),
+                                 "--mesh-rank", str(r), str(work)],
+                                stdout=f, stderr=subprocess.STDOUT)))
                 deadline = time.monotonic() + MESH_TIMEOUT_S
-                while any(p.poll() is None for p in procs):
+                while any(p.poll() is None for *_, p in procs):
                     free, total = self.torch.cuda.mem_get_info(self.dev)
                     self.mesh_peak = max(self.mesh_peak, total - free)
-                    failed = [r for r, p in enumerate(procs)
+                    failed = [(j, r, log) for j, r, log, p in procs
                               if p.poll() not in (None, 0)]
                     if failed or time.monotonic() > deadline:
-                        r = failed[0] if failed else 0
+                        j, r, log = failed[0] if failed else procs[0][:3]
                         raise AssertionError(
                             f"{tag} job {j} rank {r} "
                             f"{'failed' if failed else 'timed out'}:\n"
-                            f"{logs[r].read_text()[-4000:]}")
+                            f"{log.read_text()[-4000:]}")
                     time.sleep(0.2)
             finally:
-                for p in procs:
+                for *_, p in procs:
                     if p.poll() is None:
                         p.kill()
                         p.wait()
-            for r, p in enumerate(procs):
+            for j, r, log, p in procs:
                 if p.returncode != 0:
                     raise AssertionError(f"{tag} job {j} rank {r} failed:\n"
-                                         f"{logs[r].read_text()[-4000:]}")
-            out.append([self.torch.load(work / f"rank{r}.pt",
-                                        weights_only=False)
-                        for r in range(job["world"])])
+                                         f"{log.read_text()[-4000:]}")
+            out += [[self.torch.load(work / f"rank{r}.pt", weights_only=False)
+                     for r in range(world)] for _, work, world in works]
         return out
 
     def mesh_one_rank(self) -> dict:
@@ -6068,8 +6111,8 @@ class Smoke:
                     table=self.kernels_mp16)
 
     def mesh_ring16(self) -> dict:
-        """Phase 27: qwen3-0.6b at full width and depth, fp32, on a (worker,
-        model) = (1, MP16) mesh, MP16 gloo processes sharing cuda:0, each
+        """Phase 27: qwen3-0.6b at full width and MP16_LAYERS layers, fp32,
+        on a (worker, model) = (1, MP16) mesh, MP16 gloo processes sharing cuda:0, each
         holding 16 of the MH_WIDTH ring slots of every kv-head: the batch
         E=1 round (``mesh_rounds`` over a MH_WIDTH-slot ring) and
         ``multihost --mode serve --model-par 16`` (``mesh_multihost_argv``),
@@ -6085,7 +6128,8 @@ class Smoke:
         from repro_torch.core.berrut import CodingConfig
         from repro_torch.models.model import init_params
         cfg = configs.get_config("qwen3-0.6b").with_updates(
-            param_dtype="float32", activation_dtype="float32")
+            param_dtype="float32", activation_dtype="float32",
+            num_layers=MP16_LAYERS)
         tokens, pool_logits = self.plain_pool(cfg, MH_S, MP16_SLOTS,
                                               MP16_STEPS)
         inputs = self.mesh_inputs(cfg)
@@ -6102,14 +6146,16 @@ class Smoke:
         t0 = time.perf_counter()
         ranks = self.mesh_children([{
             "kind": "ring16", "world": MP16, "model": MP16, "batch": True,
-            "max_len": MH_WIDTH, "inputs": str(path)}], "ring16-")[0]
+            "max_len": MH_WIDTH, "layers": MP16_LAYERS,
+            "inputs": str(path)}], "ring16-")[0]
         wall = time.perf_counter() - t0
         shown = MP2_KERNELS
         n = MH_WIDTH // MP16
         # the multihost serve
-        where = f"multihost serve qwen3-0.6b fp32 W=1 M={MP16} (gloo)"
+        where = (f"multihost serve qwen3-0.6b fp32 {MP16_LAYERS} layers W=1 "
+                 f"M={MP16} (gloo)")
         want = self.expected_launches("qwen3-0.6b", 1, MP16_STEPS, pool=True,
-                                      worker_major=True)
+                                      worker_major=True, layers=MP16_LAYERS)
         for r, res in enumerate(ranks):
             if not np.array_equal(res["tokens"], ranks[0]["tokens"]):
                 raise AssertionError(f"{where}: rank {r}'s tokens differ")
@@ -6131,10 +6177,11 @@ class Smoke:
         streams = MP16_SLOTS * coding.num_workers
         for kind, calls in ranks[0]["call_bytes"].items():
             for i, got in enumerate(calls):
-                bytes_equal(f"{where} {kind} call {i}", got, model_axis_bytes(
-                    cfg, MP16, MP16_SLOTS * MH_K, streams,
-                    MH_PROMPT if kind == "prefill" else 1,
-                    kind == "decode"))
+                groups_equal(f"{where} {kind} call {i}", got, {
+                    "model": model_axis_bytes(
+                        cfg, MP16, MP16_SLOTS * MH_K, streams,
+                        MH_PROMPT if kind == "prefill" else 1,
+                        kind == "decode")})
         ms = ranks[0]["call_ms"]
         emit({"mesh_run": where, "ranks": MP16,
               "tokens_held_calls": held,
@@ -6146,8 +6193,10 @@ class Smoke:
               "prefill_ms_gloo_over_host": ms["prefill"][0],
               "decode_ms_gloo_over_host": ms["decode"]})
         # the batch E=1 round
-        where = f"batch E=1 round qwen3-0.6b fp32 model {MP16} (gloo)"
-        want = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS, pool=False)
+        where = (f"batch E=1 round qwen3-0.6b fp32 {MP16_LAYERS} layers "
+                 f"model {MP16} (gloo)")
+        want = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS, pool=False,
+                                      layers=MP16_LAYERS)
         worst, cache_worst = 0.0, 0.0
         for r, res in enumerate(ranks):
             if res["batch_launches"] != want:
@@ -6183,6 +6232,192 @@ class Smoke:
                                        for res in ranks]})
         return {"multihost": [res["launches"] for res in ranks],
                 "batch": [res["batch_launches"] for res in ranks]}
+
+    def batch_axes(self) -> dict:
+        """Phase 30: the batch axes in serving (ROADMAP A9.5), qwen3-0.6b
+        at full width and depth, fp32, gloo processes sharing cuda:0: (a) ``multihost --mode serve --multi-pod`` on
+        each (pod, worker, model) of BA_MULTIHOST against the same pool
+        with no mesh (``plain_pool``); (b) the batch E=1 round and the
+        worker-major slot pool on (data, model) = BA_DATA_MESH and (c)
+        the worker-major batch E=1 round at BA_WM on (pod 2, worker
+        BA_WM_WORKERS), each against the same with no mesh on the card
+        ((a)'s ranks together, then (b)'s and (c)'s).
+        Phase 24's rules: every rank's tokens the same and held up to the
+        first near tie, decoded logits within MESH_TOL, verdicts equal;
+        each rank's caches its block of the no-mesh caches (its streams in
+        the "batch" order, ``partitioning.batch_block``, and its
+        kv-heads); per-rank launches held to the one-rank tables and
+        printed; each call's collective bytes by group and op equal to
+        ``batch_axes_bytes``; each call's wall time (gloo over the host)
+        and the card's peak memory printed.  Returns the per-rank
+        launches of every run."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models import partitioning
+        from repro_torch.models.model import init_params
+        cfg = configs.get_config("qwen3-0.6b").with_updates(
+            param_dtype="float32", activation_dtype="float32")
+        tokens, pool_logits = self.plain_pool(cfg, MH_S, MH_SLOTS, BA_STEPS)
+        inputs = self.mesh_inputs(cfg)
+        wm_inputs = self.mesh_inputs(cfg, BA_WM)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+            MESH_SEED), self.dev)
+        plain = mesh_rounds(cfg, params, inputs, pool=True, caches=True)
+        plain_wm = mesh_rounds(cfg, params, wm_inputs, caches=True,
+                               coding_args=BA_WM, worker_major=True)
+        del params
+        self.free_memory()
+        paths = {}
+        for name, inp in (("data", inputs), ("wm", wm_inputs)):
+            paths[name] = ROOT / "build" / "mesh" / f"inputs-ba-{name}.pt"
+            paths[name].parent.mkdir(parents=True, exist_ok=True)
+            torch.save({k: v.cpu() for k, v in inp.items()}, paths[name])
+        d, m = BA_DATA_MESH
+        jobs = [{"kind": "multi_pod", "world": p * w * mm, "model": mm}
+                for p, w, mm in BA_MULTIHOST]
+        jobs += [{"kind": "data_pool", "world": d * m, "model": m,
+                  "data": d, "batch": True, "pool": True, "caches": True,
+                  "inputs": str(paths["data"])},
+                 {"kind": "pod_wm", "world": 2 * BA_WM_WORKERS, "model": 1,
+                  "multi_pod": True, "workers": BA_WM_WORKERS,
+                  "batch": True, "caches": True, "coding": list(BA_WM),
+                  "worker_major": True, "inputs": str(paths["wm"])}]
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        # (a)'s ranks at once, then (b)'s and (c)'s: each half holds the
+        # card's memory to about half of it
+        cut = len(BA_MULTIHOST)
+        runs = (self.mesh_children(jobs[:cut], "batch-axes-a", together=True)
+                + self.mesh_children(jobs[cut:], "batch-axes-bc",
+                                     together=True))
+        wall = time.perf_counter() - t0
+        shown = MP2_KERNELS
+        out = {}
+        # (a) the multihost serve on a pod axis
+        want = self.expected_launches("qwen3-0.6b", 1, BA_STEPS, pool=True,
+                                      worker_major=True)
+        coding = CodingConfig(k=MH_K, s=MH_S, e=0)
+        vocab = cfg.vocab_size
+        for (p, w, mm), ranks in zip(BA_MULTIHOST, runs):
+            where = (f"multihost serve --multi-pod qwen3-0.6b fp32 (pod, "
+                     f"worker, model) = ({p}, {w}, {mm}) (gloo)")
+            for r, res in enumerate(ranks):
+                if not np.array_equal(res["tokens"], ranks[0]["tokens"]):
+                    raise AssertionError(f"{where}: rank {r}'s tokens differ")
+                if res["launches"] != want:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != {want}")
+            held = near_tie_rows(where, ranks[0]["tokens"], tokens,
+                                 pool_logits)
+            # the tail reduce-scatters the vocabulary where W divides it
+            # (a rank then decodes its worker's block), else all-reduces
+            vloc = vocab // w if vocab % w == 0 else vocab
+            worst = 0.0
+            for r, res in enumerate(ranks):
+                if len(res["pool_logits"]) != len(pool_logits):
+                    raise AssertionError(
+                        f"{where} rank {r}: {len(res['pool_logits'])} "
+                        f"decoded calls, no mesh had {len(pool_logits)}")
+                wr = (r // mm) % w
+                cols = slice(wr * vloc, (wr + 1) * vloc) if vloc < vocab \
+                    else slice(None)
+                for i in range(min(held + 1, len(pool_logits))):
+                    worst = max(worst, logits_share(
+                        f"{where} rank {r} call {i}", res["pool_logits"][i],
+                        pool_logits[i][:, cols]))
+                for kind, calls in res["call_bytes"].items():
+                    for i, got in enumerate(calls):
+                        groups_equal(f"{where} rank {r} {kind} call {i}",
+                                     got, batch_axes_bytes(
+                                         coding, MH_SLOTS, vocab, p, w, 1,
+                                         True, sampled=True))
+            ms = ranks[0]["call_ms"]
+            emit({"mesh_run": where, "ranks": p * w * mm,
+                  "tokens_held_calls": held,
+                  "pool_logits_worst_err_over_tol": worst,
+                  "launches_per_rank": [{k: res["launches"][k]
+                                         for k in shown} for res in ranks],
+                  "collective_bytes_per_call": ranks[0]["call_bytes"],
+                  "bytes_equal_analytic": True,
+                  "prefill_ms_gloo_over_host": ms["prefill"][0],
+                  "decode_ms_gloo_over_host": ms["decode"]})
+            out[f"multihost ({p}, {w}, {mm})"] = [res["launches"]
+                                                  for res in ranks]
+        # (b) the batch round and the slot pool on the data axis, and (c)
+        # the worker-major batch round on (pod 2, worker 2)
+        b_ranks, c_ranks = runs[len(BA_MULTIHOST):]
+        names = {"b": (("data", "model"), BA_DATA_MESH),
+                 "c": (("pod", "worker", "model"), (2, BA_WM_WORKERS, 1))}
+        for part, ranks, want_runs, coding_args in (
+                ("b", b_ranks, plain, (K, S, E)),
+                ("c", c_ranks, plain_wm, BA_WM)):
+            axes, shape = names[part]
+            coding = CodingConfig(*coding_args)
+            kinds = ("batch", "pool") if part == "b" else ("batch",)
+            wm_batch = part == "c"
+            where = (f"qwen3-0.6b fp32 K={coding.k} S={coding.s} "
+                     f"E={coding.e} on {dict(zip(axes, shape))} (gloo)")
+            worst = cache_worst = 0.0
+            for r, res in enumerate(ranks):
+                mesh = partitioning.Mesh(axes, shape, r)
+                for kind in kinds:
+                    wm_run = kind == "pool" or wm_batch
+                    launches = self.expected_launches(
+                        "qwen3-0.6b", 1, MESH_STEPS, pool=kind == "pool",
+                        worker_major=wm_run)
+                    if res[kind + "_launches"] != launches:
+                        raise AssertionError(
+                            f"{where} {kind} rank {r}: launches "
+                            f"{res[kind + '_launches']} != {launches}")
+                    worst = max(worst, hold_calls(
+                        f"{where} {kind} rank {r}", res[kind],
+                        want_runs[kind]))
+                    for i, (mine, whole) in enumerate(zip(
+                            res[kind + "_caches"],
+                            want_runs[kind + "_caches"])):
+                        for name, leaf in whole.items():
+                            lo, n = partitioning.batch_block(leaf.shape[1],
+                                                             mesh)
+                            kv = leaf.shape[3] // mesh.size("model")
+                            c0 = mesh.coord("model") * kv
+                            cache_worst = max(cache_worst, logits_share(
+                                f"{where} {kind} rank {r} run {i} cache "
+                                f"{name} (its block)", mine[name],
+                                leaf[:, lo:lo + n, :, c0:c0 + kv]))
+                    for i, got in enumerate(res[kind + "_bytes"]):
+                        groups_equal(
+                            f"{where} {kind} rank {r} call {i}", got,
+                            batch_axes_bytes(
+                                coding, MESH_GROUPS, vocab,
+                                mesh.size("pod") * mesh.size("data"),
+                                mesh.size("worker"), mesh.size("model"),
+                                wm_run, cfg=cfg,
+                                seq=MESH_PROMPT if i == 0 else 1))
+            emit({"mesh_run": where, "parts": kinds,
+                  "worst_err_over_tol": worst,
+                  "caches": "stream blocks in the batch order, kv-head "
+                            "blocks", "caches_worst_err_over_tol": cache_worst,
+                  "launches_per_rank": {kind: [{k: res[kind + "_launches"][k]
+                                                for k in shown}
+                                               for res in ranks]
+                                        for kind in kinds},
+                  "collective_bytes_per_call": {
+                      kind: ranks[0][kind + "_bytes"] for kind in kinds},
+                  "bytes_equal_analytic": True,
+                  "call_ms_gloo_over_host": {kind: ranks[0][kind + "_ms"]
+                                             for kind in kinds}})
+            for kind in kinds:
+                out[f"{kind} {dict(zip(axes, shape))}"] = [
+                    res[kind + "_launches"] for res in ranks]
+        emit({"batch_axes": "gloo ranks on one card, (a) at once, then (b) "
+                             "and (c)",
+              "ranks": sum(job["world"] for job in jobs),
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9,
+              "rank_max_reserved_gb": [res["max_reserved"] / 1e9
+                                       for ranks in runs for res in ranks]})
+        return out
 
     def mp16_entry(self, name: str, launches: dict) -> dict:
         """The kernels line's ``model_par_16`` numbers of ``name``: its
@@ -6476,6 +6711,57 @@ def mesh_multihost_argv(store, world: int, rank: int, model: int,
             "--backend", backend]
 
 
+def batch_axes_bytes(coding, groups: int, vocab: int, b: int, w: int,
+                     m: int, worker_major: bool, sampled: bool = False,
+                     cfg=None, seq: int = 1) -> dict:
+    """Per-rank bytes by group and op of one serving call (fp32, the ring
+    accounting of ``partitioning.WorkerGroup``) on a mesh of ``b`` ranks
+    over the batch axes ("pod", "data"), ``w`` workers and ``m`` model
+    ranks (the model dividing the kv-heads), ``groups`` groups:
+    "fsdp" (the batch group) all-gathers the (streams, V) coded logits of
+    the padded group-major streams, or worker-major of the worker's
+    block; on a worker axis the survivor tail (gather width N+1)
+    all-gathers the (N+1, G, C_vote) vote columns at E > 0, then where W
+    divides V reduce-scatters the (N+1, G, V) survivor buffer over the
+    vocabulary and all-gathers the (G K, V) decoded rows, or with
+    ``sampled`` (greedy) each row's best value and index, else
+    all-reduces the buffer; "model" (``cfg``, ``seq`` tokens a stream)
+    ``model_axis_bytes`` of a rank's streams."""
+    n1 = coding.num_workers
+    rows = groups * n1 // w if worker_major else -(-groups * n1 // b) * b
+    out = {}
+    if b > 1:
+        out["fsdp"] = {"all-gather": (b - 1) / b * 4 * rows * vocab}
+    if w > 1:
+        tail = {"all-gather": (w - 1) / w * 4 * n1 * groups * coding.c_vote
+                if coding.e else 0.0}
+        if vocab % w == 0:
+            tail["reduce-scatter"] = (w - 1) * 4 * n1 * groups * vocab / w
+            tail["all-gather"] += (w - 1) / w * 4 * groups * coding.k \
+                * (2 if sampled else vocab)
+        else:
+            tail["all-reduce"] = 2 * (w - 1) / w * 4 * n1 * groups * vocab
+        out["worker"] = tail
+    if m > 1:
+        streams = rows // b if worker_major else rows // (b * w)
+        out["model"] = model_axis_bytes(cfg, m, groups * coding.k, streams,
+                                        seq, False)
+    for ops in out.values():
+        ops["total"] = sum(v for k, v in ops.items() if k != "total")
+    return out
+
+
+def groups_equal(where: str, got: dict, want: dict) -> None:
+    """A call's collective bytes by group and op equal to the analytic
+    count: every group that moved bytes is counted, and each op holds."""
+    moved = {g for g, ops in got.items() if ops.get("total", 0.0)}
+    if moved != set(want):
+        raise AssertionError(f"{where}: groups {sorted(moved)} moved bytes, "
+                             f"the count has {sorted(want)}")
+    for group, ops in want.items():
+        bytes_equal(f"{where} {group}", got[group], ops)
+
+
 def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
                      decode: bool) -> dict:
     """Per-rank bytes of one serving call of a dense decoder on an
@@ -6597,26 +6883,31 @@ def mesh_h2o_config(configs):
 
 def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
                 max_len: int = MESH_PROMPT + MESH_STEPS + 2,
-                caches: bool = False) -> dict:
-    """The batch E=1 round over a ``max_len`` ring: ``coded_prefill`` and
-    MESH_STEPS ``coded_decode_step``s on ``inputs``' fixed next tokens;
-    with ``pool`` also the slot pool's worker-major prefill (every slot
-    admitted) and MESH_STEPS decode rounds on the same tokens, and both
-    runs' caches (with ``caches``, the batch round's).  On the active
-    mesh, if any.  Returns each call's (logits, located) on the host, each
-    run's launches, and on a mesh each call's collective bytes by axis and
-    op and its wall time (ms, ending in a sync)."""
+                caches: bool = False, coding_args=(K, S, E),
+                worker_major: bool = False) -> dict:
+    """The batch E=1 round over a ``max_len`` ring at ``coding_args``
+    (K, S, E): ``coded_prefill`` and MESH_STEPS ``coded_decode_step``s on
+    ``inputs``' fixed next tokens, group-major or with ``worker_major``
+    worker-major (gather width N+1); with ``pool`` also the slot pool's
+    worker-major prefill (every slot admitted) and MESH_STEPS decode
+    rounds on the same tokens, and both runs' caches (with ``caches``,
+    the batch round's).  On the active mesh, if any.  Returns each call's
+    (logits, located) on the host, each run's launches, and on a mesh
+    each call's collective bytes by axis and op and its wall time (ms,
+    ending in a sync)."""
     import torch
     from repro_torch.core.berrut import CodingConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.worker_mesh import WorkerShardConfig
     from repro_torch.models import partitioning
     from repro_torch.serving import coded_serving as cs
-    coding = CodingConfig(k=K, s=S, e=E)
+    coding = CodingConfig(*coding_args)
     mesh = partitioning.active_mesh()
     dev = inputs["tokens"].device
+    ws = WorkerShardConfig(gather_width=coding.num_workers)
     kw = dict(straggler_mask=inputs["mask"], byz_mask=inputs["byz"],
               byz_noise=inputs["noise"], byz_sigma=10.0, with_report=True)
+    bkw = dict(kw, wshard=ws if worker_major else None)
     out = {}
 
     def run(kind, first, step):
@@ -6644,11 +6935,11 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
             if pool or caches else None
 
     run("batch", lambda: cs.coded_prefill(
-        cfg, coding, params, {"tokens": inputs["tokens"]}, max_len, **kw),
-        lambda st, t: cs.coded_decode_step(cfg, coding, params, st, t, **kw))
+        cfg, coding, params, {"tokens": inputs["tokens"]}, max_len, **bkw),
+        lambda st, t: cs.coded_decode_step(cfg, coding, params, st, t,
+                                           **bkw))
     if pool:
-        ws = WorkerShardConfig(gather_width=coding.num_workers)
-        groups = inputs["tokens"].shape[0] // K
+        groups = inputs["tokens"].shape[0] // coding.k
         state = cs.init_pool_state(cfg, coding, groups, max_len, dev,
                                    wshard=ws)
         fresh = cs.init_caches(cfg, cs.pool_streams(coding, groups, ws),
@@ -6734,7 +7025,7 @@ def mesh_child(rank: int, work: Path) -> int:
     from repro_torch.kernels import ops
     from repro_torch.launch import multihost, shardings
     from repro_torch.launch import worker_mesh as wm
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh, make_worker_mesh
     from repro_torch.models import partitioning
     from repro_torch.models.model import init_params
     job = json.loads((work / "job.json").read_text())
@@ -6751,43 +7042,56 @@ def mesh_child(rank: int, work: Path) -> int:
             str(world), "--process-id", str(rank), "--model-par",
             str(model)])
         out.update(res, launches=ops.launch_counts())
-    elif job["kind"] in ("multihost", "ring16"):
+    elif job["kind"] in ("multihost", "ring16", "multi_pod"):
         # each call's decoded logits, as the decode tail leaves them to
         # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
         decoded = []
         real = wm._decode_rows
+        get_config = configs.get_config
 
         def decode_rows(*args, **kw):
             dec = real(*args, **kw)
             decoded.append(dec.float().cpu())
             return dec
 
-        argv = (mesh_multihost_argv(work / "store", world, rank, model,
-                                    backend="gloo")
-                if job["kind"] == "multihost" else mesh_multihost_argv(
+        argv = {"multihost": lambda: mesh_multihost_argv(
+                    work / "store", world, rank, model, backend="gloo"),
+                "ring16": lambda: mesh_multihost_argv(
                     work / "store", world, rank, model, backend="gloo",
-                    s=MH_S, steps=MP16_STEPS, slots=MP16_SLOTS))
+                    s=MH_S, steps=MP16_STEPS, slots=MP16_SLOTS),
+                "multi_pod": lambda: mesh_multihost_argv(
+                    work / "store", world, rank, model, backend="gloo",
+                    s=MH_S, steps=BA_STEPS) + ["--multi-pod"]}[job["kind"]]()
         ops.reset_launch_counts()
         wm._decode_rows = decode_rows
+        if job.get("layers"):            # the launcher's model, cut in depth
+            configs.get_config = lambda arch: get_config(arch).with_updates(
+                num_layers=job["layers"])
         try:
             res = multihost.main(argv)
         finally:
             wm._decode_rows = real
+            configs.get_config = get_config
         out.update(tokens=res["tokens"], pool_logits=decoded,
                    call_ms=res["call_ms"],
                    call_bytes=res["call_bytes"],
                    launches=ops.launch_counts())
+        torch.cuda.empty_cache()         # the whole weights, now freed
+    if job["kind"] == "h2o":
+        cfg = mesh_h2o_config(configs)
+    else:
         cfg = configs.get_config("qwen3-0.6b").with_updates(
             param_dtype="float32", activation_dtype="float32")
-        torch.cuda.empty_cache()         # the whole weights, now freed
-    else:
-        cfg = mesh_h2o_config(configs)
+        if job.get("layers"):
+            cfg = cfg.with_updates(num_layers=job["layers"])
     if job.get("batch") or job["kind"] == "h2o":
         inputs = {k: v.to(dev) for k, v in torch.load(job["inputs"]).items()}
         dist.init_process_group("gloo", init_method=f"file://{work}/store2",
                                 world_size=world, rank=rank)
         try:
-            mesh = make_host_mesh(model=model)
+            mesh = (make_worker_mesh(job["workers"], model, multi_pod=True)
+                    if job.get("multi_pod") else
+                    make_host_mesh(data=job.get("data", 1), model=model))
             params = init_params(cfg, torch.Generator(dev).manual_seed(
                 MESH_SEED), dev)
             with partitioning.mesh_context(mesh):
@@ -6795,9 +7099,13 @@ def mesh_child(rank: int, work: Path) -> int:
                     params, shardings.serving_param_specs(mesh, cfg, params),
                     mesh)
                 out.update(mesh_rounds(
-                    cfg, params, inputs, pool=job["kind"] == "h2o",
+                    cfg, params, inputs,
+                    pool=job["kind"] == "h2o" or job.get("pool", False),
                     max_len=job.get("max_len", MESH_PROMPT + MESH_STEPS + 2),
-                    caches=job["kind"] == "ring16"))
+                    caches=job["kind"] == "ring16" or job.get("caches",
+                                                              False),
+                    coding_args=tuple(job.get("coding", (K, S, E))),
+                    worker_major=job.get("worker_major", False)))
         finally:
             dist.destroy_process_group()
     out["max_reserved"] = torch.cuda.max_memory_reserved(dev)

@@ -44,13 +44,18 @@ def make_train_mesh(data: int = 1, model: int = 1, *,
     return build_mesh(("data", "model"), (data, model))
 
 
-def make_worker_mesh(workers: int, model: int = 1) -> Mesh:
+def make_worker_mesh(workers: int, model: int = 1, *,
+                     multi_pod: bool = False) -> Mesh:
     """Serving mesh: one rank per coded worker (x an optional model
     axis).  Each rank along "worker" owns a contiguous block of the N+1
     coded streams (worker-major layout), so a straggling or Byzantine
     worker is an actual process and the decode tail gathers only
     survivor shards; the ranks along "model" split its heads, MLP and
-    vocabulary."""
+    vocabulary.  ``multi_pod`` prepends a "pod" axis of 2, as
+    ``make_production_serving_mesh`` does: a worker's streams split over
+    its two pod ranks (``partitioning.batch_block``)."""
+    if multi_pod:
+        return build_mesh(("pod", "worker", "model"), (2, workers, model))
     return build_mesh(("worker", "model"), (workers, model))
 
 

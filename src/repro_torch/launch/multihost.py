@@ -18,19 +18,21 @@ reference:
   cannot hold 256 x 4096 tokens at full width (the logits alone would
   be hundreds of GB).
 
-``--mode serve`` runs the coded serving pool on a (worker, model) mesh:
-the ranks along "worker" each own a contiguous block of the
+``--mode serve`` runs the coded serving pool on a (worker, model) mesh,
+or with ``--multi-pod`` on ("pod", "worker", "model") with a pod axis of
+2: the ranks along "worker" each own a contiguous block of the
 worker-major coded streams (DESIGN.md §13), serve the slot pool's
-rounds on them and keep their caches; the ranks along "model"
+rounds on them and keep their caches, and on a pod axis each of a
+worker's two pod ranks keeps half of its block (the reference's "batch"
+order, ``partitioning.batch_block``); the ranks along "model"
 (``--model-par``) split each stream's heads, MLP and vocabulary (tensor
 parallelism), so one coded worker spans several devices.  The decode
 tail gathers only survivor shards (``launch.worker_mesh``).  The worker
-axis is the world size over ``--model-par``.  Every process runs the
-same program on the same prompts and gets the same token ids back.  The
-reference fixes the mesh at 16 workers x 16-way tensor parallel
-(``make_production_serving_mesh``); here it follows the process count.
-``--multi-pod`` in serve mode (the pod axis in serving) is refused
-(ROADMAP A9.5).
+axis is the world size over the pods and ``--model-par``.  Every
+process runs the same program on the same prompts and gets the same
+token ids back.  The reference fixes the mesh at 16 workers x 16-way
+tensor parallel (``make_production_serving_mesh``); here it follows the
+process count.
 
   # one process a rank (NCCL on the card, one card each):
   python -m repro_torch.launch.multihost --mode serve --model-par M \\
@@ -57,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import configs, resolve_device
+from repro_torch.models import partitioning
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
@@ -102,36 +105,42 @@ def host_worker_ranks(mesh) -> list:
 
 
 def global_pool_from_host_shard(mesh, host_pool: dict) -> dict:
-    """The global worker-major pool arrays from every process's rows:
-    each process holds the rows (the flat coded-stream axis first) of
-    its own worker rank, and the leading axis is all-gathered over the
-    "worker" axis.  Without one an array comes back unchanged."""
-    return {k: _gather_rows(mesh, v, ("worker",))
+    """The global pool arrays from every process's rows: each process
+    holds its block of the rows (the flat coded-stream axis first), and
+    the leading axis is all-gathered over the batch axes ("worker",
+    "pod", "data") in the reference's block order, worker outermost
+    (``partitioning.batch_block``).  Without them an array comes back
+    unchanged."""
+    return {k: _gather_rows(mesh, v, partitioning.DEFAULT_RULES["batch"])
             for k, v in host_pool.items()}
 
 
 def serve_main(args) -> dict:
-    """Coded serving pool on a (worker, model) mesh (``--mode serve``):
-    prefill every slot, then ``--steps`` decode rounds, all workers
-    answering.  Returns the (steps + 1, P*K) token ids, each call's wall
-    time (ms, ending in the call's host sync), and the collective bytes
-    by op of the whole run and of each call."""
+    """Coded serving pool on a ("pod",) "worker", "model" mesh (``--mode
+    serve``): prefill every slot, then ``--steps`` decode rounds, all
+    workers answering.  Returns the (steps + 1, P*K) token ids, each
+    call's wall time (ms, ending in the call's host sync), and the
+    collective bytes by op of the whole run and of each call by group
+    ("model", "worker", "fsdp": the batch group, ...) and op."""
     from repro_torch.core.berrut import CodingConfig
     from repro_torch.launch import shardings
     from repro_torch.launch.mesh import make_worker_mesh
     from repro_torch.launch.serve import refuse_frontends
     from repro_torch.launch.worker_mesh import WorkerShardConfig
-    from repro_torch.models import partitioning
     from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import check_batch_axes
+    from repro_torch.serving.coded_serving import pool_streams
     from repro_torch.serving.continuous import ContinuousLLMExecutor
 
     device = resolve_device(args.device)
     coding = CodingConfig(k=args.k, s=args.s, e=args.e)
     world = dist.get_world_size()
-    if world % args.model_par:
-        raise ValueError(f"{world} processes do not split into a "
-                         f"{args.model_par}-way model axis")
-    mesh = make_worker_mesh(world // args.model_par, args.model_par)
+    pods = 2 if args.multi_pod else 1
+    if world % (pods * args.model_par):
+        raise ValueError(f"{world} processes do not split into {pods} pods "
+                         f"x a {args.model_par}-way model axis")
+    mesh = make_worker_mesh(world // (pods * args.model_par), args.model_par,
+                            multi_pod=args.multi_pod)
     wsize = mesh.size("worker")
     if coding.num_workers % wsize:
         raise ValueError(
@@ -141,17 +150,24 @@ def serve_main(args) -> dict:
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     refuse_frontends(cfg)
+    check_batch_axes(cfg, pods)          # before the weights are built
     cfg = cfg.with_updates(param_dtype=args.dtype,
                            activation_dtype=args.dtype)
+    wshard = WorkerShardConfig(gather_width=coding.num_workers)
+    with partitioning.mesh_context(mesh):
+        # the pool's streams split over the pods unpadded, or raise
+        held = pool_streams(coding, args.pool_groups, wshard)
     ranks = host_worker_ranks(mesh)
     print(f"process {mesh.rank}: worker ranks {ranks} (streams/rank "
           f"{coding.num_workers // wsize} of {coding.num_workers}), model "
-          f"rank {mesh.coord('model')} of {mesh.size('model')} on {device}",
-          flush=True)
+          f"rank {mesh.coord('model')} of {mesh.size('model')} on {device}; "
+          f"pod rank {mesh.coord('pod')} of {pods}, pool streams {held} of "
+          f"{args.pool_groups * coding.num_workers}", flush=True)
     call_bytes = {"prefill": [], "decode": []}
 
     def count(kind):
-        call_bytes[kind].append(mesh.collective_bytes())
+        call_bytes[kind].append({name: group.collective_bytes()
+                                 for name, group in mesh.groups.items()})
         mesh.reset_bytes()
 
     with partitioning.mesh_context(mesh):
@@ -161,8 +177,7 @@ def serve_main(args) -> dict:
             params, shardings.serving_param_specs(mesh, cfg, params), mesh)
         ex = ContinuousLLMExecutor(
             cfg, coding, params, pool_groups=args.pool_groups,
-            max_len=args.max_len,
-            wshard=WorkerShardConfig(gather_width=coding.num_workers))
+            max_len=args.max_len, wshard=wshard)
         state = ex.init_state()
         g = args.pool_groups
         rng = np.random.RandomState(0)
@@ -188,8 +203,9 @@ def serve_main(args) -> dict:
               f"ms (wall clock)", flush=True)
     total = {}
     for per_call in call_bytes["prefill"] + call_bytes["decode"]:
-        for op, b in per_call.items():
-            total[op] = total.get(op, 0.0) + b
+        for ops in per_call.values():
+            for op, b in ops.items():
+                total[op] = total.get(op, 0.0) + b
     return {"tokens": np.stack(out), "call_ms": ex.call_ms,
             "collective_bytes": total, "call_bytes": call_bytes}
 
@@ -203,7 +219,6 @@ def train_main(args) -> dict:
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.launch.train import sharded_state
-    from repro_torch.models import partitioning
     from repro_torch.models.model import init_params
     from repro_torch.models.transformer import (check_batch_axes,
                                                 check_model_axis)
@@ -294,9 +309,6 @@ def main(argv: Optional[list] = None) -> dict:
                     help="torch device; default cuda (cpu runs gloo and "
                          "the plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.multi_pod and args.mode == "serve":
-        ap.error("--multi-pod in serve mode is not ported yet (the pod "
-                 "axis in serving, ROADMAP A9.5)")
     device = resolve_device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", args.process_id

@@ -107,7 +107,11 @@ def validate_layout(coding: CodingConfig, wshard: WorkerShardConfig) -> int:
 def rank_workers(coding: CodingConfig,
                  wshard: WorkerShardConfig) -> Tuple[int, int]:
     """(first worker, workers) of this rank's block of the worker-major
-    streams: all N+1 on the one-rank path."""
+    streams: all N+1 on the one-rank path.  The worker group's rank is
+    the mesh's "worker" coordinate on any mesh (its ranks differ in that
+    coordinate only, listed in its order), a pod or data axis included;
+    on those axes a rank holds a sub-block of this block
+    (``serving.coded_serving``)."""
     w = validate_layout(coding, wshard)
     nl = coding.num_workers // w
     return (partitioning.active_group().rank * nl if w > 1 else 0), nl

@@ -10,10 +10,12 @@ logical axes to mesh axes by the same rules, ``launch.shardings``
 slices a whole parameter tree to this rank's block, and the model code
 issues the collectives itself where a leaf is sharded (the "model" axis:
 ``ModelGroup``, whose collectives carry their backward: Megatron's
-conjugate pairs).  A training mesh also has an "fsdp" group, the ranks
-that share every coordinate but the batch axes ("pod", "data"), over
-which a step gathers the FSDP-sharded weights and reduces their
-gradients, and a "world" group for the global gradient norm.
+conjugate pairs).  A mesh also has an "fsdp" group, the ranks that share
+every coordinate but the batch axes ("pod", "data"), over which a
+training step gathers the FSDP-sharded weights and reduces their
+gradients, and serving gathers its blocks of the coded streams
+(``batch_group``, ``batch_block``), and a "world" group for the global
+gradient norm.
 ``mesh_context`` makes a mesh the active one; ``active_group()``
 returns its "worker" group, the serving code's choice between the
 worker-sharded tail and the one-rank path.  ``WorkerGroup`` wraps one
@@ -92,8 +94,8 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
 class WorkerGroup:
     """A ``torch.distributed`` process group as one mesh axis: on the
     "worker" axis rank r of W owns the r-th contiguous block of the
-    worker-major streams, on the "data" axis the r-th block of the
-    group-major ones.
+    worker-major streams; over the batch axes ("fsdp") rank r holds the
+    r-th sub-block of its worker's block (``batch_block``).
 
     ``bytes`` accumulates each collective's per-rank traffic under the
     ring algorithm, with B the output bytes of the op and n the group
@@ -433,6 +435,12 @@ def fsdp_group() -> Optional[WorkerGroup]:
     return None if _CTX.mesh is None else _CTX.mesh.group("fsdp")
 
 
+# Serving's name for the same group: the ranks that share a worker (and
+# model) coordinate, over which the batch steps gather their blocks of
+# the coded streams, in block order (``batch_block``).
+batch_group = fsdp_group
+
+
 def model_group() -> ModelGroup:
     """The active mesh's "model" group, which a sharded leaf needs."""
     group = None if _CTX.mesh is None else _CTX.mesh.group("model")
@@ -482,6 +490,28 @@ def padded_batch(n: int) -> int:
     whole streams of an even share."""
     p = axis_size("worker") * axis_size("pod") * axis_size("data")
     return -(-n // p) * p
+
+
+def batch_block(n: int, mesh: Optional[Mesh] = None) -> tuple:
+    """(start, length) of this rank's block of ``n`` rows sharded by the
+    "batch" rule (the reference's ``PartitionSpec`` of it): its
+    coordinates over ("worker", "pod", "data") read row-major, worker
+    outermost whatever the mesh's own axis order, block ``(w P + p) D +
+    d`` of ``W P D`` equal blocks.  On ``mesh``, else the active one; off
+    any mesh all ``n`` rows.  Raises where the axes do not divide
+    ``n``."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    if mesh is None:
+        return 0, n
+    idx, blocks = 0, 1
+    for a in DEFAULT_RULES["batch"]:
+        idx = idx * mesh.size(a) + mesh.coord(a)
+        blocks *= mesh.size(a)
+    if n % blocks:
+        raise ValueError(f"{n} rows do not split into {blocks} blocks over "
+                         f"the batch axes {DEFAULT_RULES['batch']}")
+    length = n // blocks
+    return idx * length, length
 
 
 def is_axes(x) -> bool:

@@ -70,17 +70,19 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
 
 
 def check_batch_axes(cfg: ModelConfig, batch: int) -> None:
-    """Raise unless ``cfg`` trains with its batch split ``batch`` ways
-    over the batch axes ("pod", "data"), where each rank's loss is a
-    share of the reference's over the whole batch: every family but the
-    MoE layer.  The MoE's load-balance loss is a product of means over
-    all the batch's tokens, and its dispatch groups and their capacity
-    follow the token count, so a split batch couples rows across ranks
-    in both."""
+    """Raise unless ``cfg`` runs with its batch split ``batch`` ways over
+    the batch axes ("pod", "data"), where each rank's rows are the
+    reference's rows of the whole batch: every family but the MoE layer.
+    Its dispatch groups and their capacity follow the token count, so a
+    rank's block of the batch keeps or drops other tokens than the whole
+    batch does, in training and in serving alike; in training its
+    load-balance loss is also a product of means over all the batch's
+    tokens."""
     if batch > 1 and "M" in cfg.layer_pattern:
         raise NotImplementedError(
-            f"{cfg.name}: training an MoE layer with the batch split "
-            f"{batch} ways (its load-balance loss and expert capacity "
+            f"{cfg.name}: an MoE layer with the batch split {batch} ways "
+            f"over the pod and data axes, in training or serving (its "
+            f"expert capacity, and in training its load-balance loss, "
             f"couple the rows of the whole batch) is ROADMAP A9.3")
 
 

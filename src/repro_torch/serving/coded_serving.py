@@ -10,14 +10,19 @@ N+1 coded streams per group, laid out group-major (stream
 (stream ``n*G + g``) and each rank of the active worker group holds,
 encodes, runs and caches only its own contiguous block of them; the
 round's tail is the survivor-only decode of ``launch.worker_mesh``.
-On an active mesh (``models.partitioning.mesh_context``) the batch
-steps pad the group-major streams to the product of its worker, pod and
-data axes (``num_padded_streams``: padding streams repeat stream 0), a
-rank of the "data" axis runs and caches its block of them, and the
-blocks are all-gathered before the locate-and-decode tail, which drops
-the padding first (``_real_streams``).  The "model" axis splits each
-stream's heads, MLP and vocabulary inside the model (``models``).  Off
-any mesh every rank runs the whole round, unpadded.
+On an active mesh (``models.partitioning.mesh_context``) the steps pad
+the group-major streams to the product of its worker, pod and data axes
+(``num_padded_streams``: padding streams repeat stream 0), and a rank
+runs and caches its block of them over those axes in the reference's
+"batch" order, worker outermost (``partitioning.batch_block``); the
+ranks of the "pod" and "data" axes that share a worker coordinate (the
+mesh's batch group) all-gather their blocks before the locate-and-decode
+tail, which drops the padding first (``_whole_streams``).  Worker-major
+streams are never padded: a rank keeps its pod/data sub-block of its
+worker's streams, and the gather gives back the worker's whole block,
+on which the survivor tail runs over "worker".  The "model" axis splits
+each stream's heads, MLP and vocabulary inside the model (``models``).
+Off any mesh every rank runs the whole round, unpadded.
 
 Re-planning stays data, not Python branches: the straggler mask, the
 operating point's ``live_mask`` and ``locate_quorum`` are tensors or
@@ -26,7 +31,8 @@ Byzantine noise with ``jax.random`` inside the step; here the caller
 passes the noise tensor in, so tests can hand both the same draw.
 
 The slot pool (DESIGN.md §10) keeps ``pool_groups * (N+1)`` coded-stream
-caches for the whole serving run: a group slot is live or free, never a
+caches for the whole serving run (on a mesh a rank's block of them,
+padded as the batch steps pad): a group slot is live or free, never a
 different shape.  The reference donates the pool state to its jitted
 steps; here the steps write the pool caches in place.
 """
@@ -48,6 +54,7 @@ from repro_torch.models import layers, partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, embed_inputs, init_caches,
                                       prefill)
+from repro_torch.models.transformer import check_batch_axes
 from repro_torch.serving.sampling import SampleConfig, sample_tokens
 
 
@@ -67,23 +74,33 @@ def num_padded_streams(coding: CodingConfig, groups: int) -> int:
     return partitioning.padded_batch(groups * coding.num_workers)
 
 
-def _check_batch_axes(wshard: Optional[WorkerShardConfig],
-                      pool: bool = False) -> None:
-    """Raise for a mesh whose batch axes this step does not split: the
-    "pod" axis (ROADMAP A9.5), the "data" axis under worker-major
-    streams or in the slot pool, and a "worker" axis above 1 without
-    ``wshard`` (it splits worker-major streams only)."""
-    if partitioning.axis_size("pod") > 1:
-        raise NotImplementedError("serving on a pod axis is not ported "
-                                  "(ROADMAP A9.5, --multi-pod)")
-    if partitioning.axis_size("data") > 1 and (wshard is not None or pool):
-        raise NotImplementedError(
-            "the data axis splits the batch steps' group-major streams; "
-            "worker-major streams and the slot pool shard over the worker "
-            "axis only (ROADMAP A9.5)")
+def _check_batch_axes(cfg: ModelConfig,
+                      wshard: Optional[WorkerShardConfig]) -> None:
+    """Raise for a mesh this step does not serve on: a "worker" axis
+    above 1 without ``wshard`` (it splits worker-major streams only), and
+    an MoE model on a batch split over the "pod" and "data" axes
+    (``transformer.check_batch_axes``)."""
     if partitioning.axis_size("worker") > 1 and wshard is None:
         raise ValueError("a worker axis above 1 shards worker-major "
                          "streams: pass wshard")
+    check_batch_axes(cfg, partitioning.axis_size("pod")
+                     * partitioning.axis_size("data"))
+
+
+def _sub_block(coding: CodingConfig, groups: int) -> tuple:
+    """(start, length) of this rank's pod/data sub-block of its worker's
+    ``nl * groups`` worker-major streams.  Worker-major streams cannot be
+    padded (the reference's error), so the batch axes must divide them."""
+    n = groups * coding.num_workers
+    if num_padded_streams(coding, groups) != n:
+        raise ValueError(
+            "worker-major coded streams cannot be padded: "
+            f"{n} streams vs mesh batch product "
+            f"{num_padded_streams(coding, groups)} (make N+1 divisible "
+            "by the worker axis)")
+    start, length = partitioning.batch_block(n)
+    nl = n // partitioning.axis_size("worker")
+    return start % nl, length
 
 
 def _code_streams(coding: CodingConfig, x: torch.Tensor,
@@ -92,15 +109,15 @@ def _code_streams(coding: CodingConfig, x: torch.Tensor,
     """(G, K, ...) -> this rank's coded streams through the Berrut encode
     contraction (kernel-dispatched): group-major (stream ``g*(N+1) +
     n``), padded to ``num_padded_streams`` with repeats of stream 0, and
-    on a data axis the rank's block of them.
+    on a mesh the rank's block of them (``partitioning.batch_block``).
 
     With ``wshard`` the rows are worker-major, ``n*G + g``, and a rank of
     the worker group encodes only its workers' streams: its rows of the
     encode matrix through ``ops.berrut_encode_dispatch`` give exactly its
-    contiguous block of the full output, by the same arithmetic.
+    contiguous block of the full output, by the same arithmetic.  On
+    "pod" and "data" axes it keeps its sub-block of them (``_sub_block``).
     Worker-major streams are never padded: the worker axis divides N+1
-    (``worker_mesh.validate_layout``), and the data and pod axes are
-    refused with them (``_check_batch_axes``)."""
+    (``worker_mesh.validate_layout``)."""
     g = x.shape[0]
     real = g * coding.num_workers
     # rounded to x's dtype first, as the reference rounds its weights
@@ -108,28 +125,33 @@ def _code_streams(coding: CodingConfig, x: torch.Tensor,
     flat = x.reshape(g, coding.k, -1)
     if wshard is not None:
         lo, nl = worker_mesh.rank_workers(coding, wshard)
+        start, length = _sub_block(coding, g)
         coded = ops.berrut_encode_dispatch(w[lo:lo + nl], flat)  # (nl*G, F)
-        return coded.reshape(nl * g, *x.shape[2:])
+        coded = coded.reshape(nl * g, *x.shape[2:])
+        return coded if length == nl * g else coded[start:start + length]
     coded = ops.berrut_apply(w, flat)                     # (G, N+1, F)
     coded = coded.reshape(real, *x.shape[2:])
     pad = num_padded_streams(coding, g) - real
     if pad:
         coded = torch.cat([coded, coded[:1].expand(pad, *coded.shape[1:])])
-    data = partitioning.axis_size("data")
-    if data == 1:
-        return coded
-    n = coded.shape[0] // data
-    r = partitioning.active_mesh().coord("data")
-    return coded[r * n:(r + 1) * n]
+    start, length = partitioning.batch_block(coded.shape[0])
+    return coded if length == coded.shape[0] else \
+        coded[start:start + length]
 
 
-def _real_streams(coding: CodingConfig, coded_logits: torch.Tensor,
-                  groups: int) -> torch.Tensor:
-    """The round's whole (G*(N+1), V) coded logits: the data axis's
-    blocks all-gathered, then the padding streams dropped."""
-    if partitioning.axis_size("data") > 1:
-        coded_logits = partitioning.active_mesh().group("data").all_gather(
-            coded_logits, 0)
+def _whole_streams(coding: CodingConfig, coded_logits: torch.Tensor,
+                   groups: int,
+                   wshard: Optional[WorkerShardConfig] = None
+                   ) -> torch.Tensor:
+    """The round's coded logits from this rank's block: the blocks of
+    the batch group ("pod" and "data") all-gathered in block order; then
+    group-major the whole (G*(N+1), V) with the padding streams dropped,
+    or with ``wshard`` this rank's worker's whole (nl*G, V) block."""
+    group = partitioning.batch_group()
+    if group is not None:
+        coded_logits = group.all_gather(coded_logits, 0)
+    if wshard is not None:
+        return coded_logits
     return coded_logits[: groups * coding.num_workers]
 
 
@@ -320,9 +342,11 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     to their logits.  Returns (decoded last-token logits (G*K, V), or
     with ``sample`` the (G*K,) int32 token ids, and the serving state);
     with ``with_report`` also the locator's (located, votes).  With
-    ``wshard`` the state holds this rank's worker-major streams only.
+    ``wshard`` the state holds this rank's worker-major streams only; on
+    "pod" and "data" axes a rank's state holds its block of the streams
+    (``_code_streams``).
     """
-    _check_batch_axes(wshard)
+    _check_batch_axes(cfg, wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (G*K, S, d)
     gk, s, d = x.shape
@@ -332,8 +356,7 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
                          cache_dtype or coded.dtype, coded.device)
     coded_logits, caches = prefill(cfg, params, {"embeddings": coded},
                                    caches)
-    if wshard is None:
-        coded_logits = _real_streams(coding, coded_logits, g)
+    coded_logits = _whole_streams(coding, coded_logits, g, wshard)
     out, report = _round_tail(coding, coded_logits, None, straggler_mask,
                               byz_mask, byz_noise, byz_sigma, with_report,
                               sample, generator, locate_quorum, wshard)
@@ -364,7 +387,7 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     with ``sample``, and the new state); with ``with_report`` also the
     locator's (located, votes).
     """
-    _check_batch_axes(wshard)
+    _check_batch_axes(cfg, wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (G*K,1,d)
     gk, _, d = x.shape
@@ -372,8 +395,7 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     coded = _code_streams(coding, x.reshape(g, coding.k, 1, d), wshard)
     coded_logits, caches = decode_step(cfg, params, state.caches,
                                        {"embeddings": coded}, state.pos)
-    if wshard is None:
-        coded_logits = _real_streams(coding, coded_logits, g)
+    coded_logits = _whole_streams(coding, coded_logits, g, wshard)
     out, report = _round_tail(coding, coded_logits, None, straggler_mask,
                               byz_mask, byz_noise, byz_sigma, with_report,
                               sample, generator, locate_quorum, wshard)
@@ -401,10 +423,12 @@ class CodedPoolState:
 def pool_streams(coding: CodingConfig, pool_groups: int,
                  wshard: Optional[WorkerShardConfig] = None) -> int:
     """Coded streams of the pool this rank holds: all P*(N+1), or with
-    ``wshard`` its workers' P*nl."""
-    nl = (coding.num_workers if wshard is None
-          else worker_mesh.rank_workers(coding, wshard)[1])
-    return pool_groups * nl
+    ``wshard`` its workers' P*nl; on "pod" and "data" axes its block of
+    those, the group-major ones padded first (``num_padded_streams``)."""
+    if wshard is not None:
+        return _sub_block(coding, pool_groups)[1]
+    return partitioning.batch_block(
+        num_padded_streams(coding, pool_groups))[1]
 
 
 def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
@@ -414,9 +438,9 @@ def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
                     ) -> CodedPoolState:
     """Allocate the fixed slot pool: ``pool_streams`` zeroed coded-stream
     caches on ``device`` and zeroed slot positions."""
+    _check_batch_axes(cfg, wshard)
     if pool_groups < 1:
         raise ValueError(f"need pool_groups >= 1, got {pool_groups}")
-    _check_batch_axes(wshard, pool=True)
     dtype = cache_dtype or getattr(torch, cfg.param_dtype)
     caches = init_caches(cfg, pool_streams(coding, pool_groups, wshard),
                          max_len, dtype, device)
@@ -424,21 +448,54 @@ def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
         (pool_groups,), dtype=torch.int32, device=device))
 
 
+def _per_stream(coding: CodingConfig, per_group: torch.Tensor,
+                wshard: Optional[WorkerShardConfig],
+                pad: torch.Tensor) -> torch.Tensor:
+    """(P,) per-slot values -> this rank's per-stream values: group-major
+    repeated over each slot's N+1 streams, then the padding streams
+    (``pad``, one value), then the rank's block; with ``wshard`` tiled
+    over the rank's nl workers, then its pod/data sub-block."""
+    p = per_group.shape[0]
+    if wshard is not None:
+        start, length = _sub_block(coding, p)
+        per = per_group.repeat(worker_mesh.rank_workers(coding, wshard)[1])
+        return per[start:start + length]
+    per = per_group.repeat_interleave(coding.num_workers)
+    padded = num_padded_streams(coding, p)
+    if padded > per.shape[0]:
+        per = torch.cat([per, pad.expand(padded - per.shape[0])])
+    start, length = partitioning.batch_block(padded)
+    return per[start:start + length]
+
+
 def _stream_mask(coding: CodingConfig, group_mask: torch.Tensor,
                  wshard: Optional[WorkerShardConfig] = None
                  ) -> torch.Tensor:
-    """(P,) group-slot mask -> this rank's coded-stream mask: group-major
-    (P*(N+1),), or with ``wshard`` worker-major, the mask tiled over the
-    rank's nl workers (P*nl,)."""
-    if wshard is None:
-        return group_mask.repeat_interleave(coding.num_workers)
-    return group_mask.repeat(worker_mesh.rank_workers(coding, wshard)[1])
+    """(P,) group-slot mask -> this rank's coded-stream mask
+    (``_per_stream``).  Padding streams are always 0: they repeat stream
+    0's content but must never overwrite a live slot's cache."""
+    return _per_stream(coding, group_mask, wshard,
+                       group_mask.new_zeros((1,)))
+
+
+def _padding_dead(coding: CodingConfig, groups: int,
+                  wshard: Optional[WorkerShardConfig], device
+                  ) -> Optional[torch.Tensor]:
+    """This rank's (streams,) live mask with only its padding streams
+    dead, or None where it holds none (decided on the host)."""
+    real = groups * coding.num_workers
+    padded = num_padded_streams(coding, groups)
+    start, length = partitioning.batch_block(padded)
+    if wshard is not None or start + length <= real:
+        return None
+    return torch.arange(start, start + length, device=device) < real
 
 
 def _merge_caches(pool: list, fresh: list, streams: torch.Tensor) -> None:
     """Copy the ``streams`` (indices on the stream axis, axis 1 of every
-    (layers, streams, ...) cache leaf) of ``fresh`` into ``pool``, in
-    place; every other stream of the pool is untouched."""
+    (layers, streams, ...) cache leaf, local to this rank's block) of
+    ``fresh`` into ``pool``, in place; every other stream of the pool is
+    untouched."""
     for p, f in zip(pool, fresh):
         for name in p:
             p[name][:, streams] = f[name][:, streams]
@@ -505,7 +562,7 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     (located, votes).  With ``wshard`` the pool and ``fresh`` hold this
     rank's worker-major streams only (``pool_streams``).
     """
-    _check_batch_axes(wshard, pool=True)
+    _check_batch_axes(cfg, wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (P*K, S, d)
     gk, s, d = x.shape
@@ -521,6 +578,7 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
             leaf.zero_()
     coded_logits, fresh = prefill(cfg, params, {"embeddings": coded}, fresh)
     _merge_caches(state.caches, fresh, streams.to(x.device))
+    coded_logits = _whole_streams(coding, coded_logits, g, wshard)
     new_pos = torch.where(admit > 0, s, state.pos).to(torch.int32)
     out, report = _round_tail(
         coding, coded_logits, admit, straggler_mask, byz_mask, byz_noise,
@@ -554,7 +612,7 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
     ``sample``, and the new state); with ``with_report`` also the
     active-masked (located, votes).  ``state`` is consumed.
     """
-    _check_batch_axes(wshard, pool=True)
+    _check_batch_axes(cfg, wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (P*K,1,d)
     gk, _, d = x.shape
@@ -562,18 +620,22 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
     active = torch.as_tensor(active_mask, dtype=torch.float32,
                              device=x.device)
     coded = _code_streams(coding, x.reshape(g, coding.k, 1, d), wshard)
-    # each slot's position over its streams (tiled when worker-major)
-    stream_pos = _stream_mask(coding, state.pos, wshard)
+    # each slot's position over its streams (tiled when worker-major);
+    # padding streams track stream 0's, as in the reference
+    stream_pos = _per_stream(coding, state.pos, wshard, state.pos[:1])
     # With E == 0 the locator never reads the coded block, so a free
     # slot's attention feeds only rows that are zeroed below: the live
     # mask may reach the kernel, which then reads none of its cache.  With
     # E > 0 the vote pool reads every row, so free slots attend over their
-    # stale caches exactly as in the reference: live stays None there.
+    # stale caches exactly as in the reference, and only the padding
+    # streams, whose logits are dropped, reach the kernel dead.
     stream_live = (_stream_mask(coding, active, wshard) > 0
-                   if coding.e == 0 else None)
+                   if coding.e == 0 else _padding_dead(coding, g, wshard,
+                                                       x.device))
     coded_logits, caches = decode_step(cfg, params, state.caches,
                                        {"embeddings": coded}, stream_pos,
                                        live=stream_live)
+    coded_logits = _whole_streams(coding, coded_logits, g, wshard)
     out, report = _round_tail(
         coding, coded_logits, active, straggler_mask, byz_mask, byz_noise,
         byz_sigma, with_report, sample, generator, locate_quorum, wshard)

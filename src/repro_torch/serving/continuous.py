@@ -41,7 +41,11 @@ same layout, so admission copies whole streams.  With ``controller=`` a
 ``RedundancyController`` retunes (N, E, wait_for) between rounds: the
 executor is built at the controller's maximum operating point and a
 narrower point dispatches to a prefix of its streams, the rest held out
-by the per-round ``live_mask``.
+by the per-round ``live_mask``.  On "pod" and "data" axes the pool and
+the prefill scratch hold a rank's block of the streams
+(``coded_serving.pool_streams``); the round's tail runs on the gathered
+streams, the same on each rank of those axes, so every rank's top-k
+generator draws the same tokens and advances alike.
 """
 
 from __future__ import annotations

@@ -23,9 +23,9 @@ of the reference's program per point; ``points_visited`` records which
 points ran, in the order they were first dispatched.  With ``wshard``
 the rounds run worker-major over the active worker group
 (``launch.worker_mesh``): each rank holds its own streams and every
-rank gets the same tokens.  On an active mesh a "data" rank runs its
-block of the group-major streams and a "model" rank its block of the
-heads (``serving.coded_serving``).
+rank gets the same tokens.  On an active mesh a rank of the "pod" and
+"data" axes runs its block of the streams and a "model" rank its block
+of the heads (``serving.coded_serving``).
 """
 
 from __future__ import annotations

@@ -20,8 +20,8 @@ converted weights: the batch round
 (``coded_prefill`` and two ``coded_decode_step``s on fixed next tokens,
 K=2 S=2 E=1 over 2 groups, one straggler, a sigma-10 attacker; on the
 data axis K=4 S=1 E=0 over one group, so that 5 streams are padded to
-6) and, off the data axis, the slot pool's worker-major prefill and two
-decode rounds.  At model 4 both reduced configs take 4 kv-heads (qwen3
+6) and the slot pool's worker-major prefill and two decode rounds (on
+the data axis each rank holds its block of the worker-major streams).  At model 4 both reduced configs take 4 kv-heads (qwen3
 8 q-heads, h2o its 8), the reference's too, so that the caches split by
 kv-heads (the ring split is ``tests/test_torch_cache_split.py``'s).  Every run is held against the reference's
 single-device steps (the batch round) and against the port's one-rank
@@ -31,7 +31,8 @@ two logits lie within that tolerance (a near tie), verdicts equal or
 explained by their exact tally (``_torch_parity.near_tie_walk``), each
 rank's caches equal (``STATE_TOL``) to its block of the one-rank
 caches (its kv-heads, and on the data axis its streams), and the model
-and data axes' collective bytes by op equal to the analytic count.  The
+axis's and the batch group's collective bytes by op equal to the
+analytic count.  The
 ranks also check what needs a process group: a world size unequal to
 the mesh's product is refused, and a model-axis collective runs under
 grad (its gradient passed through).
@@ -337,11 +338,16 @@ def test_model_axis_refusals():
     assert tshardings.serving_param_specs(
         tpart.Mesh(("worker", "model"), (1, 4)), tc,
         params)["embeddings"]["embed"] == ("model", None)
-    # the pool and worker-major streams shard over the worker axis only
+    # the pool on the data axis: each rank allocates its block of the
+    # padded pool (5 streams padded to 6: 3 a rank)
+    for rank in range(2):
+        with tpart.mesh_context(tpart.Mesh(("data", "model"), (2, 1),
+                                           rank=rank)):
+            state = tcs.init_pool_state(tc, TCoding(k=4, s=1, e=0), 1, 8,
+                                        "cpu")
+        assert state.caches[0]["k"].shape[1] == 3
+        assert tuple(state.pos.shape) == (1,)
     coding = TCoding(k=2, s=2, e=1)
-    with tpart.mesh_context(tpart.Mesh(("data", "model"), (2, 1))):
-        with pytest.raises(NotImplementedError, match="data axis"):
-            tcs.init_pool_state(tc, coding, 2, 8, "cpu")
     with tpart.mesh_context(tpart.Mesh(("worker", "model"), (2, 1))):
         with pytest.raises(ValueError, match="pass wshard"):
             tcs.coded_prefill(tc, coding, {}, {"tokens": None}, 8)
@@ -525,7 +531,7 @@ W, D, M = (int(v) for v in sys.argv[6].split(","))
 cases = [(a, w == "1") for a, w in (c.split(":") for c in
                                     sys.argv[7].split(","))]
 K, S, E, G = (int(v) for v in sys.argv[8].split(","))
-POOL, MAX_LEN, WIDE_KV = %(consts)s
+POOL, MAX_LEN, WIDE_KV, POOL_CODING = %(consts)s
 dist.init_process_group("gloo", init_method="file://" + store,
                         world_size=world, rank=rank)
 
@@ -625,12 +631,9 @@ with partitioning.mesh_context(mesh):
             cfg, coding, params, {"tokens": data[key + "/tokens"]}, MAX_LEN,
             **kw), lambda st, t: cs.coded_decode_step(
                 cfg, coding, params, st, t, **kw), steps)
-        if D > 1:
-            try:
-                cs.init_pool_state(cfg, coding, POOL, MAX_LEN, "cpu")
-            except NotImplementedError:
-                out[key + "/pool_refused"] = np.int32(1)
-            continue
+        # the pool at the batch round's coding off the data axis, and at
+        # BATCH's on it (its batch round takes a padded coding)
+        coding = CodingConfig(*POOL_CODING)
         pool_ws = WorkerShardConfig(gather_width=coding.num_workers)
         state = cs.init_pool_state(cfg, coding, POOL, MAX_LEN, "cpu",
                                    wshard=pool_ws)
@@ -649,7 +652,7 @@ with partitioning.mesh_context(mesh):
             data[key + "/pool_steps"])
 np.savez("%%s/rank%%d.npz" %% (out_dir, rank), **out)
 dist.destroy_process_group()
-""" % {"consts": (POOL, MAX_LEN, WIDE_KV)}
+""" % {"consts": (POOL, MAX_LEN, WIDE_KV, BATCH[:3])}
 
 
 def _spawn(script, args_of_rank, world, tmp_path):
@@ -707,11 +710,11 @@ def _run_mesh(name, cases, references, tmp_path_factory):
         data[key + "/mask"] = torch.from_numpy(inp["mask"])
         data[key + "/byz"] = torch.from_numpy(inp["byz"])
         data[key + "/noise"] = torch.from_numpy(ref["noise"])
-        if "pool_inputs" in ref:
-            pinp = ref["pool_inputs"]
-            for field in ("tokens", "steps", "mask", "byz"):
-                data[f"{key}/pool_{field}"] = torch.from_numpy(pinp[field])
-            data[key + "/pool_noise"] = torch.from_numpy(ref["pool_noise"])
+        pool_ref = references[BATCH, arch, wide]
+        pinp = pool_ref["pool_inputs"]
+        for field in ("tokens", "steps", "mask", "byz"):
+            data[f"{key}/pool_{field}"] = torch.from_numpy(pinp[field])
+        data[key + "/pool_noise"] = torch.from_numpy(pool_ref["pool_noise"])
     torch.save(data, tmp / "case.pt")
     store = tmp / "store"
     _spawn(_RANK_SCRIPT, lambda r: [
@@ -836,11 +839,11 @@ def test_mesh_batch_round_matches_reference_and_one_rank(name, arch,
         want = _expected_model_bytes(tc, shape, coding_args, i, False)
         for op, b in want.items():
             assert r0[f"bytes/{key}/{i}/model/{op}"] == pytest.approx(b)
-        if shape[1] > 1:
+        if shape[1] > 1:          # the batch group's gather of the blocks
             v = (shape[1] - 1) / shape[1] * 4 * padded * tc.vocab_size
-            assert r0[f"bytes/{key}/{i}/data/all-gather"] == \
+            assert r0[f"bytes/{key}/{i}/fsdp/all-gather"] == \
                 pytest.approx(v)
-            assert r0[f"bytes/{key}/{i}/data/total"] == pytest.approx(v)
+            assert r0[f"bytes/{key}/{i}/fsdp/total"] == pytest.approx(v)
     if shape[1] > 1:                      # 5 streams padded to 6
         assert padded == 6 and g * coding.num_workers == 5
         assert r0[f"{key}/cache0/k"].shape[1] == 3
@@ -851,9 +854,6 @@ def test_mesh_pool_matches_one_rank(name, arch, mesh_runs, references,
                                     cases):
     ranks = mesh_runs(name)
     shape = MESHES[name]
-    if shape[1] > 1:         # the pool shards over the worker axis only
-        assert all(out[f"{arch}:0/pool_refused"] == 1 for out in ranks)
-        return
     wide = shape[2] == 4
     k, s, e, _ = BATCH
     coding = TCoding(k=k, s=s, e=e)
@@ -877,11 +877,12 @@ def test_mesh_pool_matches_one_rank(name, arch, mesh_runs, references,
              for i in range(len(calls))]
     assert near_tie_walk(coding, jrounds, trounds, jcols, tcols)[0] is None
     # the one-rank pool is worker-major (stream n*P + p): a rank holds
-    # its workers' rows and its kv-heads
-    w, _, m = shape
-    nl = n1 // w * POOL
+    # its block of the rows (its workers', then its data block of them)
+    # and its kv-heads
+    w, d, m = shape
+    nl = n1 * POOL // (w * d)
     for rank, out in enumerate(ranks):
-        wr, mr = divmod(rank, m)
+        wr, mr = divmod(rank, m)                  # wr: the block index
         for i, cache in enumerate(caches):
             for leaf_name, leaf in cache.items():
                 kv = leaf.shape[3] // m
@@ -895,18 +896,23 @@ def test_mesh_pool_matches_one_rank(name, arch, mesh_runs, references,
             assert r0[f"bytes/{key}/{i}/model/{op}"] == pytest.approx(b)
         if w > 1:                  # the survivor tail runs on the worker axis
             assert r0[f"bytes/{key}/{i}/worker/total"] > 0
+        if d > 1:                  # the batch group gathers the worker block
+            v = (d - 1) / d * 4 * n1 * POOL * tc.vocab_size
+            assert r0[f"bytes/{key}/{i}/fsdp/all-gather"] == \
+                pytest.approx(v)
 
 
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_mesh_host_shard_assembly(name, mesh_runs):
     """``global_pool_from_host_shard`` gathers each process's rows over
-    the worker axis, ``global_batch_from_host_shard`` over the data axis,
-    in rank order; ``host_worker_ranks`` is the worker coordinate."""
+    the worker and data axes, worker outermost (the batch rule's block
+    order), ``global_batch_from_host_shard`` over the data axis, in rank
+    order; ``host_worker_ranks`` is the worker coordinate."""
     ranks = mesh_runs(name)
     w, d, m = MESHES[name]
     for rank, out in enumerate(ranks):
         wr, dr, mr = np.unravel_index(rank, (w, d, m))
-        pool = [i * d * m + dr * m + mr for i in range(w)]
+        pool = [(i * d + j) * m + mr for i in range(w) for j in range(d)]
         batch = [wr * d * m + i * m + mr for i in range(d)]
         for key, want in (("pool_rows", pool), ("batch_rows", batch)):
             np.testing.assert_array_equal(

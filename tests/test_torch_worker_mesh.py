@@ -698,15 +698,61 @@ def test_multihost_serve_on_gloo(tmp_path):
     assert "2 decode calls" in logs[0]
 
 
+_MULTIHOST = r"""
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+from repro_torch.launch import multihost
+
+res = multihost.main(sys.argv[2:])
+np.save(sys.argv[1], res["tokens"])
+"""
+
+
 def test_multihost_refuses_what_is_not_ported(tmp_path, capsys):
-    """``--multi-pod`` in serve mode is refused (the pod axis in serving,
-    ROADMAP A9.5); ``--mode train`` runs, here on one process."""
+    """``--mode serve --multi-pod`` (the pod axis in serving) runs on two
+    gloo processes, one worker and a pod axis of 2 (K=7 S=3: 10 streams x
+    2 slots, 10 a rank), and every rank's tokens equal one process's;
+    ``--mode train`` runs, here on one process."""
     from repro_torch.launch import multihost
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    env["OMP_NUM_THREADS"] = "1"
+    serve = ["--mode", "serve", "--device", "cpu", "--reduced", "--dtype",
+             "float32", "--steps", "2", "--s", "3", "--pool-groups", "2",
+             "--max-len", "16"]
+    tokens, logs = {}, {}
+    for world, extra in ((1, []), (2, ["--multi-pod"])):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MULTIHOST,
+             str(tmp_path / f"tokens{world}_{r}.npy"), "--coordinator",
+             f"file://{tmp_path}/store{world}", "--num-processes",
+             str(world), "--process-id", str(r)] + serve + extra, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        logs[world] = []
+        try:
+            for p in procs:
+                logs[world].append(p.communicate(timeout=TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            assert p.returncode == 0, logs[world][r][-3000:]
+        tokens[world] = [np.load(tmp_path / f"tokens{world}_{r}.npy")
+                         for r in range(world)]
+    for r in range(2):
+        assert f"pod rank {r} of 2, pool streams 10 of 20" in logs[2][r]
+    assert tokens[1][0].shape == (3, 2 * 7)
+    for toks in tokens[2]:
+        np.testing.assert_array_equal(toks, tokens[1][0])
     base = ["--coordinator", f"file://{tmp_path}/store", "--num-processes",
             "1", "--process-id", "0", "--device", "cpu"]
-    with pytest.raises(SystemExit):
-        multihost.main(base + ["--mode", "serve", "--multi-pod"])
-    assert "A9.5" in capsys.readouterr().err
     res = multihost.main(base + ["--mode", "train", "--reduced", "--steps",
                                  "2", "--batch", "2", "--seq", "16"])
     assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
