@@ -287,7 +287,38 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    24's rules, each rank's caches its block of the no-mesh caches (its
    streams in the reference's "batch" order, worker outermost, and its
    kv-heads), per-rank launches held and printed, each call's bytes by
-   group and op equal to ``batch_axes_bytes``, the card's peak memory.
+   group and op equal to ``batch_axes_bytes``, the card's peak memory;
+31. the MoE layer on the serving mesh (ROADMAP A9.3's first part): B3 and
+   B5 at qwen3-moe-30b-a3b's multihost shapes at a model-2 rank's heads
+   (GQA 16/2 of 128, rep 8, bf16) and B3 at hubert-xlarge's coded
+   prefill at a model-2 rank's (MHA 8/8 of 80, fp32), timed; then
+   qwen3-moe at full width and MOE_MESH_LAYERS (4) of its 48 layers,
+   fp32, gloo processes sharing the card, one job after another: (a)
+   ``launch.multihost --mode serve --model-par 2`` and (b) the same at
+   (worker 3, model 1) (24 of the pool's 72 streams a worker, each MoE
+   layer gathering the whole pool's routes) against the same pool with
+   no mesh; (c) phase 23's batch E=1 round and the worker-major slot
+   pool on (data 2, model 2) against no mesh; every MoE layer call's
+   routes held to the no-mesh run's (``mesh_route_walk``) and the rest
+   of each run as far as the routes agree, under phase 24's rules; each
+   call's bytes by group and op equal to ``batch_axes_bytes`` plus
+   ``moe_axis_bytes``; the card's peak memory;
+32. the MoE layer training on the mesh: qwen3-moe at full width and
+   MOE_TRAIN_LAYERS (2) layers, fp32, 2 steps of ``launch.train.run`` at
+   the launcher's 8 x 128 tokens on (data, model) = (2, 1) and (1, 2),
+   gloo processes sharing the card, against one rank on the card:
+   losses, grad norms, the load-balance loss and the dropped fraction
+   within 1e-4 relative, each rank's blocks of the first step's
+   gradients (the embeddings' left out) within 1e-4 x the leaf's max,
+   launches held, each group's bytes a step equal to
+   ``train_axis_bytes``;
+33. the frontends on a 2-way model axis, fp32, 2 gloo processes each:
+   hubert-xlarge (4 of 48 layers) through one ``coded_prefill`` of 16
+   requests of 500 frames at E=1, and paligemma-3b (2 layers) through
+   the batch E=1 round on 256 patches and 16 text tokens with 3 decode
+   steps, each against the same with no mesh: logits within MESH_TOL,
+   verdicts equal, launches held, each call's bytes equal to
+   ``model_axis_bytes``.
 
 Each phase prints its wall time.
 
@@ -316,10 +347,12 @@ also ``model_par_2``: their launches on each rank of phase 24's (worker
 of phase 22 at a rank's heads and the whole model's; and
 ``model_par_16``: their launches on each rank of phase 27's runs, and B4
 and B5's fp32 block-form numbers of phase 26 on one 16-slot block; and
-``batch_axes``: their launches on each rank of every phase-30 run; B3's,
+``batch_axes``: their launches on each rank of every phase-30 run; and
+``a9_3``: their launches on each rank of every run of phases 31-33, and
+B3 and B5's numbers of phase 31 at a model-2 rank's heads; B3's,
 its backward's and its Delta launch's also ``train_mesh``: their fp32
 numbers of phase 28 at a model-2 rank's training heads and their
-launches on each rank of phases 28 and 29's runs);
+launches on each rank of phases 28 and 29's runs, and ``a9_3``);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -330,6 +363,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -531,6 +565,26 @@ BA_MULTIHOST = ((2, 1, 1), (2, 3, 1))
 BA_STEPS = 2
 BA_DATA_MESH = (2, 2)
 BA_WM, BA_WM_WORKERS = (4, 2, 1), 2
+# A9.3's first part (phases 31-33), gloo processes sharing cuda:0, fp32.
+# Phase 31: qwen3-moe at full width and MOE_MESH_LAYERS of its 48 layers
+# (a mesh rank builds the whole tree before it slices it): ``multihost
+# --mode serve`` (K=7 S=2 E=0 over MH_SLOTS slots, BA_STEPS decode calls)
+# on each (worker, model) of MOE_MESH_MULTIHOST, and phase 23's batch E=1
+# round and the worker-major pool on (data, model) = MOE_MESH_DATA.
+# Phase 32: qwen3-moe at full width and MOE_TRAIN_LAYERS layers,
+# TRAIN_MESH_STEPS steps of ``launch.train.run`` on each (data, model) of
+# MOE_TRAIN_MESH.  Phase 33: hubert-xlarge and paligemma-3b at full
+# width and FRONT_MESH_LAYERS layers on a 2-way model axis: one
+# ``coded_prefill`` of FRONT_GROUPS groups of K requests of FRAMES frames
+# (hubert), and the batch E=1 round of MESH_GROUPS groups on 256 patches
+# and FRONT_TEXT text tokens (paligemma).
+MOE_MESH_LAYERS = 4
+MOE_MESH_MULTIHOST = ((1, 2), (3, 1))
+MOE_MESH_DATA = (2, 2)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_MESH = ((2, 1), (1, 2))
+FRONT_MESH_LAYERS = {HUBERT: 4, PALIGEMMA: 2}
+FRONT_GROUPS = 4
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -709,6 +763,9 @@ class Smoke:
         # B3 and its backward at a model-2 rank's training heads (phase
         # 28): {name: fp32 entry}
         self.kernels_train_mesh = {}
+        # B3 and B5 at a model-2 rank's heads of qwen3-moe (bf16) and B3
+        # of hubert (fp32), phases 31 and 33: {arch: {name: entry}}
+        self.kernels_a93 = {}
 
     # ------------------------------------------------------------ helpers
 
@@ -967,6 +1024,18 @@ class Smoke:
         batch_axes = self.phase(
             "qwen3-0.6b pod and data axes in serving, ranks sharing the card",
             self.batch_axes)
+        self.free_memory()
+        self.phase("qwen3-moe and hubert model-2 heads kernels",
+                   self.moe_mesh_kernels)
+        a93 = {"phase 31": self.phase(
+            f"{QWEN3_MOE} serving on the mesh, ranks sharing the card",
+            self.moe_mesh)}
+        a93["phase 32"] = self.phase(
+            f"{QWEN3_MOE} training on the mesh, ranks sharing the card",
+            self.moe_train_mesh)
+        a93["phase 33"] = self.phase(
+            "paligemma-3b and hubert-xlarge on the model axis, ranks "
+            "sharing the card", self.front_mesh)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -1003,11 +1072,13 @@ class Smoke:
                 **({"model_par_2": self.mp2_entry(name, mesh_launches),
                     "model_par_16": self.mp16_entry(name, mp16_launches),
                     "batch_axes": {run: [r[name] for r in ranks]
-                                   for run, ranks in batch_axes.items()}}
+                                   for run, ranks in batch_axes.items()},
+                    "a9_3": self.a93_entry(name, a93)}
                    if name in MP2_KERNELS else {}),
             })
         entries += [dict(self.train_entry(name, trained[TRAIN_ARCH]),
-                         train_mesh=self.train_mesh_entry(name, mesh_trained))
+                         train_mesh=self.train_mesh_entry(name, mesh_trained),
+                         a9_3=self.a93_entry(name, a93))
                     for name in ("flash_attention_bwd",
                                  "flash_attention_bwd_delta")]
         entries += [self.ssd_train_entry(name, trained)
@@ -5588,7 +5659,8 @@ class Smoke:
         """Start one process per rank of every job in ``jobs`` (each a
         dict with "world"; the processes share cuda:0 over gloo), one job
         after another or with ``together`` all at once, each rank's
-        output to its log beside its results.  A rank that fails, or a
+        output to its log beside its results, and a job's "env" added to
+        its processes' environment.  A rank that fails, or a
         batch of jobs that outlives MESH_TIMEOUT_S, fails the phase at
         once (every rank of the batch is killed).  Returns each job's
         per-rank results."""
@@ -5611,7 +5683,8 @@ class Smoke:
                                           subprocess.Popen(
                                 [sys.executable, str(ROOT / "chip_smoke.py"),
                                  "--mesh-rank", str(r), str(work)],
-                                stdout=f, stderr=subprocess.STDOUT)))
+                                stdout=f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, **job.get("env", {})))))
                 deadline = time.monotonic() + MESH_TIMEOUT_S
                 while any(p.poll() is None for *_, p in procs):
                     free, total = self.torch.cuda.mem_get_info(self.dev)
@@ -6695,6 +6768,500 @@ class Smoke:
                 "launches_per_rank_multihost_remat": [
                     r[name] for r in launches["multihost"]]}
 
+    # ------------------------- the MoE layer and the frontends on the mesh
+
+    def moe_mesh_kernels(self):
+        """Phases 31 and 33's kernels at a model-2 rank's heads: B3 and B5
+        at qwen3-moe-30b-a3b's multihost E=0 shapes (MH_SLOTS x 9 = 72
+        streams of MH_PROMPT-token prompts; the pool decode over a
+        MH_WIDTH-slot ring at per-stream depths with dead streams), GQA
+        16/2 of 128 (rep 8), bf16, and B3 at hubert-xlarge's coded
+        prefill (FRONT_GROUPS x 11 = 44 streams of FRAMES frames,
+        non-causal), MHA 8/8 of 80, fp32: checked and timed as at every
+        other shape, SDPA the library call (``kernels_a93``)."""
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        gen = self.torch.Generator(self.dev).manual_seed(18)
+        moe = configs.get_config(QWEN3_MOE)
+        local = moe.with_updates(num_heads=moe.num_heads // 2,
+                                 num_kv_heads=moe.num_kv_heads // 2)
+        if (local.num_heads, local.num_kv_heads, local.head_dim) != \
+                (16, 2, 128):
+            raise AssertionError("qwen3-moe's model-2 heads changed")
+        table = self.kernels_a93.setdefault(QWEN3_MOE, {})
+        streams = MH_SLOTS * CodingConfig(k=MH_K, s=MH_S, e=0).num_workers
+        self.prefill_kernel("bfloat16", local, table, gen, streams=streams,
+                            prompt=MH_PROMPT, keep="bfloat16")
+        self.decode_kernels("bfloat16", local, table, gen, streams=streams,
+                            prompt=MH_PROMPT, width=MH_WIDTH,
+                            which=("pool_flash_decode",), keep="bfloat16")
+        audio = configs.get_config(HUBERT)
+        local = audio.with_updates(num_heads=audio.num_heads // 2,
+                                   num_kv_heads=audio.num_kv_heads // 2)
+        table = self.kernels_a93.setdefault(HUBERT, {})
+        self.prefill_kernel(
+            "float32", local, table, gen,
+            streams=FRONT_GROUPS * CodingConfig(k=K, s=S, e=E).num_workers,
+            prompt=FRAMES)
+
+    def moe_mesh(self) -> dict:
+        """Phase 31: qwen3-moe-30b-a3b at full width and MOE_MESH_LAYERS
+        layers, fp32, gloo processes sharing cuda:0, one job after
+        another: (a) and (b) ``multihost --mode serve`` (K=7 S=2 E=0,
+        MH_SLOTS slots: 72 streams, BA_STEPS decode calls) on each
+        (worker, model) of MOE_MESH_MULTIHOST against the same pool with
+        no mesh (``plain_pool``): at (3, 1) each worker runs 24 streams
+        and its MoE layers gather the whole pool's routes; (c) phase 23's
+        batch E=1 round and the worker-major slot pool on (data, model) =
+        MOE_MESH_DATA against no mesh.  Every MoE layer call's routes
+        (``route_log``) are held to the no-mesh run's by
+        ``mesh_route_walk``, and the rest of each run only as far as the
+        routes are equal: every rank's tokens the same and held to the
+        no-mesh tokens up to the first near tie, decoded logits within
+        MESH_TOL, verdicts equal, each rank's caches its block of the
+        no-mesh caches; per-rank launches held; each call's bytes by
+        group and op equal to ``batch_axes_bytes`` plus
+        ``moe_axis_bytes``; the card's peak memory printed.  Returns the
+        per-rank launches of every run."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models import partitioning
+        from repro_torch.models.model import init_params
+        cfg = configs.get_config(QWEN3_MOE).with_updates(
+            num_layers=MOE_MESH_LAYERS)
+        k, layers, vocab = cfg.experts_per_token, cfg.num_layers, \
+            cfg.vocab_size
+        self.free_memory()
+        log = []
+        with route_log(log):
+            tokens, pool_logits = self.plain_pool(cfg, MH_S, MH_SLOTS,
+                                                  BA_STEPS)
+        pool_routes = list(log)
+        inputs = self.mesh_inputs(cfg)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+            MESH_SEED), self.dev)
+        log.clear()
+        with route_log(log):
+            plain = mesh_rounds(cfg, params, inputs, pool=True, caches=True)
+        calls = (1 + MESH_STEPS) * layers
+        plain_routes = {"batch": log[:calls], "pool": log[calls:]}
+        del params, log
+        self.free_memory()
+        path = ROOT / "build" / "mesh" / "inputs-moe.pt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save({key: v.cpu() for key, v in inputs.items()}, path)
+        d, m = MOE_MESH_DATA
+        jobs = [{"kind": "moe_multihost", "world": w * mm, "model": mm,
+                 "layers": layers} for w, mm in MOE_MESH_MULTIHOST]
+        jobs.append({"kind": "moe_rounds", "world": d * m, "model": m,
+                     "data": d, "batch": True, "pool": True, "caches": True,
+                     "arch": QWEN3_MOE, "layers": layers, "in_turns": True,
+                     "inputs": str(path)})
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        runs = self.mesh_children(jobs, "moe-mesh-")
+        wall = time.perf_counter() - t0
+        out = {}
+        # (a) and (b): the multihost serve
+        coding = CodingConfig(k=MH_K, s=MH_S, e=0)
+        streams = MH_SLOTS * coding.num_workers
+        want = self.expected_launches(QWEN3_MOE, 1, BA_STEPS, pool=True,
+                                      worker_major=True, layers=layers)
+        for (w, mm), ranks in zip(MOE_MESH_MULTIHOST, runs):
+            where = (f"multihost serve {QWEN3_MOE} {layers} layers fp32 "
+                     f"(worker, model) = ({w}, {mm}) (gloo)")
+            routed = min(mesh_route_walk(f"{where} rank {r}", res["routes"],
+                                         pool_routes, k, layers)
+                         for r, res in enumerate(ranks))
+            for r, res in enumerate(ranks):
+                if not np.array_equal(res["tokens"][:routed],
+                                      ranks[0]["tokens"][:routed]):
+                    raise AssertionError(f"{where}: rank {r}'s tokens differ")
+                if res["launches"] != want:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != {want}")
+            held = near_tie_rows(where, ranks[0]["tokens"][:routed],
+                                 tokens[:routed], pool_logits)
+            vloc = vocab // w if vocab % w == 0 else vocab
+            worst = 0.0
+            for r, res in enumerate(ranks):
+                wr = (r // mm) % w
+                cols = slice(wr * vloc, (wr + 1) * vloc) if vloc < vocab \
+                    else slice(None)
+                for i in range(min(held + 1, routed, len(pool_logits))):
+                    worst = max(worst, logits_share(
+                        f"{where} rank {r} call {i}", res["pool_logits"][i],
+                        pool_logits[i][:, cols]))
+                for kind, calls_bytes in res["call_bytes"].items():
+                    seq = MH_PROMPT if kind == "prefill" else 1
+                    for i, got in enumerate(calls_bytes):
+                        groups_equal(
+                            f"{where} rank {r} {kind} call {i}", got,
+                            add_bytes(batch_axes_bytes(
+                                coding, MH_SLOTS, vocab, 1, w, mm, True,
+                                sampled=True, cfg=cfg, seq=seq),
+                                moe_axis_bytes(cfg, streams // w * seq, 1,
+                                               w, mm)))
+            ms = ranks[0]["call_ms"]
+            emit({"mesh_run": where, "ranks": w * mm,
+                  "calls_routes_equal": routed, "tokens_held_calls": held,
+                  "pool_logits_worst_err_over_tol": worst,
+                  "launches_per_rank": [{key: res["launches"][key]
+                                         for key in MP2_KERNELS}
+                                        for res in ranks],
+                  "collective_bytes_per_call": ranks[0]["call_bytes"],
+                  "bytes_equal_analytic": True,
+                  "prefill_ms_gloo_over_host": ms["prefill"][0],
+                  "decode_ms_gloo_over_host": ms["decode"]})
+            out[f"multihost (worker {w}, model {mm})"] = [
+                res["launches"] for res in ranks]
+        # (c): the batch round and the slot pool on (data 2, model 2)
+        ranks = runs[-1]
+        axes, shape = ("data", "model"), MOE_MESH_DATA
+        coding = CodingConfig(K, S, E)
+        local = -(-MESH_GROUPS * coding.num_workers // d)
+        where = (f"{QWEN3_MOE} {layers} layers fp32 K={K} S={S} E={E} on "
+                 f"{dict(zip(axes, shape))} (gloo)")
+        worst = cache_worst = 0.0
+        routed = {}
+        for r, res in enumerate(ranks):
+            mesh = partitioning.Mesh(axes, shape, r)
+            got_routes = {"batch": res["routes"][:calls],
+                          "pool": res["routes"][calls:]}
+            for kind in ("batch", "pool"):
+                wm_run = kind == "pool"
+                held = mesh_route_walk(f"{where} {kind} rank {r}",
+                                       got_routes[kind], plain_routes[kind],
+                                       k, layers)
+                routed[kind] = min(routed.get(kind, held), held)
+                launches = self.expected_launches(
+                    QWEN3_MOE, 1, MESH_STEPS, pool=wm_run,
+                    worker_major=wm_run, layers=layers)
+                if res[kind + "_launches"] != launches:
+                    raise AssertionError(
+                        f"{where} {kind} rank {r}: launches "
+                        f"{res[kind + '_launches']} != {launches}")
+                worst = max(worst, hold_calls(
+                    f"{where} {kind} rank {r}", res[kind][:held],
+                    plain[kind][:held]))
+                for i, got in enumerate(res[kind + "_bytes"]):
+                    seq = MESH_PROMPT if i == 0 else 1
+                    groups_equal(
+                        f"{where} {kind} rank {r} call {i}", got,
+                        add_bytes(batch_axes_bytes(
+                            coding, MESH_GROUPS, vocab, d, 1, m, wm_run,
+                            cfg=cfg, seq=seq),
+                            moe_axis_bytes(cfg, local * seq, d, 1, m)))
+                if held < 1 + MESH_STEPS:
+                    continue              # the caches saw a disputed route
+                for i, (mine, whole) in enumerate(zip(
+                        res[kind + "_caches"], plain[kind + "_caches"])):
+                    for name, leaf in whole.items():
+                        lo, n = partitioning.batch_block(leaf.shape[1], mesh)
+                        kv = leaf.shape[3] // m
+                        c0 = mesh.coord("model") * kv
+                        cache_worst = max(cache_worst, logits_share(
+                            f"{where} {kind} rank {r} run {i} cache {name} "
+                            f"(its block)", mine[name],
+                            leaf[:, lo:lo + n, :, c0:c0 + kv]))
+        emit({"mesh_run": where, "parts": ["batch", "pool"],
+              "calls_routes_equal": routed,
+              "worst_err_over_tol": worst,
+              "caches_worst_err_over_tol": cache_worst,
+              "launches_per_rank": {kind: [{key: res[kind + "_launches"][key]
+                                            for key in MP2_KERNELS}
+                                           for res in ranks]
+                                    for kind in ("batch", "pool")},
+              "collective_bytes_per_call": {
+                  kind: ranks[0][kind + "_bytes"] for kind in ("batch",
+                                                               "pool")},
+              "bytes_equal_analytic": True,
+              "call_ms_gloo_over_host": {kind: ranks[0][kind + "_ms"]
+                                         for kind in ("batch", "pool")}})
+        for kind in ("batch", "pool"):
+            out[f"{kind} (data {d}, model {m})"] = [
+                res[kind + "_launches"] for res in ranks]
+        emit({"moe_mesh": "gloo ranks on one card, one job after another",
+              "depth": layers, "ranks": [job["world"] for job in jobs],
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9,
+              "rank_max_reserved_gb": [res["max_reserved"] / 1e9
+                                       for ranks in runs for res in ranks]})
+        return out
+
+    def moe_train_mesh(self) -> dict:
+        """Phase 32: qwen3-moe-30b-a3b at full width and
+        MOE_TRAIN_LAYERS layers, fp32, TRAIN_MESH_STEPS steps of
+        ``launch.train.run`` (the launcher's TRAIN_BATCH x TRAIN_SEQ, lr
+        TRAIN_LR) with no mesh in this process, the first step's first
+        moments of its blocks written to ``build/mesh/moe-train-ref.pt``
+        (the embeddings' are left out: the file stays near phase 28's
+        size); then the same run on each (data, model) of MOE_TRAIN_MESH
+        as gloo processes sharing the card (``mesh_train_child``), each
+        holding its blocks' gradients to that file after its first step.
+        Here: every rank's losses, grad norms and MoE statistics
+        (load-balance loss, dropped fraction) within 1e-4 relative of one
+        rank's and equal to rank 0's, its launches ``train_launches``',
+        each group's bytes a step ``train_axis_bytes``'.  Returns each
+        mesh's per-rank launches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as launch_train
+        from repro_torch.tree import flatten_with_path, keystr
+        cfg = configs.get_config(QWEN3_MOE).with_updates(
+            num_layers=MOE_TRAIN_LAYERS)
+        b1 = self.train_config(TRAIN_MESH_STEPS).optimizer.b1
+        self.free_memory()
+        ref_path = ROOT / "build" / "mesh" / "moe-train-ref.pt"
+        ref_path.parent.mkdir(parents=True, exist_ok=True)
+        step, get_config = launch_train.train_step, configs.get_config
+        first, metrics = {}, []
+
+        def keep_first(*args, **kw):
+            out = step(*args, **kw)
+            metrics.append({key: float(v) for key, v in out[2].items()})
+            if not first:
+                first["mu"] = {keystr(p): t.detach().cpu() for p, t in
+                               flatten_with_path(out[1].mu)
+                               if "embeddings" not in keystr(p)}
+            return out
+
+        history = []
+        ops.reset_launch_counts()
+        launch_train.train_step = keep_first
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=MOE_TRAIN_LAYERS)
+        try:
+            launch_train.run(QWEN3_MOE, False, TRAIN_MESH_STEPS,
+                             TRAIN_BATCH, TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
+                             log_every=TRAIN_MESH_STEPS, device=self.dev,
+                             seed=0, history=history)
+        finally:
+            launch_train.train_step = step
+            configs.get_config = get_config
+        one_launches = ops.launch_counts()
+        first["gmax"] = {key: (mu / (1 - b1)).abs().max().item()
+                         for key, mu in first["mu"].items()}
+        torch.save(first, ref_path)
+        del first
+        self.free_memory()
+        want_launches = {name: 0 for name in one_launches}
+        want_launches.update(train_launches(cfg, TRAIN_MESH_STEPS, False))
+        if one_launches != want_launches:
+            raise AssertionError(f"one-rank MoE training launched "
+                                 f"{one_launches}, not {want_launches}")
+        if not metrics[0]["dropped_fraction"] > 0:
+            raise AssertionError("the capacity drops nothing: the MoE "
+                                 "training runs hold no capacity")
+        out = {}
+        for d, m in MOE_TRAIN_MESH:
+            where = (f"{QWEN3_MOE} {MOE_TRAIN_LAYERS} layers training fp32 "
+                     f"(data {d}, model {m}) (gloo)")
+            self.mesh_peak = 0
+            t0 = time.perf_counter()
+            ranks = self.mesh_children(
+                [{"kind": "train", "world": d * m, "data": d, "model": m,
+                  "ref": str(ref_path), "arch": QWEN3_MOE,
+                  "layers": MOE_TRAIN_LAYERS,
+                  # two ranks' 27 GB peaks on one card: segments that grow
+                  # keep the caching allocator's slack off the card
+                  "env": {"PYTORCH_CUDA_ALLOC_CONF":
+                          "expandable_segments:True"}}],
+                f"moe-train{d}{m}-")[0]
+            wall = time.perf_counter() - t0
+            want_bytes = train_axis_bytes(cfg, d, m, TRAIN_BATCH, TRAIN_SEQ,
+                                          4, False)
+            for r, res in enumerate(ranks):
+                for i, (got, one) in enumerate(zip(res["history"], history)):
+                    for key in ("loss", "grad_norm", "lr"):
+                        if got[key] != ranks[0]["history"][i][key] or not \
+                                abs(got[key] - one[key]) <= \
+                                1e-4 * abs(one[key]):
+                            raise AssertionError(
+                                f"{where} rank {r} step {i} {key}: "
+                                f"{got[key]}, one rank {one[key]}")
+                for i, (got, one) in enumerate(zip(res["metrics"],
+                                                   metrics)):
+                    for key in ("ce_loss", "load_balance_loss",
+                                "dropped_fraction"):
+                        if not abs(got[key] - one[key]) <= \
+                                1e-4 * abs(one[key]) + 1e-7:
+                            raise AssertionError(
+                                f"{where} rank {r} step {i} {key}: "
+                                f"{got[key]}, one rank {one[key]}")
+                if res["launches"] != want_launches:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != "
+                                         f"{want_launches}")
+                for i, got in enumerate(res["step_bytes"]):
+                    bytes_equal(f"{where} rank {r} step {i}",
+                                {key: v for key, v in got.items() if v},
+                                want_bytes)
+            emit({"train_mesh_run": where, "ranks": d * m,
+                  "steps": TRAIN_MESH_STEPS,
+                  "losses": [h["loss"] for h in ranks[0]["history"]],
+                  "losses_one_rank": [h["loss"] for h in history],
+                  "moe_metrics": ranks[0]["metrics"],
+                  "moe_metrics_one_rank": metrics,
+                  "worst_rank_after_step_0": max(
+                      (res["held"] for res in ranks),
+                      key=lambda h: h["grads_err_over_tol"]),
+                  "bytes_per_step_per_rank": ranks[0]["step_bytes"][0],
+                  "bytes_equal_analytic": True,
+                  "launches_per_rank": [{key: v for key, v in
+                                         res["launches"].items() if v}
+                                        for res in ranks],
+                  "step_ms_gloo_over_host": [1e3 * h["seconds"] for h in
+                                             ranks[0]["history"]],
+                  "one_rank_step_ms": [1e3 * h["seconds"] for h in history],
+                  "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
+                                             for res in ranks],
+                  "rank_peak_reserved_gb": [res["max_reserved"] / 1e9
+                                            for res in ranks],
+                  "card_peak_gb": self.mesh_peak / 1e9,
+                  "children_wall_s": wall})
+            out[f"data {d} model {m}"] = [res["launches"] for res in ranks]
+        ref_path.unlink()
+        return out
+
+    def front_inputs(self, cfg, groups: int) -> dict:
+        """A frontend's batch E=1 round inputs on the card, drawn from
+        ``MESH_SEED``: ``groups`` groups of K requests (hubert: FRAMES
+        frames each; paligemma: its patches and FRONT_TEXT text tokens,
+        and MESH_STEPS fixed next tokens), one straggler, a sigma-10
+        attacker and its (G, N+1, V) noise."""
+        torch = self.torch
+        from repro_torch.core.berrut import CodingConfig
+        n1 = CodingConfig(k=K, s=S, e=E).num_workers
+        gen = torch.Generator(self.dev).manual_seed(MESH_SEED)
+        rows = groups * K
+        mask = torch.ones(n1, device=self.dev)
+        mask[MESH_STRAGGLER] = 0.0
+        byz = torch.zeros(n1, device=self.dev)
+        byz[MESH_ATTACKER] = 1.0
+        out = {"mask": mask, "byz": byz}
+        if cfg.modality == "audio":
+            out["frames"] = torch.randn((rows, FRAMES, cfg.frontend_dim),
+                                        generator=gen, device=self.dev)
+            out["steps"] = torch.zeros((0, rows, 1), dtype=torch.int64,
+                                       device=self.dev)
+        else:
+            out["patches"] = torch.randn((rows, cfg.num_patches,
+                                          cfg.frontend_dim), generator=gen,
+                                         device=self.dev)
+            out["tokens"] = torch.randint(0, cfg.vocab_size,
+                                          (rows, FRONT_TEXT), generator=gen,
+                                          device=self.dev)
+            out["steps"] = torch.randint(0, cfg.vocab_size,
+                                         (MESH_STEPS, rows, 1),
+                                         generator=gen, device=self.dev)
+        out["noise"] = torch.randn((groups, n1, cfg.vocab_size),
+                                   generator=gen, device=self.dev)
+        return out
+
+    def front_mesh(self) -> dict:
+        """Phase 33: the frontends on a 2-way model axis, fp32 at full
+        width and FRONT_MESH_LAYERS layers, 2 gloo processes each sharing
+        the card (both jobs at once): hubert-xlarge's ``coded_prefill`` of
+        FRONT_GROUPS groups of K requests of FRAMES frames at E=1 (MHA
+        8/8 heads of 80 a rank, non-causal; its 504 labels split in two),
+        and paligemma-3b's batch E=1 round (MESH_GROUPS groups, 256
+        patches and FRONT_TEXT tokens under prefix-LM, MESH_STEPS decode
+        steps; its one kv-head whole, the ring split in two), each against
+        the same with no mesh on the card: decoded logits within
+        MESH_TOL, tokens up to near ties, verdicts equal; per-rank
+        launches held; each call's bytes equal to ``model_axis_bytes``.
+        Returns the per-rank launches of each run."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models.model import init_params
+        self.free_memory()
+        plain, jobs = {}, []
+        for arch in FRONTENDS:
+            cfg = configs.get_config(arch).with_updates(
+                num_layers=FRONT_MESH_LAYERS[arch])
+            inputs = self.front_inputs(
+                cfg, FRONT_GROUPS if arch == HUBERT else MESH_GROUPS)
+            seq = FRAMES if arch == HUBERT else cfg.num_patches + FRONT_TEXT
+            max_len = seq + MESH_STEPS + 2
+            max_len += max_len % 2               # a ring the axis splits
+            params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+                MESH_SEED), self.dev)
+            plain[arch] = (cfg, seq, mesh_rounds(cfg, params, inputs,
+                                                 max_len=max_len))
+            del params
+            path = ROOT / "build" / "mesh" / f"inputs-front-{arch}.pt"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({key: v.cpu() for key, v in inputs.items()}, path)
+            jobs.append({"kind": "front", "world": 2, "model": 2,
+                         "batch": True, "arch": arch,
+                         "layers": FRONT_MESH_LAYERS[arch],
+                         "max_len": max_len, "inputs": str(path)})
+            self.free_memory()
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        runs = self.mesh_children(jobs, "front-mesh-", together=True)
+        wall = time.perf_counter() - t0
+        coding = CodingConfig(k=K, s=S, e=E)
+        out = {}
+        for arch, ranks in zip(FRONTENDS, runs):
+            cfg, seq, want = plain[arch]
+            groups = FRONT_GROUPS if arch == HUBERT else MESH_GROUPS
+            decodes = len(want["batch"]) - 1
+            where = (f"{arch} {cfg.num_layers} layers fp32 K={K} S={S} "
+                     f"E={E} at model 2 (gloo)")
+            launches = self.expected_launches(arch, 1, decodes, pool=False,
+                                              layers=cfg.num_layers)
+            worst = 0.0
+            for r, res in enumerate(ranks):
+                if res["batch_launches"] != launches:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['batch_launches']} != "
+                                         f"{launches}")
+                worst = max(worst, hold_calls(f"{where} rank {r}",
+                                              res["batch"], want["batch"]))
+                for i, got in enumerate(res["batch_bytes"]):
+                    step = seq if i == 0 else 1
+                    embed = (0 if cfg.modality == "audio" else
+                             FRONT_TEXT if i == 0 else 1)
+                    groups_equal(f"{where} rank {r} call {i}", got, {
+                        "model": model_axis_bytes(
+                            cfg, 2, groups * K, groups * coding.num_workers,
+                            step, i > 0, embed_seq=embed)})
+            emit({"mesh_run": where, "calls": 1 + decodes,
+                  "worst_err_over_tol": worst,
+                  "launches_per_rank": [{key: res["batch_launches"][key]
+                                         for key in MP2_KERNELS}
+                                        for res in ranks],
+                  "collective_bytes_per_call": ranks[0]["batch_bytes"],
+                  "bytes_equal_analytic": True,
+                  "call_ms_gloo_over_host": ranks[0]["batch_ms"]})
+            out[arch] = [res["batch_launches"] for res in ranks]
+        emit({"front_mesh": "gloo ranks on one card, both jobs at once",
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9})
+        return out
+
+    def a93_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's ``a9_3`` numbers of ``name``: its launches on
+        each rank of every run of phases 31-33, and for B3 and B5 their
+        numbers at a model-2 rank's heads (qwen3-moe's bf16, hubert's
+        fp32, phase 31's kernel checks)."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        out = {"launches_per_rank": {
+            f"{phase} {run}": [r[name] for r in ranks]
+            for phase, runs in launches.items()
+            for run, ranks in runs.items()}}
+        for arch, table in self.kernels_a93.items():
+            if name in table:
+                out[f"{arch} model-2 heads"] = {
+                    key: table[name][key] for key in keys}
+        return out
+
 
 def mesh_multihost_argv(store, world: int, rank: int, model: int,
                         backend: str = "nccl", s: int = MESH_S,
@@ -6763,67 +7330,195 @@ def groups_equal(where: str, got: dict, want: dict) -> None:
 
 
 def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
-                     decode: bool) -> dict:
-    """Per-rank bytes of one serving call of a dense decoder on an
-    ``m``-way model axis that splits its q-heads, MLP and vocabulary and
-    the ring of its caches (not its kv-heads), fp32, under the ring
-    accounting of ``partitioning.WorkerGroup``: the embedding's
-    all-reduce of (rows, seq, d), two all-reduces of (streams, seq, d) a
-    layer and the logits' all-gather of (streams, V); in a decode call
-    also per layer the q-heads' all-gather (streams, H, D), the lse's
-    all-gather (m, streams, H) and the merge's reduce-scatter of
-    (streams, H / m, D)."""
+                     decode: bool, embed_seq=None) -> dict:
+    """Per-rank bytes of one serving call on an ``m``-way model axis that
+    splits the q-heads, the dense MLPs and the vocabulary and, in a
+    decode call, the ring of the caches (not the kv-heads), fp32, under
+    the ring accounting of ``partitioning.WorkerGroup``: the token
+    embeddings' all-reduce of (rows, ``embed_seq``, d) (``seq`` by
+    default; 0 for an audio model, whose frames are projected by a whole
+    leaf, the text alone for a vlm), an all-reduce of (streams, seq, d)
+    for each attention layer ("A" and "M") and each dense MLP ("A": the
+    MoE layer's own is ``moe_axis_bytes``'), and the logits' all-gather
+    of (streams, V); in a decode call also per attention layer the
+    q-heads' all-gather (streams, H, D), the lse's all-gather (m,
+    streams, H) and the merge's reduce-scatter of (streams, H / m, D)."""
     frac = (m - 1) / m
-    d, h, hd, layers = cfg.d_model, cfg.num_heads, cfg.head_dim, \
-        cfg.num_layers
-    out = {"all-reduce": 2 * frac * 4 * (rows * seq * d
-                                         + 2 * layers * streams * seq * d),
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    attention = sum(cfg.layer_pattern.count(c) for c in "AM")
+    dense = cfg.layer_pattern.count("A")
+    embed_seq = seq if embed_seq is None else embed_seq
+    out = {"all-reduce": 2 * frac * 4 * (rows * embed_seq * d
+                                         + (attention + dense) * streams
+                                         * seq * d),
            "all-gather": frac * 4 * streams * cfg.vocab_size}
     if decode:
-        out["all-gather"] += layers * frac * 4 * (streams * h * hd
-                                                  + m * streams * h)
-        out["reduce-scatter"] = layers * (m - 1) * 4 * streams * (h // m) \
-            * hd
+        out["all-gather"] += attention * frac * 4 * (streams * h * hd
+                                                     + m * streams * h)
+        out["reduce-scatter"] = attention * (m - 1) * 4 * streams \
+            * (h // m) * hd
     out["total"] = sum(out.values())
     return out
 
 
+def moe_axis_bytes(cfg, tokens: int, b: int, w: int, m: int,
+                   size: int = 4) -> dict:
+    """Per-rank bytes by group and op of the MoE layers of one call whose
+    rank runs ``tokens`` tokens, under the ring accounting of
+    ``partitioning.WorkerGroup``: each MoE layer all-gathers its tokens'
+    (tokens, k) int64 top-k routes over the batch group ("fsdp", ``b``
+    ranks of "pod" and "data"), then the batch group's over "worker"
+    (``w``), and on an ``m``-way model axis that splits the experts (or
+    their hidden units) all-reduces its (tokens, d) output of ``size``
+    bytes an element."""
+    layers = cfg.layer_pattern.count("M")
+    routes = tokens * cfg.experts_per_token * 8
+    out = {}
+    if b > 1:
+        out["fsdp"] = {"all-gather": layers * (b - 1) * routes}
+    if w > 1:
+        out["worker"] = {"all-gather": layers * (w - 1) * b * routes}
+    if m > 1:
+        out["model"] = {"all-reduce": layers * 2 * (m - 1) / m * tokens
+                        * cfg.d_model * size}
+    for ops in out.values():
+        ops["total"] = sum(ops.values())
+    return out
+
+
+def add_bytes(*counts) -> dict:
+    """Bytes by group and op summed over ``counts`` (each {group: {op:
+    bytes, "total": ...}}), totals recounted."""
+    out: dict = {}
+    for count in counts:
+        for group, ops in count.items():
+            mine = out.setdefault(group, {})
+            for op, b in ops.items():
+                if op != "total":
+                    mine[op] = mine.get(op, 0.0) + b
+    for ops in out.values():
+        ops["total"] = sum(ops.values())
+    return out
+
+
+@contextlib.contextmanager
+def route_log(log: list):
+    """Record every MoE layer call on the host, in order: (the router's
+    fp32 logits of this rank's tokens, the whole batch's top-k routes
+    after the routing gather, the index of this rank's first token in
+    it)."""
+    from repro_torch.models import moe
+    real_probs, real_routes = moe.router_probs, moe.whole_routes
+    seen = []
+
+    def probs(cfg, p, x):
+        seen.append(moe.router_logits(p, x).float().cpu())
+        return real_probs(cfg, p, x)
+
+    def routes(top_i):
+        whole, start = real_routes(top_i)
+        log.append((seen.pop(), whole.cpu(), start))
+        return whole, start
+
+    moe.router_probs, moe.whole_routes = probs, routes
+    try:
+        yield
+    finally:
+        moe.router_probs, moe.whole_routes = real_probs, real_routes
+
+
+def mesh_route_walk(where: str, got: list, want: list, k: int,
+                    layers: int) -> int:
+    """Hold a mesh rank's MoE layer calls (``route_log``) against the
+    same calls with no mesh, in order: the rank's router logits within
+    1e-4 x max(1, max |plain|) of its rows of the plain ones, and the
+    whole batch's routes equal to the plain routes wherever the plain
+    top-k margin (the k-th minus the (k+1)-th logit) is wider than twice
+    that.  A route that differs inside the margin is printed and ends the
+    walk (routing is discrete: its token's output, and every later input,
+    may differ from there on).  Returns the model calls (``layers`` MoE
+    calls each) whose routes were all equal."""
+    import torch
+    if len(got) != len(want):
+        raise AssertionError(f"{where}: {len(got)} MoE layer calls, no mesh "
+                             f"{len(want)}")
+    least = math.inf
+    for i, ((lg, rg, start), (lw, rw, _)) in enumerate(zip(got, want)):
+        rows = lw[start:start + lg.shape[0]]
+        tol = 1e-4 * max(1.0, lw.abs().max().item())
+        err = (lg - rows).abs().max().item()
+        if not err <= tol:
+            raise AssertionError(f"{where}: MoE call {i}: router logits "
+                                 f"differ by {err} > {tol}")
+        top = lw.sort(-1, descending=True).values
+        margin = top[:, k - 1] - top[:, k]
+        least = min(least, margin.min().item())
+        if rg.shape != rw.shape:
+            raise AssertionError(f"{where}: MoE call {i}: routes "
+                                 f"{tuple(rg.shape)} != {tuple(rw.shape)}")
+        differ = (rg.sort(-1).values != rw.sort(-1).values).any(-1)
+        if differ.any():
+            near = margin[differ]
+            emit({"disputed_route": where, "moe_call": i,
+                  "tokens": int(differ.sum()), "tol": tol,
+                  "margins": near.tolist()[:16],
+                  "explained": bool((near <= 2 * tol).all())})
+            if not (near <= 2 * tol).all():
+                raise AssertionError(f"{where}: MoE call {i}: a route "
+                                     "differs off a near tie")
+            return i // layers
+    emit({"routes": where, "moe_calls": len(got), "least_topk_margin": least,
+          "equal": True})
+    return len(got) // layers
+
+
 def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
                      remat: bool) -> dict:
-    """Per-rank bytes of one training step of a dense decoder whose
-    kv-heads the model axis divides, on a (data ``d``, model ``m``) mesh,
-    parameters and activations of ``size`` bytes, under the ring
-    accounting of ``partitioning.WorkerGroup``, by group.  "fsdp": each
-    weight's model-local whole B gathered (B (d-1)/d), its gradient
+    """Per-rank bytes of one training step of a decoder of "A" and "M"
+    layers whose kv-heads the model axis divides, on a (data ``d``, model
+    ``m``) mesh, parameters and activations of ``size`` bytes, under the
+    ring accounting of ``partitioning.WorkerGroup``, by group.  "fsdp":
+    each weight's model-local whole B gathered (B (d-1)/d), its gradient
     reduce-scattered (B / d (d-1): the same), every norm's gradient
-    all-reduced (2 B (d-1)/d), and the loss with 4 metrics (fp32).
-    "model", a step's (rows / d) x seq tokens: the embedding's all-reduce,
-    two a layer (attention and MLP out), the logits' all-gather; in the
-    backward two a layer (x into the heads and into the MLP), q_norm's and
-    k_norm's gradients a layer, and x into the vocabulary's product; under
-    remat one more a layer, the attention's, as the block's forward is
-    recomputed: torch's checkpoint stops recomputing once it has the
-    tensors the backward saved, before the MLP's closing all-reduce.
-    "world": the squared gradient norm (fp32)."""
+    all-reduced (2 B (d-1)/d), and the loss with 4 metrics (fp32); each
+    MoE layer's routing gather of its (tokens, k) int64 routes.  "model",
+    a step's (rows / d) x seq tokens: the embedding's all-reduce, two a
+    layer (attention and MLP or MoE out), the logits' all-gather; in the
+    backward two a layer (x into the heads and into the MLP or the
+    experts), each MoE layer's (tokens, E) fp32 combine weights,
+    q_norm's and k_norm's gradients a layer, and x into the vocabulary's
+    product; under remat one more a layer, the attention's, as the
+    block's forward is recomputed: torch's checkpoint stops recomputing
+    once it has the tensors the backward saved, before the MLP's closing
+    all-reduce.  "world": the squared gradient norm (fp32)."""
     dm, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
     layers, vocab = cfg.num_layers, cfg.vocab_size
-    if kv % m or cfg.layer_pattern != "A" * layers:
-        raise ValueError("train_axis_bytes counts dense decoders whose "
-                         "kv-heads the model axis divides")
-    split = vocab * dm + layers * (2 * dm * h * hd + 2 * dm * kv * hd
-                                   + 3 * dm * ff)
+    moe = cfg.layer_pattern.count("M")
+    if kv % m or set(cfg.layer_pattern) - {"A", "M"} or (remat and moe):
+        raise ValueError("train_axis_bytes counts decoders of A and M "
+                         "layers whose kv-heads the model axis divides "
+                         "(the MoE layer without remat)")
+    e, f = cfg.num_experts, cfg.moe_d_ff
+    # each weight's model-local whole: the router is whole on the axis
+    split = (vocab * dm * (1 if cfg.tie_embeddings else 2)
+             + layers * (2 * dm * h * hd + 2 * dm * kv * hd)
+             + (layers - moe) * 3 * dm * ff + moe * 3 * e * dm * f) / m \
+        + moe * dm * e
     norms = layers * (2 * dm + (2 * hd if cfg.qk_norm else 0)) + dm
+    tokens = rows // d * seq
     out = {}
     if d > 1:
-        out["fsdp"] = 2 * (d - 1) / d * ((split / m + norms) * size + 5 * 4)
+        out["fsdp"] = 2 * (d - 1) / d * ((split + norms) * size + 5 * 4) \
+            + moe * (d - 1) * tokens * cfg.experts_per_token * 8
     if m > 1:
         frac = (m - 1) / m
-        act = rows // d * seq * dm * size
-        ar = act * (2 + 4 * layers + (layers if remat else 0))
+        act = tokens * dm * size
+        ar = act * (2 + 4 * layers + (layers if remat else 0)) \
+            + moe * tokens * e * 4
         if cfg.qk_norm:
             ar += 2 * layers * hd * size
-        out["model"] = 2 * frac * ar + frac * rows // d * seq * vocab * size
+        out["model"] = 2 * frac * ar + frac * tokens * vocab * size
     if d * m > 1:
         out["world"] = 2 * 4 * (d * m - 1) / (d * m)
     return out
@@ -6836,8 +7531,9 @@ def hold_train_blocks(where: str, params0, params1, mu1, specs, mesh, ref,
     first moment over 1 - b1) within 1e-4 x the leaf's max |grad|; the
     parameters under Adam's first-step rule, within 1e-5 |p| + 0.02 lr
     where one rank's gradient clears 100 x that tolerance, else within 2 lr
-    (1 + wd |p|) (``params0``: this rank's blocks before the step).
-    Returns the worst shares of the tolerances."""
+    (1 + wd |p|) (``params0``: this rank's blocks before the step).  Only
+    the leaves in ``ref["mu"]``, and the parameters only where ``ref``
+    has "params".  Returns the worst shares of the tolerances."""
     import torch
     from repro_torch.launch.shardings import local_shard
     from repro_torch.models.partitioning import spec_leaves
@@ -6851,12 +7547,16 @@ def hold_train_blocks(where: str, params0, params1, mu1, specs, mesh, ref,
             flatten_with_path(params1), leaves(params0), leaves(mu1),
             spec_leaves(specs, params1)):
         key = keystr(path)
+        if key not in ref["mu"]:
+            continue
         dev = p1.device
-        want_p = local_shard(ref["params"][key], spec, mesh).to(dev)
         g_ref = local_shard(ref["mu"][key], spec, mesh).to(dev) / (1 - opt.b1)
         tol = 1e-4 * max(ref["gmax"][key], 1e-30)
         worst_g = max(worst_g, ((mu / (1 - opt.b1) - g_ref).abs().max()
                                 / tol).item())
+        if "params" not in ref:
+            continue
+        want_p = local_shard(ref["params"][key], spec, mesh).to(dev)
         diff = (p1 - want_p).abs()
         if not (diff <= 2 * lr * (1 + opt.weight_decay * p0.abs())
                 + 1e-6).all():
@@ -6886,11 +7586,13 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
                 caches: bool = False, coding_args=(K, S, E),
                 worker_major: bool = False) -> dict:
     """The batch E=1 round over a ``max_len`` ring at ``coding_args``
-    (K, S, E): ``coded_prefill`` and MESH_STEPS ``coded_decode_step``s on
-    ``inputs``' fixed next tokens, group-major or with ``worker_major``
-    worker-major (gather width N+1); with ``pool`` also the slot pool's
-    worker-major prefill (every slot admitted) and MESH_STEPS decode
-    rounds on the same tokens, and both runs' caches (with ``caches``,
+    (K, S, E): ``coded_prefill`` of ``inputs``' prompt ("tokens", or a
+    frontend's "patches" and "tokens" or "frames") and a
+    ``coded_decode_step`` on each of its fixed next tokens ("steps"),
+    group-major or with ``worker_major`` worker-major (gather width N+1);
+    with ``pool`` also the slot pool's worker-major prefill (every slot
+    admitted) and a decode round on each of the same tokens, and both
+    runs' caches (with ``caches``,
     the batch round's).  On the active mesh, if any.  Returns each call's
     (logits, located) on the host, each run's launches, and on a mesh
     each call's collective bytes by axis and op and its wall time (ms,
@@ -6903,12 +7605,14 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
     from repro_torch.serving import coded_serving as cs
     coding = CodingConfig(*coding_args)
     mesh = partitioning.active_mesh()
-    dev = inputs["tokens"].device
+    dev = inputs["mask"].device
     ws = WorkerShardConfig(gather_width=coding.num_workers)
     kw = dict(straggler_mask=inputs["mask"], byz_mask=inputs["byz"],
               byz_noise=inputs["noise"], byz_sigma=10.0, with_report=True)
     bkw = dict(kw, wshard=ws if worker_major else None)
     out = {}
+    prompt = {key: inputs[key] for key in ("tokens", "patches", "frames")
+              if key in inputs}
 
     def run(kind, first, step):
         calls, nbytes, ms = [], [], []
@@ -6916,7 +7620,7 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
         if mesh is not None:
             mesh.reset_bytes()
         state = None
-        for i in range(1 + MESH_STEPS):
+        for i in range(1 + len(inputs["steps"])):
             t0 = time.perf_counter()
             logits, state, rep = (first() if i == 0 else
                                   step(state, inputs["steps"][i - 1]))
@@ -6935,11 +7639,11 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
             if pool or caches else None
 
     run("batch", lambda: cs.coded_prefill(
-        cfg, coding, params, {"tokens": inputs["tokens"]}, max_len, **bkw),
+        cfg, coding, params, prompt, max_len, **bkw),
         lambda st, t: cs.coded_decode_step(cfg, coding, params, st, t,
                                            **bkw))
     if pool:
-        groups = inputs["tokens"].shape[0] // coding.k
+        groups = next(iter(prompt.values())).shape[0] // coding.k
         state = cs.init_pool_state(cfg, coding, groups, max_len, dev,
                                    wshard=ws)
         fresh = cs.init_caches(cfg, cs.pool_streams(coding, groups, ws),
@@ -6947,7 +7651,7 @@ def mesh_rounds(cfg, params, inputs: dict, pool: bool = False,
         ones = np.ones((groups,), np.float32)
         pkw = dict(kw, wshard=ws)
         run("pool", lambda: cs.coded_pool_prefill(
-            cfg, coding, params, state, {"tokens": inputs["tokens"]}, ones,
+            cfg, coding, params, state, prompt, ones,
             fresh, **pkw), lambda st, t: cs.coded_pool_decode_step(
                 cfg, coding, params, st, t, ones, **pkw))
     return out
@@ -7042,7 +7746,8 @@ def mesh_child(rank: int, work: Path) -> int:
             str(world), "--process-id", str(rank), "--model-par",
             str(model)])
         out.update(res, launches=ops.launch_counts())
-    elif job["kind"] in ("multihost", "ring16", "multi_pod"):
+    elif job["kind"] in ("multihost", "ring16", "multi_pod",
+                         "moe_multihost"):
         # each call's decoded logits, as the decode tail leaves them to
         # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
         decoded = []
@@ -7061,26 +7766,32 @@ def mesh_child(rank: int, work: Path) -> int:
                     s=MH_S, steps=MP16_STEPS, slots=MP16_SLOTS),
                 "multi_pod": lambda: mesh_multihost_argv(
                     work / "store", world, rank, model, backend="gloo",
-                    s=MH_S, steps=BA_STEPS) + ["--multi-pod"]}[job["kind"]]()
+                    s=MH_S, steps=BA_STEPS) + ["--multi-pod"],
+                "moe_multihost": lambda: mesh_multihost_argv(
+                    work / "store", world, rank, model, backend="gloo",
+                    s=MH_S, steps=BA_STEPS) + ["--arch", QWEN3_MOE]
+                }[job["kind"]]()
         ops.reset_launch_counts()
         wm._decode_rows = decode_rows
         if job.get("layers"):            # the launcher's model, cut in depth
             configs.get_config = lambda arch: get_config(arch).with_updates(
                 num_layers=job["layers"])
+        routes = []
         try:
-            res = multihost.main(argv)
+            with route_log(routes):
+                res = multihost.main(argv)
         finally:
             wm._decode_rows = real
             configs.get_config = get_config
         out.update(tokens=res["tokens"], pool_logits=decoded,
                    call_ms=res["call_ms"],
                    call_bytes=res["call_bytes"],
-                   launches=ops.launch_counts())
+                   launches=ops.launch_counts(), routes=routes)
         torch.cuda.empty_cache()         # the whole weights, now freed
     if job["kind"] == "h2o":
         cfg = mesh_h2o_config(configs)
     else:
-        cfg = configs.get_config("qwen3-0.6b").with_updates(
+        cfg = configs.get_config(job.get("arch", "qwen3-0.6b")).with_updates(
             param_dtype="float32", activation_dtype="float32")
         if job.get("layers"):
             cfg = cfg.with_updates(num_layers=job["layers"])
@@ -7092,12 +7803,22 @@ def mesh_child(rank: int, work: Path) -> int:
             mesh = (make_worker_mesh(job["workers"], model, multi_pod=True)
                     if job.get("multi_pod") else
                     make_host_mesh(data=job.get("data", 1), model=model))
-            params = init_params(cfg, torch.Generator(dev).manual_seed(
-                MESH_SEED), dev)
-            with partitioning.mesh_context(mesh):
-                params = shardings.local_shard(
-                    params, shardings.serving_param_specs(mesh, cfg, params),
-                    mesh)
+            # each rank builds the whole tree, then keeps its blocks; with
+            # ``in_turns`` the ranks do so one after another, so that the
+            # card holds one whole tree at a time
+            for turn in range(world if job.get("in_turns") else 1):
+                if turn == rank or not job.get("in_turns"):
+                    params = init_params(cfg, torch.Generator(dev)
+                                         .manual_seed(MESH_SEED), dev)
+                    params = shardings.local_shard(
+                        params, shardings.serving_param_specs(mesh, cfg,
+                                                              params), mesh)
+                    torch.cuda.empty_cache()
+                if job.get("in_turns"):
+                    dist.barrier()
+            routes = []
+            with partitioning.mesh_context(mesh), route_log(routes):
+                out["routes"] = routes
                 out.update(mesh_rounds(
                     cfg, params, inputs,
                     pool=job["kind"] == "h2o" or job.get("pool", False),
@@ -7115,25 +7836,30 @@ def mesh_child(rank: int, work: Path) -> int:
 
 
 def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
-    """One rank of phase 28: ``launch.train.run`` of TRAIN_ARCH on the
-    job's (data, model) mesh over gloo, TRAIN_MESH_STEPS steps; each
-    step's collective bytes by group, and after the first this rank's
-    blocks held to one rank's (``hold_train_blocks``).  Returns the
-    history, the launches, the bytes and the holding's worst shares."""
+    """One rank of phases 28 and 32: ``launch.train.run`` of the job's
+    arch (TRAIN_ARCH by default; ``layers`` cuts its depth) on the job's
+    (data, model) mesh over gloo, TRAIN_MESH_STEPS
+    steps; each step's collective bytes by group and metrics, and after
+    the first this rank's blocks held to one rank's
+    (``hold_train_blocks``).  Returns the history, the launches, the
+    bytes, the metrics and the holding's worst shares."""
     import torch
     import torch.distributed as dist
+    from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import partitioning
     ref = torch.load(job["ref"], mmap=True, weights_only=True)
     step = launch_train.train_step
-    out = {"step_bytes": []}
+    get_config = configs.get_config
+    out = {"step_bytes": [], "metrics": []}
 
     def hold(cfg, tcfg, params, opt, batch, specs=None):
         mesh = partitioning.active_mesh()
         mesh.reset_bytes()
         new = step(cfg, tcfg, params, opt, batch, specs)
         out["step_bytes"].append(mesh.axis_bytes())
+        out["metrics"].append({k: float(v) for k, v in new[2].items()})
         if "held" not in out:
             out["held"] = hold_train_blocks(
                 f"training rank {rank}", params, new[0], new[1].mu, specs,
@@ -7145,13 +7871,18 @@ def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
     ops.reset_launch_counts()
     history = []
     launch_train.train_step = hold
+    if job.get("layers"):                # the launcher's model, cut
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=job["layers"])
     try:
-        launch_train.run(TRAIN_ARCH, False, TRAIN_MESH_STEPS, TRAIN_BATCH,
-                         TRAIN_SEQ, job["data"], job["model"], TRAIN_LR, 1,
-                         None, log_every=TRAIN_MESH_STEPS, device=dev,
-                         seed=0, history=history)
+        launch_train.run(job.get("arch", TRAIN_ARCH), False,
+                         TRAIN_MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                         job["data"], job["model"], TRAIN_LR, 1, None,
+                         log_every=TRAIN_MESH_STEPS, device=dev, seed=0,
+                         history=history)
     finally:
         launch_train.train_step = step
+        configs.get_config = get_config
         dist.destroy_process_group()
     out.update(history=history, launches=ops.launch_counts())
     return out

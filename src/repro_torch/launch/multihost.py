@@ -128,7 +128,6 @@ def serve_main(args) -> dict:
     from repro_torch.launch.serve import refuse_frontends
     from repro_torch.launch.worker_mesh import WorkerShardConfig
     from repro_torch.models.model import init_params
-    from repro_torch.models.transformer import check_batch_axes
     from repro_torch.serving.coded_serving import pool_streams
     from repro_torch.serving.continuous import ContinuousLLMExecutor
 
@@ -150,7 +149,6 @@ def serve_main(args) -> dict:
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     refuse_frontends(cfg)
-    check_batch_axes(cfg, pods)          # before the weights are built
     cfg = cfg.with_updates(param_dtype=args.dtype,
                            activation_dtype=args.dtype)
     wshard = WorkerShardConfig(gather_width=coding.num_workers)
@@ -220,8 +218,7 @@ def train_main(args) -> dict:
     from repro_torch.launch.mesh import make_train_mesh
     from repro_torch.launch.train import sharded_state
     from repro_torch.models.model import init_params
-    from repro_torch.models.transformer import (check_batch_axes,
-                                                check_model_axis)
+    from repro_torch.models.transformer import check_model_axis
     from repro_torch.training import TrainConfig, train_step
 
     device = resolve_device(args.device)
@@ -236,7 +233,6 @@ def train_main(args) -> dict:
                          f"x a {args.model_par}-way model axis")
     data = world // (pods * args.model_par)
     check_model_axis(cfg, args.model_par)
-    check_batch_axes(cfg, pods * data)
     mesh = make_train_mesh(data, args.model_par, multi_pod=args.multi_pod)
     rows = mesh.fsdp_size()
     if args.batch % rows:

@@ -111,7 +111,9 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
     which sum over the group to the reference's over the whole batch:
     the local mean over the group's size (equal shards), or with a
     ``loss_mask`` the local masked sum over the mask summed over the
-    group."""
+    group.  The MoE layer's load-balance and z-losses are its shares
+    already (``moe.moe_block``), and its dropped fraction, the whole
+    batch's on every rank, is reported as the group's share of it."""
     logits, aux = forward(cfg, params, batch)
     logits = logits.to(torch.float32)
     if cfg.causal:
@@ -142,9 +144,12 @@ def lm_loss(cfg: ModelConfig, params: dict, batch: dict,
         loss = (nll * mask).sum() / (denom + 1e-6)
     total = loss + aux_weight * (aux["load_balance_loss"]
                                  + 0.1 * aux["router_z_loss"])
+    dropped = aux["dropped_fraction"]
+    if group is not None:
+        dropped = dropped / group.size
     return total, {"ce_loss": loss,
                    "load_balance_loss": aux["load_balance_loss"],
-                   "dropped_fraction": aux["dropped_fraction"],
+                   "dropped_fraction": dropped,
                    "total_loss": total}
 
 

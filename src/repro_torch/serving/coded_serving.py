@@ -54,7 +54,6 @@ from repro_torch.models import layers, partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (decode_step, embed_inputs, init_caches,
                                       prefill)
-from repro_torch.models.transformer import check_batch_axes
 from repro_torch.serving.sampling import SampleConfig, sample_tokens
 
 
@@ -74,17 +73,14 @@ def num_padded_streams(coding: CodingConfig, groups: int) -> int:
     return partitioning.padded_batch(groups * coding.num_workers)
 
 
-def _check_batch_axes(cfg: ModelConfig,
-                      wshard: Optional[WorkerShardConfig]) -> None:
+def _check_batch_axes(wshard: Optional[WorkerShardConfig]) -> None:
     """Raise for a mesh this step does not serve on: a "worker" axis
-    above 1 without ``wshard`` (it splits worker-major streams only), and
-    an MoE model on a batch split over the "pod" and "data" axes
-    (``transformer.check_batch_axes``)."""
+    above 1 without ``wshard`` (it splits worker-major streams only).
+    Every family serves on the "pod" and "data" axes, the MoE layer with
+    the whole batch's routing (``models.moe.moe_block``)."""
     if partitioning.axis_size("worker") > 1 and wshard is None:
         raise ValueError("a worker axis above 1 shards worker-major "
                          "streams: pass wshard")
-    check_batch_axes(cfg, partitioning.axis_size("pod")
-                     * partitioning.axis_size("data"))
 
 
 def _sub_block(coding: CodingConfig, groups: int) -> tuple:
@@ -346,7 +342,7 @@ def coded_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     "pod" and "data" axes a rank's state holds its block of the streams
     (``_code_streams``).
     """
-    _check_batch_axes(cfg, wshard)
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (G*K, S, d)
     gk, s, d = x.shape
@@ -387,7 +383,7 @@ def coded_decode_step(cfg: ModelConfig, coding: CodingConfig, params: dict,
     with ``sample``, and the new state); with ``with_report`` also the
     locator's (located, votes).
     """
-    _check_batch_axes(cfg, wshard)
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (G*K,1,d)
     gk, _, d = x.shape
@@ -438,7 +434,7 @@ def init_pool_state(cfg: ModelConfig, coding: CodingConfig,
                     ) -> CodedPoolState:
     """Allocate the fixed slot pool: ``pool_streams`` zeroed coded-stream
     caches on ``device`` and zeroed slot positions."""
-    _check_batch_axes(cfg, wshard)
+    _check_batch_axes(wshard)
     if pool_groups < 1:
         raise ValueError(f"need pool_groups >= 1, got {pool_groups}")
     dtype = cache_dtype or getattr(torch, cfg.param_dtype)
@@ -562,7 +558,7 @@ def coded_pool_prefill(cfg: ModelConfig, coding: CodingConfig, params: dict,
     (located, votes).  With ``wshard`` the pool and ``fresh`` hold this
     rank's worker-major streams only (``pool_streams``).
     """
-    _check_batch_axes(cfg, wshard)
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = embed_inputs(cfg, params, inputs)                 # (P*K, S, d)
     gk, s, d = x.shape
@@ -612,7 +608,7 @@ def coded_pool_decode_step(cfg: ModelConfig, coding: CodingConfig,
     ``sample``, and the new state); with ``with_report`` also the
     active-masked (located, votes).  ``state`` is consumed.
     """
-    _check_batch_axes(cfg, wshard)
+    _check_batch_axes(wshard)
     straggler_mask = _compose_live(straggler_mask, live_mask)
     x = layers.embed_tokens(cfg, params["embeddings"], tokens)  # (P*K,1,d)
     gk, _, d = x.shape

@@ -116,6 +116,13 @@ def _mesh_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
             "a loss_mask with microbatches on a split batch: the "
             "reference's microbatch i is rows i of the whole batch, whose "
             "mask sum no rank holds")
+    if group is not None and tcfg.microbatches > 1 and \
+            "M" in cfg.layer_pattern:
+        raise NotImplementedError(
+            "an MoE layer with microbatches on a split batch: the "
+            "reference's microbatch i is rows i of the whole batch, whose "
+            "dispatch groups and load-balance loss span other ranks' rows "
+            "than each rank's microbatch i (ROADMAP A9.6)")
     dims = [partitioning.fsdp_dim(spec)
             for spec in partitioning.spec_leaves(specs, params)]
     local = leaves(params)
@@ -132,8 +139,7 @@ def _mesh_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
         grads = unflatten_like(params, [
             group.all_reduce(g) if d is None else group.reduce_scatter(g, d)
             for g, d in zip(leaves(grads), dims)])
-        # the ranks' shares summed (the MoE statistics are zeros: no MoE
-        # layer trains on a split batch, ``train_param_specs`` refuses it)
+        # the ranks' shares summed (``lm_loss``)
         names = sorted(metrics)
         total = group.all_reduce(torch.stack(
             [loss.to(torch.float32)]

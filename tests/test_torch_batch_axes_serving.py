@@ -1,5 +1,5 @@
 """Port parity of serving on the batch axes "pod" and "data" (ROADMAP
-A9.5), and the MoE layer's refusal on a split serving batch.
+A9.5), and the MoE layer on a split serving batch.
 
 A rank's block of the flat coded-stream axis is its coordinates read in
 the reference's "batch" rule order ("worker", "pod", "data"), worker
@@ -9,11 +9,13 @@ reference's ``resolve_spec`` on layout meshes (an object with
 ``tests/test_torch_mesh_serving.py``).
 
 The MoE layer's dispatch groups and their capacity follow the token
-count of the rows a rank runs, so a rank's block of a split batch keeps
-or drops other tokens than the whole batch does: shown first on reduced
+count of the rows it runs, so a rank's block of a split batch run alone
+keeps or drops other tokens than the whole batch does: shown on reduced
 qwen3-moe-30b-a3b with its router zeroed (every token picks the same
-two experts) and a capacity factor of 1, then refused (``A9.3``) by every
-serving step on a pod or data axis above 1.
+two experts) and a capacity factor of 1.  On a mesh with its groups the
+layer gathers the whole batch's routes instead
+(``tests/test_torch_moe_axes.py``), and every serving step takes it on
+a pod or data axis above 1.
 
 The gloo runs spawn one process per rank, as
 ``tests/test_torch_mesh_serving.py`` does (a file store in the test's tmp
@@ -163,11 +165,12 @@ def _moe_config():
 
 
 def test_moe_block_differs_from_the_whole_batch():
-    """The fault that the refusal below prevents: a rank's block of a
-    padded batch (5 streams padded to 6 on data 2, its 3 streams) keeps
-    other tokens in the experts' buffers than the whole batch does, so
-    its rows of the prefill and of a decode step differ from the whole
-    batch's."""
+    """The fault that the MoE layer's routing gather repairs: a rank's
+    block of a padded batch (5 streams padded to 6 on data 2, its 3
+    streams) run alone (a layout mesh has no groups to gather over)
+    keeps other tokens in the experts' buffers than the whole batch
+    does, so its rows of the prefill and of a decode step differ from
+    the whole batch's."""
     cfg = _moe_config()
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     for run in params["blocks"]["runs"]:
@@ -200,25 +203,24 @@ def test_moe_block_differs_from_the_whole_batch():
                                           (("pod", "worker", "model"),
                                            (2, 1, 1))])
 def test_moe_refused_on_a_split_serving_batch(names, shape):
+    """No serving step refuses the MoE layer on a pod or data axis any
+    more: the pool takes the rank's block of the streams, padded as for
+    a dense model; the one error left is a worker axis without
+    ``wshard``."""
     cfg = _moe_config()
     coding = TCoding(k=K, s=S, e=E)
-    with tpart.mesh_context(tpart.Mesh(names, shape)):
-        for wshard in (None, WorkerShardConfig()):
-            calls = [
-                lambda: tcs.coded_prefill(cfg, coding, {}, {}, 8,
-                                          wshard=wshard),
-                lambda: tcs.coded_decode_step(cfg, coding, {}, None, None,
-                                              wshard=wshard),
-                lambda: tcs.init_pool_state(cfg, coding, 2, 8, "cpu",
-                                            wshard=wshard),
-                lambda: tcs.coded_pool_prefill(cfg, coding, {}, None, {},
-                                               None, None, wshard=wshard),
-                lambda: tcs.coded_pool_decode_step(cfg, coding, {}, None,
-                                                   None, None,
-                                                   wshard=wshard)]
-            for call in calls:
-                with pytest.raises(NotImplementedError, match="A9.3"):
-                    call()
+    for rank in range(2):
+        with tpart.mesh_context(tpart.Mesh(names, shape, rank=rank)):
+            for wshard in (None, WorkerShardConfig()):
+                state = tcs.init_pool_state(cfg, coding, 2, 8, "cpu",
+                                            wshard=wshard)
+                assert state.caches[0]["k"].shape[1] == 8   # 16 / 2
+            state = tcs.init_pool_state(cfg, TCoding(k=2, s=1, e=1), 3, 8,
+                                        "cpu")
+            assert state.caches[0]["k"].shape[1] == 11    # 22 / 2
+    with tpart.mesh_context(tpart.Mesh(("worker", "model"), (2, 1))):
+        with pytest.raises(ValueError, match="pass wshard"):
+            tcs.init_pool_state(cfg, coding, 2, 8, "cpu")
     # a dense model's pool on the same mesh: the rank's block
     tc = tconfigs.get_reduced(ARCH)
     with tpart.mesh_context(tpart.Mesh(names, shape, rank=1)):
