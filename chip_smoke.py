@@ -202,8 +202,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    step of each profiled, with its memory split (parameters and
    moments, the forward and backward's peak, the optimizer's);
 21. one ``train_step`` card against CPU at full width and 2 layers for
-   each family not trained on the card before: qwen3-moe-30b-a3b
-   (router routes held, ``route_walk``), paligemma-3b (2 x 256 patches
+   each family not trained on the card before: qwen3-moe-30b-a3b (1
+   layer; router routes held, ``route_walk``), paligemma-3b (2 x 256 patches
    and 32 text tokens), hubert-xlarge (2 x 500 frames, frame targets)
    and h2o-danube-1.8b (head_dim 80), under phase 18's rules;
 22. the serving mesh (ROADMAP A9.1; these run after phase 10): B3 and
@@ -260,14 +260,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    launch, then dq, dk and dv) at a model-2 rank's training heads
    (qwen3-0.6b's 8/4 of 128, 8 x 128 tokens, fp32) against their plain
    versions, timed beside the bound, the plain version and SDPA (its
-   backward); then qwen3-0.6b at full width and depth, fp32, 2 steps of
-   ``launch.train.run`` at the launcher's 8 x 128 tokens on (data,
-   model) = (1, 2), (2, 1) and (2, 2), gloo processes sharing the card,
+   backward); then qwen3-0.6b at full width and 8 of its 28 layers,
+   fp32, 2 steps of ``launch.train.run`` at the launcher's 8 x 128 tokens
+   on (data, model) = (1, 2), (2, 1) and (2, 2), gloo processes sharing
+   the card (the three meshes at once),
    each held to one rank's 2 steps on the same batches: losses and grad
    norms within 1e-4 relative and equal on every rank; after the first
    step each rank's blocks of the gradient (the first moment) within
    1e-4 x the leaf's max |grad| and of the parameters under Adam's
-   first-step rule; per-rank launches (B3, its backward and Delta 28 a
+   first-step rule; per-rank launches (B3, its backward and Delta 8 a
    step); each group's bytes a step equal to ``train_axis_bytes``; the
    second step's wall time (gloo over the host) and the card's peak
    memory;
@@ -277,7 +278,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and its backward 28 a step a rank, bytes equal to
    ``train_axis_bytes``;
 30. the pod and data axes in serving (ROADMAP A9.5), qwen3-0.6b at full
-   width and depth, fp32, gloo processes sharing the card: (a)
+   width and BA_LAYERS (8) of its 28 layers, fp32, gloo processes sharing the card: (a)
    ``launch.multihost --mode serve --multi-pod`` at its defaults (K=7
    S=2 E=0, 8 slots: 72 streams, 2 decode calls) on (pod, worker, model)
    = (2, 1, 1) and (2, 3, 1), against the same pool with no mesh; (b)
@@ -304,7 +305,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    call's bytes by group and op equal to ``batch_axes_bytes`` plus
    ``moe_axis_bytes``; the card's peak memory;
 32. the MoE layer training on the mesh: qwen3-moe at full width and
-   MOE_TRAIN_LAYERS (2) layers, fp32, 2 steps of ``launch.train.run`` at
+   MOE_TRAIN_LAYERS (1) layer, fp32, 2 steps of ``launch.train.run`` at
    the launcher's 8 x 128 tokens on (data, model) = (2, 1) and (1, 2),
    gloo processes sharing the card, against one rank on the card:
    losses, grad norms, the load-balance loss and the dropped fraction
@@ -318,7 +319,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    the batch E=1 round on 256 patches and 16 text tokens with 3 decode
    steps, each against the same with no mesh: logits within MESH_TOL,
    verdicts equal, launches held, each call's bytes equal to
-   ``model_axis_bytes``.
+   ``model_axis_bytes``;
+34. Mamba2's "S" blocks on the model axis (ROADMAP A9.3b): B7 and its
+   scores pass at a model-2 rank's heads of mamba2-780m's multihost
+   prefill (72 streams of 128 tokens, 24 heads of 64, state 128) and of
+   zamba2-1.2b's batch prefill (22 streams, 32 heads of 64, state 64),
+   B7's backward and head sum at both at 8 x 128, each against its plain
+   version and timed; then at full width and depth, fp32, gloo processes
+   sharing the card, every job at once: (a) mamba2-780m's ``multihost
+   --mode serve --model-par 2`` at its defaults (K=7 S=2 E=0, 72
+   streams) against the same pool with no mesh; (b) its batch E=1 round
+   and worker-major slot pool on (data 2, model 2) and (c) zamba2-1.2b's
+   batch E=1 round at model 2, each against the same with no mesh under
+   phase 24's rules; each rank's caches its block of the no-mesh caches
+   (its streams, SSM heads and conv channels [x_r | B | C], kv-heads; in
+   (a) the last layer's),
+   per-rank launches held and printed, each call's bytes by group and op
+   equal to ``batch_axes_bytes`` plus ``ssm_axis_bytes``, the card's
+   peak memory;
+35. Mamba2's "S" blocks training on the model axis: mamba2-780m (8
+   layers) at (data, model) = (1, 2) and (2, 2), zamba2-1.2b (12 layers:
+   10 "S" and the shared block at 2 "G" positions) at (1, 2), fp32, 2
+   steps of ``launch.train.run`` at 8 x 128 tokens against one rank on
+   the card: losses and grad norms within 1e-4 relative and equal on
+   every rank, each rank's blocks of the first step's gradients within
+   1e-4 x the leaf's max (B and C's columns in every rank's block),
+   launches held, each group's bytes a step equal to
+   ``train_axis_bytes``.
 
 Each phase prints its wall time.
 
@@ -353,6 +380,10 @@ B3 and B5's numbers of phase 31 at a model-2 rank's heads; B3's,
 its backward's and its Delta launch's also ``train_mesh``: their fp32
 numbers of phase 28 at a model-2 rank's training heads and their
 launches on each rank of phases 28 and 29's runs, and ``a9_3``);
+B1, B6, B2, B3, B4 and B5's entries also ``a9_3b``, and B7's four
+entries ``model_par_2``: their launches on each rank of every run of
+phases 34-35, and for B7's their fp32 numbers at a model-2 rank's heads
+of mamba2-780m and zamba2-1.2b (phase 34);
 the last is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 away from the repository's ``src/``, it exits 1 and prints no result.
 """
@@ -543,6 +574,9 @@ MESH_TOL = (1e-5, 1e-4)        # rtol, atol: the CPU tests' fp32 logits rule
 MESH_TIMEOUT_S = 600
 MP2_KERNELS = ("berrut_apply", "berrut_encode_dispatch", "fused_group_decode",
                "flash_attention", "flash_decode", "pool_flash_decode")
+# B7's two forward launches, shown beside MP2_KERNELS on the Mamba2 model
+# axis (phases 34-35)
+SSD_KERNELS = ("ssd_chunked", "ssd_chunk_scores")
 # The cache-length split (phases 26-27): qwen3-0.6b's 8 kv-heads on a
 # 16-way model axis, each rank a gloo process on cuda:0 holding 16 of a
 # MH_WIDTH-slot ring's slots.  Phase 23's batch E=1 round over a
@@ -563,6 +597,9 @@ MP16_LAYERS = 4
 # group, 24 in all) on (pod 2, worker BA_WM_WORKERS)
 BA_MULTIHOST = ((2, 1, 1), (2, 3, 1))
 BA_STEPS = 2
+# phase 30 serves qwen3-0.6b at BA_LAYERS of its 28 layers, to keep the
+# whole run inside its limit with phases 34-35 added
+BA_LAYERS = 8
 BA_DATA_MESH = (2, 2)
 BA_WM, BA_WM_WORKERS = (4, 2, 1), 2
 # A9.3's first part (phases 31-33), gloo processes sharing cuda:0, fp32.
@@ -581,10 +618,26 @@ BA_WM, BA_WM_WORKERS = (4, 2, 1), 2
 MOE_MESH_LAYERS = 4
 MOE_MESH_MULTIHOST = ((1, 2), (3, 1))
 MOE_MESH_DATA = (2, 2)
-MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_MESH = ((2, 1), (1, 2))
 FRONT_MESH_LAYERS = {HUBERT: 4, PALIGEMMA: 2}
 FRONT_GROUPS = 4
+# A9.3b (phases 34-35): Mamba2's "S" blocks on the model axis, gloo
+# processes sharing cuda:0, fp32.  Phase 34: B7, its scores pass, its
+# backward and head sum at a model-2 rank's heads, then at full width and
+# depth, all jobs at once: (a) mamba2-780m's ``multihost --mode serve
+# --model-par 2`` (K=7 S=2 E=0 over MH_SLOTS slots: 72 streams, BA_STEPS
+# decode calls); (b) its batch E=1 round and worker-major slot pool on
+# (data, model) = SSM_MESH_DATA; (c) zamba2-1.2b's batch E=1 round at
+# model 2.  Phase 35: TRAIN_MESH_STEPS steps of ``launch.train.run`` on
+# each (arch, (data, model)) of SSM_TRAIN_MESH at SSM_TRAIN_CUT's depth
+# (zamba2: two of its "SSSSSG" periods, so that the shared block's
+# gradient sums two positions).
+SSM_MESH_DATA = (2, 2)
+SSM_TRAIN_MESH = (("mamba2-780m", (1, 2)), ("mamba2-780m", (2, 2)),
+                  (ZAMBA2, (1, 2)))
+SSM_TRAIN_CUT = {"mamba2-780m": dict(num_layers=8),
+                 ZAMBA2: dict(num_layers=12, layer_pattern="SSSSSG" * 2)}
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -632,8 +685,8 @@ EXACT_SCHEMES = {("uncoded", 0), ("replication", 0), ("replication", E)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 128, 8, 3e-3
 LONG_SHAPE = (4, 2048)
-# The training mesh (phases 28-29): TRAIN_ARCH at full width and depth,
-# fp32, TRAIN_MESH_STEPS steps of ``launch.train.run`` at the launcher's
+# The training mesh (phases 28-29): TRAIN_ARCH at full width (phase 28
+# at TRAIN_MESH_LAYERS layers), fp32, TRAIN_MESH_STEPS steps of ``launch.train.run`` at the launcher's
 # TRAIN_BATCH x TRAIN_SEQ on each (data, model) of TRAIN_MESH_RUNS, gloo
 # processes sharing cuda:0, held to one rank's steps; then ``multihost
 # --mode train --model-par 2`` (bf16, remat) at MH_TRAIN_ARGS against one
@@ -642,6 +695,9 @@ LONG_SHAPE = (4, 2048)
 # fp32 (on the CPU tests' reduced model, 4.8e-4 of a loss near 12.6)
 TRAIN_MESH_RUNS = ((1, 2), (2, 1), (2, 2))
 TRAIN_MESH_STEPS = 2
+# phase 28 trains TRAIN_ARCH at TRAIN_MESH_LAYERS of its 28 layers, to
+# keep the whole run inside its limit with phases 34-35 added
+TRAIN_MESH_LAYERS = 8
 MH_TRAIN_ARGS = ["--mode", "train", "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(TRAIN_MESH_STEPS),
                  "--backend", "gloo"]
@@ -660,11 +716,12 @@ AB_SHAPE = (2, 512)
 # at full width and TRAIN_SMALL's depth, then through ``launch.train.run``
 # at full width and depth like qwen3-0.6b.  TRAIN_FAMILIES, which had
 # never trained on the card, each take the card-against-CPU step at full
-# width and 2 layers (paligemma on TRAIN_VLM_TEXT text tokens after its
+# width and 2 layers (qwen3-moe 1, ``TRAIN_SMALL``; paligemma on TRAIN_VLM_TEXT text tokens after its
 # patches, hubert on FRAMES frames with frame targets, TRAIN_FRONT_BATCH
 # sequences each).
 TRAIN_SSM = ("mamba2-780m", ZAMBA2)
-TRAIN_SMALL = {"mamba2-780m": dict(num_layers=2),
+TRAIN_SMALL = {QWEN3_MOE: dict(num_layers=1),
+               "mamba2-780m": dict(num_layers=2),
                ZAMBA2: dict(num_layers=6, layer_pattern="SSSSSG")}
 TRAIN_FAMILIES = (QWEN3_MOE, PALIGEMMA, HUBERT, "h2o-danube-1.8b")
 TRAIN_FRONT_BATCH, TRAIN_VLM_TEXT = 2, 32
@@ -766,6 +823,10 @@ class Smoke:
         # B3 and B5 at a model-2 rank's heads of qwen3-moe (bf16) and B3
         # of hubert (fp32), phases 31 and 33: {arch: {name: entry}}
         self.kernels_a93 = {}
+        # B7, its scores pass, its backward and head sum at a model-2
+        # rank's heads of mamba2-780m and zamba2-1.2b (fp32), phase 34:
+        # {arch: {name: entry}}
+        self.kernels_a93b = {}
 
     # ------------------------------------------------------------ helpers
 
@@ -1010,7 +1071,8 @@ class Smoke:
             self.phase(f"{arch} train step profile", self.train_profile,
                        arch)
         for arch in TRAIN_FAMILIES:
-            self.phase(f"{arch} training, 2 layers, card against CPU",
+            depth = TRAIN_SMALL.get(arch, dict(num_layers=2))["num_layers"]
+            self.phase(f"{arch} training, {depth} layers, card against CPU",
                        self.train_card_vs_cpu, arch)
         self.phase(f"{TRAIN_ARCH} model-2 training heads kernels",
                    self.train_mesh_kernels)
@@ -1036,6 +1098,15 @@ class Smoke:
         a93["phase 33"] = self.phase(
             "paligemma-3b and hubert-xlarge on the model axis, ranks "
             "sharing the card", self.front_mesh)
+        self.free_memory()
+        self.phase("mamba2 and zamba2 model-2 heads kernels",
+                   self.ssm_mesh_kernels)
+        a93b = {"phase 34": self.phase(
+            "mamba2-780m and zamba2-1.2b serving on the model axis, ranks "
+            "sharing the card", self.ssm_mesh)}
+        a93b["phase 35"] = self.phase(
+            "mamba2-780m and zamba2-1.2b training on the model axis, ranks "
+            "sharing the card", self.ssm_train_mesh)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -1073,15 +1144,19 @@ class Smoke:
                     "model_par_16": self.mp16_entry(name, mp16_launches),
                     "batch_axes": {run: [r[name] for r in ranks]
                                    for run, ranks in batch_axes.items()},
-                    "a9_3": self.a93_entry(name, a93)}
+                    "a9_3": self.a93_entry(name, a93),
+                    "a9_3b": self.a93b_entry(name, a93b)}
                    if name in MP2_KERNELS else {}),
+                **({"model_par_2": self.a93b_entry(name, a93b)}
+                   if name in SSD_KERNELS else {}),
             })
         entries += [dict(self.train_entry(name, trained[TRAIN_ARCH]),
                          train_mesh=self.train_mesh_entry(name, mesh_trained),
                          a9_3=self.a93_entry(name, a93))
                     for name in ("flash_attention_bwd",
                                  "flash_attention_bwd_delta")]
-        entries += [self.ssd_train_entry(name, trained)
+        entries += [dict(self.ssd_train_entry(name, trained),
+                         model_par_2=self.a93b_entry(name, a93b))
                     for name in ("ssd_chunked_bwd", "ssd_bwd_head_sum")]
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
@@ -2484,11 +2559,11 @@ class Smoke:
                 torch.ones(h, device=self.dev))
 
     def mamba2_kernels(self, dtype_name: str, cfg=None, table=None,
-                       gen=None):
+                       gen=None, streams=None, prompt=PROMPT):
         """B7 at the mamba2 prefill's shapes: 44 coded streams (G=4, K=4,
         S=1, E=1) x 256 steps x 48 heads of 64, state 128; or at ``cfg``'s
         (zamba2: 64 heads of 64, state 64), its fp32 numbers in
-        ``table``."""
+        ``table``; or at ``streams`` x ``prompt`` steps."""
         torch = self.torch
         from repro_torch.configs import mamba2_780m
         from repro_torch.core.berrut import CodingConfig
@@ -2497,11 +2572,11 @@ class Smoke:
         dtype = getattr(torch, dtype_name)
         size = dtype.itemsize
         cfg = cfg or mamba2_780m.CONFIG
-        b = GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
+        b = streams or GROUPS * CodingConfig(k=K, s=S, e=E).num_workers
         h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        args = self.ssd_inputs(b, PROMPT, h, p, n, dtype, gen=gen)
+        args = self.ssd_inputs(b, prompt, h, p, n, dtype, gen=gen)
         x, dt, a_log, bb, cc, d = args
-        chunk = ssd_chunk(cfg.ssm_chunk, PROMPT)
+        chunk = ssd_chunk(cfg.ssm_chunk, prompt)
         (y, hf), (yr, hr) = (ops.ssd(*args),
                              ref.ssd_chunked_ref(*args, chunk=chunk))
         out = {"variant": f"ssd_chunked {cfg.name} h_final ({dtype_name})"}
@@ -2510,7 +2585,7 @@ class Smoke:
         # the scores pass alone: C B^T of each of the kernel's chunks (the
         # library call on contiguous copies of the chunked b and c)
         q = ssd_scan.CHUNK
-        nc = -(-PROMPT // q)
+        nc = -(-prompt // q)
         cb = cc.contiguous().view(b, nc, q, n)
         bt = bb.contiguous().view(b, nc, q, n).transpose(-1, -2)
         self.record(
@@ -2528,7 +2603,7 @@ class Smoke:
             lambda: ref.ssd_chunked_ref(*args, chunk=chunk), None,
             2 * x.numel() * size + hf.numel() * 4 + 2 * bb.numel() * size
             + dt.numel() * 4 + 2 * h * 4,
-            ssd_ops(b, PROMPT, h, p, n), table=table)
+            ssd_ops(b, prompt, h, p, n), table=table)
 
     def mamba2_variants(self):
         """B7 off the main shape, and B2 at mamba2's vocabulary with the
@@ -4617,10 +4692,10 @@ class Smoke:
         return out
 
     def b7_backward_timing(self, arch: str, dtype_name: str, args, dy,
-                           chunk: int, got, want) -> None:
+                           chunk: int, got, want, table=None) -> None:
         """Time B7's backward at a training shape (no h0, no gradient of
         h_final, as in training) and its head sum alone; the fp32 numbers
-        go to ``kernels_ssd_train``."""
+        go to ``kernels_ssd_train``, or by name to ``table``."""
         from repro_torch.kernels import ref, ssd_scan
         x, dt, a_log, bb, cc, d = args
         b, s, h, p = x.shape
@@ -4665,7 +4740,9 @@ class Smoke:
             parts.numel() * 4 + 2 * b * s * n * size, parts.numel(),
             dtype_name)
         emit(hs)
-        if dtype_name == "float32":
+        if table is not None:
+            table.update(ssd_chunked_bwd=res, ssd_bwd_head_sum=hs)
+        elif dtype_name == "float32":
             self.kernels_ssd_train["ssd_chunked_bwd", arch] = res
             self.kernels_ssd_train["ssd_bwd_head_sum", arch] = hs
         return res
@@ -4717,7 +4794,7 @@ class Smoke:
     def train_card_vs_cpu(self, arch: str):
         """One ``train_step`` of ``arch`` at full width and 2 layers
         (``TRAIN_SMALL``'s depth for the SSM models: mamba2 2 "S", zamba2
-        "SSSSSG"), card against CPU, on the same weights (drawn on the
+        "SSSSSG"; qwen3-moe 1), card against CPU, on the same weights (drawn on the
         card and copied) and the same batch (``train_batch``) at the
         launcher's optimizer settings: loss, grad norm and lr within 1e-4
         relative; every leaf's clipped gradient (the first moment over
@@ -6308,7 +6385,8 @@ class Smoke:
 
     def batch_axes(self) -> dict:
         """Phase 30: the batch axes in serving (ROADMAP A9.5), qwen3-0.6b
-        at full width and depth, fp32, gloo processes sharing cuda:0: (a) ``multihost --mode serve --multi-pod`` on
+        at full width and BA_LAYERS layers, fp32, gloo processes sharing
+        cuda:0: (a) ``multihost --mode serve --multi-pod`` on
         each (pod, worker, model) of BA_MULTIHOST against the same pool
         with no mesh (``plain_pool``); (b) the batch E=1 round and the
         worker-major slot pool on (data, model) = BA_DATA_MESH and (c)
@@ -6330,7 +6408,8 @@ class Smoke:
         from repro_torch.models import partitioning
         from repro_torch.models.model import init_params
         cfg = configs.get_config("qwen3-0.6b").with_updates(
-            param_dtype="float32", activation_dtype="float32")
+            param_dtype="float32", activation_dtype="float32",
+            num_layers=BA_LAYERS)
         tokens, pool_logits = self.plain_pool(cfg, MH_S, MH_SLOTS, BA_STEPS)
         inputs = self.mesh_inputs(cfg)
         wm_inputs = self.mesh_inputs(cfg, BA_WM)
@@ -6347,15 +6426,16 @@ class Smoke:
             paths[name].parent.mkdir(parents=True, exist_ok=True)
             torch.save({k: v.cpu() for k, v in inp.items()}, paths[name])
         d, m = BA_DATA_MESH
-        jobs = [{"kind": "multi_pod", "world": p * w * mm, "model": mm}
-                for p, w, mm in BA_MULTIHOST]
+        jobs = [{"kind": "multi_pod", "world": p * w * mm, "model": mm,
+                 "layers": BA_LAYERS} for p, w, mm in BA_MULTIHOST]
         jobs += [{"kind": "data_pool", "world": d * m, "model": m,
                   "data": d, "batch": True, "pool": True, "caches": True,
-                  "inputs": str(paths["data"])},
+                  "layers": BA_LAYERS, "inputs": str(paths["data"])},
                  {"kind": "pod_wm", "world": 2 * BA_WM_WORKERS, "model": 1,
                   "multi_pod": True, "workers": BA_WM_WORKERS,
                   "batch": True, "caches": True, "coding": list(BA_WM),
-                  "worker_major": True, "inputs": str(paths["wm"])}]
+                  "worker_major": True, "layers": BA_LAYERS,
+                  "inputs": str(paths["wm"])}]
         self.mesh_peak = 0
         t0 = time.perf_counter()
         # (a)'s ranks at once, then (b)'s and (c)'s: each half holds the
@@ -6369,7 +6449,7 @@ class Smoke:
         out = {}
         # (a) the multihost serve on a pod axis
         want = self.expected_launches("qwen3-0.6b", 1, BA_STEPS, pool=True,
-                                      worker_major=True)
+                                      worker_major=True, layers=BA_LAYERS)
         coding = CodingConfig(k=MH_K, s=MH_S, e=0)
         vocab = cfg.vocab_size
         for (p, w, mm), ranks in zip(BA_MULTIHOST, runs):
@@ -6438,7 +6518,7 @@ class Smoke:
                     wm_run = kind == "pool" or wm_batch
                     launches = self.expected_launches(
                         "qwen3-0.6b", 1, MESH_STEPS, pool=kind == "pool",
-                        worker_major=wm_run)
+                        worker_major=wm_run, layers=BA_LAYERS)
                     if res[kind + "_launches"] != launches:
                         raise AssertionError(
                             f"{where} {kind} rank {r}: launches "
@@ -6572,24 +6652,26 @@ class Smoke:
         del so, qs, ks, vs
 
     def train_mesh(self) -> dict:
-        """Phase 28: TRAIN_ARCH at full width and depth, fp32,
-        TRAIN_MESH_STEPS steps of ``launch.train.run`` (the launcher's
+        """Phase 28: TRAIN_ARCH at full width and TRAIN_MESH_LAYERS layers,
+        fp32, TRAIN_MESH_STEPS steps of ``launch.train.run`` (the launcher's
         TRAIN_BATCH x TRAIN_SEQ, lr TRAIN_LR) with no mesh in this process,
         its first step's parameters and first moments written to
         ``build/mesh/train-ref.pt``; then the same run on each (data,
-        model) of TRAIN_MESH_RUNS as gloo processes sharing the card
-        (``mesh_child``), each holding its blocks to that file after its
-        first step (``hold_train_blocks``).  Here: every rank's losses and
+        model) of TRAIN_MESH_RUNS as gloo processes sharing the card,
+        every mesh at once (``mesh_child``), each holding its blocks to
+        that file after its first step (``hold_train_blocks``).  Here: every rank's losses and
         grad norms within 1e-4 relative of one rank's and equal to rank
         0's, its launches ``train_launches``' (B3, its backward and Delta
-        28 a step), each group's bytes a step ``train_axis_bytes``'.
-        Returns each mesh's per-rank launches."""
+        one a layer a step), each group's bytes a step
+        ``train_axis_bytes``'.  Returns each mesh's per-rank launches."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import train as launch_train
         from repro_torch.tree import flatten_with_path, keystr
-        cfg = configs.get_config(TRAIN_ARCH)
+        get_config = configs.get_config
+        cfg = get_config(TRAIN_ARCH).with_updates(
+            num_layers=TRAIN_MESH_LAYERS)
         b1 = self.train_config(TRAIN_MESH_STEPS).optimizer.b1
         self.free_memory()
         ref_path = ROOT / "build" / "mesh" / "train-ref.pt"
@@ -6609,6 +6691,8 @@ class Smoke:
         history = []
         ops.reset_launch_counts()
         launch_train.train_step = keep_first
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=TRAIN_MESH_LAYERS)
         try:
             launch_train.run(TRAIN_ARCH, False, TRAIN_MESH_STEPS, TRAIN_BATCH,
                              TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
@@ -6616,6 +6700,7 @@ class Smoke:
                              seed=0, history=history)
         finally:
             launch_train.train_step = step
+            configs.get_config = get_config
         one_launches = ops.launch_counts()
         first["gmax"] = {key: (mu / (1 - b1)).abs().max().item()
                          for key, mu in first["mu"].items()}
@@ -6628,15 +6713,16 @@ class Smoke:
             raise AssertionError(f"one-rank training launched {one_launches}"
                                  f", not {want_launches}")
         out = {}
-        for d, m in TRAIN_MESH_RUNS:
-            where = (f"{TRAIN_ARCH} training fp32 (data {d}, model {m}) "
-                     f"(gloo)")
-            self.mesh_peak = 0
-            t0 = time.perf_counter()
-            ranks = self.mesh_children(
-                [{"kind": "train", "world": d * m, "data": d, "model": m,
-                  "ref": str(ref_path)}], f"train{d}{m}-")[0]
-            wall = time.perf_counter() - t0
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        runs = self.mesh_children(
+            [{"kind": "train", "world": d * m, "data": d, "model": m,
+              "ref": str(ref_path), "layers": TRAIN_MESH_LAYERS}
+             for d, m in TRAIN_MESH_RUNS], "train-mesh-", together=True)
+        wall = time.perf_counter() - t0
+        for (d, m), ranks in zip(TRAIN_MESH_RUNS, runs):
+            where = (f"{TRAIN_ARCH} {TRAIN_MESH_LAYERS} layers training "
+                     f"fp32 (data {d}, model {m}) (gloo)")
             for r, res in enumerate(ranks):
                 for i, (got, want) in enumerate(zip(res["history"], history)):
                     for key in ("loss", "grad_norm", "lr"):
@@ -6675,10 +6761,12 @@ class Smoke:
                                              ranks[0]["history"]],
                   "one_rank_step_ms": [1e3 * h["seconds"] for h in history],
                   "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
-                                             for res in ranks],
-                  "card_peak_gb": self.mesh_peak / 1e9,
-                  "children_wall_s": wall})
+                                             for res in ranks]})
             out[d, m] = [res["launches"] for res in ranks]
+        emit({"train_mesh": "gloo ranks on one card, every mesh at once",
+              "ranks": [d * m for d, m in TRAIN_MESH_RUNS],
+              "children_wall_s": wall,
+              "card_peak_gb": self.mesh_peak / 1e9})
         ref_path.unlink()
         return out
 
@@ -7263,6 +7351,382 @@ class Smoke:
         return out
 
 
+    # --------------------------- Mamba2 and zamba2 on the model axis
+
+    def ssm_mesh_kernels(self):
+        """Phase 34's kernels at a model-2 rank's heads, fp32: B7 and its
+        scores pass at mamba2-780m's multihost prefill (MH_SLOTS x 9 = 72
+        streams of MH_PROMPT tokens, 24 heads of 64, state 128) and at
+        zamba2-1.2b's batch E=1 prefill (MESH_GROUPS x 11 = 22 streams of
+        MESH_PROMPT tokens, 32 heads of 64, state 64) (``mamba2_kernels``);
+        B7's backward and its head sum at both at the launcher's
+        TRAIN_BATCH x TRAIN_SEQ, held to ``ref.ssd_chunked_bwd_ref`` under
+        BWD_TOL (``bwd_checks``) and timed (``b7_backward_timing``)."""
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ref, ssd_scan
+        from repro_torch.models.mamba2 import ssd_chunk
+        gen = self.torch.Generator(self.dev).manual_seed(20)
+        shapes = {"mamba2-780m": (MH_SLOTS * CodingConfig(
+                      k=MH_K, s=MH_S, e=0).num_workers, MH_PROMPT),
+                  ZAMBA2: (MESH_GROUPS * CodingConfig(K, S, E).num_workers,
+                           MESH_PROMPT)}
+        for arch, (streams, prompt) in shapes.items():
+            cfg = configs.get_config(arch)
+            local = cfg.with_updates(d_model=cfg.d_model // 2)
+            if (local.ssm_heads, local.ssm_head_dim, local.ssm_state) != (
+                    cfg.ssm_heads // 2, 64, cfg.ssm_state):
+                raise AssertionError(f"{arch}'s model-2 heads changed")
+            table = self.kernels_a93b.setdefault(arch, {})
+            self.mamba2_kernels("float32", local, table, gen,
+                                streams=streams, prompt=prompt)
+            h, p, n = local.ssm_heads, local.ssm_head_dim, local.ssm_state
+            b, s = TRAIN_BATCH, TRAIN_SEQ
+            chunk = ssd_chunk(cfg.ssm_chunk, s)
+            args = self.ssd_inputs(b, s, h, p, n, self.torch.float32,
+                                   gen=gen)
+            dy = self.randn(b, s, h, p, gen=gen)
+            got = ssd_scan.ssd_chunked_bwd(*args, dy)
+            want = ref.ssd_chunked_bwd_ref(*args, dy, chunk=chunk)
+            where = (f"ssd_chunked_bwd {arch} model-2 heads B={b} S={s} "
+                     f"H={h} P={p} N={n}")
+            emit({"variant": where, "dtype": "float32",
+                  **self.bwd_checks(where, "float32", got, want, {})})
+            self.b7_backward_timing(arch, "float32", args, dy, chunk, got,
+                                    want, table=table)
+
+    def ssm_cache_share(self, where: str, cfg, mine: list, whole: list,
+                        mesh) -> float:
+        """Each run's caches of a mesh rank against its block of the
+        no-mesh caches (``shardings.cache_shardings`` on ``mesh``: its
+        streams, its kv-heads, its SSM heads and conv channels [x_r | B |
+        C]), under MESH_TOL; returns the worst share of the tolerance."""
+        from repro_torch.launch import shardings
+        block = shardings.local_shard(
+            whole, shardings.cache_shardings(mesh, cfg, whole), mesh)
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(mine, block)):
+            for name, leaf in want.items():
+                worst = max(worst, logits_share(
+                    f"{where} run {i} cache {name} (its block)", got[name],
+                    leaf))
+        return worst
+
+    def ssm_mesh(self) -> dict:
+        """Phase 34: Mamba2's "S" blocks on the model axis at full width
+        and depth, fp32, gloo processes sharing cuda:0, every job at once:
+        (a) mamba2-780m's ``multihost --mode serve --model-par 2`` at its
+        defaults (K=7 S=2 E=0, MH_SLOTS slots: 72 streams, BA_STEPS decode
+        calls) against the same pool with no mesh (``plain_pool``); (b)
+        its batch E=1 round and worker-major slot pool on (data, model) =
+        SSM_MESH_DATA and (c) zamba2-1.2b's batch E=1 round at model 2,
+        each against the same with no mesh on the card.  Phase 24's
+        rules: every rank's tokens the same and held up to the first near
+        tie, decoded logits within MESH_TOL, verdicts equal; each rank's
+        caches its block of the no-mesh caches (``ssm_cache_share``; in
+        (a) the last layer's, ``last_pool_caches``);
+        per-rank launches held and printed; each call's bytes by group
+        and op equal to ``batch_axes_bytes`` plus ``ssm_axis_bytes``; the
+        card's peak memory.  Returns the per-rank launches of every run."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.models import partitioning
+        from repro_torch.models.model import init_params
+        mamba = configs.get_config("mamba2-780m").with_updates(
+            param_dtype="float32", activation_dtype="float32")
+        zamba = configs.get_config(ZAMBA2).with_updates(
+            param_dtype="float32", activation_dtype="float32")
+        self.free_memory()
+        pool_caches = {}
+        with last_pool_caches(pool_caches):
+            tokens, pool_logits = self.plain_pool(mamba, MH_S, MH_SLOTS,
+                                                  BA_STEPS)
+        plain, jobs = {}, []
+        d, m = SSM_MESH_DATA
+        jobs.append({"kind": "ssm_multihost", "world": 2, "model": 2,
+                     "arch": mamba.name})
+        for arch, cfg, job in (
+                ("mamba2-780m", mamba, {"world": d * m, "model": m,
+                                        "data": d, "pool": True}),
+                (ZAMBA2, zamba, {"world": 2, "model": 2})):
+            inputs = self.mesh_inputs(cfg)
+            params = init_params(cfg, torch.Generator(self.dev).manual_seed(
+                MESH_SEED), self.dev)
+            plain[arch] = mesh_rounds(cfg, params, inputs,
+                                      pool=job.get("pool", False),
+                                      caches=True)
+            del params
+            self.free_memory()
+            path = ROOT / "build" / "mesh" / f"inputs-ssm-{arch}.pt"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({key: v.cpu() for key, v in inputs.items()}, path)
+            jobs.append(dict(job, kind="ssm_rounds", batch=True, caches=True,
+                             arch=arch, inputs=str(path)))
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        runs = self.mesh_children(jobs, "ssm-mesh-", together=True)
+        wall = time.perf_counter() - t0
+        out = {}
+        # (a) the multihost serve at model 2
+        ranks, cfg = runs[0], mamba
+        coding = CodingConfig(k=MH_K, s=MH_S, e=0)
+        streams = MH_SLOTS * coding.num_workers
+        where = f"multihost serve {cfg.name} fp32 model 2 (gloo)"
+        want = self.expected_launches(cfg.name, 1, BA_STEPS, pool=True,
+                                      worker_major=True)
+        for r, res in enumerate(ranks):
+            if not np.array_equal(res["tokens"], ranks[0]["tokens"]):
+                raise AssertionError(f"{where}: rank {r}'s tokens differ")
+            if res["launches"] != want:
+                raise AssertionError(f"{where} rank {r}: launches "
+                                     f"{res['launches']} != {want}")
+        held = near_tie_rows(where, ranks[0]["tokens"], tokens, pool_logits)
+        worst = cache_worst = 0.0
+        for r, res in enumerate(ranks):
+            for i in range(min(held + 1, len(pool_logits))):
+                worst = max(worst, logits_share(
+                    f"{where} rank {r} call {i}", res["pool_logits"][i],
+                    pool_logits[i]))
+            if held == len(pool_logits):        # the same tokens throughout
+                cache_worst = max(cache_worst, self.ssm_cache_share(
+                    f"{where} rank {r} last layer", cfg, res["caches"],
+                    pool_caches["caches"],
+                    partitioning.Mesh(("worker", "model"), (1, 2), r)))
+            for kind, calls_bytes in res["call_bytes"].items():
+                seq = MH_PROMPT if kind == "prefill" else 1
+                for i, got in enumerate(calls_bytes):
+                    groups_equal(
+                        f"{where} rank {r} {kind} call {i}", got,
+                        add_bytes(batch_axes_bytes(
+                            coding, MH_SLOTS, cfg.vocab_size, 1, 1, 2, True,
+                            sampled=True, cfg=cfg, seq=seq),
+                            ssm_axis_bytes(cfg, 2, streams, seq)))
+        ms = ranks[0]["call_ms"]
+        emit({"mesh_run": where, "ranks": 2, "tokens_held_calls": held,
+              "pool_logits_worst_err_over_tol": worst,
+              "last_layer_caches_worst_err_over_tol": cache_worst,
+              "launches_per_rank": [{key: res["launches"][key]
+                                     for key in MP2_KERNELS + SSD_KERNELS}
+                                    for res in ranks],
+              "collective_bytes_per_call": ranks[0]["call_bytes"],
+              "bytes_equal_analytic": True,
+              "prefill_ms_gloo_over_host": ms["prefill"][0],
+              "decode_ms_gloo_over_host": ms["decode"]})
+        out["multihost (worker 1, model 2)"] = [res["launches"]
+                                                for res in ranks]
+        # (b) and (c): the batch round (and slot pool) against no mesh
+        coding = CodingConfig(K, S, E)
+        for (arch, cfg, axes, shape), ranks in zip(
+                (("mamba2-780m", mamba, ("data", "model"), SSM_MESH_DATA),
+                 (ZAMBA2, zamba, ("data", "model"), (1, 2))), runs[1:]):
+            kinds = ("batch", "pool") if arch == "mamba2-780m" else \
+                ("batch",)
+            where = (f"{arch} fp32 K={K} S={S} E={E} on "
+                     f"{dict(zip(axes, shape))} (gloo)")
+            b, mm = shape
+            local = -(-MESH_GROUPS * coding.num_workers // b)
+            worst = cache_worst = 0.0
+            for r, res in enumerate(ranks):
+                mesh = partitioning.Mesh(axes, shape, r)
+                for kind in kinds:
+                    wm_run = kind == "pool"
+                    launches = self.expected_launches(
+                        arch, 1, MESH_STEPS, pool=wm_run,
+                        worker_major=wm_run)
+                    if res[kind + "_launches"] != launches:
+                        raise AssertionError(
+                            f"{where} {kind} rank {r}: launches "
+                            f"{res[kind + '_launches']} != {launches}")
+                    worst = max(worst, hold_calls(
+                        f"{where} {kind} rank {r}", res[kind],
+                        plain[arch][kind]))
+                    cache_worst = max(cache_worst, self.ssm_cache_share(
+                        f"{where} {kind} rank {r}", cfg,
+                        res[kind + "_caches"], plain[arch][kind + "_caches"],
+                        mesh))
+                    for i, got in enumerate(res[kind + "_bytes"]):
+                        seq = MESH_PROMPT if i == 0 else 1
+                        groups_equal(
+                            f"{where} {kind} rank {r} call {i}", got,
+                            add_bytes(batch_axes_bytes(
+                                coding, MESH_GROUPS, cfg.vocab_size, b, 1,
+                                mm, wm_run, cfg=cfg, seq=seq),
+                                ssm_axis_bytes(cfg, mm, local, seq)))
+            emit({"mesh_run": where, "parts": kinds,
+                  "worst_err_over_tol": worst,
+                  "caches": "stream blocks, SSM heads and conv channels "
+                            "[x_r | B | C], kv-head blocks",
+                  "caches_worst_err_over_tol": cache_worst,
+                  "launches_per_rank": {kind: [{key: res[kind + "_launches"]
+                                                [key] for key in
+                                                MP2_KERNELS + SSD_KERNELS}
+                                               for res in ranks]
+                                        for kind in kinds},
+                  "collective_bytes_per_call": {
+                      kind: ranks[0][kind + "_bytes"] for kind in kinds},
+                  "bytes_equal_analytic": True,
+                  "call_ms_gloo_over_host": {kind: ranks[0][kind + "_ms"]
+                                             for kind in kinds}})
+            for kind in kinds:
+                out[f"{arch} {kind} {dict(zip(axes, shape))}"] = [
+                    res[kind + "_launches"] for res in ranks]
+        emit({"ssm_mesh": "gloo ranks on one card, every job at once",
+              "ranks": [job["world"] for job in jobs],
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9,
+              "rank_max_reserved_gb": [res["max_reserved"] / 1e9
+                                       for ranks in runs for res in ranks]})
+        return out
+
+    def ssm_train_mesh(self) -> dict:
+        """Phase 35: Mamba2's "S" blocks training on the model axis, fp32,
+        at full width and SSM_TRAIN_CUT's depth: TRAIN_MESH_STEPS steps of
+        ``launch.train.run`` (the launcher's TRAIN_BATCH x TRAIN_SEQ, lr
+        TRAIN_LR) with no mesh in this process for each arch, its first
+        step's first moments (the embeddings' left out) written to
+        ``build/mesh/ssm-train-<arch>.pt``; then the same run on each
+        (arch, (data, model)) of SSM_TRAIN_MESH as gloo processes sharing
+        the card, every job at once, each rank holding its blocks'
+        gradients to that file after its first step
+        (``hold_train_blocks``: B and C's columns in every rank's
+        block).  Here: every rank's losses and grad norms within
+        1e-4 relative of one rank's and equal to rank 0's, its launches
+        ``train_launches``' (B7's backward and head sum one a layer a
+        step), each group's bytes a step ``train_axis_bytes``'.  Returns
+        each mesh's per-rank launches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as launch_train
+        from repro_torch.tree import flatten_with_path, keystr
+        b1 = self.train_config(TRAIN_MESH_STEPS).optimizer.b1
+        step, get_config = launch_train.train_step, configs.get_config
+        self.free_memory()
+        one = {}
+        for arch in dict(SSM_TRAIN_MESH):
+            cut = SSM_TRAIN_CUT[arch]
+            cfg = configs.get_config(arch).with_updates(**cut)
+            ref_path = ROOT / "build" / "mesh" / f"ssm-train-{arch}.pt"
+            ref_path.parent.mkdir(parents=True, exist_ok=True)
+            first = {}
+
+            def keep_first(*args, **kw):
+                res = step(*args, **kw)
+                if not first:
+                    first["mu"] = {keystr(p): t.detach().cpu() for p, t in
+                                   flatten_with_path(res[1].mu)
+                                   if "embeddings" not in keystr(p)}
+                return res
+
+            history = []
+            ops.reset_launch_counts()
+            launch_train.train_step = keep_first
+            configs.get_config = lambda name, cut=cut: get_config(
+                name).with_updates(**cut)
+            try:
+                launch_train.run(arch, False, TRAIN_MESH_STEPS, TRAIN_BATCH,
+                                 TRAIN_SEQ, 1, 1, TRAIN_LR, 1, None,
+                                 log_every=TRAIN_MESH_STEPS,
+                                 device=self.dev, seed=0, history=history)
+            finally:
+                launch_train.train_step = step
+                configs.get_config = get_config
+            launches = ops.launch_counts()
+            first["gmax"] = {key: (mu / (1 - b1)).abs().max().item()
+                             for key, mu in first["mu"].items()}
+            torch.save(first, ref_path)
+            del first
+            self.free_memory()
+            want = {name: 0 for name in launches}
+            want.update(train_launches(cfg, TRAIN_MESH_STEPS, False))
+            if launches != want:
+                raise AssertionError(f"one-rank {arch} training launched "
+                                     f"{launches}, not {want}")
+            one[arch] = (cfg, ref_path, history, want)
+        out = {}
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        runs = self.mesh_children(
+            [{"kind": "train", "world": d * m, "data": d, "model": m,
+              "ref": str(one[arch][1]), "arch": arch,
+              "layers": one[arch][0].num_layers,
+              "pattern": SSM_TRAIN_CUT[arch].get("layer_pattern")}
+             for arch, (d, m) in SSM_TRAIN_MESH], "ssm-train-",
+            together=True)
+        wall = time.perf_counter() - t0
+        for (arch, (d, m)), ranks in zip(SSM_TRAIN_MESH, runs):
+            cfg, ref_path, history, want_launches = one[arch]
+            where = (f"{arch} {cfg.num_layers} layers training fp32 (data "
+                     f"{d}, model {m}) (gloo)")
+            want_bytes = train_axis_bytes(cfg, d, m, TRAIN_BATCH, TRAIN_SEQ,
+                                          4, False)
+            for r, res in enumerate(ranks):
+                for i, (got, ref1) in enumerate(zip(res["history"],
+                                                    history)):
+                    for key in ("loss", "grad_norm", "lr"):
+                        if got[key] != ranks[0]["history"][i][key] or not \
+                                abs(got[key] - ref1[key]) <= \
+                                1e-4 * abs(ref1[key]):
+                            raise AssertionError(
+                                f"{where} rank {r} step {i} {key}: "
+                                f"{got[key]}, one rank {ref1[key]}")
+                if res["launches"] != want_launches:
+                    raise AssertionError(f"{where} rank {r}: launches "
+                                         f"{res['launches']} != "
+                                         f"{want_launches}")
+                for i, got in enumerate(res["step_bytes"]):
+                    bytes_equal(f"{where} rank {r} step {i}",
+                                {key: v for key, v in got.items() if v},
+                                want_bytes)
+            emit({"train_mesh_run": where, "ranks": d * m,
+                  "steps": TRAIN_MESH_STEPS,
+                  "losses": [h["loss"] for h in ranks[0]["history"]],
+                  "losses_one_rank": [h["loss"] for h in history],
+                  "grad_norms": [h["grad_norm"]
+                                 for h in ranks[0]["history"]],
+                  "grad_norms_one_rank": [h["grad_norm"] for h in history],
+                  "worst_rank_after_step_0": max(
+                      (res["held"] for res in ranks),
+                      key=lambda h: h["grads_err_over_tol"]),
+                  "bytes_per_step_per_rank": ranks[0]["step_bytes"][0],
+                  "bytes_equal_analytic": True,
+                  "launches_per_rank": [{key: v for key, v in
+                                         res["launches"].items() if v}
+                                        for res in ranks],
+                  "step_ms_gloo_over_host": [1e3 * h["seconds"] for h in
+                                             ranks[0]["history"]],
+                  "one_rank_step_ms": [1e3 * h["seconds"] for h in history],
+                  "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
+                                             for res in ranks]})
+            out[f"{arch} data {d} model {m}"] = [res["launches"]
+                                                 for res in ranks]
+        emit({"ssm_train_mesh": "gloo ranks on one card, every job at once",
+              "ranks": [d * m for _, (d, m) in SSM_TRAIN_MESH],
+              "children_wall_s": wall,
+              "card_peak_memory_gb": self.mesh_peak / 1e9})
+        for _, ref_path, _, _ in one.values():
+            ref_path.unlink()
+        return out
+
+    def a93b_entry(self, name: str, launches: dict) -> dict:
+        """The kernels line's numbers of ``name`` on the Mamba2 model axis
+        (phases 34-35): its launches on each rank of every run, and for
+        B7's four kernels their fp32 numbers at a model-2 rank's heads of
+        mamba2-780m and zamba2-1.2b (phase 34's kernel checks)."""
+        keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        out = {"launches_per_rank": {
+            f"{phase} {run}": [r[name] for r in ranks]
+            for phase, runs in launches.items()
+            for run, ranks in runs.items()}}
+        for arch, table in self.kernels_a93b.items():
+            if name in table:
+                out[f"{arch} model-2 heads"] = {
+                    key: table[name][key] for key in keys}
+        return out
+
+
 def mesh_multihost_argv(store, world: int, rank: int, model: int,
                         backend: str = "nccl", s: int = MESH_S,
                         steps: int = MESH_STEPS,
@@ -7338,15 +7802,17 @@ def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
     embeddings' all-reduce of (rows, ``embed_seq``, d) (``seq`` by
     default; 0 for an audio model, whose frames are projected by a whole
     leaf, the text alone for a vlm), an all-reduce of (streams, seq, d)
-    for each attention layer ("A" and "M") and each dense MLP ("A": the
-    MoE layer's own is ``moe_axis_bytes``'), and the logits' all-gather
-    of (streams, V); in a decode call also per attention layer the
-    q-heads' all-gather (streams, H, D), the lse's all-gather (m,
-    streams, H) and the merge's reduce-scatter of (streams, H / m, D)."""
+    for each attention layer ("A", "M" and each shared "G" position) and
+    each dense MLP ("A" and "G": the MoE layer's own is
+    ``moe_axis_bytes``', the Mamba2 layers' ``ssm_axis_bytes``'), and
+    the logits' all-gather of (streams, V); in a decode call also per
+    attention layer the q-heads' all-gather (streams, H, D), the lse's
+    all-gather (m, streams, H) and the merge's reduce-scatter of
+    (streams, H / m, D)."""
     frac = (m - 1) / m
     d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
-    attention = sum(cfg.layer_pattern.count(c) for c in "AM")
-    dense = cfg.layer_pattern.count("A")
+    attention = sum(cfg.layer_pattern.count(c) for c in "AMG")
+    dense = sum(cfg.layer_pattern.count(c) for c in "AG")
     embed_seq = seq if embed_seq is None else embed_seq
     out = {"all-reduce": 2 * frac * 4 * (rows * embed_seq * d
                                          + (attention + dense) * streams
@@ -7359,6 +7825,21 @@ def model_axis_bytes(cfg, m: int, rows: int, streams: int, seq: int,
             * (h // m) * hd
     out["total"] = sum(out.values())
     return out
+
+
+def ssm_axis_bytes(cfg, m: int, streams: int, seq: int,
+                   size: int = 4) -> dict:
+    """Per-rank bytes of the Mamba2 "S" layers of one serving call on an
+    ``m``-way model axis that divides their heads, under the ring
+    accounting of ``partitioning.WorkerGroup``: each layer all-reduces
+    its (streams, seq, d) ``out_proj`` partial of ``size`` bytes an
+    element and the gated norm's (streams, seq) fp32 sums of squares."""
+    layers = cfg.layer_pattern.count("S")
+    if m == 1 or not layers or cfg.ssm_heads % m:
+        return {}
+    ar = layers * 2 * (m - 1) / m * streams * seq * (cfg.d_model * size
+                                                      + 4)
+    return {"model": {"all-reduce": ar, "total": ar}}
 
 
 def moe_axis_bytes(cfg, tokens: int, b: int, w: int, m: int,
@@ -7427,6 +7908,28 @@ def route_log(log: list):
         moe.router_probs, moe.whole_routes = real_probs, real_routes
 
 
+@contextlib.contextmanager
+def last_pool_caches(kept: dict):
+    """After every call of a ``ContinuousLLMExecutor``, keep its first
+    run's last layer of caches on the host: ``kept["caches"]``, one run's
+    {name: (1, streams, ...) fp32} in a list, the layout
+    ``shardings.cache_shardings`` reads (the whole pool's state at full
+    depth would be gigabytes)."""
+    from repro_torch.serving.continuous import ContinuousLLMExecutor
+    real = ContinuousLLMExecutor._to_host
+
+    def to_host(self, kind, t0, toks, state, *args):
+        kept["caches"] = [{name: leaf[-1:].float().cpu()
+                           for name, leaf in state.caches[0].items()}]
+        return real(self, kind, t0, toks, state, *args)
+
+    ContinuousLLMExecutor._to_host = to_host
+    try:
+        yield
+    finally:
+        ContinuousLLMExecutor._to_host = real
+
+
 def mesh_route_walk(where: str, got: list, want: list, k: int,
                     layers: int) -> int:
     """Hold a mesh rank's MoE layer calls (``route_log``) against the
@@ -7474,50 +7977,68 @@ def mesh_route_walk(where: str, got: list, want: list, k: int,
 
 def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
                      remat: bool) -> dict:
-    """Per-rank bytes of one training step of a decoder of "A" and "M"
-    layers whose kv-heads the model axis divides, on a (data ``d``, model
-    ``m``) mesh, parameters and activations of ``size`` bytes, under the
-    ring accounting of ``partitioning.WorkerGroup``, by group.  "fsdp":
-    each weight's model-local whole B gathered (B (d-1)/d), its gradient
-    reduce-scattered (B / d (d-1): the same), every norm's gradient
-    all-reduced (2 B (d-1)/d), and the loss with 4 metrics (fp32); each
-    MoE layer's routing gather of its (tokens, k) int64 routes.  "model",
-    a step's (rows / d) x seq tokens: the embedding's all-reduce, two a
-    layer (attention and MLP or MoE out), the logits' all-gather; in the
-    backward two a layer (x into the heads and into the MLP or the
-    experts), each MoE layer's (tokens, E) fp32 combine weights,
-    q_norm's and k_norm's gradients a layer, and x into the vocabulary's
-    product; under remat one more a layer, the attention's, as the
-    block's forward is recomputed: torch's checkpoint stops recomputing
-    once it has the tensors the backward saved, before the MLP's closing
-    all-reduce.  "world": the squared gradient norm (fp32)."""
+    """Per-rank bytes of one training step of a decoder of "A", "M", "S"
+    and shared "G" layers on a (data ``d``, model ``m``) mesh that
+    divides its kv-heads and its SSM heads, parameters and activations
+    of ``size`` bytes, under the ring accounting of
+    ``partitioning.WorkerGroup``, by group.  "fsdp": each weight's
+    model-local whole B gathered (B (d-1)/d), its gradient
+    reduce-scattered (B / d (d-1): the same), every leaf the batch axes
+    leave whole (the norms, a Mamba2 layer's conv, gate norm and fp32
+    per-head vectors) all-reduced (2 B (d-1)/d), and the loss with 4
+    metrics (fp32); each MoE layer's routing gather of its (tokens, k)
+    int64 routes.  The shared "G" block's weights count once.  "model",
+    a step's (rows / d) x seq tokens: the embedding's all-reduce, two an
+    attention layer or "G" position (attention and MLP or MoE out), the
+    logits' all-gather; in the backward two an attention layer (x into
+    the heads and into the MLP or the experts), each MoE layer's
+    (tokens, E) fp32 combine weights, q_norm's and k_norm's gradients a
+    layer, and x into the vocabulary's product; a Mamba2 layer
+    all-reduces its ``out_proj`` partial and its gated norm's (tokens,)
+    fp32 sums of squares, and in the backward x into its heads, B and C
+    (tokens, 2N), the sums of squares' gradient and its three (H,) fp32
+    per-head vectors; under remat one more an attention layer, the
+    attention's, as the block's forward is recomputed: torch's
+    checkpoint stops recomputing once it has the tensors the backward
+    saved, before the MLP's closing all-reduce.  "world": the squared
+    gradient norm (fp32)."""
     dm, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
-    layers, vocab = cfg.num_layers, cfg.vocab_size
-    moe = cfg.layer_pattern.count("M")
-    if kv % m or set(cfg.layer_pattern) - {"A", "M"} or (remat and moe):
-        raise ValueError("train_axis_bytes counts decoders of A and M "
-                         "layers whose kv-heads the model axis divides "
-                         "(the MoE layer without remat)")
+    pattern, vocab = cfg.layer_pattern, cfg.vocab_size
+    attn = sum(pattern.count(c) for c in "AMG")
+    moe, ssm = pattern.count("M"), pattern.count("S")
+    # attention and dense MLP weight sets: the "G" positions share one
+    sets = pattern.count("A") + moe + ("G" in pattern)
+    dense = pattern.count("A") + ("G" in pattern)
+    if (attn and kv % m) or set(pattern) - set("AMSG") or \
+            (remat and (moe or ssm)) or (ssm and cfg.ssm_heads % m):
+        raise ValueError("train_axis_bytes counts decoders whose kv-heads "
+                         "and SSM heads the model axis divides (the MoE "
+                         "and Mamba2 layers without remat)")
     e, f = cfg.num_experts, cfg.moe_d_ff
-    # each weight's model-local whole: the router is whole on the axis
+    din, n, hs = cfg.ssm_d_inner // m, cfg.ssm_state, cfg.ssm_heads
+    # each weight's model-local whole: the router is whole on the axis,
+    # B and C's in_proj columns too
     split = (vocab * dm * (1 if cfg.tie_embeddings else 2)
-             + layers * (2 * dm * h * hd + 2 * dm * kv * hd)
-             + (layers - moe) * 3 * dm * ff + moe * 3 * e * dm * f) / m \
-        + moe * dm * e
-    norms = layers * (2 * dm + (2 * hd if cfg.qk_norm else 0)) + dm
+             + sets * (2 * dm * h * hd + 2 * dm * kv * hd)
+             + dense * 3 * dm * ff + moe * 3 * e * dm * f) / m \
+        + moe * dm * e + ssm * (dm * (2 * din + 2 * n + hs // m) + din * dm)
+    norms = sets * (2 * dm + (2 * hd if cfg.qk_norm else 0)) + dm \
+        + ssm * (dm + (cfg.ssm_conv + 1) * (din + 2 * n) + din)
     tokens = rows // d * seq
     out = {}
     if d > 1:
-        out["fsdp"] = 2 * (d - 1) / d * ((split + norms) * size + 5 * 4) \
+        out["fsdp"] = 2 * (d - 1) / d * ((split + norms) * size
+                                         + (ssm * 3 * hs + 5) * 4) \
             + moe * (d - 1) * tokens * cfg.experts_per_token * 8
     if m > 1:
         frac = (m - 1) / m
         act = tokens * dm * size
-        ar = act * (2 + 4 * layers + (layers if remat else 0)) \
-            + moe * tokens * e * 4
+        ar = act * (2 + 4 * attn + 2 * ssm + (attn if remat else 0)) \
+            + moe * tokens * e * 4 \
+            + ssm * (tokens * 2 * n * size + 2 * tokens * 4 + 3 * hs * 4)
         if cfg.qk_norm:
-            ar += 2 * layers * hd * size
+            ar += 2 * attn * hd * size
         out["model"] = 2 * frac * ar + frac * tokens * vocab * size
     if d * m > 1:
         out["world"] = 2 * 4 * (d * m - 1) / (d * m)
@@ -7747,7 +8268,7 @@ def mesh_child(rank: int, work: Path) -> int:
             str(model)])
         out.update(res, launches=ops.launch_counts())
     elif job["kind"] in ("multihost", "ring16", "multi_pod",
-                         "moe_multihost"):
+                         "moe_multihost", "ssm_multihost"):
         # each call's decoded logits, as the decode tail leaves them to
         # its sampling: (rows, V), or at W > 1 the worker's (rows, V / W)
         decoded = []
@@ -7769,16 +8290,21 @@ def mesh_child(rank: int, work: Path) -> int:
                     s=MH_S, steps=BA_STEPS) + ["--multi-pod"],
                 "moe_multihost": lambda: mesh_multihost_argv(
                     work / "store", world, rank, model, backend="gloo",
-                    s=MH_S, steps=BA_STEPS) + ["--arch", QWEN3_MOE]
+                    s=MH_S, steps=BA_STEPS) + ["--arch", QWEN3_MOE],
+                "ssm_multihost": lambda: mesh_multihost_argv(
+                    work / "store", world, rank, model, backend="gloo",
+                    s=MH_S, steps=BA_STEPS) + ["--arch", job["arch"]]
                 }[job["kind"]]()
         ops.reset_launch_counts()
         wm._decode_rows = decode_rows
         if job.get("layers"):            # the launcher's model, cut in depth
             configs.get_config = lambda arch: get_config(arch).with_updates(
                 num_layers=job["layers"])
-        routes = []
+        routes, kept = [], {}
         try:
-            with route_log(routes):
+            with route_log(routes), (
+                    last_pool_caches(kept) if job["kind"] == "ssm_multihost"
+                    else contextlib.nullcontext()):
                 res = multihost.main(argv)
         finally:
             wm._decode_rows = real
@@ -7786,7 +8312,8 @@ def mesh_child(rank: int, work: Path) -> int:
         out.update(tokens=res["tokens"], pool_logits=decoded,
                    call_ms=res["call_ms"],
                    call_bytes=res["call_bytes"],
-                   launches=ops.launch_counts(), routes=routes)
+                   launches=ops.launch_counts(), routes=routes,
+                   caches=kept.get("caches"))
         torch.cuda.empty_cache()         # the whole weights, now freed
     if job["kind"] == "h2o":
         cfg = mesh_h2o_config(configs)
@@ -7836,8 +8363,9 @@ def mesh_child(rank: int, work: Path) -> int:
 
 
 def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
-    """One rank of phases 28 and 32: ``launch.train.run`` of the job's
-    arch (TRAIN_ARCH by default; ``layers`` cuts its depth) on the job's
+    """One rank of phases 28, 32 and 35: ``launch.train.run`` of the job's
+    arch (TRAIN_ARCH by default; ``layers`` cuts its depth, to the job's
+    ``pattern`` where it has one) on the job's
     (data, model) mesh over gloo, TRAIN_MESH_STEPS
     steps; each step's collective bytes by group and metrics, and after
     the first this rank's blocks held to one rank's
@@ -7873,7 +8401,7 @@ def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
     launch_train.train_step = hold
     if job.get("layers"):                # the launcher's model, cut
         configs.get_config = lambda arch: get_config(arch).with_updates(
-            num_layers=job["layers"])
+            num_layers=job["layers"], layer_pattern=job.get("pattern"))
     try:
         launch_train.run(job.get("arch", TRAIN_ARCH), False,
                          TRAIN_MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ,

@@ -26,7 +26,8 @@ rounds on them and keep their caches, and on a pod axis each of a
 worker's two pod ranks keeps half of its block (the reference's "batch"
 order, ``partitioning.batch_block``); the ranks along "model"
 (``--model-par``) split each stream's heads, MLP and vocabulary (tensor
-parallelism), so one coded worker spans several devices.  The decode
+parallelism; Mamba2's SSM heads too, ``models.mamba2``), so one coded
+worker spans several devices.  The decode
 tail gathers only survivor shards (``launch.worker_mesh``).  The worker
 axis is the world size over the pods and ``--model-par``.  Every
 process runs the same program on the same prompts and gets the same

@@ -5,7 +5,10 @@ Each function returns specs where the reference returns
 (whole), a mesh axis name or a tuple of them (the entries of the
 reference's ``PartitionSpec``).  ``local_shard`` takes the place of
 ``jax.device_put``: it slices a whole tree to this rank's block of each
-leaf.
+leaf.  The specs of Mamba2's "S" leaves and caches are the reference's
+with the head-aligned layout beneath them (``head_aligned``:
+``partitioning.IndexSpec``), which ``local_shard``, ``gather_leaf`` and
+through them the checkpoints read.
 """
 
 from __future__ import annotations
@@ -15,10 +18,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import partitioning
+from repro_torch.models import mamba2, partitioning
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import cache_axes, logical_axes
-from repro_torch.models.transformer import check_batch_axes, check_model_axis
+from repro_torch.models.transformer import (check_batch_axes,
+                                            check_model_axis, pattern_runs)
 from repro_torch.optim import opt_state_axes
 
 
@@ -80,11 +84,34 @@ def cache_shardings(mesh, cfg: ModelConfig, caches,
     under ``cache_rules``: ``local_shard`` of the one-rank caches under
     them holds the values that ``models.model.init_caches`` allocates on
     each rank (a block of the kv-heads, of the ring slots, or the whole
-    cache).  A block of the ring slots comes out a plain dict, which the
-    attention refuses: its layout is the type ``attention.RingBlock``,
-    which a spec does not carry, so wrap it in one."""
-    return tree_shardings(mesh, cache_axes(cfg), caches,
-                          rules or cache_rules(mesh, cfg))
+    cache; Mamba2's the rank's heads and channels, ``head_aligned``).  A
+    block of the ring slots comes out a plain dict, which the attention
+    refuses: its layout is the type ``attention.RingBlock``, which a spec
+    does not carry, so wrap it in one."""
+    return head_aligned(mesh, cfg, tree_shardings(
+        mesh, cache_axes(cfg), caches, rules or cache_rules(mesh, cfg)),
+        cache=True)
+
+
+def head_aligned(mesh, cfg: ModelConfig, runs: list,
+                 cache: bool = False) -> list:
+    """The specs of each run (a list: the parameters' ``blocks.runs``,
+    or with ``cache`` the caches) with every "S" leaf's replaced by the
+    layout a model-axis rank holds (``mamba2.head_spec``), in place;
+    returns ``runs``."""
+    model = dict(zip(mesh.axis_names, mesh.shape)).get("model", 1)
+    for (kind, _), run in zip(pattern_runs(cfg.layer_pattern), runs):
+        if kind == "S":
+            leaves = run if cache else run["ssm"]
+            for name, spec in leaves.items():
+                leaves[name] = mamba2.head_spec(cfg, model, name, spec,
+                                                cache)
+    return runs
+
+
+def _param_specs(mesh, cfg: ModelConfig, specs: dict) -> dict:
+    head_aligned(mesh, cfg, specs["blocks"]["runs"])
+    return specs
 
 
 def serving_param_specs(mesh, cfg: ModelConfig, params) -> dict:
@@ -97,7 +124,8 @@ def serving_param_specs(mesh, cfg: ModelConfig, params) -> dict:
     check_model_axis(cfg, dict(zip(mesh.axis_names, mesh.shape))
                      .get("model", 1))
     rules = dict(partitioning.DEFAULT_RULES, fsdp=None)
-    return tree_shardings(mesh, logical_axes(cfg), params, rules)
+    return _param_specs(mesh, cfg, tree_shardings(mesh, logical_axes(cfg),
+                                                  params, rules))
 
 
 def _check_train(mesh, cfg: ModelConfig) -> None:
@@ -115,23 +143,38 @@ def train_param_specs(mesh, cfg: ModelConfig, params) -> dict:
     dimension where they divide it.  Raises for a configuration the
     mesh does not train (``check_model_axis``, ``check_batch_axes``)."""
     _check_train(mesh, cfg)
-    return tree_shardings(mesh, logical_axes(cfg), params)
+    return _param_specs(mesh, cfg, tree_shardings(mesh, logical_axes(cfg),
+                                                  params))
 
 
 def train_opt_specs(mesh, cfg: ModelConfig, opt_state):
     """The optimizer state's specs (``optim.opt_state_axes``): each
     moment the specs of its parameter, the step counter whole."""
     _check_train(mesh, cfg)
-    return tree_shardings(mesh, opt_state_axes(logical_axes(cfg)),
-                          opt_state)
+    specs = tree_shardings(mesh, opt_state_axes(logical_axes(cfg)),
+                           opt_state)
+    for moments in (specs.mu, specs.nu):
+        _param_specs(mesh, cfg, moments)
+    return specs
 
 
 @torch.no_grad()
 def gather_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The whole leaf from this rank's block ``x`` under ``spec``: each
     split dimension all-gathered over its group (the batch axes' over the
-    "fsdp" group).  Every rank of the mesh must call it."""
+    "fsdp" group), an ``IndexSpec``'s dimension put back in the whole
+    leaf's order (each position once).  Every rank of the mesh must call
+    it."""
     for dim, entry in enumerate(spec):
+        if dim == getattr(spec, "dim", None):
+            if spec.index is not None:
+                index = torch.cat(spec.index)
+                parts = mesh.group("model").all_gather(x, dim)
+                shape = list(x.shape)
+                shape[dim] = int(index.max()) + 1
+                x = x.new_empty(shape).index_copy_(dim, index.to(x.device),
+                                                   parts)
+            continue
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
@@ -151,9 +194,15 @@ def _block(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of ``x`` under ``spec``: along a dimension
     sharded over axes (a, b, ...) the block index is the rank's
     coordinates over them, row-major, as a ``NamedSharding`` places
-    them."""
+    them; along an ``IndexSpec``'s dimension its positions at the rank's
+    model coordinate, or the whole."""
     out = x
     for dim, entry in enumerate(spec):
+        if dim == getattr(spec, "dim", None):
+            if spec.index is not None:
+                out = out.index_select(dim, spec.index[
+                    mesh.coord("model")].to(x.device))
+            continue
         if entry is None:
             continue
         axes = (entry,) if isinstance(entry, str) else entry

@@ -16,7 +16,8 @@ above 1 needs as many processes in one process group (``run`` takes an
 initialised one; the CLI joins one with ``--coordinator`` and
 ``--process-id``, ``--backend gloo`` letting ranks share a card).  The
 parameters and moments are sharded as the reference shards them (the
-model axis splits heads, MLP and vocabulary; the data axis each
+model axis splits heads, MLP and vocabulary, and Mamba2's SSM heads in
+a head-aligned layout beneath the reference's specs; the data axis each
 weight's "fsdp" dimension), each rank stages its rows of the batch, and
 the checkpoint is the one-rank file.  On the card attention trains
 through B3's forward and backward kernels and Mamba2's SSD scan through

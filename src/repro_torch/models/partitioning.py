@@ -209,7 +209,8 @@ class _AllGather(torch.autograd.Function):
 
 class ModelGroup(WorkerGroup):
     """The "model" axis (tensor parallelism): rank r holds the r-th block
-    of every parameter whose spec names the axis.  The forward sums
+    of every parameter whose spec names the axis (its positions of an
+    ``IndexSpec``'s dimension).  The forward sums
     partial products (``all_reduce``), joins vocabulary blocks
     (``all_gather``) and marks where a replicated activation or leaf
     enters a rank's block of the work (``enter``).  These three carry
@@ -543,6 +544,32 @@ def spec_leaves(specs, tree) -> list:
             spec = getattr(spec, key) if kind == "attr" else spec[key]
         out.append(spec)
     return out
+
+
+class IndexSpec(tuple):
+    """A spec (the reference's entries, and equal to them as a tuple)
+    whose dimension ``dim`` a rank of the "model" axis holds by index
+    rather than as the contiguous block the entry there names: rank r
+    holds positions ``index[r]`` of the whole leaf along ``dim``, in that
+    order (a position may be held by several ranks), or with ``index``
+    None the whole dimension, whatever the entry says.  Mamba2's
+    head-aligned layout (``models.mamba2.head_spec``) lies beneath the
+    reference's spec this way; ``launch.shardings.local_shard`` and
+    ``gather_leaf`` and ``optim.global_norm`` read it."""
+
+    def __new__(cls, spec, dim: int, index: Optional[list]):
+        out = super().__new__(cls, spec)
+        out.dim, out.index = dim, index
+        return out
+
+    def own(self, rank: int) -> Optional[torch.Tensor]:
+        """The positions of rank ``rank``'s block that no lower rank
+        holds (None: all of them), so that a sum over the ranks' blocks
+        counts each position of the whole leaf once."""
+        if self.index is None or rank == 0:
+            return None
+        lower = torch.cat(self.index[:rank])
+        return torch.nonzero(~torch.isin(self.index[rank], lower))[:, 0]
 
 
 def fsdp_dim(spec: tuple) -> Optional[int]:

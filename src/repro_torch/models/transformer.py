@@ -58,17 +58,14 @@ def check_ported(cfg: ModelConfig) -> None:
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """Raise unless ``cfg`` runs on a ``model``-way model axis: every
-    family but Mamba2's "S" blocks (mamba2, and zamba2's backbone), whose
-    head-aligned ``in_proj`` / ``conv_w`` layout, B7 at a rank's heads and
-    the gated norm's all-reduce are ROADMAP A9.3b.  The dense decoders,
-    the MoE layer (experts or expert hidden units over the axis) and the
-    vlm and audio frontends run."""
-    if model > 1 and "S" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {model} over Mamba2 blocks (their "
-            f"heads' in_proj / conv_w layout, the SSD scan at a rank's heads "
-            f"and the gated norm's all-reduce) is ROADMAP A9.3b")
+    """Raise unless ``cfg`` runs on a ``model``-way model axis: the place
+    a family's check of the model axis goes.  Every family runs: the
+    dense decoders (heads, MLP and vocabulary over the axis, or the cache
+    length where it does not divide the kv-heads), the MoE layer (experts
+    or their hidden units), the vlm and audio frontends, and Mamba2's "S"
+    blocks, at a rank's block of the SSM heads where the axis divides
+    them (``mamba2.ssm_block_layout``), else whole on every rank."""
+    del cfg, model
 
 
 def check_batch_axes(cfg: ModelConfig, batch: int) -> None:
@@ -192,11 +189,13 @@ def init_run_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     caches follow the reference's cache rules: its block of the kv-heads
     where the axis divides them, else its block of the ring slots where
     the axis divides the ring width, else the whole ring
-    (``attention.init_kv_cache``)."""
+    (``attention.init_kv_cache``), and a rank's SSM caches its heads' and
+    channels' where the axis divides the SSM heads
+    (``mamba2.init_ssm_cache``)."""
     check_ported(cfg)
     model = partitioning.axis_size("model")
     check_model_axis(cfg, model)
-    return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count)
+    return [mamba2.init_ssm_cache(cfg, batch, dtype, device, count, model)
             if kind == "S" else
             attention.init_kv_cache(cfg, batch, max_len, dtype, device, count,
                                     model)

@@ -76,17 +76,29 @@ def global_norm(tree, specs=None) -> torch.Tensor:
     rank's blocks: each leaf's squares are summed over its block, a leaf
     whole over a mesh axis counts only at coordinate 0 of that axis, and
     the sum is all-reduced over the world, so the norm is the whole
-    tree's on every rank."""
-    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    tree's on every rank.  A leaf of a ``partitioning.IndexSpec`` counts
+    on every model rank the positions no lower rank holds (Mamba2's B and
+    C columns once), or held whole, only at model coordinate 0."""
+    flat = leaves(tree)
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in flat]
     mesh = partitioning.active_mesh() if specs is not None else None
     if mesh is None:
         return torch.sqrt(torch.stack(sq).sum())
     mine = []
-    for s, spec in zip(sq, partitioning.spec_leaves(specs, tree)):
+    for x, s, spec in zip(flat, sq, partitioning.spec_leaves(specs, tree)):
         named = set()
         for entry in spec:
             named.update((entry,) if isinstance(entry, str)
                          else entry or ())
+        if isinstance(spec, partitioning.IndexSpec):
+            if spec.index is None:
+                named.discard("model")
+            else:
+                named.add("model")
+                own = spec.own(mesh.coord("model"))
+                if own is not None:
+                    s = torch.sum(torch.square(x.index_select(
+                        spec.dim, own.to(x.device)).to(torch.float32)))
         if all(mesh.coord(a) == 0 for a in mesh.axis_names
                if a not in named):
             mine.append(s)

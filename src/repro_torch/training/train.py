@@ -22,7 +22,10 @@ each such leaf's gradient over the FSDP group and all-reduces the
 others' over it.  Each rank's loss is its share of the loss over the
 whole batch (``models.model.lm_loss``), so the sums are the whole
 batch's gradients, and the loss and metrics come out the same on every
-rank.  The whole tree is gathered once a step.
+rank.  The whole tree is gathered once a step.  A Mamba2 leaf whose
+model-axis block is head-aligned (``partitioning.IndexSpec``: its
+heads' columns with B and C whole) is gathered and scattered over the
+FSDP group along its own "fsdp" dimension, the model block untouched.
 """
 
 from __future__ import annotations

@@ -237,18 +237,14 @@ def test_merge_of_keyless_rows_is_exact_zeros():
 # ------------------------------------------------------- layouts
 
 def test_model_axis_refuses_only_a9_3():
-    """Only Mamba2's blocks are refused on a model axis (ROADMAP A9.3b):
-    every other family runs on it, the MoE layer and the frontends
-    since A9.3's first part."""
-    for arch in ("mamba2-780m", "zamba2-1.2b"):
-        for m in (2, 16):
-            with pytest.raises(NotImplementedError, match="A9.3b"):
-                check_model_axis(tconfigs.get_reduced(arch), m)
-    for arch in ("qwen3-0.6b", "h2o-danube-1.8b", "phi4-mini-3.8b",
-                 "stablelm-1.6b", "qwen3-moe-30b-a3b", "grok-1-314b",
-                 "paligemma-3b", "hubert-xlarge"):
+    """No family is refused on a model axis: Mamba2's blocks run on it
+    since A9.3b (at a rank's block of the SSM heads where the axis
+    divides them, else whole; ``tests/test_torch_ssm_axes.py``), the MoE
+    layer and the frontends since A9.3's first part."""
+    for arch in tconfigs.list_archs():
         for m in (2, 3, 4, 16):
             check_model_axis(tconfigs.get_config(arch), m)
+            check_model_axis(tconfigs.get_reduced(arch), m)
 
 
 @pytest.mark.parametrize("arch, upd, m, max_len, layout", [

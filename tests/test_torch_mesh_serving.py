@@ -316,17 +316,22 @@ def test_local_shard_is_identity_off_the_model_axis(arch):
 
 
 def test_model_axis_refusals():
-    """The model axis refuses Mamba2's blocks only (ROADMAP A9.3b); the
-    MoE layer and the frontends allocate their rank's caches on it
-    (``tests/test_torch_moe_axes.py`` serves them)."""
+    """The model axis refuses no family: Mamba2's blocks allocate their
+    rank's SSM caches on it (its heads' state and conv channels [x_r |
+    B | C], ``tests/test_torch_ssm_axes.py`` serves them), as the MoE
+    layer and the frontends their KV caches
+    (``tests/test_torch_moe_axes.py``)."""
     for arch in ("mamba2-780m", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="A9.3b"):
-            check_model_axis(tconfigs.get_reduced(arch), 2)
+        check_model_axis(tconfigs.get_reduced(arch), 2)
     mesh = tpart.Mesh(("worker", "model"), (1, 2))
     with tpart.mesh_context(mesh):
-        with pytest.raises(NotImplementedError, match="A9.3b"):
-            tmodel.init_caches(tconfigs.get_reduced("mamba2-780m"), 4, 8,
-                               torch.float32, "cpu")
+        tc = tconfigs.get_reduced("mamba2-780m")
+        caches = tmodel.init_caches(tc, 4, 8, torch.float32, "cpu")
+        h, din, n = tc.ssm_heads, tc.ssm_d_inner, tc.ssm_state
+        assert caches[0]["state"].shape == (tc.num_layers, 4, h // 2,
+                                            tc.ssm_head_dim, n)
+        assert caches[0]["conv"].shape == (tc.num_layers, 4,
+                                           tc.ssm_conv - 1, din // 2 + 2 * n)
         for arch in ("qwen3-moe-30b-a3b", "grok-1-314b", "paligemma-3b",
                      "hubert-xlarge"):
             tc = tconfigs.get_reduced(arch)

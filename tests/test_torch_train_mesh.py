@@ -606,14 +606,13 @@ def test_train_specs_equal_reference(names, shape, monkeypatch):
     """``train_param_specs`` and ``train_opt_specs`` against the
     reference's ``tree_shardings`` of ``logical_axes`` and
     ``opt_state_axes`` (its launcher's), on a layout mesh, for every
-    family the mesh trains."""
+    family, Mamba2's "S" blocks on the model axis included (their
+    head-aligned layout lies beneath the reference's specs)."""
     monkeypatch.setattr(jshardings, "NamedSharding", lambda mesh, spec: spec)
     jmesh, tmesh = _layout(names, shape), partitioning.Mesh(names, shape)
     model, batch = tmesh.size("model"), tmesh.fsdp_size()
     for arch in configs.list_archs():
         tc, jc = configs.get_reduced(arch), jconfigs.get_reduced(arch)
-        if model > 1 and "S" in tc.layer_pattern:
-            continue
         params = init_params(tc, torch.Generator().manual_seed(0), "cpu")
         opt = init_opt_state(params)
         shaped = jax.tree.map(lambda t: types.SimpleNamespace(
@@ -635,23 +634,15 @@ def test_train_specs_equal_reference(names, shape, monkeypatch):
 
 
 def test_refusals():
-    """The model axis of Mamba2 and zamba2 is ROADMAP A9.3b: refused by
-    the specs, and by the launcher before it asks for processes.  The MoE
-    layer and the frontends take their specs on the model axis, and the
-    MoE layer on a split batch (its routing gather,
-    ``tests/test_torch_moe_axes.py``): the launcher gets as far as asking
-    for their processes."""
+    """No family is refused on the training mesh: Mamba2 and zamba2 (since
+    A9.3b, ``tests/test_torch_ssm_axes.py``), the MoE layer and the
+    frontends take their specs on the model axis, and the MoE layer on a
+    split batch (its routing gather, ``tests/test_torch_moe_axes.py``):
+    the launcher gets as far as asking for their processes."""
     model2 = partitioning.Mesh(("data", "model"), (1, 2))
     data2 = partitioning.Mesh(("pod", "data", "model"), (2, 1, 1))
-    for arch in ("mamba2-780m", "zamba2-1.2b"):
-        cfg = configs.get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="A9.3b"):
-            shardings.train_param_specs(model2, cfg, {})
-        with pytest.raises(NotImplementedError, match="A9.3b"):
-            tlaunch.run(arch, True, 1, 4, 16, 1, 2, 3e-3, 1, None,
-                        device="cpu")
-    for arch in ("qwen3-moe-30b-a3b", "grok-1-314b", "paligemma-3b",
-                 "hubert-xlarge"):
+    for arch in ("mamba2-780m", "zamba2-1.2b", "qwen3-moe-30b-a3b",
+                 "grok-1-314b", "paligemma-3b", "hubert-xlarge"):
         cfg = configs.get_reduced(arch)
         params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         for mesh in (model2, data2):
