@@ -220,8 +220,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    bitwise equal.  A one-rank mesh has no group (an axis of size 1 gets
    none), so this phase runs no collective: it checks the stream padding
    and ``local_shard``'s pass-through, not the mesh's collectives;
-24. the same multihost serve on (worker, model) = (1, 2), (2, 1) and
-   (2, 2), as 2-4 processes sharing the card over gloo (NCCL refuses
+24. the same multihost serve on (worker, model) = (1, 2) and (2, 1) at
+   once, then (2, 2), as 2-4 processes sharing the card over gloo (NCCL refuses
    two ranks on a device; only the collectives pass through the host),
    and phase 23's batch round at model 2: every rank's tokens the same
    and held to phase 23's up to the first near tie, each rank's decoded
@@ -273,10 +273,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    second step's wall time (gloo over the host) and the card's peak
    memory;
 29. ``launch.multihost --mode train --model-par 2`` (bf16, remat) at
-   ``--batch 8 --seq 128 --steps 2`` as 2 gloo processes against one
-   process of the same command: losses within MH_TRAIN_LOSS_TOL, B3 56
-   and its backward 28 a step a rank, bytes equal to
-   ``train_axis_bytes``;
+   ``--batch 8 --seq 128 --steps 2`` and MH_TRAIN_LAYERS (8) of qwen3's 28
+   layers as 2 gloo processes against one process of the same command:
+   losses within MH_TRAIN_LOSS_TOL, B3 16 and its backward 8 a step a
+   rank, bytes equal to ``train_axis_bytes``;
 30. the pod and data axes in serving (ROADMAP A9.5), qwen3-0.6b at full
    width and BA_LAYERS (8) of its 28 layers, fp32, gloo processes sharing the card: (a)
    ``launch.multihost --mode serve --multi-pod`` at its defaults (K=7
@@ -293,8 +293,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    B5 at qwen3-moe-30b-a3b's multihost shapes at a model-2 rank's heads
    (GQA 16/2 of 128, rep 8, bf16) and B3 at hubert-xlarge's coded
    prefill at a model-2 rank's (MHA 8/8 of 80, fp32), timed; then
-   qwen3-moe at full width and MOE_MESH_LAYERS (4) of its 48 layers,
-   fp32, gloo processes sharing the card, one job after another: (a)
+   qwen3-moe at full width and MOE_MESH_LAYERS (2) of its 48 layers,
+   fp32, gloo processes sharing the card, (a) and (b) at once, then (c): (a)
    ``launch.multihost --mode serve --model-par 2`` and (b) the same at
    (worker 3, model 1) (24 of the pool's 72 streams a worker, each MoE
    layer gathering the whole pool's routes) against the same pool with
@@ -345,7 +345,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    every rank, each rank's blocks of the first step's gradients within
    1e-4 x the leaf's max (B and C's columns in every rank's block),
    launches held, each group's bytes a step equal to
-   ``train_axis_bytes``.
+   ``train_axis_bytes``;
+36. microbatches on a split training batch (ROADMAP A9.6): qwen3-moe at
+   full width and MOE_TRAIN_LAYERS (1) layer, fp32, 2 gloo processes
+   sharing the card at (data, model) = (2, 1): (a) 2 steps of
+   ``launch.train.run`` with 2 microbatches, (b) one ``train_step`` with
+   2 microbatches on a batch with a ``loss_mask`` (about 60% ones, from
+   A96_SEED), each against the same with no mesh in this process under
+   phase 32's checks, each group's bytes a step ``train_axis_bytes``'
+   with the batch's exchange counted; the card's peak memory;
+37. the sliding-window variant (``configs.shape_config_for("qwen3-0.6b",
+   "long_500k")``, window 4096) at full width and SWA_LAYERS (4) of its
+   28 layers, fp32: the batch E=1 round of one group on a 4608-token
+   prompt, then 8 decode calls on the 4096-slot ring, which wraps; every
+   B3 call held to its plain version, and every B4 call, launches held,
+   the cache length and the card's peak memory printed.
 
 Each phase prints its wall time.
 
@@ -615,7 +629,7 @@ BA_WM, BA_WM_WORKERS = (4, 2, 1), 2
 # ``coded_prefill`` of FRONT_GROUPS groups of K requests of FRAMES frames
 # (hubert), and the batch E=1 round of MESH_GROUPS groups on 256 patches
 # and FRONT_TEXT text tokens (paligemma).
-MOE_MESH_LAYERS = 4
+MOE_MESH_LAYERS = 2
 MOE_MESH_MULTIHOST = ((1, 2), (3, 1))
 MOE_MESH_DATA = (2, 2)
 MOE_TRAIN_LAYERS = 1
@@ -638,6 +652,13 @@ SSM_TRAIN_MESH = (("mamba2-780m", (1, 2)), ("mamba2-780m", (2, 2)),
                   (ZAMBA2, (1, 2)))
 SSM_TRAIN_CUT = {"mamba2-780m": dict(num_layers=8),
                  ZAMBA2: dict(num_layers=12, layer_pattern="SSSSSG" * 2)}
+# A9.6 (phase 36): qwen3-moe at MOE_TRAIN_LAYERS layers with A96_MICRO
+# microbatches on (data, model) = A96_MESH; (b)'s loss_mask drawn from
+# A96_SEED.  A11 (phase 37): qwen3-0.6b's long_500k sliding variant
+# (window SWA_WINDOW) at SWA_LAYERS layers, one group's SWA_PROMPT-token
+# prompt and SWA_STEPS decode calls.
+A96_MICRO, A96_MESH, A96_SEED = 2, (2, 1), 36
+SWA_LAYERS, SWA_WINDOW, SWA_PROMPT, SWA_STEPS = 4, 4096, 4608, 8
 HEAD_DIM_80 = "head_dim_80"
 D80_ARCH = "h2o-danube-1.8b"
 D80_CARRIER = {"flash_attention": "batch", "flash_decode": "batch",
@@ -698,6 +719,9 @@ TRAIN_MESH_STEPS = 2
 # phase 28 trains TRAIN_ARCH at TRAIN_MESH_LAYERS of its 28 layers, to
 # keep the whole run inside its limit with phases 34-35 added
 TRAIN_MESH_LAYERS = 8
+# phase 29 trains TRAIN_ARCH at MH_TRAIN_LAYERS of its 28 layers, to keep
+# the whole run inside its limit with phases 36-37 added
+MH_TRAIN_LAYERS = 8
 MH_TRAIN_ARGS = ["--mode", "train", "--batch", str(TRAIN_BATCH), "--seq",
                  str(TRAIN_SEQ), "--steps", str(TRAIN_MESH_STEPS),
                  "--backend", "gloo"]
@@ -720,7 +744,8 @@ AB_SHAPE = (2, 512)
 # patches, hubert on FRAMES frames with frame targets, TRAIN_FRONT_BATCH
 # sequences each).
 TRAIN_SSM = ("mamba2-780m", ZAMBA2)
-TRAIN_SMALL = {QWEN3_MOE: dict(num_layers=1),
+TRAIN_SMALL = {QWEN3_MOE: dict(num_layers=1), PALIGEMMA: dict(num_layers=1),
+               "h2o-danube-1.8b": dict(num_layers=1),
                "mamba2-780m": dict(num_layers=2),
                ZAMBA2: dict(num_layers=6, layer_pattern="SSSSSG")}
 TRAIN_FAMILIES = (QWEN3_MOE, PALIGEMMA, HUBERT, "h2o-danube-1.8b")
@@ -786,6 +811,8 @@ class Smoke:
         # depend on them
         self.extra_gen = torch.Generator(self.dev).manual_seed(1)
         self.kernels = {}                  # name -> JSON entry
+        # (tag, job) -> ranks started ahead of their mesh_children call
+        self.started = {}
         self.kernels_d80 = {}              # B3/B4/B5 at head_dim 80
         # B3 at the scheme path's stream counts: streams -> {name: entry},
         # from a generator of its own
@@ -925,7 +952,15 @@ class Smoke:
     def phase(self, name: str, fn, *args):
         """Run one phase and print its wall time; its failure raises."""
         t0 = time.perf_counter()
-        out = fn(*args)
+        try:
+            out = fn(*args)
+        finally:
+            for procs in self.started.values():
+                for *_, p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            self.started.clear()
         emit({"phase": name, "seconds": time.perf_counter() - t0})
         return out
 
@@ -1107,6 +1142,12 @@ class Smoke:
         a93b["phase 35"] = self.phase(
             "mamba2-780m and zamba2-1.2b training on the model axis, ranks "
             "sharing the card", self.ssm_train_mesh)
+        self.free_memory()
+        a96 = self.phase(f"{QWEN3_MOE} microbatches on a split batch, ranks "
+                         "sharing the card", self.micro_train_mesh)
+        self.free_memory()
+        swa_launches = self.phase("qwen3-0.6b long_500k sliding variant",
+                                  self.sliding_variant)
         entries = []
         for name, res in self.kernels.items():
             arch, path, path_e0 = CARRIER[name]
@@ -1158,6 +1199,15 @@ class Smoke:
         entries += [dict(self.ssd_train_entry(name, trained),
                          model_par_2=self.a93b_entry(name, a93b))
                     for name in ("ssd_chunked_bwd", "ssd_bwd_head_sum")]
+        for entry in entries:
+            name = entry["name"]
+            if any(r[name] for ranks in a96.values() for r in ranks):
+                entry["a9_6"] = {run: [r[name] for r in ranks]
+                                 for run, ranks in a96.items()}
+            if swa_launches["launches"].get(name):
+                entry["long_500k"] = dict(
+                    launches=swa_launches["launches"][name],
+                    **swa_launches["held"].get(name, {}))
         if sorted(e["name"] for e in entries) != sorted(REPLACES) or \
                 sorted(self.kernels_d80) != sorted(D80_CARRIER) or any(
                     sorted(self.kernels_model[arch])
@@ -1325,10 +1375,14 @@ class Smoke:
         argument."""
         cuobjdump = Path(nvcc).parent / "cuobjdump"
         found, seen = {}, []
-        for lib in libs.values():
-            sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                                  capture_output=True, text=True, check=True,
-                                  timeout=300).stdout
+        # one cuobjdump a library, all started together
+        procs = [subprocess.Popen([str(cuobjdump), "-sass", str(lib)],
+                                  stdout=subprocess.PIPE, text=True)
+                 for lib in libs.values()]
+        for proc in procs:
+            sass = proc.communicate(timeout=300)[0]
+            if proc.returncode != 0:
+                raise AssertionError(f"cuobjdump -sass failed: {proc.args}")
             parts = re.split(r"^\s*Function : (\S+)\s*$", sass,
                              flags=re.M)
             for name, body in zip(parts[1::2], parts[2::2]):
@@ -4794,7 +4848,8 @@ class Smoke:
     def train_card_vs_cpu(self, arch: str):
         """One ``train_step`` of ``arch`` at full width and 2 layers
         (``TRAIN_SMALL``'s depth for the SSM models: mamba2 2 "S", zamba2
-        "SSSSSG"; qwen3-moe 1), card against CPU, on the same weights (drawn on the
+        "SSSSSG"; qwen3-moe, paligemma and h2o-danube 1), card against
+        CPU, on the same weights (drawn on the
         card and copied) and the same batch (``train_batch``) at the
         launcher's optimizer settings: loss, grad norm and lr within 1e-4
         relative; every leaf's clipped gradient (the first moment over
@@ -4853,18 +4908,21 @@ class Smoke:
                                      f"{gm[key]}, cpu {cm[key]}")
         b1, lr = tcfg.optimizer.b1, cm["lr"]
         wd = tcfg.optimizer.weight_decay
+        # the comparison runs on the card, a leaf at a time: the same fp32
+        # element-wise ops as on the host, without its passes over GBs
         before = {keystr(k): t for k, t in flatten_with_path(params["cpu"])}
-        gmu = {keystr(k): t.cpu() for k, t in flatten_with_path(go.mu)}
-        gnew = {keystr(k): t.cpu() for k, t in flatten_with_path(gp)}
+        gmu = {keystr(k): t for k, t in flatten_with_path(go.mu)}
+        gnew = {keystr(k): t for k, t in flatten_with_path(gp)}
         worst_g = worst_p = 0.0
         strong = total = 0
         for (path, mu), (_, newp) in zip(flatten_with_path(co.mu),
                                          flatten_with_path(cp)):
             key = keystr(path)
+            mu, newp = mu.to(self.dev), newp.to(self.dev)
             g_cpu, g_card = mu / (1 - b1), gmu[key] / (1 - b1)
             tol = 1e-4 * max(g_cpu.abs().max().item(), 1e-30)
             worst_g = max(worst_g, (g_card - g_cpu).abs().max().item() / tol)
-            p0 = before[key].abs()
+            p0 = before[key].to(self.dev).abs()
             diff = (gnew[key] - newp).abs()
             if not (diff <= 2 * lr * (1 + wd * p0) + 1e-6).all():
                 raise AssertionError(f"{where} train_step {key}: an updated "
@@ -5748,20 +5806,13 @@ class Smoke:
             try:
                 for j, job in batch:
                     work = ROOT / "build" / "mesh" / f"{tag}{j}"
-                    if work.exists():
-                        for old in work.iterdir():
-                            old.unlink()
-                    work.mkdir(parents=True, exist_ok=True)
-                    (work / "job.json").write_text(json.dumps(job))
+                    started = self.started.pop((tag, j), None)
+                    procs += started or self.spawn_ranks(j, work, job)
+                    # the ranks wait for their job: written whole, then
+                    # renamed
+                    (work / "job.tmp").write_text(json.dumps(job))
+                    os.replace(work / "job.tmp", work / "job.json")
                     works.append((j, work, job["world"]))
-                    for r in range(job["world"]):
-                        with open(work / f"rank{r}.log", "w") as f:
-                            procs.append((j, r, work / f"rank{r}.log",
-                                          subprocess.Popen(
-                                [sys.executable, str(ROOT / "chip_smoke.py"),
-                                 "--mesh-rank", str(r), str(work)],
-                                stdout=f, stderr=subprocess.STDOUT,
-                                env=dict(os.environ, **job.get("env", {})))))
                 deadline = time.monotonic() + MESH_TIMEOUT_S
                 while any(p.poll() is None for *_, p in procs):
                     free, total = self.torch.cuda.mem_get_info(self.dev)
@@ -5787,6 +5838,33 @@ class Smoke:
             out += [[self.torch.load(work / f"rank{r}.pt", weights_only=False)
                      for r in range(world)] for _, work, world in works]
         return out
+
+    def spawn_ranks(self, j: int, work: Path, job: dict) -> list:
+        """Empty ``work`` and start one process per rank of ``job`` there,
+        each waiting for its job.json, with the job's "env"."""
+        if work.exists():
+            for old in work.iterdir():
+                old.unlink()
+        work.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for r in range(job["world"]):
+            with open(work / f"rank{r}.log", "w") as f:
+                procs.append((j, r, work / f"rank{r}.log", subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-rank", str(r), str(work)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, **job.get("env", {})))))
+        return procs
+
+    def start_ranks(self, jobs: list, tag: str) -> None:
+        """Start the processes of ``mesh_children(jobs, tag, ...)`` now,
+        while this one computes the phase's references: each imports
+        torch and the port and takes cuda:0, then waits for the job.json
+        that ``mesh_children`` writes.  Ranks no phase took are killed at
+        the phase's end (``phase``)."""
+        for j, job in enumerate(jobs):
+            self.started[(tag, j)] = self.spawn_ranks(
+                j, ROOT / "build" / "mesh" / f"{tag}{j}", job)
 
     def mesh_one_rank(self) -> dict:
         """Phase (a): qwen3-0.6b at full width and depth, fp32, through
@@ -5934,7 +6012,9 @@ class Smoke:
         jobs = [{"kind": "multihost", "world": w * m, "model": m,
                  "batch": (w, m) == (1, 2), "inputs": str(inputs_path)}
                 for w, m in MESH_RUNS]
-        runs = self.mesh_children(jobs, "qwen3-")
+        # (1, 2) and (2, 1) at once, then (2, 2)
+        runs = (self.mesh_children(jobs[:2], "qwen3-", together=True)
+                + self.mesh_children(jobs[2:], "qwen3-b"))
         want_pool = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS,
                                            pool=True, worker_major=True)
         want_batch = self.expected_launches("qwen3-0.6b", 1, MESH_STEPS,
@@ -6010,16 +6090,16 @@ class Smoke:
         from repro_torch import configs
         from repro_torch.models.model import init_params
         cfg = mesh_h2o_config(configs)
+        path = ROOT / "build" / "mesh" / "inputs-h2o.pt"
+        jobs = [{"kind": "h2o", "world": 2, "model": 2, "inputs": str(path)}]
+        self.start_ranks(jobs, "h2o-")
         inputs = self.mesh_inputs(cfg)
         params = init_params(cfg, torch.Generator(self.dev).manual_seed(
             MESH_SEED), self.dev)
         plain = mesh_rounds(cfg, params, inputs, pool=True)
         del params
-        path = ROOT / "build" / "mesh" / "inputs-h2o.pt"
-        path.parent.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in inputs.items()}, path)
-        ranks = self.mesh_children([{"kind": "h2o", "world": 2, "model": 2,
-                                     "inputs": str(path)}], "h2o-")[0]
+        ranks = self.mesh_children(jobs, "h2o-")[0]
         where = f"{D80_ARCH} 2 layers model 2 (gloo)"
         worst = 0.0
         for r, res in enumerate(ranks):
@@ -6676,6 +6756,10 @@ class Smoke:
         self.free_memory()
         ref_path = ROOT / "build" / "mesh" / "train-ref.pt"
         ref_path.parent.mkdir(parents=True, exist_ok=True)
+        jobs = [{"kind": "train", "world": d * m, "data": d, "model": m,
+                 "ref": str(ref_path), "layers": TRAIN_MESH_LAYERS}
+                for d, m in TRAIN_MESH_RUNS]
+        self.start_ranks(jobs, "train-mesh-")
         step = launch_train.train_step
         first = {}
 
@@ -6715,10 +6799,7 @@ class Smoke:
         out = {}
         self.mesh_peak = 0
         t0 = time.perf_counter()
-        runs = self.mesh_children(
-            [{"kind": "train", "world": d * m, "data": d, "model": m,
-              "ref": str(ref_path), "layers": TRAIN_MESH_LAYERS}
-             for d, m in TRAIN_MESH_RUNS], "train-mesh-", together=True)
+        runs = self.mesh_children(jobs, "train-mesh-", together=True)
         wall = time.perf_counter() - t0
         for (d, m), ranks in zip(TRAIN_MESH_RUNS, runs):
             where = (f"{TRAIN_ARCH} {TRAIN_MESH_LAYERS} layers training "
@@ -6772,33 +6853,41 @@ class Smoke:
 
     def train_mesh_multihost(self) -> list:
         """Phase 29: ``multihost --mode train --model-par 2`` (bf16 with
-        remat, MH_TRAIN_ARGS) as 2 gloo processes sharing the card, against
-        one process of the same command in this one: losses within
+        remat, MH_TRAIN_ARGS, TRAIN_ARCH at MH_TRAIN_LAYERS layers) as 2
+        gloo processes sharing the card, against one process of the same
+        command in this one: losses within
         MH_TRAIN_LOSS_TOL of its and equal on both ranks, launches
-        ``train_launches``' under remat (B3 56 a step, its backward and
-        Delta 28), each group's bytes a step ``train_axis_bytes``'.
+        ``train_launches``' under remat (B3 16 a step, its backward and
+        Delta 8), each group's bytes a step ``train_axis_bytes``'.
         Returns the per-rank launches."""
         torch = self.torch
         from repro_torch import configs
         from repro_torch.kernels import ops
         from repro_torch.launch import multihost
-        cfg = configs.get_config(TRAIN_ARCH)
+        get_config = configs.get_config
+        cfg = get_config(TRAIN_ARCH).with_updates(num_layers=MH_TRAIN_LAYERS)
         self.free_memory()
+        jobs = [{"kind": "multihost_train", "world": 2, "model": 2}]
+        self.start_ranks(jobs, "mh-train-")
         store = ROOT / "build" / "mesh" / "mh-train-store"
         store.parent.mkdir(parents=True, exist_ok=True)
         store.unlink(missing_ok=True)
         ops.reset_launch_counts()
-        one = multihost.main(MH_TRAIN_ARGS + [
-            "--coordinator", f"file://{store}", "--num-processes", "1",
-            "--process-id", "0"])
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=MH_TRAIN_LAYERS)
+        try:
+            one = multihost.main(MH_TRAIN_ARGS + [
+                "--coordinator", f"file://{store}", "--num-processes", "1",
+                "--process-id", "0"])
+        finally:
+            configs.get_config = get_config
         one_launches = ops.launch_counts()
         store.unlink(missing_ok=True)
         self.free_memory()
         want_launches = {name: 0 for name in one_launches}
         want_launches.update(train_launches(cfg, TRAIN_MESH_STEPS, True))
         self.mesh_peak = 0
-        ranks = self.mesh_children([{"kind": "multihost_train", "world": 2,
-                                     "model": 2}], "mh-train-")[0]
+        ranks = self.mesh_children(jobs, "mh-train-")[0]
         worst = 0.0
         for r, res in enumerate(ranks):
             if res["losses"] != ranks[0]["losses"]:
@@ -6820,8 +6909,9 @@ class Smoke:
             raise AssertionError(f"multihost train model 2 losses "
                                  f"{ranks[0]['losses']}, one process "
                                  f"{one['losses']}")
-        emit({"train_mesh_run": f"multihost --mode train {TRAIN_ARCH} bf16 "
-              f"remat model 2 (gloo)", "args": MH_TRAIN_ARGS,
+        emit({"train_mesh_run": f"multihost --mode train {TRAIN_ARCH} "
+              f"{MH_TRAIN_LAYERS} layers bf16 remat model 2 (gloo)",
+              "args": MH_TRAIN_ARGS,
               "losses": ranks[0]["losses"], "losses_one_process":
               one["losses"], "worst_loss_diff": worst,
               "loss_tol": MH_TRAIN_LOSS_TOL,
@@ -6894,8 +6984,8 @@ class Smoke:
 
     def moe_mesh(self) -> dict:
         """Phase 31: qwen3-moe-30b-a3b at full width and MOE_MESH_LAYERS
-        layers, fp32, gloo processes sharing cuda:0, one job after
-        another: (a) and (b) ``multihost --mode serve`` (K=7 S=2 E=0,
+        layers, fp32, gloo processes sharing cuda:0, (a) and (b) at once,
+        then (c): (a) and (b) ``multihost --mode serve`` (K=7 S=2 E=0,
         MH_SLOTS slots: 72 streams, BA_STEPS decode calls) on each
         (worker, model) of MOE_MESH_MULTIHOST against the same pool with
         no mesh (``plain_pool``): at (3, 1) each worker runs 24 streams
@@ -6948,7 +7038,8 @@ class Smoke:
                      "inputs": str(path)})
         self.mesh_peak = 0
         t0 = time.perf_counter()
-        runs = self.mesh_children(jobs, "moe-mesh-")
+        runs = (self.mesh_children(jobs[:2], "moe-mesh-", together=True)
+                + self.mesh_children(jobs[2:], "moe-mesh-c"))
         wall = time.perf_counter() - t0
         out = {}
         # (a) and (b): the multihost serve
@@ -7070,7 +7161,8 @@ class Smoke:
         for kind in ("batch", "pool"):
             out[f"{kind} (data {d}, model {m})"] = [
                 res[kind + "_launches"] for res in ranks]
-        emit({"moe_mesh": "gloo ranks on one card, one job after another",
+        emit({"moe_mesh": "gloo ranks on one card, (a) and (b) at once, "
+              "then (c)",
               "depth": layers, "ranks": [job["world"] for job in jobs],
               "children_wall_s": wall,
               "card_peak_memory_gb": self.mesh_peak / 1e9,
@@ -7104,6 +7196,16 @@ class Smoke:
         self.free_memory()
         ref_path = ROOT / "build" / "mesh" / "moe-train-ref.pt"
         ref_path.parent.mkdir(parents=True, exist_ok=True)
+        jobs = {(d, m): [{
+            "kind": "train", "world": d * m, "data": d, "model": m,
+            "ref": str(ref_path), "arch": QWEN3_MOE,
+            "layers": MOE_TRAIN_LAYERS,
+            # two ranks' 27 GB peaks on one card: segments that grow
+            # keep the caching allocator's slack off the card
+            "env": {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}}]
+            for d, m in MOE_TRAIN_MESH}
+        d, m = MOE_TRAIN_MESH[0]
+        self.start_ranks(jobs[d, m], f"moe-train{d}{m}-")
         step, get_config = launch_train.train_step, configs.get_config
         first, metrics = {}, []
 
@@ -7149,15 +7251,7 @@ class Smoke:
                      f"(data {d}, model {m}) (gloo)")
             self.mesh_peak = 0
             t0 = time.perf_counter()
-            ranks = self.mesh_children(
-                [{"kind": "train", "world": d * m, "data": d, "model": m,
-                  "ref": str(ref_path), "arch": QWEN3_MOE,
-                  "layers": MOE_TRAIN_LAYERS,
-                  # two ranks' 27 GB peaks on one card: segments that grow
-                  # keep the caching allocator's slack off the card
-                  "env": {"PYTORCH_CUDA_ALLOC_CONF":
-                          "expandable_segments:True"}}],
-                f"moe-train{d}{m}-")[0]
+            ranks = self.mesh_children(jobs[d, m], f"moe-train{d}{m}-")[0]
             wall = time.perf_counter() - t0
             want_bytes = train_axis_bytes(cfg, d, m, TRAIN_BATCH, TRAIN_SEQ,
                                           4, False)
@@ -7213,6 +7307,316 @@ class Smoke:
             out[f"data {d} model {m}"] = [res["launches"] for res in ranks]
         ref_path.unlink()
         return out
+
+    def micro_train_mesh(self) -> dict:
+        """Phase 36: qwen3-moe-30b-a3b at full width and MOE_TRAIN_LAYERS
+        layers, fp32, with A96_MICRO microbatches: (a) TRAIN_MESH_STEPS
+        steps of ``launch.train.run`` and (b) one ``train_step`` on a
+        TRAIN_BATCH x TRAIN_SEQ batch with a ``loss_mask`` (about 60% ones,
+        numpy from A96_SEED) from the launcher's seed-0 parameters, each
+        with no mesh in this process, its first step's first moments of
+        the blocks written to a file under ``build/mesh``; then both as
+        one job of gloo processes sharing the card at (data, model) =
+        A96_MESH (``mesh_train_child``), each rank holding its blocks'
+        gradients to those files.  Here, phase 32's checks: every rank's
+        losses, grad norms and MoE statistics within 1e-4 relative of one
+        rank's and equal to rank 0's, its launches ``train_launches``'
+        with the microbatches, each group's bytes a step
+        ``train_axis_bytes``' with the batch's exchange counted.  Returns
+        each part's per-rank launches."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.data import SyntheticLMDataset
+        from repro_torch.kernels import ops
+        from repro_torch.launch import train as launch_train
+        from repro_torch.models.model import init_params
+        from repro_torch.optim import init_opt_state
+        from repro_torch.tree import flatten_with_path, keystr
+        get_config = configs.get_config
+        cfg = get_config(QWEN3_MOE).with_updates(num_layers=MOE_TRAIN_LAYERS)
+        tcfg = a96_train_config()
+        b1 = tcfg.optimizer.b1
+        work = ROOT / "build" / "mesh"
+        work.mkdir(parents=True, exist_ok=True)
+        paths = {part: work / f"a96-{part}-ref.pt" for part in "ab"}
+        batch_path = work / "a96-masked-batch.pt"
+        d, m = A96_MESH
+        jobs = [{"kind": "train", "world": d * m, "data": d, "model": m,
+                 "ref": str(paths["a"]), "arch": QWEN3_MOE,
+                 "layers": MOE_TRAIN_LAYERS, "micro": A96_MICRO,
+                 "masked": str(batch_path), "masked_ref": str(paths["b"]),
+                 "env": {"PYTORCH_CUDA_ALLOC_CONF":
+                         "expandable_segments:True"}}]
+        self.start_ranks(jobs, "a96-")
+        firsts = {"a": {}, "b": {}}
+        metrics = {"a": [], "b": []}
+
+        def blocks_mu(opt):
+            return {keystr(p): t.detach().cpu() for p, t in
+                    flatten_with_path(opt.mu) if "embeddings" not in keystr(p)}
+
+        step = launch_train.train_step
+
+        def keep_first(*args, **kw):
+            out = step(*args, **kw)
+            metrics["a"].append({k: float(v) for k, v in out[2].items()})
+            if not firsts["a"]:
+                firsts["a"]["mu"] = blocks_mu(out[1])
+            return out
+
+        history = []
+        ops.reset_launch_counts()
+        launch_train.train_step = keep_first
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=MOE_TRAIN_LAYERS)
+        try:
+            launch_train.run(QWEN3_MOE, False, TRAIN_MESH_STEPS,
+                             TRAIN_BATCH, TRAIN_SEQ, 1, 1, TRAIN_LR,
+                             A96_MICRO, None, log_every=TRAIN_MESH_STEPS,
+                             device=self.dev, seed=0, history=history)
+        finally:
+            launch_train.train_step = step
+            configs.get_config = get_config
+        one = {"a": ops.launch_counts()}
+        self.free_memory()
+        # (b): the masked batch, one step from the launcher's parameters
+        rng = np.random.RandomState(A96_SEED)
+        host = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                  seed=0).batch(TRAIN_BATCH, rng)
+        host["loss_mask"] = (rng.rand(TRAIN_BATCH, TRAIN_SEQ - 1)
+                             < 0.6).astype(np.float32)
+        torch.save({k: torch.from_numpy(v) for k, v in host.items()},
+                   batch_path)
+        params = init_params(cfg, torch.Generator(self.dev).manual_seed(0),
+                             self.dev)
+        batch = {k: torch.from_numpy(v).to(self.dev)
+                 for k, v in host.items()}
+        ops.reset_launch_counts()
+        _, opt, out = launch_train.train_step(cfg, tcfg, params,
+                                              init_opt_state(params), batch)
+        one["b"] = ops.launch_counts()
+        metrics["b"].append({k: float(v) for k, v in out.items()})
+        firsts["b"]["mu"] = blocks_mu(opt)
+        del params, opt, out, batch
+        for part, first in firsts.items():
+            first["gmax"] = {key: (mu / (1 - b1)).abs().max().item()
+                             for key, mu in first["mu"].items()}
+            torch.save(first, paths[part])
+        del firsts
+        self.free_memory()
+        steps = {"a": TRAIN_MESH_STEPS, "b": 1}
+        want_launches = {}
+        for part in "ab":
+            want_launches[part] = {name: 0 for name in one[part]}
+            want_launches[part].update(train_launches(cfg, steps[part], False,
+                                                      A96_MICRO))
+            if one[part] != want_launches[part]:
+                raise AssertionError(f"one-rank {part} launched {one[part]}, "
+                                     f"not {want_launches[part]}")
+        if not metrics["a"][0]["dropped_fraction"] > 0:
+            raise AssertionError("the capacity drops nothing: the MoE "
+                                 "training runs hold no capacity")
+        where = (f"{QWEN3_MOE} {MOE_TRAIN_LAYERS} layers training fp32 "
+                 f"{A96_MICRO} microbatches (data {d}, model {m}) (gloo)")
+        self.mesh_peak = 0
+        t0 = time.perf_counter()
+        ranks = self.mesh_children(jobs, "a96-")[0]
+        wall = time.perf_counter() - t0
+        exchange = {"a": TRAIN_BATCH * TRAIN_SEQ * 4,
+                    "b": sum(v.nbytes for v in host.values())}
+        for r, res in enumerate(ranks):
+            parts = {"a": (res["step_bytes"], res["metrics"], res["history"],
+                           res["launches"]),
+                     "b": ([res["masked"]["bytes"]], [res["masked"]["metrics"]],
+                           [res["masked"]["metrics"]],
+                           res["masked"]["launches"])}
+            for part, (step_bytes, got_metrics, got_history, launches) in \
+                    parts.items():
+                rank0 = (ranks[0]["metrics"] if part == "a"
+                         else [ranks[0]["masked"]["metrics"]])
+                for i, (got, want) in enumerate(zip(got_metrics,
+                                                    metrics[part])):
+                    for key in ("loss", "grad_norm", "lr", "ce_loss",
+                                "load_balance_loss", "dropped_fraction"):
+                        if got[key] != rank0[i][key] or not \
+                                abs(got[key] - want[key]) <= \
+                                1e-4 * abs(want[key]) + 1e-7:
+                            raise AssertionError(
+                                f"{where} ({part}) rank {r} step {i} {key}: "
+                                f"{got[key]}, one rank {want[key]}")
+                if len(got_metrics) != steps[part] or \
+                        len(got_history) != steps[part]:
+                    raise AssertionError(f"{where} ({part}) rank {r}: "
+                                         f"{len(got_metrics)} steps")
+                if launches != want_launches[part]:
+                    raise AssertionError(f"{where} ({part}) rank {r}: "
+                                         f"launches {launches} != "
+                                         f"{want_launches[part]}")
+                want_bytes = train_axis_bytes(cfg, d, m, TRAIN_BATCH,
+                                              TRAIN_SEQ, 4, False, A96_MICRO,
+                                              exchange[part], part == "b")
+                for i, got in enumerate(step_bytes):
+                    bytes_equal(f"{where} ({part}) rank {r} step {i}",
+                                {key: v for key, v in got.items() if v},
+                                want_bytes)
+        emit({"a9_6_run": where, "ranks": d * m,
+              "losses": [h["loss"] for h in ranks[0]["history"]],
+              "losses_one_rank": [h["loss"] for h in history],
+              "moe_metrics": ranks[0]["metrics"],
+              "moe_metrics_one_rank": metrics["a"],
+              "masked_metrics": ranks[0]["masked"]["metrics"],
+              "masked_metrics_one_rank": metrics["b"][0],
+              "worst_rank_after_step_0": max(
+                  (res["held"] for res in ranks),
+                  key=lambda h: h["grads_err_over_tol"]),
+              "worst_rank_masked": max(
+                  (res["masked"]["held"] for res in ranks),
+                  key=lambda h: h["grads_err_over_tol"]),
+              "bytes_per_step_per_rank": ranks[0]["step_bytes"][0],
+              "masked_bytes_per_rank": ranks[0]["masked"]["bytes"],
+              "exchange_bytes_per_rank": {
+                  part: (d - 1) / d * b for part, b in exchange.items()},
+              "bytes_equal_analytic": True,
+              "launches_per_rank": [{key: v for key, v in
+                                     res["launches"].items() if v}
+                                    for res in ranks],
+              "step_ms_gloo_over_host": [1e3 * h["seconds"] for h in
+                                         ranks[0]["history"]],
+              "one_rank_step_ms": [1e3 * h["seconds"] for h in history],
+              "rank_peak_allocated_gb": [res["max_allocated"] / 1e9
+                                         for res in ranks],
+              "card_peak_gb": self.mesh_peak / 1e9,
+              "children_wall_s": wall})
+        for path in list(paths.values()) + [batch_path]:
+            path.unlink()
+        return {f"(a) data {d} model {m}": [res["launches"]
+                                            for res in ranks],
+                f"(b) data {d} model {m}": [res["masked"]["launches"]
+                                            for res in ranks]}
+
+    def sliding_variant(self) -> dict:
+        """Phase 37: ``configs.shape_config_for("qwen3-0.6b",
+        "long_500k")`` (window SWA_WINDOW) at full width and SWA_LAYERS
+        layers, fp32: the batch E=1 round of one group of K through
+        ``coded_prefill`` on a SWA_PROMPT-token prompt, past the window,
+        then SWA_STEPS ``coded_decode_step`` calls on the SWA_WINDOW-slot
+        ring, which wraps.  Every B3 call is held to its plain version
+        stream by stream, and every B4 call to its plain version, under
+        ``check``'s fp32 rule; the launches of the round are
+        ``expected_launches``', the logits finite and the tokens in the
+        vocabulary.  Returns the launches and the worst checks."""
+        torch = self.torch
+        from repro_torch import configs
+        from repro_torch.core.berrut import CodingConfig
+        from repro_torch.kernels import ops, ref
+        from repro_torch.models.model import init_params
+        from repro_torch.serving import coded_serving as cs
+        cfg = configs.shape_config_for("qwen3-0.6b", "long_500k")
+        if cfg.sliding_window != SWA_WINDOW:
+            raise AssertionError(f"long_500k's window {cfg.sliding_window}")
+        cfg = cfg.with_updates(num_layers=SWA_LAYERS)
+        coding = CodingConfig(k=K, s=S, e=E)
+        n1 = coding.num_workers
+        gen = torch.Generator(self.dev).manual_seed(MESH_SEED)
+        params = init_params(cfg, gen, self.dev)
+        tokens = torch.randint(0, cfg.vocab_size, (K, SWA_PROMPT),
+                               generator=gen, device=self.dev)
+        held = {"flash_attention": [], "flash_decode": []}
+        real_attention, real_decode = ops.attention, ops.decode_attention
+
+        def attention(q, k, v, **kw):
+            out = real_attention(q, k, v, **kw)
+            if kw.get("window") != SWA_WINDOW:
+                raise AssertionError(f"B3 called with {kw}")
+            with torch.no_grad():
+                want = torch.cat([ref.attention_ref(q[i:i + 1], k[i:i + 1],
+                                                    v[i:i + 1], **kw)
+                                  for i in range(q.shape[0])])
+            held["flash_attention"].append(self.check(
+                f"B3 window {SWA_WINDOW} {list(q.shape)}", out, want,
+                "float32"))
+            return out
+
+        def decode_attention(q, k_cache, v_cache, kv_mask, *,
+                             kv_scale=0.0, **kw):
+            out = real_decode(q, k_cache, v_cache, kv_mask,
+                              kv_scale=kv_scale, **kw)
+            if kv_scale or kw.get("return_lse"):
+                raise AssertionError(f"B4 called with {kw}, kv_scale "
+                                     f"{kv_scale}")
+            want = ref.decode_attention_ref(q, k_cache, v_cache, kv_mask,
+                                            **kw)
+            held["flash_decode"].append(self.check(
+                f"B4 ring {k_cache.shape[1]} {list(q.shape)}", out, want,
+                "float32"))
+            return out
+
+        mask = torch.ones(n1, device=self.dev)
+        mask[MESH_STRAGGLER] = 0.0
+        byz = torch.zeros(n1, device=self.dev)
+        byz[MESH_ATTACKER] = 1.0
+        kw = dict(straggler_mask=mask, byz_mask=byz, byz_sigma=10.0,
+                  with_report=True)
+        max_len = SWA_PROMPT + SWA_STEPS + 2
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        ops.reset_launch_counts()
+        ops.attention, ops.decode_attention = attention, decode_attention
+        out_tokens, located = [], []
+        try:
+            with self.finite_logits("long_500k sliding variant"):
+                logits, state, rep = cs.coded_prefill(
+                    cfg, coding, params, {"tokens": tokens}, max_len,
+                    byz_noise=torch.randn((1, n1, cfg.vocab_size),
+                                          generator=gen, device=self.dev),
+                    **kw)
+                for _ in range(SWA_STEPS):
+                    nxt = logits.argmax(-1)
+                    out_tokens.append(nxt)
+                    located.append(rep[0])
+                    logits, state, rep = cs.coded_decode_step(
+                        cfg, coding, params, state, nxt[:, None],
+                        byz_noise=torch.randn((1, n1, cfg.vocab_size),
+                                              generator=gen,
+                                              device=self.dev), **kw)
+                out_tokens.append(logits.argmax(-1))
+                located.append(rep[0])
+                torch.cuda.synchronize()
+        finally:
+            ops.attention, ops.decode_attention = real_attention, real_decode
+        launches = ops.launch_counts()
+        expected = self.expected_launches("qwen3-0.6b", 1, SWA_STEPS,
+                                          pool=False, layers=SWA_LAYERS)
+        width = state.caches[0]["k"].shape[2]
+        toks = torch.stack(out_tokens, 1)
+        emit({"path": "qwen3-0.6b long_500k sliding variant",
+              "launches": launches, "expected": expected})
+        if launches != expected:
+            raise AssertionError(f"launch counts {launches} != {expected}")
+        if width != SWA_WINDOW or state.pos != SWA_PROMPT + SWA_STEPS:
+            raise AssertionError(f"cache width {width}, pos {state.pos}")
+        if len(held["flash_attention"]) != SWA_LAYERS or \
+                len(held["flash_decode"]) != SWA_LAYERS * SWA_STEPS:
+            raise AssertionError(f"checked {len(held['flash_attention'])} B3"
+                                 f" and {len(held['flash_decode'])} B4 calls")
+        if toks.shape != (K, 1 + SWA_STEPS) or toks.min() < 0 or \
+                toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"bad token matrix {tuple(toks.shape)}")
+        worst = {name: max(checks, key=lambda c: c["err_over_tol"])
+                 for name, checks in held.items()}
+        emit({"long_500k": cfg.name, "window": cfg.sliding_window,
+              "layers": SWA_LAYERS, "streams": n1, "prompt": SWA_PROMPT,
+              "decode_calls": SWA_STEPS, "cache_length": width,
+              "located_attacker_rounds": int(sum(
+                  bool(loc[0, MESH_ATTACKER]) for loc in located)),
+              "worst_b3": worst["flash_attention"],
+              "worst_b4": worst["flash_decode"],
+              "peak_allocated_gb":
+                  torch.cuda.max_memory_allocated(self.dev) / 1e9})
+        return {"launches": launches,
+                "held": {name: {"checked_calls": len(held[name]),
+                                "max_abs_err": c["max_abs_err"],
+                                "err_over_tol": c["err_over_tol"]}
+                         for name, c in worst.items()}}
 
     def front_inputs(self, cfg, groups: int) -> dict:
         """A frontend's batch E=1 round inputs on the card, drawn from
@@ -7438,18 +7842,24 @@ class Smoke:
         zamba = configs.get_config(ZAMBA2).with_updates(
             param_dtype="float32", activation_dtype="float32")
         self.free_memory()
+        d, m = SSM_MESH_DATA
+        rounds = (("mamba2-780m", mamba, {"world": d * m, "model": m,
+                                          "data": d, "pool": True}),
+                  (ZAMBA2, zamba, {"world": 2, "model": 2}))
+        paths = {arch: ROOT / "build" / "mesh" / f"inputs-ssm-{arch}.pt"
+                 for arch, _, _ in rounds}
+        jobs = [{"kind": "ssm_multihost", "world": 2, "model": 2,
+                 "arch": mamba.name}]
+        jobs += [dict(job, kind="ssm_rounds", batch=True, caches=True,
+                      arch=arch, inputs=str(paths[arch]))
+                 for arch, _, job in rounds]
+        self.start_ranks(jobs, "ssm-mesh-")
         pool_caches = {}
         with last_pool_caches(pool_caches):
             tokens, pool_logits = self.plain_pool(mamba, MH_S, MH_SLOTS,
                                                   BA_STEPS)
-        plain, jobs = {}, []
-        d, m = SSM_MESH_DATA
-        jobs.append({"kind": "ssm_multihost", "world": 2, "model": 2,
-                     "arch": mamba.name})
-        for arch, cfg, job in (
-                ("mamba2-780m", mamba, {"world": d * m, "model": m,
-                                        "data": d, "pool": True}),
-                (ZAMBA2, zamba, {"world": 2, "model": 2})):
+        plain = {}
+        for arch, cfg, job in rounds:
             inputs = self.mesh_inputs(cfg)
             params = init_params(cfg, torch.Generator(self.dev).manual_seed(
                 MESH_SEED), self.dev)
@@ -7458,11 +7868,8 @@ class Smoke:
                                       caches=True)
             del params
             self.free_memory()
-            path = ROOT / "build" / "mesh" / f"inputs-ssm-{arch}.pt"
-            path.parent.mkdir(parents=True, exist_ok=True)
-            torch.save({key: v.cpu() for key, v in inputs.items()}, path)
-            jobs.append(dict(job, kind="ssm_rounds", batch=True, caches=True,
-                             arch=arch, inputs=str(path)))
+            torch.save({key: v.cpu() for key, v in inputs.items()},
+                       paths[arch])
         self.mesh_peak = 0
         t0 = time.perf_counter()
         runs = self.mesh_children(jobs, "ssm-mesh-", together=True)
@@ -7603,12 +8010,19 @@ class Smoke:
         b1 = self.train_config(TRAIN_MESH_STEPS).optimizer.b1
         step, get_config = launch_train.train_step, configs.get_config
         self.free_memory()
+        refs = {arch: ROOT / "build" / "mesh" / f"ssm-train-{arch}.pt"
+                for arch in dict(SSM_TRAIN_MESH)}
+        jobs = [{"kind": "train", "world": d * m, "data": d, "model": m,
+                 "ref": str(refs[arch]), "arch": arch,
+                 "layers": SSM_TRAIN_CUT[arch]["num_layers"],
+                 "pattern": SSM_TRAIN_CUT[arch].get("layer_pattern")}
+                for arch, (d, m) in SSM_TRAIN_MESH]
+        self.start_ranks(jobs, "ssm-train-")
         one = {}
         for arch in dict(SSM_TRAIN_MESH):
             cut = SSM_TRAIN_CUT[arch]
             cfg = configs.get_config(arch).with_updates(**cut)
-            ref_path = ROOT / "build" / "mesh" / f"ssm-train-{arch}.pt"
-            ref_path.parent.mkdir(parents=True, exist_ok=True)
+            ref_path = refs[arch]
             first = {}
 
             def keep_first(*args, **kw):
@@ -7647,13 +8061,7 @@ class Smoke:
         out = {}
         self.mesh_peak = 0
         t0 = time.perf_counter()
-        runs = self.mesh_children(
-            [{"kind": "train", "world": d * m, "data": d, "model": m,
-              "ref": str(one[arch][1]), "arch": arch,
-              "layers": one[arch][0].num_layers,
-              "pattern": SSM_TRAIN_CUT[arch].get("layer_pattern")}
-             for arch, (d, m) in SSM_TRAIN_MESH], "ssm-train-",
-            together=True)
+        runs = self.mesh_children(jobs, "ssm-train-", together=True)
         wall = time.perf_counter() - t0
         for (arch, (d, m)), ranks in zip(SSM_TRAIN_MESH, runs):
             cfg, ref_path, history, want_launches = one[arch]
@@ -7976,7 +8384,8 @@ def mesh_route_walk(where: str, got: list, want: list, k: int,
 
 
 def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
-                     remat: bool) -> dict:
+                     remat: bool, microbatches: int = 1,
+                     batch_bytes: int = 0, masked: bool = False) -> dict:
     """Per-rank bytes of one training step of a decoder of "A", "M", "S"
     and shared "G" layers on a (data ``d``, model ``m``) mesh that
     divides its kv-heads and its SSM heads, parameters and activations
@@ -8001,7 +8410,13 @@ def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
     attention's, as the block's forward is recomputed: torch's
     checkpoint stops recomputing once it has the tensors the backward
     saved, before the MLP's closing all-reduce.  "world": the squared
-    gradient norm (fp32)."""
+    gradient norm (fp32).  With ``microbatches`` > 1 "fsdp" also
+    gathers the whole batch of ``batch_bytes`` once a step ((d-1)/d of
+    them), so that each rank holds its block of every microbatch of the
+    whole batch (``train._reference_micro_rows``); every other count is
+    linear in the tokens and the same over any number of microbatches.
+    A ``masked`` batch's loss all-reduces each microbatch's mask sum
+    (fp32) over "fsdp"."""
     dm, h, kv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.d_ff)
     pattern, vocab = cfg.layer_pattern, cfg.vocab_size
@@ -8031,6 +8446,10 @@ def train_axis_bytes(cfg, d: int, m: int, rows: int, seq: int, size: int,
         out["fsdp"] = 2 * (d - 1) / d * ((split + norms) * size
                                          + (ssm * 3 * hs + 5) * 4) \
             + moe * (d - 1) * tokens * cfg.experts_per_token * 8
+        if microbatches > 1:
+            out["fsdp"] += (d - 1) / d * batch_bytes
+        if masked:
+            out["fsdp"] += microbatches * 2 * 4 * (d - 1) / d
     if m > 1:
         frac = (m - 1) / m
         act = tokens * dm * size
@@ -8253,19 +8672,28 @@ def mesh_child(rank: int, work: Path) -> int:
     from repro_torch.launch.mesh import make_host_mesh, make_worker_mesh
     from repro_torch.models import partitioning
     from repro_torch.models.model import init_params
-    job = json.loads((work / "job.json").read_text())
-    world, model = job["world"], job["model"]
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    torch.empty(1, device=dev)           # the context, before the job
+    while not (work / "job.json").exists():
+        time.sleep(0.05)
+    job = json.loads((work / "job.json").read_text())
+    world, model = job["world"], job["model"]
     out = {}
     if job["kind"] == "train":
         out.update(mesh_train_child(rank, work, job, dev))
     elif job["kind"] == "multihost_train":
         ops.reset_launch_counts()
-        res = multihost.main(MH_TRAIN_ARGS + [
-            "--coordinator", f"file://{work}/store", "--num-processes",
-            str(world), "--process-id", str(rank), "--model-par",
-            str(model)])
+        get_config = configs.get_config
+        configs.get_config = lambda arch: get_config(arch).with_updates(
+            num_layers=MH_TRAIN_LAYERS)
+        try:
+            res = multihost.main(MH_TRAIN_ARGS + [
+                "--coordinator", f"file://{work}/store", "--num-processes",
+                str(world), "--process-id", str(rank), "--model-par",
+                str(model)])
+        finally:
+            configs.get_config = get_config
         out.update(res, launches=ops.launch_counts())
     elif job["kind"] in ("multihost", "ring16", "multi_pod",
                          "moe_multihost", "ssm_multihost"):
@@ -8396,23 +8824,76 @@ def mesh_train_child(rank: int, work: Path, job: dict, dev) -> dict:
 
     dist.init_process_group("gloo", init_method=f"file://{work}/store",
                             world_size=job["world"], rank=rank)
-    ops.reset_launch_counts()
     history = []
-    launch_train.train_step = hold
-    if job.get("layers"):                # the launcher's model, cut
-        configs.get_config = lambda arch: get_config(arch).with_updates(
-            num_layers=job["layers"], layer_pattern=job.get("pattern"))
     try:
-        launch_train.run(job.get("arch", TRAIN_ARCH), False,
-                         TRAIN_MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ,
-                         job["data"], job["model"], TRAIN_LR, 1, None,
-                         log_every=TRAIN_MESH_STEPS, device=dev, seed=0,
-                         history=history)
+        ops.reset_launch_counts()
+        launch_train.train_step = hold
+        if job.get("layers"):            # the launcher's model, cut
+            configs.get_config = lambda arch: get_config(arch).with_updates(
+                num_layers=job["layers"], layer_pattern=job.get("pattern"))
+        try:
+            launch_train.run(job.get("arch", TRAIN_ARCH), False,
+                             TRAIN_MESH_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                             job["data"], job["model"], TRAIN_LR,
+                             job.get("micro", 1), None,
+                             log_every=TRAIN_MESH_STEPS, device=dev, seed=0,
+                             history=history)
+        finally:
+            launch_train.train_step = step
+            configs.get_config = get_config
+        out.update(history=history, launches=ops.launch_counts())
+        if job.get("masked"):
+            out["masked"] = masked_train_child(rank, job, dev)
     finally:
-        launch_train.train_step = step
-        configs.get_config = get_config
         dist.destroy_process_group()
-    out.update(history=history, launches=ops.launch_counts())
+    return out
+
+
+def a96_train_config():
+    """Phase 36 (b)'s step: the launcher's optimizer settings for one step
+    (``Smoke.train_config``) with A96_MICRO microbatches."""
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import TrainConfig
+    return TrainConfig(optimizer=OptimizerConfig(
+        learning_rate=TRAIN_LR, warmup_steps=20, total_steps=1),
+        microbatches=A96_MICRO)
+
+
+def masked_train_child(rank: int, job: dict, dev) -> dict:
+    """Phase 36 (b) on one rank: one ``train_step`` with A96_MICRO
+    microbatches on this rank's rows of the masked batch
+    (``job["masked"]``), from the launcher's seed-0 parameters sharded on
+    a new (data, model) mesh; the step's bytes by group, launches and
+    metrics, and this rank's blocks held to one rank's
+    (``job["masked_ref"]``, ``hold_train_blocks``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.models import partitioning
+    from repro_torch.models.model import init_params
+    host = torch.load(job["masked"], weights_only=True)
+    ref = torch.load(job["masked_ref"], mmap=True, weights_only=True)
+    cfg = configs.get_config(job["arch"]).with_updates(
+        num_layers=job["layers"])
+    tcfg = a96_train_config()
+    mesh = make_train_mesh(job["data"], job["model"])
+    with partitioning.mesh_context(mesh):
+        params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        params, opt, specs = launch_train.sharded_state(cfg, params, mesh)
+        torch.cuda.empty_cache()
+        n = TRAIN_BATCH // mesh.fsdp_size()
+        lo = mesh.fsdp_index() * n
+        batch = {k: v[lo:lo + n].to(dev) for k, v in host.items()}
+        ops.reset_launch_counts()
+        mesh.reset_bytes()
+        new = launch_train.train_step(cfg, tcfg, params, opt, batch, specs)
+        out = {"bytes": mesh.axis_bytes(), "launches": ops.launch_counts(),
+               "metrics": {k: float(v) for k, v in new[2].items()}}
+        out["held"] = hold_train_blocks(
+            f"masked step rank {rank}", params, new[0], new[1].mu, specs,
+            mesh, ref, tcfg)
     return out
 
 
@@ -8466,14 +8947,17 @@ def ssd_ops(b: int, s: int, h: int, p: int, n: int) -> float:
                if s % (1 << i) == 0)
 
 
-def train_launches(cfg, steps: int, remat: bool) -> dict:
+def train_launches(cfg, steps: int, remat: bool,
+                   microbatches: int = 1) -> dict:
     """The launches of ``steps`` training steps of ``cfg``: B3 and its
     backward in every attention layer ("A", "M", "G"), B7's two forward
     launches and its two backward launches in every "S" layer; each
     forward twice under remat (the block is recomputed), each backward
-    once (B3's backward is two launches: Delta, then dq, dk and dv)."""
+    once (B3's backward is two launches: Delta, then dq, dk and dv); all
+    of it once a microbatch."""
     attn = sum(cfg.layer_pattern.count(c) for c in "AMG")
     ssm = cfg.layer_pattern.count("S")
+    steps *= microbatches
     fwd = steps * (2 if remat else 1)
     return {"flash_attention": attn * fwd,
             "flash_attention_bwd": attn * steps,

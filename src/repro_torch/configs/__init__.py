@@ -36,3 +36,21 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).reduced()
+
+
+# Which serving shapes each arch supports (DESIGN.md §4 skip policy).
+def supported_shapes(name: str) -> list:
+    cfg = get_config(name)
+    shapes = ["train_4k", "prefill_32k"]
+    if cfg.causal:                      # encoder-only has no decode step
+        shapes += ["decode_32k", "long_500k"]
+    return shapes
+
+
+def shape_config_for(name: str, shape: str) -> ModelConfig:
+    """Arch config specialised for a shape (SWA variant for long_500k)."""
+    cfg = get_config(name)
+    if shape == "long_500k" and cfg.arch_type not in ("ssm",):
+        # sub-quadratic requirement: sliding-window variant (window 4096)
+        cfg = cfg.sliding_variant(4096)
+    return cfg

@@ -19,10 +19,14 @@ parameters and moments are sharded as the reference shards them (the
 model axis splits heads, MLP and vocabulary, and Mamba2's SSM heads in
 a head-aligned layout beneath the reference's specs; the data axis each
 weight's "fsdp" dimension), each rank stages its rows of the batch, and
-the checkpoint is the one-rank file.  On the card attention trains
-through B3's forward and backward kernels and Mamba2's SSD scan through
-B7's (every family, mamba2-780m and zamba2-1.2b included); on the CPU
-autograd differentiates the plain versions.
+the checkpoint is the one-rank file.  With ``--microbatches`` n > 1 a
+step first all-gathers the batch over the batch axes, and each rank
+keeps its block of each of the reference's n microbatches (rows i of
+the whole batch, ``training.train``), so a mesh step is the reference's
+microbatched step, masks and MoE dispatch groups included.  On the card
+attention trains through B3's forward and backward kernels and Mamba2's
+SSD scan through B7's (every family, mamba2-780m and zamba2-1.2b
+included); on the CPU autograd differentiates the plain versions.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Model configuration dataclass (copy of ``repro.models.config``).
 
 Kept as a copy because importing ``repro.models`` pulls in JAX.  The
-fields, ``param_count`` and ``active_param_count`` are the reference's;
-``sliding_variant`` is left to the slice that needs it.
+fields, the derived properties, ``param_count``, ``active_param_count``
+and ``sliding_variant`` are the reference's.
 """
 
 from __future__ import annotations
@@ -96,6 +96,14 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    @property
+    def attn_layers(self) -> int:
+        return sum(1 for c in self.layer_pattern if c in "AMG")
+
+    @property
+    def ssm_layers(self) -> int:
+        return self.layer_pattern.count("S")
+
     def param_count(self) -> int:
         """Analytic parameter count (the reference's; norms not
         counted)."""
@@ -146,3 +154,12 @@ class ModelConfig:
             # re-derive the default pattern for the new depth
             kw["layer_pattern"] = None
         return dataclasses.replace(self, **kw)
+
+    def sliding_variant(self, window: int = 4096) -> "ModelConfig":
+        """The documented SWA variant used for long_500k (DESIGN.md §4):
+        attention over the last ``window`` positions, a ring cache of
+        that many slots."""
+        if self.sliding_window is not None and self.sliding_window <= window:
+            return self
+        return self.with_updates(
+            name=self.name + "-swa", sliding_window=window)

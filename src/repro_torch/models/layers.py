@@ -20,7 +20,10 @@ from repro_torch.models.config import ModelConfig
 
 def trunc_normal(gen: torch.Generator, shape, std: float, dtype,
                  device) -> torch.Tensor:
-    """std * N(0, 1) truncated to [-2, 2], drawn in fp32 from ``gen``."""
+    """std * N(0, 1) truncated to [-2, 2], drawn in fp32 from ``gen``; on
+    the meta device the shape and dtype alone, nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(dtype)

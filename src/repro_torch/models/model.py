@@ -45,6 +45,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device} cannot fill "
                          f"parameters on {device}")
+    return _build_params(cfg, generator, device)
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameters' shapes and dtypes (``init_params``' tree) as
+    tensors on the meta device: nothing allocated, nothing drawn.  The
+    dry run's stand-ins, as the reference's ``jax.eval_shape`` of its
+    ``init_params``."""
+    return _build_params(cfg, None, torch.device("meta"))
+
+
+def _build_params(cfg: ModelConfig, generator, device) -> dict:
     dtype = param_dtype(cfg)
     return {
         "embeddings": layers.init_embeddings(cfg, generator, dtype, device),

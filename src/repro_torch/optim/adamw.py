@@ -55,6 +55,19 @@ def init_opt_state(params) -> OptState:
                     mu=zeros, nu=tree_map(torch.clone, zeros))
 
 
+def abstract_opt_state(params) -> OptState:
+    """``init_opt_state``'s shapes and dtypes for ``params`` (any tensors
+    of the right shapes, such as ``models.model.abstract_params``'), as
+    tensors on the meta device: nothing allocated."""
+    meta = torch.device("meta")
+    return OptState(
+        step=torch.empty((), dtype=torch.int32, device=meta),
+        mu=tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                          device=meta), params),
+        nu=tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                          device=meta), params))
+
+
 def learning_rate(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     """fp32 learning rate at ``step``: linear warmup, then the schedule."""
     step = step.to(torch.float32)

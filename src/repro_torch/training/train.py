@@ -26,6 +26,15 @@ rank.  The whole tree is gathered once a step.  A Mamba2 leaf whose
 model-axis block is head-aligned (``partitioning.IndexSpec``: its
 heads' columns with B and C whole) is gathered and scattered over the
 FSDP group along its own "fsdp" dimension, the model block untouched.
+
+With ``microbatches`` n > 1 on a split batch, a rank's rows are first
+exchanged so that it holds its block of every one of the reference's
+microbatches (``_reference_micro_rows``): the reference's microbatch i
+is rows [i B/n, (i+1) B/n) of the whole batch of B rows, and rank r of
+the R in the FSDP group keeps rows i B/n + r B/(n R) onwards, B/(n R)
+of them, of each, in microbatch order.  So microbatch i's mask sum
+(``lm_loss``), dispatch groups, capacity and load-balance loss
+(``moe.whole_routes``) are the reference's microbatch i's.
 """
 
 from __future__ import annotations
@@ -105,6 +114,26 @@ def _local_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
     return acc_l * inv, metrics, grads
 
 
+def _reference_micro_rows(batch: dict, group, n: int, r: int) -> dict:
+    """This rank's block of each of the reference's ``n`` microbatches,
+    in microbatch order, from its block ``r`` of the whole batch's rows:
+    every leaf all-gathered over the FSDP ``group`` of R ranks along its
+    rows (the whole batch, B rows in ``fsdp_index`` order), then rows
+    i B/n + r B/(n R) .. + B/(n R) of it for each microbatch i.  Each
+    rank receives (R - 1)/R of the batch's bytes once a step: of 8 x 128
+    int32 token ids 4 KB, of paligemma's fp32 patches at the launcher's
+    8 rows (256 x 1152 a row) 9.4 MB."""
+    size = group.size
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(
+            f"a batch of {rows * size} rows does not split into {n} "
+            f"microbatches of {size} ranks' equal blocks ({n * size})")
+    with torch.no_grad():
+        return {k: group.all_gather(x, 0).unflatten(0, (n, size, rows // n))
+                [:, r].flatten(0, 1) for k, x in batch.items()}
+
+
 def _mesh_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
                          batch: dict, specs):
     mesh = partitioning.active_mesh()
@@ -113,19 +142,9 @@ def _mesh_loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params,
                            "needs their mesh active "
                            "(partitioning.mesh_context)")
     group = mesh.group("fsdp")
-    if group is not None and tcfg.microbatches > 1 and \
-            "loss_mask" in batch:
-        raise NotImplementedError(
-            "a loss_mask with microbatches on a split batch: the "
-            "reference's microbatch i is rows i of the whole batch, whose "
-            "mask sum no rank holds")
-    if group is not None and tcfg.microbatches > 1 and \
-            "M" in cfg.layer_pattern:
-        raise NotImplementedError(
-            "an MoE layer with microbatches on a split batch: the "
-            "reference's microbatch i is rows i of the whole batch, whose "
-            "dispatch groups and load-balance loss span other ranks' rows "
-            "than each rank's microbatch i (ROADMAP A9.6)")
+    if group is not None and tcfg.microbatches > 1:
+        batch = _reference_micro_rows(batch, group, tcfg.microbatches,
+                                      mesh.fsdp_index())
     dims = [partitioning.fsdp_dim(spec)
             for spec in partitioning.spec_leaves(specs, params)]
     local = leaves(params)

@@ -30,6 +30,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import flash_attention, ops, ref  # noqa: E402

@@ -13,6 +13,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.core import berrut as jb  # noqa: E402
 from repro_torch.core import berrut as tb  # noqa: E402

@@ -19,6 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.data import synthetic as jsyn  # noqa: E402
 from repro.models import classifier as jcls  # noqa: E402

@@ -29,6 +29,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_parity import (COLUMN_TOL, capture_columns,  # noqa: E402
                            record_pool_calls)

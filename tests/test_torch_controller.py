@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_parity import (assert_tokens_before_disputes,  # noqa: E402
                            capture_columns, locate_rounds, near_tie_walk,

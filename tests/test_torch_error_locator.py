@@ -13,6 +13,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.core import error_locator as jl  # noqa: E402
 from repro.core.berrut import CodingConfig  # noqa: E402

@@ -28,6 +28,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import flash_decode  # noqa: E402

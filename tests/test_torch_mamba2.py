@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.configs import mamba2_780m as jcfg  # noqa: E402
 from repro.core.berrut import CodingConfig as JCoding  # noqa: E402

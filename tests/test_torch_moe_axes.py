@@ -33,7 +33,8 @@ and 4 ranks.  Cases:
   the aux losses dominate the router's gradient, and of reduced
   hubert-xlarge and paligemma-3b at (1, 2): loss, metrics and every leaf's gradient
   against the one-rank port step and (qwen3-moe) the reference's
-  ``jax.grad`` of ``lm_loss``.
+  ``jax.grad`` of ``lm_loss``; and the (2, 1) step with 2
+  microbatches against the one-rank step with 2 microbatches.
 - serving: reduced qwen3-moe's batch E=1 round and slot pool on (data
   2, model 2), its batch round on (model 4) (2 kv-heads: the
   cache-length split) and its worker-major batch round on (worker 2);
@@ -57,6 +58,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.configs.shapes import ShapeConfig  # noqa: E402
@@ -109,8 +111,10 @@ TRAINS = {
     "h12": ("hubert-xlarge", (1, 2), 0.01),
     "p12": ("paligemma-3b", (1, 2), 0.01),
 }
-# name -> (arch, (data, model)): two steps of ``launch.train.run``
-LAUNCHES = {"l_grok12": ("grok-1-314b", (1, 2)), "l_moe21": (MOE, (2, 1))}
+# name -> (arch, (data, model), microbatches): two steps of
+# ``launch.train.run``
+LAUNCHES = {"l_grok12": ("grok-1-314b", (1, 2), 1),
+            "l_moe21": (MOE, (2, 1), 1), "l_moe21mb": (MOE, (2, 1), 2)}
 # name -> (arch, axes, shape, world, (K, S, E, groups), worker-major,
 # pool)
 SERVES = {
@@ -213,7 +217,8 @@ for name, case in data["cases"]:
         history = []
         d, m = case["shape"]
         launch_train.run(case["arch"], True, 2, case["rows"], case["seq"], d,
-                         m, 3e-3, 1, None, device="cpu", history=history)
+                         m, 3e-3, case["micro"], None, device="cpu",
+                         history=history)
         out[name] = [h["loss"] for h in history]
         continue
     mesh = partitioning.build_mesh(case["axes"], case["shape"])
@@ -250,13 +255,19 @@ for name, case in data["cases"]:
         elif case["kind"] == "micro":
             params = case["params"]
             specs = shardings.train_param_specs(mesh, cfg, params)
-            try:
-                loss_and_grads(cfg, TrainConfig(microbatches=2),
-                               shardings.local_shard(params, specs, mesh),
-                               case["batch"], specs)
-                out[name] = None
-            except NotImplementedError as err:
-                out[name] = str(err)
+            n = case["rows"] // mesh.fsdp_size()
+            lo = mesh.fsdp_index() * n
+            batch = {k: v[lo:lo + n] for k, v in case["batch"].items()}
+            loss, metrics, grads = loss_and_grads(
+                cfg, TrainConfig(microbatches=2),
+                shardings.local_shard(params, specs, mesh), batch, specs)
+            out[name] = {
+                "loss": float(loss),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": {keystr(path): shardings.gather_leaf(g, spec, mesh)
+                          for (path, g), spec in zip(
+                              flatten_with_path(grads),
+                              partitioning.spec_leaves(specs, grads))}}
         elif case["kind"] == "ckpt":
             from repro_torch.checkpoint import save
             specs = shardings.train_param_specs(mesh, cfg, case["params"])
@@ -485,15 +496,15 @@ def runs(blocks, trains, serves, tmp_path_factory):
             "updates": CF1 if arch == MOE else {}, "params": tp,
             "inputs": inp, "coding": coding_args, "wm": wm, "pool": pool,
             "max_len": max_len}))
-    for name, (arch, (d, m)) in LAUNCHES.items():
+    for name, (arch, (d, m), micro) in LAUNCHES.items():
         cases[d * m].append((name, {"kind": "launch", "arch": arch,
                                     "shape": (d, m), "rows": ROWS,
-                                    "seq": SEQ}))
+                                    "seq": SEQ, "micro": micro}))
     _, tp, tb, _, _ = trains["t21"]
     cases[2].append(("micro", {
         "kind": "micro", "axes": ("data", "model"), "shape": (2, 1),
-        "arch": MOE, "updates": CF1, "params": tp,
-        "batch": {k: v[:ROWS // 2] for k, v in tb.items()}}))
+        "arch": MOE, "updates": CF1, "params": tp, "batch": tb,
+        "rows": ROWS}))
     tc = tconfigs.get_reduced(MOE)
     cases[4].append(("ckpt_moe", {
         "kind": "ckpt", "axes": ("data", "model"), "shape": (2, 2),
@@ -629,12 +640,29 @@ def test_train_gradients_equal_one_rank_and_reference(name, trains, runs):
             assert heavy > 20 * float(light[key].abs().max())
 
 
-def test_microbatches_of_a_split_moe_batch_refused(runs):
-    """Microbatches on a split batch are the reference's rows i of the
-    whole batch, whose dispatch groups span other ranks' rows: an MoE
-    model refuses them there (ROADMAP A9.6), before any collective."""
-    for rank in runs[2]:
-        assert "A9.6" in rank["micro"]
+def test_microbatches_of_a_split_moe_batch_refused(trains, runs):
+    """No longer refused (ROADMAP A9.6): 2 microbatches of the batch
+    split over (data 2), where the capacity binds, are the reference's
+    rows i of the whole batch on every rank (``train._reference_micro_
+    rows``), so their dispatch groups, drops and load-balance losses are
+    one rank's microbatches': loss, metrics and every leaf's gradient
+    equal the one-rank step's with the same microbatches."""
+    tc, tp, tb, _, _ = trains["t21"]
+    loss, metrics, grads = loss_and_grads(tc, TrainConfig(microbatches=2),
+                                          tp, tb)
+    assert float(metrics["dropped_fraction"]) > 0.0     # the capacity binds
+    for r, rank in enumerate(runs[2]):
+        out = rank["micro"]
+        assert out["loss"] == pytest.approx(float(loss), rel=1e-5, abs=1e-6)
+        for key, v in metrics.items():
+            assert out["metrics"][key] == pytest.approx(
+                float(v), rel=1e-5, abs=1e-6), (r, key)
+        flat = {keystr(p): g for p, g in flatten_with_path(grads)}
+        assert set(out["grads"]) == set(flat)
+        for key, g in flat.items():
+            tol = GRAD_TOL * max(float(g.abs().max()), 1e-30)
+            err = float((out["grads"][key] - g).abs().max())
+            assert err <= tol, (r, key, err, tol)
 
 
 # ------------------------------------------------------------ serving
@@ -740,13 +768,13 @@ def test_hubert_vocabulary_whole_on_a_16_way_axis(monkeypatch):
 def test_launcher_trains_moe_on_the_mesh(name, runs):
     """``launch.train.run --data-par/--model-par`` trains reduced grok
     on a model axis (its 4 experts split) and reduced qwen3-moe on a
-    split batch, 2 steps: each rank's losses equal one process's run of
-    the same command."""
-    arch, (d, m) = LAUNCHES[name]
+    split batch, with 1 or 2 microbatches, 2 steps: each rank's losses
+    equal one process's run of the same command."""
+    arch, (d, m), micro = LAUNCHES[name]
     from repro_torch.launch import train as tlaunch
     history = []
-    tlaunch.run(arch, True, 2, ROWS, SEQ, 1, 1, 3e-3, 1, None, device="cpu",
-                history=history)
+    tlaunch.run(arch, True, 2, ROWS, SEQ, 1, 1, 3e-3, micro, None,
+                device="cpu", history=history)
     want = [h["loss"] for h in history]
     for rank in runs[d * m]:
         np.testing.assert_allclose(rank[name], want, rtol=1e-5)

@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch.models.convert import (opt_state_from_jax,  # noqa: E402

@@ -22,6 +22,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.configs import qwen3_0_6b as jcfg  # noqa: E402
 from repro.core.berrut import CodingConfig as JCoding  # noqa: E402

@@ -17,6 +17,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import ssd_scan as jssd  # noqa: E402

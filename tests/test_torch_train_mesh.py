@@ -9,12 +9,20 @@ The gloo runs spawn one process per rank, as
 tmp dir, one thread each, ``TIMEOUT_S`` a run): one run of 4 ranks
 ((2, 2), (1, 4), (2, 2) with 2 microbatches, then a (2, 2) checkpoint)
 and one of 2 ranks ((1, 2), (2, 1), the pod axis (2, 1, 1), stablelm at
-(1, 2), mamba2, paligemma and hubert at (2, 1), the (2, 2) checkpoint
+(1, 2), mamba2, paligemma and hubert at (2, 1), qwen3 and qwen3-moe at
+(2, 1) with 2 microbatches and a ``loss_mask``, the (2, 2) checkpoint
 read back at (1, 2), then ``multihost --mode train``).  Meshes are
 (pod, data, model).  Each case shards the reference's state of each of
 two steps by ``launch.shardings.train_param_specs`` / ``train_opt_specs``
 and gives every rank its rows of the batch; the ranks gather the
-gradients and the updated state whole.
+gradients and the updated state whole.  The masked microbatch cases
+(``MASKED``) are held against the reference's jitted step with the same
+microbatches: their mask sums and (qwen3-moe) dispatch groups and
+load-balance losses are those of the reference's microbatch i, rows i
+of the whole batch, which no rank's own rows hold; each also shows that
+the old layout, a rank's microbatches cut from its own rows, misses
+that step by more than the tolerance.  The MoE case asserts its router
+margins clear of rounding, as ``tests/test_torch_train.py`` does.
 
 Tolerances (``PERF.md`` §2, ROADMAP C):
 - loss and metrics within rtol 1e-5, atol 1e-6, the same on every rank;
@@ -29,7 +37,8 @@ Tolerances (``PERF.md`` §2, ROADMAP C):
 Also: a (1, 1) mesh is bitwise the step without one, every group's
 collective bytes equal the analytic count (``_train_bytes``), the
 training specs equal the reference's ``tree_shardings`` on layout
-meshes, and the refusals (ROADMAP A9.3b).
+meshes, the refusals (ROADMAP A9.3b), and a batch whose rank blocks the
+microbatches do not divide is refused.
 """
 
 import math
@@ -45,6 +54,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 import torch.distributed as dist  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
@@ -66,6 +76,7 @@ from repro_torch.launch import multihost  # noqa: E402
 from repro_torch.launch import shardings  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 from repro_torch.launch.mesh import make_train_mesh  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import partitioning  # noqa: E402
 from repro_torch.models.convert import (opt_state_from_jax,  # noqa: E402
                                         params_from_jax)
@@ -93,7 +104,15 @@ CASES = {
     "m21": ("mamba2-780m", (1, 2, 1), 1, 2),
     "p21": ("paligemma-3b", (1, 2, 1), 1, 2),
     "h21": ("hubert-xlarge", (1, 2, 1), 1, 2),
+    "q21mbm": ("qwen3-0.6b", (1, 2, 1), 2, 2),
+    "moe21mbm": ("qwen3-moe-30b-a3b", (1, 2, 1), 2, 2),
 }
+# cases whose batches carry a loss_mask, held to the reference's step with
+# their microbatches (the others to its whole batch's step)
+MASKED = ("q21mbm", "moe21mbm")
+# the smallest top-k router margin the MoE case must clear: the two
+# packages' router logits differ by rounding (1e-6)
+MARGIN = 1e-4
 MH_ARGS = ["--mode", "train", "--device", "cpu", "--reduced", "--steps", "2",
            "--batch", str(ROWS), "--seq", str(SEQ)]
 # bf16 with remat: the (1, 2) losses against one process's, which differ
@@ -286,27 +305,52 @@ def _flat(tree):
     return {keystr(p): v for p, v in flatten_with_path(tree)}
 
 
-def _batches(cfg):
+def _batches(cfg, mask=False):
+    """Two batches; with ``mask`` a loss_mask of about 60% ones on each's
+    SEQ - 1 targets."""
     shape = ShapeConfig("t", SEQ + cfg.num_patches, ROWS, "train")
-    return [synthetic_batch(cfg, shape, np.random.RandomState(seed))
-            for seed in range(2)]
+    out = [synthetic_batch(cfg, shape, np.random.RandomState(seed))
+           for seed in range(2)]
+    if mask:
+        for seed, b in enumerate(out):
+            b["loss_mask"] = (np.random.RandomState(1000 + seed).rand(
+                ROWS, SEQ - 1) < 0.6).astype(np.float32)
+    return out
+
+
+def _ref_key(name):
+    """The ``references`` of case ``name``: (arch, microbatches, mask)."""
+    arch, _, micro, _ = CASES[name]
+    return (arch, micro, True) if name in MASKED else (arch, 1, False)
+
+
+def _old_layout(batch, micro, ranks):
+    """``batch`` with its rows permuted so that the reference's
+    microbatch i holds what the old layout gave it: rank r's microbatch
+    i cut from r's own block of rows."""
+    return {k: v.reshape(ranks, micro, -1, *v.shape[1:]).swapaxes(0, 1)
+            .reshape(v.shape) for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module")
 def references():
-    """Per arch: the reference's batches, its three states of two jitted
-    steps from its seed-0 parameters, and its metrics.  The microbatch
+    """Per (arch, microbatches, mask): the reference's batches (with a
+    loss_mask if ``mask``), its three states of two jitted steps with
+    those microbatches from its seed-0 parameters, and its metrics;
+    ``get.steps`` keeps each key's jitted step.  The unmasked microbatch
     case is held to the whole batch's step: a dense model's loss is a
     mean over equal microbatches, so the two are the same function."""
     cache = {}
 
-    def get(arch):
-        if arch not in cache:
+    def get(arch, micro=1, mask=False):
+        key = (arch, micro, mask)
+        if key not in cache:
             jc = jconfigs.get_reduced(arch)
-            jt = JTrain(optimizer=JOpt(**OPT))
+            jt = JTrain(optimizer=JOpt(**OPT), microbatches=micro)
             step = jax.jit(lambda p, o, b: j_train_step(jc, jt, p, o, b))
+            get.steps[key] = step
             jp = j_init_params(jc, jax.random.PRNGKey(0))
-            batches = _batches(configs.get_reduced(arch))
+            batches = _batches(configs.get_reduced(arch), mask)
             states, metrics = [(jp, j_init_opt(jp))], []
             with jops.force_kernel("xla"):
                 for b in batches:
@@ -314,10 +358,11 @@ def references():
                                      jax.tree.map(jnp.asarray, b))
                     states.append((p, o))
                     metrics.append(_np(mtr))
-            cache[arch] = (batches, [(_np(p), _np(o))
-                                     for p, o in states], metrics)
-        return cache[arch]
+            cache[key] = (batches, [(_np(p), _np(o))
+                                    for p, o in states], metrics)
+        return cache[key]
 
+    get.steps = {}
     return get
 
 
@@ -343,7 +388,7 @@ def mesh_runs(references, tmp_path_factory):
         data = {"opt": OPT, "mh_args": MH_ARGS}
         for name in names:
             arch, mesh, micro, _ = CASES[name]
-            batches, states, _ = references(arch)
+            batches, states, _ = references(*_ref_key(name))
             data[name] = {
                 "arch": arch, "mesh": mesh, "micro": micro,
                 "states": [_state(s) for s in states[:2]],
@@ -395,18 +440,45 @@ def _torch_np(tree):
     return {k: v.detach().float().numpy() for k, v in tree.items()}
 
 
+def _router_margins(monkeypatch):
+    """Every router call of the port from here on records its top-3
+    logits (``check`` asserts the smallest top-k margin > MARGIN)."""
+    seen = []
+    real = tmoe.router_logits
+
+    def record(p, x):
+        out = real(p, x)
+        seen.append(torch.topk(out.detach().reshape(-1, out.shape[-1]),
+                               min(out.shape[-1], 3), dim=-1).values)
+        return out
+
+    monkeypatch.setattr(tmoe, "router_logits", record)
+
+    def check(cfg, where):
+        k = cfg.experts_per_token
+        least = min(float((t[:, k - 1] - t[:, k]).min()) for t in seen)
+        print(f"{where}: {len(seen)} router calls, smallest top-{k} margin "
+              f"{least:.3g}")
+        assert least > MARGIN, where
+
+    return check
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_mesh_step_matches_reference(name, references, mesh_runs):
+def test_mesh_step_matches_reference(name, references, mesh_runs,
+                                     monkeypatch):
     """Both steps of the case, each from the reference's state: loss and
     metrics (the same on every rank), gradients, moments and updated
     parameters against the reference's jitted step and the port's
     one-rank step; then the two steps chained on the mesh."""
     arch, mesh, micro, world = CASES[name]
-    batches, states, jmetrics = references(arch)
+    batches, states, jmetrics = references(*_ref_key(name))
     ranks = mesh_runs[world]
     cfg = configs.get_reduced(arch)
     tcfg = TrainConfig(optimizer=OptimizerConfig(**OPT), microbatches=micro)
     b1, wd = tcfg.optimizer.b1, tcfg.optimizer.weight_decay
+    margins = _router_margins(monkeypatch) if "M" in cfg.layer_pattern \
+        else None
     out = ranks[0]
     lrs, ref_grads = [], []
     for i in range(2):
@@ -452,6 +524,55 @@ def test_mesh_step_matches_reference(name, references, mesh_runs):
                      _torch_np(_flat(port_o.mu)), f"{name} {i} mu, one rank")
     _adam_close(_torch_np(out[f"{name}/chained"]), _jflat(states[2][0]),
                 _jflat(states[0][0]), [], lrs, wd, f"{name} chained")
+    if margins is not None:
+        margins(cfg, f"{name} one-rank steps")
+
+
+@pytest.mark.parametrize("name", MASKED)
+def test_old_microbatch_layout_is_told_apart(name, references, mesh_runs):
+    """The inputs of each masked microbatch case tell the layouts apart:
+    the reference's step on the batch permuted into the old layout (each
+    rank's microbatches cut from its own rows) misses the right layout's
+    clipped gradients, which the mesh's match, by more than GRAD_TOL in
+    both steps (the mask sums weigh each microbatch's tokens), and for
+    qwen3-moe also its load-balance loss by more than METRIC_TOL."""
+    arch, (pods, d, _), micro, world = CASES[name]
+    batches, states, _ = references(*_ref_key(name))
+    step = references.steps[_ref_key(name)]
+    b1 = OptimizerConfig(**OPT).b1
+    for i in range(2):
+        with jops.force_kernel("xla"):
+            _, old_o, old = step(*states[i], jax.tree.map(
+                jnp.asarray, _old_layout(batches[i], micro, pods * d)))
+        mu0 = _jflat(states[i][1].mu)
+        right = {k: (v - b1 * mu0[k]) / (1 - b1)
+                 for k, v in _jflat(states[i + 1][1].mu).items()}
+        wrong = {k: (v - b1 * mu0[k]) / (1 - b1)
+                 for k, v in _jflat(old_o.mu).items()}
+        with pytest.raises(AssertionError):
+            _grads_close(wrong, right, f"{name} {i} old layout")
+        if "M" in configs.get_reduced(arch).layer_pattern:
+            got = mesh_runs[world][0][f"{name}/metrics{i}"]
+            assert not np.isclose(got["load_balance_loss"],
+                                  float(old["load_balance_loss"]),
+                                  **METRIC_TOL), (name, i)
+
+
+def test_microbatches_must_divide_a_ranks_rows():
+    """Two microbatches of a batch of 6 rows over 2 ranks (3 a rank): the
+    reference's microbatch of 3 rows has no equal block on each rank, so
+    the step refuses it before any collective, naming both numbers."""
+    cfg = configs.get_reduced("qwen3-0.6b")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    fake = types.SimpleNamespace(size=2, rank=0)
+    mesh = partitioning.Mesh(("data", "model"), (2, 1), 0, {"fsdp": fake})
+    batch = {"tokens": torch.zeros((3, SEQ), dtype=torch.int32)}
+    with partitioning.mesh_context(mesh):
+        specs = shardings.train_param_specs(mesh, cfg, params)
+        with pytest.raises(ValueError, match="6 rows.* 2 microbatches"):
+            loss_and_grads(cfg, TrainConfig(microbatches=2),
+                           shardings.local_shard(params, specs, mesh),
+                           batch, specs)
 
 
 def _layer_bytes(cfg, rows, seq, m):
@@ -476,14 +597,17 @@ def _layer_bytes(cfg, rows, seq, m):
     return 2 * f * ar + f * rows * seq * cfg.vocab_size * 4
 
 
-def _train_bytes(cfg, mesh_shape, micro, params, seq):
+def _train_bytes(cfg, mesh_shape, micro, params, seq, batch):
     """Per-rank bytes of one ``train_step`` on a (pod, data, model) mesh,
     by group: the "fsdp" group gathers each leaf that the batch axes
     shard (its model-local whole B, B (f-1)/f) and reduce-scatters its
     gradient (B / f (f-1): the same), and all-reduces every other leaf's
-    gradient (2 B (f-1)/f) and the stacked loss and 4 metrics; the
-    "model" group moves ``_layer_bytes`` a microbatch; the "world" group
-    the squared norm."""
+    gradient (2 B (f-1)/f) and the stacked loss and 4 metrics; with
+    microbatches it gathers the whole ``batch`` once ((f-1)/f of its
+    bytes), with a loss_mask it all-reduces each microbatch's mask sum
+    (fp32), and each MoE layer gathers its (tokens, k) int64 routes
+    ((f-1) x a rank's); the "model" group moves ``_layer_bytes`` a
+    microbatch; the "world" group the squared norm."""
     pods, d, m = mesh_shape
     f, world = pods * d, pods * d * m
     mesh = partitioning.Mesh(("pod", "data", "model"), mesh_shape)
@@ -492,8 +616,14 @@ def _train_bytes(cfg, mesh_shape, micro, params, seq):
                 for leaf, spec in zip(_flat(params).values(),
                                       partitioning.spec_leaves(specs,
                                                                params)))
+    exchange = sum(v.nbytes for k, v in batch.items() if k != "_rows") \
+        * (f - 1) / f if micro > 1 else 0.0
+    if "loss_mask" in batch:     # each microbatch's mask sum, fp32
+        exchange += micro * 2 * 4 * (f - 1) / f
+    routes = cfg.layer_pattern.count("M") * (f - 1) * (ROWS // f) * seq \
+        * cfg.experts_per_token * 8
     out = {"model": micro * _layer_bytes(cfg, ROWS // f // micro, seq, m),
-           "fsdp": 2 * (f - 1) / f * (local + 5 * 4),
+           "fsdp": 2 * (f - 1) / f * (local + 5 * 4) + exchange + routes,
            "world": 2 * 4 * (world - 1) / world}
     return {k: v for k, v in out.items() if v}
 
@@ -502,11 +632,11 @@ def _train_bytes(cfg, mesh_shape, micro, params, seq):
 def test_mesh_bytes_equal_analytic_count(name, references, mesh_runs):
     arch, mesh, micro, world = CASES[name]
     cfg = configs.get_reduced(arch)
-    batches, states, _ = references(arch)
+    batches, states, _ = references(*_ref_key(name))
     params = params_from_jax(states[0][0], device="cpu")
     seq = batches[0].get("tokens", batches[0].get("frames")).shape[1] \
         + (cfg.num_patches if cfg.modality == "vlm" else 0)
-    want = _train_bytes(cfg, mesh, micro, params, seq)
+    want = _train_bytes(cfg, mesh, micro, params, seq, batches[0])
     for r, out in enumerate(mesh_runs[world]):
         for i in range(2):
             got = {k: v for k, v in out[f"{name}/bytes{i}"].items() if v}
